@@ -1,0 +1,512 @@
+"""
+Kernel K1: the scene's tail function traced into a Triton tile template.
+
+Replaces shaderflow_tpu/ops/tailfuse.py:fused_tail_final (the Pallas TPU
+kernel dispatched by run_tail_final), in the forms the fractal slice uses:
+planes, rows, columns and scalars, s x s box pooling, GL u8 quantization,
+masked partial tiles. The Indexed, ColSampled, Table and quantize=False
+forms are not ported yet and raise.
+
+Why Triton: the body is user Python (a different tail per scene), a fused
+elementwise pass plus a tiny s x s reduction and a quantize — what Triton
+compiles in-process at first use. A CUDA C++ version would need an nvcc
+build per tail.
+
+How: `trace` runs the tail function once on a symbolic TailCtx whose
+planes, rows, columns, scalars and coordinate indices are `Sym` proxies.
+Python operators and the torch functions in _TORCH_OPS (dispatched through
+`__torch_function__`) record an expression graph. `generate` emits that
+graph into a fixed template that owns everything else: masked loads of the
+inputs the graph reads, the row/column indices behind the coordinate
+properties, a static loop over the s x s sub-positions summing the three
+outputs, the 1/s^2 average, floor(clamp(c, 0, 1) * 255 + 0.5), and u8
+stores into the frame's (H, W, 3) slot. `evaluate` runs the same graph with
+torch ops (tests hold it equal to the direct call).
+
+Bound on this card: bytes of the SSAA-resolution input planes (each read
+exactly once; the output is 1/s^2 as many pixels at 3 bytes) — the
+full-resolution tail intermediates of the plain path never reach device
+memory. Loads of one sub-position are column-strided by s; the other
+sub-positions of the same tile hit the same cache lines.
+
+Float rules: launched with enable_fp_fusion=False (no FMA contraction),
+division as div_rn and sqrt as sqrt_rn (IEEE-rounded, as torch's;
+Triton's default `/` and tl.sqrt are approximate on sm_90 and differ from
+torch on about a quarter of random f32 inputs), min/max
+propagating NaN (as torch.maximum/minimum), exp/log from libdevice (as
+torch's CUDA expf/logf): the kernel stays within one u8 step of the plain
+path (differences come only from the order of the s x s sum).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, unported_inputs
+
+BLOCK_H = 8     # output rows per program
+BLOCK_W = 64    # output columns per program
+NUM_WARPS = 4
+
+
+# --------------------------------------------------------------------------- #
+# Tracing
+
+class Graph:
+    """Expression graph of one tail call. nodes[i] = (op, args, kind):
+    args are node indices (int) for symbolic operands, or ("const", value)
+    for Python scalars; kind is "f" (float32) or "b" (bool)."""
+
+    def __init__(self):
+        self.nodes: list[tuple] = []
+        self.inputs: dict[tuple, int] = {}   # (kind, name, channel) -> node
+
+    def add(self, op: str, args: tuple, kind: str) -> "Sym":
+        self.nodes.append((op, args, kind))
+        return Sym(self, len(self.nodes) - 1)
+
+    def input(self, key: tuple, kind: str = "f") -> "Sym":
+        if key not in self.inputs:
+            self.inputs[key] = self.add("input", key, kind).index
+        return Sym(self, self.inputs[key])
+
+
+def _operand(graph: Graph, value):
+    if isinstance(value, Sym):
+        if value.graph is not graph:
+            raise ValueError("Sym from another trace")
+        return value.index
+    if isinstance(value, (bool, np.bool_)):
+        return ("const", bool(value))
+    if isinstance(value, (int, float, np.integer, np.floating)):
+        return ("const", float(value))
+    raise NotImplementedError(
+        f"Tail value of type {type(value).__name__} in a traced tail: tensors "
+        "must enter through tail inputs (planes, Row, Col, scalars), not closures")
+
+
+def _kind(graph: Graph, operand) -> str:
+    if isinstance(operand, tuple):
+        return "b" if isinstance(operand[1], bool) else "f"
+    return graph.nodes[operand][2]
+
+
+def _op(graph: Graph, op: str, *values, kind: str = None) -> "Sym":
+    args = tuple(_operand(graph, v) for v in values)
+    kinds = [_kind(graph, a) for a in args]
+    if op in ("and", "or", "not"):
+        if any(k != "b" for k in kinds):
+            raise NotImplementedError(f"Bitwise {op} on float tail values")
+        result = "b"
+    elif op in ("lt", "le", "gt", "ge", "eq", "ne"):
+        result = "b"
+    else:
+        result = "f"
+    return graph.add(op, args, kind or result)
+
+
+class Sym:
+    """A symbolic tail value: arithmetic and comparisons record graph nodes."""
+
+    __slots__ = ("graph", "index")
+
+    def __init__(self, graph: Graph, index: int):
+        self.graph = graph
+        self.index = index
+
+    @property
+    def shape(self):
+        # Every traced value stands for the whole tile; an empty shape keeps
+        # torch's argument parsing happy on the way to __torch_function__
+        return ()
+
+    def to(self, dtype=None, *args, **kwargs):
+        if dtype in (None, torch.float32):
+            if self.graph.nodes[self.index][2] == "b":
+                return _op(self.graph, "float", self)
+            return self
+        raise NotImplementedError(f"Tail cast to {dtype}: kernel K1 computes in float32")
+
+    def __bool__(self):
+        raise TypeError("Tail functions are elementwise: a traced value has no "
+                        "truth value (no data-dependent Python control flow)")
+
+    def __float__(self):
+        raise TypeError("Tail functions are elementwise: a traced value has no "
+                        "Python float")
+
+    def _binary(op, reverse=False):
+        def method(self, other):
+            if reverse:
+                return _op(self.graph, op, other, self)
+            return _op(self.graph, op, self, other)
+        return method
+
+    __add__ = _binary("add")
+    __radd__ = _binary("add", True)
+    __sub__ = _binary("sub")
+    __rsub__ = _binary("sub", True)
+    __mul__ = _binary("mul")
+    __rmul__ = _binary("mul", True)
+    __truediv__ = _binary("div")
+    __rtruediv__ = _binary("div", True)
+    __lt__ = _binary("lt")
+    __le__ = _binary("le")
+    __gt__ = _binary("gt")
+    __ge__ = _binary("ge")
+    __eq__ = _binary("eq")
+    __ne__ = _binary("ne")
+    __and__ = _binary("and")
+    __rand__ = _binary("and", True)
+    __or__ = _binary("or")
+    __ror__ = _binary("or", True)
+    del _binary
+
+    __hash__ = None
+
+    def __neg__(self):
+        return _op(self.graph, "neg", self)
+
+    def __pos__(self):
+        return self
+
+    def __abs__(self):
+        return _op(self.graph, "abs", self)
+
+    def __invert__(self):
+        return _op(self.graph, "not", self)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        handler = _TORCH_OPS.get(func)
+        if handler is None:
+            name = getattr(func, "__name__", repr(func))
+            raise NotImplementedError(
+                f"torch.{name} in a tail function is not supported by kernel "
+                f"K1's template (supported: {sorted(f.__name__ for f in _TORCH_OPS)})")
+        graph = next(a.graph for a in (*args, *kwargs.values()) if isinstance(a, Sym))
+        return handler(graph, *args, **kwargs)
+
+
+def _clamp(graph, x, min=None, max=None):
+    if min is not None:
+        x = _op(graph, "maximum", x, min)
+    if max is not None:
+        x = _op(graph, "minimum", x, max)
+    return x
+
+
+def _where(graph, condition, a, b) -> "Sym":
+    """torch.where: a boolean condition (as torch requires); the result is
+    boolean only when both branches are."""
+    if _kind(graph, _operand(graph, condition)) != "b":
+        raise TypeError("torch.where in a tail needs a boolean condition")
+    kinds = {_kind(graph, _operand(graph, v)) for v in (a, b)}
+    return _op(graph, "where", condition, a, b, kind="b" if kinds == {"b"} else "f")
+
+
+_TORCH_OPS = {
+    torch.where: _where,
+    torch.clamp: _clamp,
+    torch.maximum: lambda g, a, b: _op(g, "maximum", a, b),
+    torch.minimum: lambda g, a, b: _op(g, "minimum", a, b),
+    torch.abs: lambda g, a: _op(g, "abs", a),
+    torch.floor: lambda g, a: _op(g, "floor", a),
+    torch.sqrt: lambda g, a: _op(g, "sqrt", a),
+    torch.exp: lambda g, a: _op(g, "exp", a),
+    torch.log: lambda g, a: _op(g, "log", a),
+    # Shape plumbing: every traced value already stands for the full tile
+    torch.broadcast_to: lambda g, a, shape: a,
+    torch.zeros_like: lambda g, a, **k: 0.0,
+}
+
+
+def trace(spec: TailSpec, render_height: int, render_width: int,
+          aspect: float) -> tuple[Graph, list]:
+    """Run spec.fn on symbolic inputs -> (graph, [3 outputs]); each output
+    is a node index or ("const", value)."""
+    unported_inputs(spec)
+    graph = Graph()
+    planes = _LazyInputs(graph, "plane", {n: len(c) for n, c in spec.planes.items()})
+    rows = _LazyInputs(graph, "row", {n: 1 for n in spec.rows}, single=True)
+    cols = _LazyInputs(graph, "col", {n: 1 for n in spec.cols}, single=True)
+    scalars = _LazyInputs(graph, "scalar", {n: 1 for n in spec.scalars}, single=True)
+    ctx = TailCtx(planes, rows, cols, scalars,
+                  graph.input(("row_index", "", 0)),
+                  graph.input(("col_index", "", 0)),
+                  render_height, render_width, aspect)
+    result = spec.fn(ctx)
+    outputs = [_operand(graph, value) for value in tuple(result)[:3]]
+    if len(outputs) != 3:
+        raise ValueError(f"Tail function returned {len(outputs)} planes, need 3")
+    return graph, outputs
+
+
+class _LazyInputs(dict):
+    """name -> Sym (or tuple of channel Syms); registers the input node on
+    first read, so the kernel loads only what the tail uses."""
+
+    def __init__(self, graph: Graph, kind: str, channels: dict, single=False):
+        super().__init__()
+        self._graph, self._kind, self._channels = graph, kind, channels
+        self._single = single
+
+    def __missing__(self, name):
+        if name not in self._channels:
+            raise KeyError(name)
+        syms = tuple(self._graph.input((self._kind, name, c))
+                     for c in range(self._channels[name]))
+        value = syms[0] if self._single else syms
+        self[name] = value
+        return value
+
+    def __contains__(self, name):
+        return name in self._channels
+
+
+# --------------------------------------------------------------------------- #
+# Evaluation with torch (the test oracle for the tracer)
+
+_TORCH_EVAL = {
+    "add": lambda a, b: a + b,
+    "sub": lambda a, b: a - b,
+    "mul": lambda a, b: a * b,
+    "div": lambda a, b: a / b,
+    "lt": lambda a, b: a < b,
+    "le": lambda a, b: a <= b,
+    "gt": lambda a, b: a > b,
+    "ge": lambda a, b: a >= b,
+    "eq": lambda a, b: a == b,
+    "ne": lambda a, b: a != b,
+    "and": lambda a, b: a & b,
+    "or": lambda a, b: a | b,
+    "not": lambda a: ~a,
+    "neg": lambda a: -a,
+    "abs": torch.abs,
+    "floor": torch.floor,
+    "sqrt": torch.sqrt,
+    "exp": torch.exp,
+    "log": torch.log,
+    "float": lambda a: a.to(torch.float32),
+    "maximum": lambda a, b: _extremum(torch.maximum, "min", a, b),
+    "minimum": lambda a, b: _extremum(torch.minimum, "max", a, b),
+    "where": torch.where,
+}
+
+
+def _extremum(function, bound: str, a, b):
+    """torch.maximum/minimum, or clamp where one side is a Python number
+    (how a tail writes it: torch.clamp(x, min=0.0))."""
+    if not isinstance(b, torch.Tensor):
+        return torch.clamp(a, **{bound: b})
+    if not isinstance(a, torch.Tensor):
+        return torch.clamp(b, **{bound: a})
+    return function(a, b)
+
+
+def evaluate(graph: Graph, outputs: list, env: dict) -> list:
+    """Evaluate the graph with torch. env maps input keys ("plane", name,
+    channel) / ("row", name, 0) / ... / ("row_index", "", 0) to tensors."""
+    values = []
+    for op, args, _ in graph.nodes:
+        if op == "input":
+            values.append(env[args])
+            continue
+        operands = [a[1] if isinstance(a, tuple) else values[a] for a in args]
+        values.append(_TORCH_EVAL[op](*operands))
+    return [o[1] if isinstance(o, tuple) else values[o] for o in outputs]
+
+
+# --------------------------------------------------------------------------- #
+# Code generation
+
+_TRITON_BINARY = {
+    "add": "{} + {}", "sub": "{} - {}", "mul": "{} * {}",
+    "div": "tl.math.div_rn({}, {})",
+    "lt": "{} < {}", "le": "{} <= {}", "gt": "{} > {}", "ge": "{} >= {}",
+    "eq": "{} == {}", "ne": "{} != {}",
+    "and": "{} & {}", "or": "{} | {}",
+    "maximum": "tl.maximum({}, {}, propagate_nan=tl.PropagateNan.ALL)",
+    "minimum": "tl.minimum({}, {}, propagate_nan=tl.PropagateNan.ALL)",
+}
+_TRITON_UNARY = {
+    "neg": "-{}", "not": "~{}", "abs": "tl.abs({})", "floor": "tl.floor({})",
+    "sqrt": "tl.sqrt_rn({})", "exp": "libdevice.exp({})",
+    "log": "libdevice.log({})", "float": "{}.to(tl.float32)",
+}
+
+
+def _literal(value: float) -> str:
+    """The float32 value torch would use, as Python source."""
+    value = float(np.float32(value))
+    return repr(value) if math.isfinite(value) else f'float("{value}")'
+
+
+def generate(graph: Graph, outputs: list, subsample: int) -> tuple[str, list]:
+    """Emit the Triton source for this graph -> (source, input keys in
+    kernel-argument order)."""
+    keys = sorted(k for k in graph.inputs if k[0] in ("plane", "row", "col", "scalar"))
+    scalar_keys = [k for k in keys if k[0] == "scalar"]
+    pointer_keys = [k for k in keys if k[0] != "scalar"]
+    arg_names = {k: f"in{i}" for i, k in enumerate(pointer_keys)}
+
+    consts: dict[Any, str] = {}
+    hoisted = []
+
+    def const(value) -> str:
+        key = (type(value), value)
+        if key not in consts:
+            consts[key] = f"k{len(consts)}"
+            if isinstance(value, bool):
+                hoisted.append(f"{consts[key]} = zero_i == {0 if value else 1}")
+            else:
+                hoisted.append(f"{consts[key]} = tl.full([BH, BW], {_literal(value)}, tl.float32)")
+        return consts[key]
+
+    def ref(arg, kind_needed: str = None) -> str:
+        if isinstance(arg, tuple):
+            return const(arg[1])
+        name = f"v{arg}"
+        if kind_needed == "f" and graph.nodes[arg][2] == "b":
+            return f"{name}.to(tl.float32)"
+        return name
+
+    body = []
+    for index, (op, args, kind) in enumerate(graph.nodes):
+        target = f"v{index}"
+        if op == "input":
+            kind_in, name, channel = args
+            if kind_in == "plane":
+                expr = f"tl.load({arg_names[args]} + ri * Wr + ci, mask=valid, other=0.0)"
+            elif kind_in == "row":
+                expr = f"tl.load({arg_names[args]} + ri, mask=valid, other=0.0)"
+            elif kind_in == "col":
+                expr = f"tl.load({arg_names[args]} + ci, mask=valid, other=0.0)"
+            elif kind_in == "scalar":
+                expr = f"tl.load(scalars + {scalar_keys.index(args)} + zero_i)"
+            elif kind_in == "row_index":
+                expr = "ri.to(tl.float32)"
+            else:
+                expr = "ci.to(tl.float32)"
+        elif op == "where":
+            branch_kind = "f" if kind == "f" else None
+            expr = (f"tl.where({ref(args[0])}, {ref(args[1], branch_kind)}, "
+                    f"{ref(args[2], branch_kind)})")
+        elif op in _TRITON_BINARY:
+            arith = op in ("add", "sub", "mul", "div", "maximum", "minimum",
+                           "lt", "le", "gt", "ge")
+            need = "f" if arith else None
+            expr = _TRITON_BINARY[op].format(ref(args[0], need), ref(args[1], need))
+        else:
+            need = "f" if op not in ("not", "float") else None
+            expr = _TRITON_UNARY[op].format(ref(args[0], need))
+        body.append(f"{target} = {expr}")
+    stores = [f"acc{c} += {ref(o, 'f')}" for c, o in enumerate(outputs)]
+
+    params = ["out"] + [arg_names[k] for k in pointer_keys]
+    if scalar_keys:
+        params.append("scalars")
+    params += ["Wr", "Ho", "Wo", "S: tl.constexpr", "BH: tl.constexpr",
+               "BW: tl.constexpr"]
+    inner = "\n".join(f"            {line}" for line in body + stores)
+    consts_src = "\n".join(f"    {line}" for line in hoisted)
+    if subsample > 1:
+        pool = "\n".join(
+            f"    acc{c} = tl.math.div_rn(acc{c}, tl.full([BH, BW], "
+            f"{_literal(subsample * subsample)}, tl.float32))" for c in range(3))
+    else:
+        pool = "    pass"
+    source = f'''"""Generated by shaderflow_tpu_torch/ops/tailgen.py — kernel K1 for one tail."""
+import triton
+import triton.language as tl
+from triton.language.extra import libdevice
+
+
+@triton.jit
+def tail_kernel({", ".join(params)}):
+    oi = tl.program_id(0) * BH + tl.arange(0, BH)[:, None]
+    oj = tl.program_id(1) * BW + tl.arange(0, BW)[None, :]
+    zero_i = tl.zeros([BH, BW], tl.int32)
+    oi = oi + zero_i
+    oj = oj + zero_i
+    valid = (oi < Ho) & (oj < Wo)
+{consts_src}
+    acc0 = tl.zeros([BH, BW], tl.float32)
+    acc1 = tl.zeros([BH, BW], tl.float32)
+    acc2 = tl.zeros([BH, BW], tl.float32)
+    for dy in tl.static_range(S):
+        for dx in tl.static_range(S):
+            ri = oi * S + dy
+            ci = oj * S + dx
+{inner}
+{pool}
+    base = out + (oi * Wo + oj) * 3
+    zero_f = tl.zeros([BH, BW], tl.float32)
+    one_f = zero_f + 1.0
+    q0 = tl.floor(tl.minimum(tl.maximum(acc0, zero_f), one_f) * 255.0 + 0.5)
+    q1 = tl.floor(tl.minimum(tl.maximum(acc1, zero_f), one_f) * 255.0 + 0.5)
+    q2 = tl.floor(tl.minimum(tl.maximum(acc2, zero_f), one_f) * 255.0 + 0.5)
+    tl.store(base, q0.to(tl.uint8), mask=valid)
+    tl.store(base + 1, q1.to(tl.uint8), mask=valid)
+    tl.store(base + 2, q2.to(tl.uint8), mask=valid)
+'''
+    return source, keys
+
+
+def prepare(spec: TailSpec, render_height: int, render_width: int,
+            out_height: int, out_width: int, subsample: int, aspect: float,
+            device: torch.device):
+    """Trace, generate (compiled once per distinct source) and bind K1 for
+    this spec -> launch(out): a closure that enqueues the kernel on the
+    current stream, writing the (out_h, out_w, 3) u8 tensor `out`. Inputs
+    must be contiguous float32 on `device`; raises on anything the
+    template does not take."""
+    from shaderflow_tpu_torch.build import triton_module
+
+    if device.index is None:   # "cuda" means the current card
+        device = torch.device(device.type, torch.cuda.current_device())
+    graph, outputs = trace(spec, render_height, render_width, aspect)
+    source, keys = generate(graph, outputs, subsample)
+    kernel = triton_module(source, stem="tail").tail_kernel
+
+    expected = {"plane": (render_height, render_width), "row": (render_height,),
+                "col": (render_width,)}
+    pointers = []
+    scalars = []
+    for kind, name, channel in keys:
+        if kind == "scalar":
+            scalars.append(torch.as_tensor(spec.scalars[name], dtype=torch.float32,
+                                           device=device).reshape(()))
+            continue
+        tensor = (spec.planes[name][channel] if kind == "plane" else
+                  spec.rows[name] if kind == "row" else spec.cols[name])
+        if (tensor.device != device or tensor.dtype != torch.float32
+                or not tensor.is_contiguous() or tuple(tensor.shape) != expected[kind]):
+            raise ValueError(
+                f"K1 takes contiguous float32 {kind} inputs of shape "
+                f"{expected[kind]} on {device}; {name!r} is {tensor.dtype} "
+                f"{tuple(tensor.shape)} on {tensor.device} "
+                f"contiguous={tensor.is_contiguous()}")
+        pointers.append(tensor)
+    if scalars:
+        pointers.append(torch.stack(scalars))
+    grid = (math.ceil(out_height / BLOCK_H), math.ceil(out_width / BLOCK_W))
+
+    def launch(out: torch.Tensor) -> torch.Tensor:
+        if (out.device != device or out.dtype != torch.uint8 or not out.is_contiguous()
+                or tuple(out.shape) != (out_height, out_width, 3)):
+            raise ValueError(f"K1 writes a contiguous ({out_height}, {out_width}, 3) "
+                             f"uint8 tensor on {device}, got {out.dtype} "
+                             f"{tuple(out.shape)} on {out.device}")
+        with torch.cuda.device(device):   # Triton launches on the current card
+            kernel[grid](out, *pointers, render_width, out_height, out_width,
+                         S=int(subsample), BH=BLOCK_H, BW=BLOCK_W, num_warps=NUM_WARPS,
+                         enable_fp_fusion=False)
+        return out
+
+    return launch

@@ -1,0 +1,288 @@
+"""
+ShaderProgram — pixel programs as Python functions on torch tensors.
+
+Port of shaderflow_tpu/shader.py. A fragment is `main(sf) -> rgba | TailSpec`
+operating on whole planes through the `Frag` context (coordinate flavors,
+uniforms by name, the camera). The engine runs it once per frame in eager
+PyTorch. Ported: Frag (uniforms, statics, coordinates, `tail`, the trivial
+camera), make_coords / finish_coords, and ShaderProgram with function
+fragments. Not yet: texture samplers, batch preludes, instancing, the GLSL
+front-end, hot reload and the built-in default/missing programs.
+"""
+
+from __future__ import annotations
+
+import copy
+from collections.abc import Mapping
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from shaderflow_tpu.message import ShaderMessage
+from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.ops import cameralib
+from shaderflow_tpu_torch.texture import ShaderTexture
+
+PixelFunction = Callable[["Frag"], Any]
+
+
+# --------------------------------------------------------------------------- #
+# Coordinates
+
+def _reciprocal(n: int) -> float:
+    """1 / n rounded once to float32, as XLA folds it."""
+    return float(np.float32(1.0) / np.float32(n))
+
+
+class Coords(Mapping):
+    """Pixel-center coordinate flavors over one render resolution (the
+    interpolated vertex outputs, vertex/default.glsl:8-16; row 0 = top).
+
+    XLA hoisted and dead-code-eliminated the reference's full (H, W, 2)
+    grids; eager PyTorch would rebuild them every frame. Here the two axis
+    lines are the data, and each grid flavor is built on first access and
+    cached for the life of the engine build (one render size). stxy/glxy
+    depend on the per-frame iResolution uniform: finish_coords returns a
+    view that builds them lazily per frame."""
+
+    _GRIDS = ("astuv", "agluv", "stuv", "gluv")
+    _FRAME = ("stxy", "glxy")
+
+    def __init__(self, height: int, width: int, aspect: float, device: torch.device):
+        self.height = height
+        self.width = width
+        self.aspect = aspect
+        self.device = torch.device(device)
+        # (i + 0.5) * (1 / n), not (i + 0.5) / n: the reference engine's
+        # lines as XLA computes them (its algebraic simplifier folds a
+        # division by a constant into a product with the reciprocal). The
+        # two differ by an ulp on about a third of the pixels, and escape
+        # counts of chaotic boundary pixels amplify an ulp of c.
+        self.u_line = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) * _reciprocal(width)
+        self.v_line = 1.0 - (torch.arange(height, dtype=torch.float32, device=device) + 0.5) * _reciprocal(height)
+        self.resolution = None   # per-frame iResolution, set by finish_coords
+        self._grids: dict[str, torch.Tensor] = {}
+        self._frame: dict[str, torch.Tensor] = {}
+
+    def _keys(self) -> tuple:
+        return (*self._GRIDS, "u_line", "v_line", "aspect",
+                *(self._FRAME if self.resolution is not None else ()))
+
+    def __iter__(self):
+        return iter(self._keys())
+
+    def __len__(self) -> int:
+        return len(self._keys())
+
+    def __contains__(self, key) -> bool:
+        return key in self._keys()
+
+    def __getitem__(self, key: str):
+        if key == "u_line":
+            return self.u_line
+        if key == "v_line":
+            return self.v_line
+        if key == "aspect":
+            return self.aspect
+        if key in self._GRIDS:
+            if key not in self._grids:
+                self._grids[key] = self._build(key)
+            return self._grids[key]
+        if key in self._FRAME and self.resolution is not None:
+            if key not in self._frame:
+                resolution = torch.as_tensor(self.resolution, dtype=torch.float32,
+                                             device=self.device)
+                stxy = resolution * self["astuv"] + 1.0
+                self._frame["stxy"] = stxy
+                self._frame["glxy"] = stxy - resolution / 2.0
+            return self._frame[key]
+        raise KeyError(key)
+
+    def _build(self, key: str) -> torch.Tensor:
+        if key == "astuv":
+            return torch.stack(torch.broadcast_tensors(
+                self.u_line[None, :], self.v_line[:, None]), dim=-1)
+        if key == "agluv":
+            return self["astuv"] * 2.0 - 1.0
+        if key == "gluv":
+            scale = torch.tensor([self.aspect, 1.0], dtype=torch.float32,
+                                 device=self.device)
+            return self["agluv"] * scale
+        return (self["gluv"] + 1.0) / 2.0   # stuv
+
+
+def make_coords(render_height: int, render_width: int, aspect: float,
+                device="cpu") -> Coords:
+    """Coordinate flavors of one render size (lazy; see Coords)."""
+    return Coords(render_height, render_width, aspect, device)
+
+
+def finish_coords(coords: Coords, resolution) -> Coords:
+    """Add the pixel-space coordinates that depend on the iResolution uniform
+    (stxy has the reference's +1 offset, vertex/default.glsl:14). Shares the
+    lines and the grid cache with `coords`."""
+    finished = copy.copy(coords)
+    finished.resolution = resolution
+    finished._frame = {}
+    return finished
+
+
+# --------------------------------------------------------------------------- #
+# Frag: everything a pixel program sees
+
+class Frag:
+    """The per-draw context handed to pixel programs: coordinate flavors,
+    every pipeline uniform by name (per-frame values are tensors on the
+    run's device, statics are host values), and the camera."""
+
+    def __init__(self, coords: Coords, uniforms: Mapping, statics: dict,
+                 layer: int = 0):
+        self._coords = coords
+        self._uniforms = uniforms
+        self._statics = statics
+        self.layer = layer
+        self._camera_cache: dict[str, cameralib.CameraRays] = {}
+
+    # -- coordinates --------------------------------------------------------
+
+    @property
+    def astuv(self): return self._coords["astuv"]
+    @property
+    def agluv(self): return self._coords["agluv"]
+    @property
+    def stuv(self): return self._coords["stuv"]
+    @property
+    def gluv(self): return self._coords["gluv"]
+    @property
+    def stxy(self): return self._coords["stxy"]
+    @property
+    def glxy(self): return self._coords["glxy"]
+    @property
+    def fragcoord(self): return self._coords["stxy"]
+
+    @property
+    def device(self) -> torch.device:
+        return self._coords.device
+
+    @property
+    def resolution(self):
+        return self._uniforms["iResolution"]
+
+    @property
+    def aspect_ratio(self):
+        """iAspectRatio: iResolution.x / iResolution.y (shaderflow.glsl:16)."""
+        res = self._uniforms["iResolution"]
+        return res[..., 0] / res[..., 1]
+
+    # -- uniforms -----------------------------------------------------------
+
+    def uniform(self, name: str, default=None):
+        if name in self._uniforms:
+            return self._uniforms[name]
+        if name in self._statics:
+            return self._statics[name]
+        if default is not None:
+            return default
+        raise KeyError(f"Unknown uniform {name!r}; known: {sorted(self._uniforms)}")
+
+    def __getattr__(self, name: str):
+        # Fallback attribute access: uniforms (iTime, iResolution, ...)
+        if name.startswith("_"):
+            raise AttributeError(name)
+        if name in self._uniforms:
+            return self._uniforms[name]
+        if name in self._statics:
+            return self._statics[name]
+        raise AttributeError(f"Frag has no uniform {name!r}")
+
+    # -- fused tail stage -----------------------------------------------------
+
+    def tail(self, fn, **inputs):
+        """Defer the remaining per-pixel math to the fused tail stage
+        (ops/tailfuse.py): kernel K1 on the card, the plain path on CPU.
+        Only valid as the RETURN value of a pixel program."""
+        from shaderflow_tpu_torch.ops import tailfuse
+        return tailfuse.make_spec(fn, self._coords.height, self._coords.width, **inputs)
+
+    # -- camera -------------------------------------------------------------
+
+    def get_camera(self, name: str = "iCamera") -> cameralib.CameraRays:
+        """GetCamera(name) (camera.glsl:132-155): the camera module's
+        uniforms wired into ray generation."""
+        if name in self._camera_cache:
+            return self._camera_cache[name]
+        u, s = self._uniforms, self._statics
+        if not s.get(f"{name}Trivial"):
+            return cameralib.project()  # raises: the general camera is not ported
+        aspect = self._coords["aspect"]
+        rays = cameralib.project_trivial(
+            gluv_x=(self._coords["u_line"] * 2.0 - 1.0) * aspect,
+            gluv_y=self._coords["v_line"] * 2.0 - 1.0,
+            position=u[f"{name}Position"],
+            zoom=u[f"{name}Zoom"],
+            isometric=u[f"{name}Isometric"],
+            orbital=u[f"{name}Orbital"],
+            dolly=u[f"{name}Dolly"],
+            focal_length=u[f"{name}FocalLength"],
+            aspect=self.aspect_ratio,
+            want_aspect=u["iWantAspect"],
+            resolution=u["iResolution"],
+        )
+        self._camera_cache[name] = rays
+        return rays
+
+    @property
+    def camera(self) -> cameralib.CameraRays:
+        return self.get_camera()
+
+
+# --------------------------------------------------------------------------- #
+
+class ShaderProgram(ShaderModule):
+    """A pixel program + the texture matrix it renders into."""
+
+    def __init__(self, scene=None, name: Optional[str] = None, **kwargs):
+        self._fragment: Optional[PixelFunction] = None
+        self.texture: Optional[ShaderTexture] = None
+        super().__init__(scene=scene, name=name, **kwargs)
+
+    def build(self) -> None:
+        self.texture = ShaderTexture(scene=self.scene, name=self.name, track=1.0)
+
+    @property
+    def fragment(self) -> Optional[PixelFunction]:
+        return self._fragment
+
+    @fragment.setter
+    def fragment(self, value: PixelFunction) -> None:
+        if not callable(value):
+            raise NotImplementedError(
+                f"Fragment source {type(value).__name__}: GLSL / file sources "
+                "need the GLSL front-end, not ported yet; pass a Python function")
+        self._fragment = value
+        self.scene.invalidate_engine()
+
+    def handle(self, message) -> None:
+        if isinstance(message, ShaderMessage.Shader.Compile):
+            self.scene.invalidate_engine()
+
+    def render_layer(self, ctx: Frag):
+        """Run one layer of this program: a TailSpec (the engine fuses it
+        with the final pass) or an (H, W, C) float tensor in sample space,
+        padded with ones / cropped to the texture's components."""
+        from shaderflow_tpu_torch.ops.tailfuse import TailSpec
+        if self._fragment is None:
+            raise NotImplementedError(
+                f"Program {self.name!r} has no fragment: the built-in default "
+                "program is not ported; set program.fragment to a function")
+        out = self._fragment(ctx)
+        if isinstance(out, TailSpec):
+            return out
+        out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
+        components = self.texture.components
+        if out.shape[-1] < components:
+            pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
+                             dtype=torch.float32, device=out.device)
+            out = torch.cat([out, pad], dim=-1)
+        return out[..., :components]

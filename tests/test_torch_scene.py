@@ -1,0 +1,166 @@
+"""The PyTorch port's offline export path against the JAX package: the
+Mandelbrot scene end to end (frames and captured uniforms), the import
+boundary (the port imports no JAX), and the explicit device."""
+
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+WIDTH, HEIGHT, FPS, SECONDS = 96, 54, 10, 0.3
+
+
+def _fix_reference_texture(monkeypatch):
+    """Complete shaderflow_tpu.texture.ShaderTexture.__init__ for this test
+    only: in the reference the tail of the constructor (sequence fields and
+    ShaderModule registration) sits inside the `matrix` setter, so no
+    texture registers with its scene. The JAX package is not edited."""
+    from shaderflow_tpu.module import ShaderModule
+    from shaderflow_tpu.texture import ShaderTexture
+
+    original = ShaderTexture.__init__
+    own = {name for name, parameter in inspect.signature(original).parameters.items()
+           if parameter.kind is inspect.Parameter.KEYWORD_ONLY}
+
+    def init(self, scene=None, name=None, **kwargs):
+        original(self, scene, name, **{k: kwargs.pop(k) for k in list(kwargs) if k in own})
+        self.sequence = None
+        self.sequence_window = None
+        ShaderModule.__init__(self, scene=scene, name=name, **kwargs)
+
+    def set_matrix(self, value):
+        self._matrix = value
+        self._matrix_stale = False
+
+    monkeypatch.setattr(ShaderTexture, "__init__", init)
+    monkeypatch.setattr(ShaderTexture, "matrix",
+                        property(ShaderTexture.matrix.fget, set_matrix))
+
+
+def _import_example(directory: str, module: str):
+    sys.path.insert(0, str(REPO / "examples" / directory))
+    try:
+        return __import__(module)
+    finally:
+        sys.path.pop(0)
+
+
+def _read_rgb(path: Path) -> np.ndarray:
+    return np.fromfile(path, np.uint8).reshape(-1, HEIGHT, WIDTH, 3)
+
+
+JAX_SCRIPT = """
+import sys
+import numpy as np
+import pytest
+sys.path.insert(0, TESTS)
+from test_torch_scene import _fix_reference_texture, _import_example
+_fix_reference_texture(pytest.MonkeyPatch())
+scene = _import_example("fractals", "fractals").Mandelbrot()
+scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=2, time=SECONDS, output=OUTPUT)
+frames = scene.engine._frame_uniforms
+np.savez(UNIFORMS, **{f"{index}/{name}": value for index, frame in enumerate(frames)
+                      for name, value in frame.items()})
+"""
+
+
+@pytest.fixture(scope="module")
+def exports(tmp_path_factory):
+    """Both packages export Mandelbrot at 96x54, 2x SSAA, 10 fps, 0.3 s. The
+    JAX package runs in a child interpreter on XLA:CPU capped at the AVX ISA
+    (no FMA contraction; see tests/test_torch_fractal.py — with contraction
+    the escape counts of chaotic boundary pixels move, and with them up to
+    4 u8 steps of the palette on 0.1 % of this view's values)."""
+    tmp = tmp_path_factory.mktemp("mandelbrot")
+    script = (f"TESTS, OUTPUT, UNIFORMS = {str(REPO / 'tests')!r}, "
+              f"{str(tmp / 'jax.rgb')!r}, {str(tmp / 'uniforms.npz')!r}\n"
+              f"WIDTH, HEIGHT, FPS, SECONDS = {WIDTH}, {HEIGHT}, {FPS}, {SECONDS}\n"
+              + JAX_SCRIPT)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS="--xla_cpu_max_isa=AVX",
+               SHADERFLOW_NO_COMPILE_CACHE="1", HOME=str(tmp))
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=300)
+    assert result.returncode == 0, result.stderr[-4000:]
+    reference_uniforms = {}
+    for key, value in np.load(tmp / "uniforms.npz").items():
+        index, name = key.split("/", 1)
+        reference_uniforms.setdefault(int(index), {})[name] = value
+    port = _import_example("torch", "torch_fractals").Mandelbrot()
+    port.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=2, time=SECONDS,
+              output=str(tmp / "torch.rgb"), device="cpu")
+    return ([reference_uniforms[i] for i in sorted(reference_uniforms)], port,
+            _read_rgb(tmp / "jax.rgb"), _read_rgb(tmp / "torch.rgb"))
+
+
+def test_mandelbrot_frames_match_jax(exports):
+    _, _, reference, port = exports
+    assert reference.shape == port.shape == (3, HEIGHT, WIDTH, 3)
+    assert port.std() > 10  # a structured image, not a constant frame
+    diff = np.abs(reference.astype(np.int16) - port.astype(np.int16))
+    # Same math, different compilers: at most one u8 step, on < 1 % of values
+    assert diff.max() <= 1
+    assert (diff != 0).mean() < 0.01
+
+
+def test_captured_uniforms_match_jax(exports):
+    """The host state that crosses into the device program: every uniform
+    of the last captured batch, by name (the system has no weights)."""
+    ref_frames, port, _, _ = exports
+    port_frames = port.engine._frame_uniforms
+    assert len(ref_frames) == len(port_frames) == 3
+    for ref, got in zip(ref_frames, port_frames):
+        assert sorted(ref) == sorted(got)
+        for name in ref:
+            np.testing.assert_array_equal(np.asarray(got[name]), np.asarray(ref[name]),
+                                          err_msg=name)
+
+
+def test_start_replays_host_state(tmp_path):
+    """main(start=) resumes at a content time: host state is replayed
+    without rendering, then only [start, duration) is exported."""
+    port = _import_example("torch", "torch_fractals").Mandelbrot()
+    port.main(width=32, height=18, fps=10, ssaa=2, time=0.5, start=0.2,
+              output=str(tmp_path / "tail.rgb"), device="cpu")
+    frames = port.engine._frame_uniforms
+    assert np.fromfile(tmp_path / "tail.rgb", np.uint8).size == 3 * 18 * 32 * 3
+    assert [int(f["iFrameIndex"]) for f in frames] == [2, 3, 4]
+    np.testing.assert_allclose([float(f["iTime"]) for f in frames], [0.2, 0.3, 0.4],
+                               rtol=1e-6)
+
+
+def test_port_imports_no_jax(tmp_path):
+    """The port's import chain and a tiny CPU export run with jax blocked."""
+    script = f"""
+import sys
+sys.modules["jax"] = None
+sys.path.insert(0, {str(REPO)!r})
+sys.path.insert(0, {str(REPO / "examples" / "torch")!r})
+import numpy as np
+import shaderflow_tpu_torch.scene, shaderflow_tpu_torch.ops.tailgen, shaderflow_tpu_torch.build
+import torch_fractals
+torch_fractals.Mandelbrot().main(width=32, height=18, fps=10, time=0.2, ssaa=2,
+                                 output={str(tmp_path / "out.rgb")!r}, device="cpu")
+assert not any(name == "jax" or name.startswith("jax.") for name in sys.modules
+               if sys.modules[name] is not None)
+print("frames", np.fromfile({str(tmp_path / "out.rgb")!r}, np.uint8).size // (32 * 18 * 3))
+"""
+    env = dict(os.environ, HOME=str(tmp_path))
+    result = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                            text=True, env=env, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert "frames 2" in result.stdout
+
+
+def test_cuda_without_card_raises():
+    """device="cuda" never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the no-card refusal")
+    port = _import_example("torch", "torch_fractals").Mandelbrot()
+    with pytest.raises(RuntimeError, match="cuda"):
+        port.main(width=32, height=18, fps=10, time=0.1, ssaa=2, output="null")
