@@ -7,19 +7,33 @@ Smoke test of the PyTorch port (shaderflow_tpu_torch) on one CUDA card.
 Phases, each printing its own line (any failure raises; exit code != 0):
   1. card and toolchain: nvidia-smi name / power limit, torch, CUDA,
      Triton and nvcc versions
-  2. build: kernel K3's CUDA library (nvcc) and K1's first Triton compile
+  2. build: every CUDA C++ library (one nvcc per source, all at once)
+  Mandelbrot slice (1920x1080, 60 fps, 2x SSAA, 2 s):
   3. K3 vs its plain version at the slice's shapes (the default view's
-     lines at 3840x2160 render size, max_iter 500 and its cap): counts
-     exactly equal; CUDA-event medians of both
-  4. K1 vs its plain version: the Mandelbrot tail spec at 3840x2160 ->
-     1920x1080, s = 2: at most 1 u8 step, on < 1 % of values; medians
-  5. the slice: Mandelbrot().main(1920x1080, 60 fps, 2x SSAA, 2 s) to a
-     .rgb file on the card; file size, non-constant frames, both launch
-     counters equal to the frames rendered, one frame recomputed through
-     the plain functions within 1 u8 step
+     lines at 3840x2160, max_iter 500 and its cap): counts exactly equal
+  4. K1 (a) vs its plain version: the Mandelbrot tail spec at 3840x2160 ->
+     1920x1080, s = 2: at most 1 u8 step, on < 1 % of values
+  5. the slice through Mandelbrot().main(...) to a .rgb file: file size,
+     non-constant frames, launch counters (K3 == K1 == frames, K2 == 0), one
+     frame recomputed through the plain functions within 1 u8 step
   6. an output="null" export of the same configuration: frames/s
-Then the per-kernel JSON line, the card line, and last
-{"ok": true, "device": {...}}. Needs no network and no JAX.
+  Music visualizer slice (1920x1080, 60 fps, 2x SSAA, 2 s of the asset):
+  7. the slice through Visualizer().main(...) to a .rgb file: file size,
+     non-constant frames, launch counters (K2 == flushes, K1 == frames,
+     K3 == 0), one frame recomputed through the plain functions (plain K2
+     gather, plain tail) within 1 u8 step
+  8. K2 vs its plain version: seeded (128, 115, 2) tables over the
+     visualizer's angle field at 2160x3840: torch.equal; medians of the
+     kernel, the plain gather and one library call (index_select)
+  9. K1 (b)+(c) vs its plain version: the visualizer's tail spec of one real
+     frame (Indexed stacks, ColSampled rows) at 3840x2160 -> 1920x1080,
+     s = 2: at most 1 u8 step, on < 1 % of values
+ 10. an output="null" export of the visualizer: frames/s
+Every timed number is a median of CUDA events; each kernel's bound is the
+larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
+(f32, no tensor cores), the H100 SXM data-sheet peaks. Then the
+per-kernel JSON line, the card line, and last {"ok": true, "device":
+{...}}. Needs no network and no JAX.
 """
 
 from __future__ import annotations
@@ -34,6 +48,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, FPS, SSAA, SECONDS = 1920, 1080, 60, 2, 2.0
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+ESCAPE_STEP_OPS = 9           # escape.cu's loop body: 4 mul, 4 add/sub, 1 compare
 
 
 def say(phase: str, **fields) -> None:
@@ -62,22 +79,56 @@ def median_ms(fn, repeats: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """The least time the card could take: the larger of bytes over memory
+    rate and operations over peak rate -> (ms, what bounds it)."""
+    memory_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    compute_ms = 1e3 * ops / F32_OPS_PER_S
+    return (memory_ms, "bytes") if memory_ms >= compute_ms else (compute_ms, "operations")
+
+
+def k1_bound(spec, render_h: int, render_w: int, out_h: int, out_w: int,
+             aspect: float) -> tuple[float, str]:
+    """K1's bound for one spec: each input it reads once (planes, column
+    sampled rows and their positions, rows, columns), the u8 frame written
+    once; operations = the traced graph's nodes per SSAA pixel plus the
+    pooling sum and quantize per output channel (transcendentals count as
+    one: a lower bound)."""
+    from shaderflow_tpu_torch.ops import tailfuse, tailgen
+    graph, _ = tailgen.trace(spec, render_h, render_w, aspect)
+    planes = {**spec.planes, **tailfuse.materialize_indexed(spec)}
+    moved = out_h * out_w * 3
+    sampled = set()
+    for kind, name, channel in graph.inputs:
+        if kind == "plane":
+            tensor = planes[name][channel]
+        elif kind == "colsampled":
+            tensor = spec.colsampled[name].planes[channel]
+            sampled.add(name)
+        elif kind in ("row", "col"):
+            tensor = (spec.rows if kind == "row" else spec.cols)[name]
+        else:
+            continue
+        moved += tensor.numel() * tensor.element_size()
+    moved += sum(spec.colsampled[name].positions.numel() * 4 for name in sampled)
+    arithmetic = sum(1 for op, _, _ in graph.nodes if op != "input")
+    ops = render_h * render_w * (arithmetic + 3) + out_h * out_w * 3 * 5
+    return bound(moved, ops)
+
+
 def frame_inputs(scene, index: int):
-    """Frame `index` of the scene's last captured batch: its Frag on the card."""
+    """Frame `index` of the Mandelbrot scene's last batch: its Frag on the card."""
     import torch
-    from shaderflow_tpu_torch.engine import FrameUniforms
-    from shaderflow_tpu_torch.shader import Frag, finish_coords
     engine = scene.engine
     packed, spec = engine.stack_captures()
     row = torch.from_numpy(packed[index]).to(scene.device)
-    uniforms = FrameUniforms(row, spec)
-    return Frag(coords=finish_coords(engine._coords, uniforms["iResolution"]),
-                uniforms=uniforms, statics={**engine._statics, "iLayer": 0})
+    return engine.frame_context(row, spec, index, engine.frame_indices()[index], {}, {})
 
 
-def plain_frame(scene, index: int):
-    """Recompute frame `index` with the plain PyTorch functions only:
-    camera lines, escape_lines_plain, the tail on full tensors, final pass."""
+def plain_mandelbrot_frame(scene, index: int):
+    """Recompute Mandelbrot frame `index` with the plain PyTorch functions
+    only: camera lines, escape_lines_plain, the tail on full tensors, final
+    pass."""
     import torch
     import torch_fractals
     from shaderflow_tpu_torch.ops import fractal, tailfuse
@@ -95,6 +146,53 @@ def plain_frame(scene, index: int):
                                scene.aspect_ratio)
 
 
+def visualizer_spec(scene, index: int):
+    """The tail spec of visualizer frame `index` of the last batch, built
+    with the plain functions only: the bar field through the plain K2
+    gather, the cached static fields, the frame's textures and uniforms."""
+    import torch
+    import torch_demo
+    from shaderflow_tpu_torch.engine import PreludeCtx
+    from shaderflow_tpu_torch.ops import sampling
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    frames = engine.frame_indices()
+    ctx = PreludeCtx(torch.tensor(frames, device=scene.device), engine.bound_sequences(),
+                     engine._render_size, scene.aspect_ratio)
+    tables, circle, left = torch_demo.bar_field_inputs(ctx)
+    batch, bins, channels = tables.shape
+    index_field = sampling.lookup_index(circle, bins, channels, left)
+    bar = sampling.expand_plain(tables.reshape(batch, -1).to(torch.bfloat16),
+                                index_field, torch.bfloat16)
+    bar = bar.reshape(batch, *circle.shape)
+    row = torch.from_numpy(packed[index]).to(scene.device)
+    frag = engine.frame_context(row, spec, index, frames[index], {"iBarField": bar},
+                                engine.invariant_preludes())
+    return torch_demo.visualizer_frag(frag)
+
+
+def check_export(output: Path, frames: int, name: str):
+    """File size and two non-constant frames of a .rgb export."""
+    import numpy as np
+    frame_bytes = HEIGHT * WIDTH * 3
+    if output.stat().st_size != frames * frame_bytes:
+        raise AssertionError(f"{name}: {output.stat().st_size} bytes, "
+                             f"expected {frames} frames of {frame_bytes}")
+    check = frames // 2
+    exported = np.fromfile(output, np.uint8, count=frame_bytes,
+                           offset=check * frame_bytes).reshape(HEIGHT, WIDTH, 3)
+    first = np.fromfile(output, np.uint8, count=frame_bytes).reshape(HEIGHT, WIDTH, 3)
+    if exported.std() == 0 or first.std() == 0:
+        raise AssertionError(f"{name}: constant exported frame")
+    return check, exported
+
+
+def u8_diff(got, want) -> tuple[int, float]:
+    import numpy as np
+    diff = np.abs(np.asarray(got).astype(np.int16) - np.asarray(want).astype(np.int16))
+    return int(diff.max()), float((diff != 0).mean())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -107,15 +205,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     sys.path.insert(0, str(REPO / "examples" / "torch"))
-    import numpy as np
+    import torch_demo
     import torch_fractals
     from shaderflow_tpu_torch import build
-    from shaderflow_tpu_torch.ops import fractal, tailfuse, tailgen
+    from shaderflow_tpu_torch.engine import PreludeCtx
+    from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     from shaderflow_tpu_torch.ops.cameralib import project_trivial
     from shaderflow_tpu_torch.shader import make_coords
 
     device = torch.device("cuda")
     card = card_line()
+    frames = round(SECONDS * FPS)
+    render_h, render_w = HEIGHT * SSAA, WIDTH * SSAA
+    aspect = WIDTH / HEIGHT
 
     # 1. Card and toolchain
     import triton
@@ -125,15 +227,17 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, triton=triton.__version__, nvcc=repr(nvcc_version))
 
-    # 2. Build: K3's library (nvcc, plain C interface)
+    # 2. Build: every CUDA library at once (plain C interfaces)
     started = time.perf_counter()
+    built = build.build_cuda_libraries()
     fractal._escape_library()
-    say("build", k3_library_s=f"{time.perf_counter() - started:.3f}",
-        ptxas=repr(build.build_log.get("escape", "cached").replace("\n", " | ")))
+    sampling._lookup_library()
+    say("build", libraries=",".join(built) or "cached",
+        seconds=f"{time.perf_counter() - started:.3f}",
+        ptxas=repr(" | ".join(build.build_log.get(n, "cached").replace("\n", " ; ")
+                              for n in ("escape", "lookup"))))
 
     # 3. K3 vs plain at the slice's shapes: the default view's lines
-    render_h, render_w = HEIGHT * SSAA, WIDTH * SSAA
-    aspect = WIDTH / HEIGHT
     coords = make_coords(render_h, render_w, aspect, device)
     rays = project_trivial(
         gluv_x=(coords.u_line * 2.0 - 1.0) * aspect, gluv_y=coords.v_line * 2.0 - 1.0,
@@ -153,11 +257,15 @@ def main() -> int:
                              f"{int((counts != plain_counts).sum())} pixels (max {k3_err})")
     k3_ms = median_ms(lambda: fractal.escape_iterations_sep(*k3_args), 20)
     k3_plain_ms = median_ms(lambda: fractal.escape_lines_plain(*k3_args), 10)
+    grid_x, grid_y = torch.broadcast_tensors(cx[None, :], cy[:, None])
+    steps = counts[~fractal._interior_mask(grid_x, grid_y)].sum().item()
+    k3_bound_ms, k3_bound_by = bound((render_h + render_w + render_h * render_w) * 4,
+                                     ESCAPE_STEP_OPS * steps)
     say("k3", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
-        mean_count=f"{counts.mean().item():.3f}", equal=True,
-        ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}")
+        steps=int(steps), equal=True, ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
+        bound_ms=f"{k3_bound_ms:.4f}", bound_by=k3_bound_by)
 
-    # 4. K1 vs plain: the Mandelbrot tail spec at the slice's shapes
+    # 4. K1 (a) vs plain: the Mandelbrot tail spec at the slice's shapes
     spec = tailfuse.make_spec(
         torch_fractals.mandelbrot_tail(quality, True), render_h, render_w,
         iters=counts, oob=tailfuse.Col(rays.out_of_bounds_x.to(torch.float32)))
@@ -165,79 +273,169 @@ def main() -> int:
     started = time.perf_counter()
     frame = tailfuse.fused_tail_final(*k1_args)
     torch.cuda.synchronize()
-    say("build", k1_first_triton_compile_s=f"{time.perf_counter() - started:.3f}")
-    plain = tailfuse.tail_plain(*k1_args)
-    diff = (frame.to(torch.int16) - plain.to(torch.int16)).abs()
-    k1_err = diff.max().item()
-    k1_share = (diff != 0).float().mean().item()
+    say("build", k1_mandelbrot_first_triton_compile_s=f"{time.perf_counter() - started:.3f}")
+    k1_err, k1_share = u8_diff(frame.cpu(), tailfuse.tail_plain(*k1_args).cpu())
     if k1_err > 1 or k1_share >= 0.01:
-        raise AssertionError(f"K1 vs plain: max {k1_err} u8 steps on {k1_share:.4%}")
+        raise AssertionError(f"K1 (a) vs plain: max {k1_err} u8 steps on {k1_share:.4%}")
     # Device time of the bound kernel (tracing and source generation are
     # host work, overlapped with the device in the export loop)
     launch = tailgen.prepare(*k1_args, device)
     k1_out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device=device)
     k1_ms = median_ms(lambda: launch(k1_out), 20)
     k1_plain_ms = median_ms(lambda: tailfuse.tail_plain(*k1_args), 10)
-    say("k1", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+    k1_bound_ms, k1_bound_by = k1_bound(spec, render_h, render_w, HEIGHT, WIDTH, aspect)
+    say("k1a", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
         max_u8_diff=k1_err, differing_share=f"{k1_share:.6f}",
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}")
+        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
+        bound_ms=f"{k1_bound_ms:.4f}", bound_by=k1_bound_by)
 
-    # 5. The slice through the port's entry point, counters from zero
-    fractal.escape_iterations_sep.launches = 0
-    tailfuse.fused_tail_final.launches = 0
+    def zero_counters():
+        fractal.escape_iterations_sep.launches = 0
+        sampling.expand_tables.launches = 0
+        tailfuse.fused_tail_final.launches = 0
+
+    def read_counters():
+        return {"k3": fractal.escape_iterations_sep.launches,
+                "k2": sampling.expand_tables.launches,
+                "k1": tailfuse.fused_tail_final.launches}
+
     with tempfile.TemporaryDirectory() as tmp:
+        # 5. The Mandelbrot slice through the port's entry point
         output = Path(tmp) / "mandelbrot.rgb"
         scene = torch_fractals.Mandelbrot()
+        zero_counters()
         started = time.perf_counter()
         scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
                    output=str(output), device="cuda")
         export_s = time.perf_counter() - started
-        launches = {"k3": fractal.escape_iterations_sep.launches,
-                    "k1": tailfuse.fused_tail_final.launches}
-        frames = round(SECONDS * FPS)
-        frame_bytes = HEIGHT * WIDTH * 3
-        if output.stat().st_size != frames * frame_bytes:
-            raise AssertionError(f"{output.name}: {output.stat().st_size} bytes, "
-                                 f"expected {frames} frames of {frame_bytes}")
-        if launches != {"k3": frames, "k1": frames}:
-            raise AssertionError(f"launch counters {launches} != {frames} frames rendered")
-        check = frames // 2
-        exported = np.fromfile(output, np.uint8, count=frame_bytes,
-                               offset=check * frame_bytes).reshape(HEIGHT, WIDTH, 3)
-        first = np.fromfile(output, np.uint8, count=frame_bytes).reshape(HEIGHT, WIDTH, 3)
-        if exported.std() == 0 or first.std() == 0:
-            raise AssertionError("constant exported frame")
-        recomputed = plain_frame(scene, check).cpu().numpy()
-        frame_diff = np.abs(exported.astype(np.int16) - recomputed.astype(np.int16))
-        if frame_diff.max() > 1:
-            raise AssertionError(f"exported frame {check} vs plain functions: "
-                                 f"max {frame_diff.max()} u8 steps")
-    say("slice", frames=frames, seconds=f"{export_s:.3f}", launches=launches,
-        file_bytes=frames * frame_bytes, frame_checked=check,
-        max_u8_diff_vs_plain=int(frame_diff.max()),
-        differing_share=f"{(frame_diff != 0).mean():.6f}")
+        mandelbrot_launches = read_counters()
+        if mandelbrot_launches != {"k3": frames, "k2": 0, "k1": frames}:
+            raise AssertionError(f"Mandelbrot launch counters {mandelbrot_launches}, "
+                                 f"expected K3 == K1 == {frames} frames, K2 == 0")
+        check, exported = check_export(output, frames, output.name)
+        frame_err, frame_share = u8_diff(exported, plain_mandelbrot_frame(scene, check).cpu())
+        if frame_err > 1:
+            raise AssertionError(f"Mandelbrot frame {check} vs plain functions: "
+                                 f"max {frame_err} u8 steps")
+        say("mandelbrot_slice", frames=frames, seconds=f"{export_s:.3f}",
+            launches=mandelbrot_launches, frame_checked=check,
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
 
-    # 6. Informational: render throughput into the NullSink
-    scene = torch_fractals.Mandelbrot()
+        # 6. Mandelbrot render throughput into the NullSink
+        scene = torch_fractals.Mandelbrot()
+        started = time.perf_counter()
+        scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                   output="null", device="cuda")
+        null_s = time.perf_counter() - started
+        say("mandelbrot_timing", config="Mandelbrot 1920x1080 60fps 2xSSAA 2s null",
+            frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
+            card=repr(card))
+
+        # 7. The visualizer slice through the port's entry point
+        output = Path(tmp) / "visualizer.rgb"
+        scene = torch_demo.Visualizer()
+        zero_counters()
+        started = time.perf_counter()
+        scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                   output=str(output), device="cuda")
+        export_s = time.perf_counter() - started
+        visualizer_launches = read_counters()
+        flushes = -(-frames // scene.default_batch_size())
+        if visualizer_launches != {"k3": 0, "k2": flushes, "k1": frames}:
+            raise AssertionError(f"Visualizer launch counters {visualizer_launches}, "
+                                 f"expected K2 == {flushes} flushes, K1 == {frames} "
+                                 "frames, K3 == 0")
+        check, exported = check_export(output, frames, output.name)
+        frame_spec = visualizer_spec(scene, check)
+        tail_args = (frame_spec, render_h, render_w, HEIGHT, WIDTH, SSAA, aspect)
+        frame_err, frame_share = u8_diff(exported, tailfuse.tail_plain(*tail_args).cpu())
+        if frame_err > 1:
+            raise AssertionError(f"Visualizer frame {check} vs plain functions: "
+                                 f"max {frame_err} u8 steps on {frame_share:.4%}")
+        say("visualizer_slice", frames=frames, flushes=flushes, seconds=f"{export_s:.3f}",
+            launches=visualizer_launches, frame_checked=check,
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
+
+    # 8. K2 vs plain: seeded tables over the visualizer's angle field
+    import numpy as np
+    rng = np.random.default_rng(2)
+    batch, bins, channels = 128, 115, 2
+    spectrogram = torch.from_numpy(
+        rng.random((batch, bins, 1, channels), np.float32) * 900.0).to(device)
+    ctx = PreludeCtx(torch.arange(batch, device=device), {"iSpectrogram": spectrogram},
+                     (render_h, render_w), aspect)
+    tables, circle, left = torch_demo.bar_field_inputs(ctx)
+    index_field = sampling.lookup_index(circle, bins, channels, left)
+    flat16 = tables.reshape(batch, -1).to(torch.bfloat16).contiguous()
+    got = sampling.expand_tables(flat16, index_field, torch.bfloat16)
+    want = sampling.expand_plain(flat16, index_field, torch.bfloat16)
+    library = flat16.index_select(1, index_field)
+    k2_err = (got.float() - want.float()).abs().max().item()
+    if not (torch.equal(got, want) and torch.equal(library, want)):
+        raise AssertionError(f"K2 differs from the plain gather on "
+                             f"{int((got != want).sum())} values (max {k2_err})")
+    k2_ms = median_ms(lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16), 20)
+    k2_plain_ms = median_ms(lambda: sampling.expand_plain(flat16, index_field,
+                                                          torch.bfloat16), 10)
+    k2_library_ms = median_ms(lambda: flat16.index_select(1, index_field), 10)
+    npx = index_field.numel()
+    k2_bound_ms, k2_bound_by = bound(npx * 4 + flat16.numel() * 2 + batch * npx * 2, 0)
+    say("k2", tables=f"{batch}x{bins}x{channels}", field=f"{render_h}x{render_w}",
+        equal=True, ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
+        library_ms=f"{k2_library_ms:.4f}", bound_ms=f"{k2_bound_ms:.4f}",
+        bound_by=k2_bound_by)
+    del got, want, library
+
+    # 9. K1 (b)+(c) vs plain: the visualizer tail of one real frame
+    frame = tailfuse.fused_tail_final(*tail_args)
+    k1v_err, k1v_share = u8_diff(frame.cpu(), tailfuse.tail_plain(*tail_args).cpu())
+    if k1v_err > 1 or k1v_share >= 0.01:
+        raise AssertionError(f"K1 (b)+(c) vs plain: max {k1v_err} u8 steps on {k1v_share:.4%}")
+    launch = tailgen.prepare(*tail_args, device)
+    k1v_ms = median_ms(lambda: launch(k1_out), 20)
+    k1v_plain_ms = median_ms(lambda: tailfuse.tail_plain(*tail_args), 10)
+    k1v_bound_ms, k1v_bound_by = k1_bound(frame_spec, render_h, render_w, HEIGHT, WIDTH,
+                                          aspect)
+    say("k1bc", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+        frame=check, max_u8_diff=k1v_err, differing_share=f"{k1v_share:.6f}",
+        ms=f"{k1v_ms:.4f}", plain_ms=f"{k1v_plain_ms:.4f}",
+        bound_ms=f"{k1v_bound_ms:.4f}", bound_by=k1v_bound_by)
+
+    # 10. Visualizer render throughput into the NullSink
+    scene = torch_demo.Visualizer()
     started = time.perf_counter()
     scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
                output="null", device="cuda")
     null_s = time.perf_counter() - started
-    say("timing", config="Mandelbrot 1920x1080 60fps 2xSSAA 2s null",
+    say("visualizer_timing", config="Visualizer 1920x1080 60fps 2xSSAA 2s null",
         frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
         card=repr(card))
 
     kernels = [
+        {"name": "K1 (a) fused tail + 2x2 pool + u8 quantize (Mandelbrot tail: planes, cols)",
+         "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
+         "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
+         "launches": mandelbrot_launches["k1"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+         "bound_by": k1_bound_by, "library_ms": None},
+        {"name": "K1 (b)+(c) fused tail with Indexed and ColSampled inputs (visualizer tail)",
+         "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
+         "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
+         "launches": visualizer_launches["k1"], "max_abs_err": k1v_err,
+         "ms": k1v_ms, "plain_ms": k1v_plain_ms, "bound_ms": k1v_bound_ms,
+         "bound_by": k1v_bound_by, "library_ms": None},
+        {"name": "K2 lookup_expand (bar-field table expand)",
+         "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
+         "replaces": "shaderflow_tpu/ops/sampling.py:851",
+         "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+         "bound_by": k2_bound_by, "library_ms": k2_library_ms},
         {"name": "K3 escape_lines (Mandelbrot escape counts, lines form)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
-         "launches": launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
-        {"name": "K1 fused tail + 2x2 pool + u8 quantize (Mandelbrot tail)",
-         "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
-         "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
-         "launches": launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+         "bound_by": k3_bound_by, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,319 @@
+"""
+The music visualizer on the PyTorch port (shaderflow_tpu_torch).
+
+Port of examples/basic/demo.py's Visualizer (radial bars over a blurred,
+breathing background, waveform overlays, vignette and snare blink), its
+offline form: the audio file's spectrogram and waveform are precomputed
+as device sequences, the bar field of the whole batch is one table expand
+(kernel K2, ops/sampling.py) in a batch prelude, the frame-invariant
+per-pixel fields are a cached batch-invariant prelude, and everything per
+pixel after the background rows runs in the fused tail (kernel K1,
+ops/tailfuse.py) with the background and blur columns sampled inside it.
+
+    python examples/torch/torch_demo.py        # 1080p60 2xSSAA, 2 s, to null
+
+The per-frame fallback the reference keeps for its realtime preview (no
+sequences, camera-dependent geometry in the tail) is not ported yet: the
+scene raises NotImplementedError without its offline preludes.
+"""
+
+import math
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))
+
+from shaderflow_tpu_torch.message import ShaderMessage  # noqa: E402
+from shaderflow_tpu_torch.ops import TAU, PI, tailfuse  # noqa: E402
+from shaderflow_tpu_torch.scene import ShaderScene  # noqa: E402
+from shaderflow_tpu_torch.texture import ShaderTexture  # noqa: E402
+
+ASSETS = Path(__file__).resolve().parent.parent / "assets"
+MUSIC = ASSETS / "music.wav"
+BACKGROUND = ASSETS / "background.png"
+BLUR_LEVEL = 4   # the pyramid level the radial blur is computed on
+
+
+def _recip(value: float) -> float:
+    """1 / value rounded once to float32. The preludes divide by constants
+    as products with the reciprocal: the reference's fields as XLA computes
+    them (its algebraic simplifier folds x / c into x * (1 / c))."""
+    return float(np.float32(1.0) / np.float32(value))
+
+
+def _axis_line(count: int, device) -> torch.Tensor:
+    """Pixel centers over [0, 1]: (i + 0.5) / count."""
+    return (torch.arange(count, dtype=torch.float32, device=device) + 0.5) * _recip(count)
+
+
+def _screen_lines(ctx):
+    """The screen's gluv lines (x aspect-scaled, y up) at the render size."""
+    height, width = ctx.render_size
+    device = ctx.frames.device
+    gx = (_axis_line(width, device) * 2.0 - 1.0) * ctx.aspect
+    gy = 1.0 - _axis_line(height, device) * 2.0
+    return gx, gy
+
+
+def _angle_field(gx, gy):
+    """|atan2(x, -y)| / pi over the screen: the bar's radial angle."""
+    return torch.abs(tailfuse.atan2(gx[None, :], -gy[:, None]) * _recip(PI))
+
+
+def bar_field_inputs(ctx):
+    """What the bar field expands: the batch's spectrogram tables (B, bins,
+    C), the angle field (H, W) it is indexed by and the half-plane channel
+    select (1, W); None without the spectrogram sequence."""
+    tables = ctx.rows("iSpectrogram")            # (B, bins, 1, C)
+    if tables is None:
+        return None
+    gx, gy = _screen_lines(ctx)
+    # music_uv = rotate2d(-pi/2) * gluv = (-y, x): GLSL's mat2 is
+    # column-major, so rotate2d applies the TRANSPOSE of the textbook rotation
+    return tables[:, :, 0, :], _angle_field(gx, gy), gx[None, :] < 0
+
+
+def _visualizer_bar_prelude(ctx):
+    """The whole batch's radial-bar field: the per-pixel index map (angle ->
+    spectrogram bin, half-plane -> channel) is frame-invariant, so the batch
+    is one expand of the per-frame tables over the static field (kernel K2),
+    exact for this scene's static default 2D camera."""
+    inputs = bar_field_inputs(ctx)
+    if inputs is None:
+        return None
+    from shaderflow_tpu_torch.ops.sampling import lookup_nearest_1d_select_batched
+    tables, circle, left = inputs
+    return lookup_nearest_1d_select_batched(tables, circle, channel_where=left,
+                                            out_dtype=torch.bfloat16)
+
+
+def _visualizer_static_prelude(ctx):
+    """Batch-invariant per-pixel fields (leading axis 1: computed once and
+    cached by the engine):
+
+      * fscale: the bar-length falloff 0.05 + 3*sstep01(circle/2)
+      * rad0:   |camera-plane uv| (the per-frame radius is rad0 * scale)
+      * lvig:   log of the vignette field (the tail keeps exp(p * lvig))
+      * blink:  the snare-blink radial power ((clip(|agluv|-0.3))^2)^3, bf16
+
+    None outside offline mode (no spectrogram sequence): a preview's
+    pan/zoom must not freeze camera-dependent geometry."""
+    if ctx.sequence("iSpectrogram") is None:
+        return None
+    height, width = ctx.render_size
+    device = ctx.frames.device
+    gx, gy = _screen_lines(ctx)
+    t = torch.clamp(_angle_field(gx, gy) / 2.0, 0.0, 1.0)
+    fscale = 0.05 + 3.0 * (t * t * (3.0 - 2.0 * t))
+    rad0 = torch.sqrt(gx[None, :] ** 2 + gy[:, None] ** 2)
+    ax = _axis_line(width, device) * 2.0 - 1.0
+    ay = 1.0 - _axis_line(height, device) * 2.0
+    alen = torch.sqrt(ax[None, :] ** 2 + ay[:, None] ** 2)
+    t6 = torch.clamp(alen - 0.3, 0.0, 1.0) ** 2
+    blink = t6 * t6 * t6
+    sx = _axis_line(width, device)
+    sy = 1.0 - _axis_line(height, device)
+    vig = (sx * (1.0 - sx))[None, :] * (sy * (1.0 - sy))[:, None]
+    lvig = torch.log(torch.clamp(vig * 20.0, min=1e-6))
+    # fscale and rad0 gate HARD edges (the bar ring thresholds): kept f32,
+    # like lvig; blink is a smooth multiplier, stored bf16
+    return {"iVizFscale": fscale[None],
+            "iVizRad": rad0[None],
+            "iVizLvig": lvig[None],
+            "iVizBlink": blink.to(torch.bfloat16)[None]}
+
+
+def _static_prelude_field(key):
+    """One batch_preludes entry per field."""
+    def fn(ctx):
+        fields = _visualizer_static_prelude(ctx)
+        return None if fields is None else fields[key]
+    return fn
+
+
+def _sstep01(x):  # smoothstep(0, 1, x)
+    t = torch.clamp(x, 0.0, 1.0)
+    return t * t * (3.0 - 2.0 * t)
+
+
+def visualizer_tail(color_inv: float):
+    """Everything per pixel after the samples (plane dialect, ops/tailfuse.py)."""
+    space_rgb = (1.0 / 255.0, 11.0 / 255.0, 26.0 / 255.0)
+
+    def tail(tp):
+        vol = tp.scalar("vol")
+        std = tp.scalar("std")
+        rgb = [(base + blur) * color_inv
+               for base, blur in zip(tp.vec("base"), tp.vec("blur"))]
+
+        # Blink on snare/kick: the radial power is a static prelude field
+        blink = tp.f(1.0 + 5.0 * std * tp.plane("blinkp"))
+        rgb = [c * blink for c in rgb]
+
+        # Music bars: the angle falloff and unit radius are frame-invariant
+        # fields; only the scale multiply is per frame
+        scale = 1.0 - 0.4 * torch.sqrt(torch.abs(vol))
+        radius = 0.17
+        fscale = tp.plane("fscale", dtype=torch.float32)
+        rad0 = tp.plane("rad0", dtype=torch.float32)
+        r = rad0 * scale
+        bar = torch.sqrt(tp.plane("bar", dtype=torch.float32) / 1000.0) * fscale
+        ring = radius + 0.5 * bar
+        inside = r < radius
+        on_bar = r < ring
+        smix = tp.f(_sstep01(0.5 + bar))
+        fall = tp.f(tailfuse.powf(torch.clamp((r - ring) * 0.5, min=1e-6), 0.05))
+        rgb = [torch.where(inside, c * 0.5,
+                           torch.where(on_bar, c + (1.0 - c) * smix, c * fall))
+               for c in rgb]
+
+        # Fade to deep space with camera-plane distance (|uv| == rad0)
+        dmix = tp.f(_sstep01(rad0 / 20.0))
+        rgb = [c + (s - c) * dmix for c, s in zip(rgb, space_rgb)]
+
+        # Vignette: only exp(p * lvig) is per frame
+        vpow = tp.f(torch.exp((0.1 + 0.15 * vol) * tp.plane("lvig", dtype=torch.float32)))
+        rgb = [c * vpow for c in rgb]
+
+        # Waveform overlay top and bottom (screen gluv y)
+        gy = tp.gluv_y
+        dark = tp.f(torch.where(1.0 - gy < tp.col("wave0"), 0.8, 1.0)
+                    * torch.where(1.0 + gy < tp.col("wave1"), 0.8, 1.0))
+        rgb = [c * dark for c in rgb]
+
+        # Out of bounds -> deep space color, last (the reference's early
+        # return: no other stage touches an out-of-bounds pixel)
+        oob = tp.col("oob") > 0.5
+        return [torch.where(oob, s, c) for c, s in zip(rgb, space_rgb)]
+
+    return tail
+
+
+def visualizer_frag(sf):
+    """Radial bars music visualizer (visualizer.frag), offline form: the
+    background's uv map is an axis-aligned scale + translate (default 2D
+    camera), so its bilinear sample is a row interpolation here and a column
+    interpolation inside the tail; the 80-tap radial blur is one small
+    convolution of the texture (sampling is linear, so blur and sample
+    commute) on a quarter-resolution level, sampled the same way."""
+    from shaderflow_tpu_torch.ops.downsample import box_downsample
+    from shaderflow_tpu_torch.ops.sampling import (
+        Sampler2D, convolve2d, sample_rows_planes_blocked, sample_separable,
+        splat_kernel)
+
+    bar_stack = sf.prelude_indexed("iBarField")
+    stacks = {name: sf.prelude_indexed(name)
+              for name in ("iVizFscale", "iVizRad", "iVizBlink", "iVizLvig")}
+    if bar_stack is None or None in stacks.values():
+        raise NotImplementedError(
+            "Visualizer without its offline preludes (the realtime preview's "
+            "per-frame fallback) is not ported yet: export with an audio file")
+
+    cam = sf.camera
+    gx, gy = cam.line("gluv")     # axis lines of the camera-projected uv
+    device = gx.device
+    z = 0.95 + 0.01 * torch.sin(sf.iTime) - 0.02 * sf.iAudioVolume - 0.03
+    qx = ((gx + 1.0) / 2.0 - 0.5) * z * z + 0.5 + 0.005 * torch.cos(sf.iTime * 3.25135)
+    qy = ((gy + 1.0) / 2.0 - 0.5) * z * z + 0.5 + 0.005 * torch.sin(sf.iTime * 1.153469)
+
+    # stexture = gtexture(stuv2gluv(q)): u scales by tex_h/tex_w around center
+    tex = sf.tex("background")
+    aspect_scale = tex.height / tex.width
+    u_line = ((2.0 * qx - 1.0) * aspect_scale + 1.0) / 2.0
+    v_line = qy
+    # Texel rows per output row: z^2 * tex_h / render_h with z <= 0.934,
+    # bounded with z <= 0.96 for margin; positions stay inside [0, n-1]
+    render_h = gy.shape[0]
+    base_tpp = 0.96 ** 2 * tex.height / render_h
+    base_rows = sample_rows_planes_blocked(
+        tex, v_line, texels_per_px=base_tpp,
+        precision="bfloat16", out_dtype=torch.bfloat16)[:3]
+
+    # Radial blur (8 directions x 10 walks) as one texture-space kernel on
+    # the quarter-resolution level
+    intensity = 0.01 * torch.clamp(
+        torch.pow(torch.clamp(sf.iAudioVolume, min=0.0), 2.5), 0.0, 0.3)
+    quality, directions = 10, 8
+    taps = []
+    for d in range(directions):
+        angle = TAU * d / directions
+        for s in range(1, quality + 1):
+            walk = s / quality
+            taps.append((math.cos(angle) * walk, math.sin(angle) * walk))
+    taps = torch.tensor(taps, dtype=torch.float32, device=device) * intensity
+    level = BLUR_LEVEL
+    quarter_h, quarter_w = tex.height // level, tex.width // level
+    quarter = box_downsample(tex.data[:quarter_h * level, :quarter_w * level], level)
+    # stuv offsets -> level texel units: both axes scale by the level height
+    # (gtexture aspect correction), v-up flips to row-down
+    offsets = taps * torch.tensor([quarter_h, -quarter_h], dtype=torch.float32,
+                                  device=device)
+    kernel = splat_kernel(offsets, size=5)
+    blurred = convolve2d(quarter, kernel)
+    blur_tex = Sampler2D(blurred, linear=True, repeat_x=tex.repeat_x, repeat_y=tex.repeat_y)
+    blur_tpp = 0.96 ** 2 * blur_tex.height / render_h
+    blur_rows = sample_rows_planes_blocked(
+        blur_tex, v_line, texels_per_px=blur_tpp,
+        precision="bfloat16", out_dtype=torch.bfloat16)[:3]
+    color_inv = 1.0 / (quality * directions)
+
+    # Waveform on top and bottom: sampled at v = 0 along x only
+    astuv_u, _ = sf.lines
+    wave_row = sample_separable(sf.tex("iWaveform"), astuv_u,
+                                torch.zeros(1, device=device))      # (1, W', C)
+    wave = 0.2 * wave_row[0]                                         # (W', C)
+
+    def indexed(pair):
+        return tailfuse.Indexed(pair[0], pair[1])
+
+    return sf.tail(
+        visualizer_tail(color_inv),
+        base=tailfuse.ColSampled(base_rows, u_line, texels_per_px=base_tpp),
+        blur=tailfuse.ColSampled(blur_rows, u_line, texels_per_px=blur_tpp),
+        bar=indexed(bar_stack),
+        oob=tailfuse.Col(cam.out_of_bounds_x.to(torch.float32)),
+        wave0=tailfuse.Col(wave[:, 0].contiguous()),
+        wave1=tailfuse.Col(wave[:, 1].contiguous()),
+        vol=sf.iAudioVolume, std=sf.iAudioSTD,
+        fscale=indexed(stacks["iVizFscale"]), rad0=indexed(stacks["iVizRad"]),
+        blinkp=indexed(stacks["iVizBlink"]), lvig=indexed(stacks["iVizLvig"]))
+
+
+class Visualizer(ShaderScene):
+    """Radial Bars Music Visualizer Scene"""
+    audio_file = None
+
+    def build(self):
+        from shaderflow_tpu_torch.audio import ShaderAudio
+        from shaderflow_tpu_torch.audio.spectrogram import ShaderSpectrogram
+        from shaderflow_tpu_torch.audio.waveform import ShaderWaveform
+        from shaderflow_tpu_torch.piano import PianoNote
+        self.audio = ShaderAudio(scene=self, name="iAudio", file=self.audio_file or MUSIC)
+        self.waveform = ShaderWaveform(scene=self, audio=self.audio)
+        self.spectrogram = ShaderSpectrogram(scene=self, length=0, audio=self.audio,
+                                             smooth=False)
+        self.spectrogram.from_notes(
+            start=PianoNote.from_frequency(20.0),
+            end=PianoNote.from_frequency(14000.0),
+            piano=True,
+        )
+        self.back = ShaderTexture(scene=self, name="background").from_image(BACKGROUND)
+        self.shader.fragment = visualizer_frag
+        self.batch_preludes["iBarField"] = _visualizer_bar_prelude
+        for key in ("iVizFscale", "iVizRad", "iVizBlink", "iVizLvig"):
+            self.batch_preludes[key] = _static_prelude_field(key)
+
+    def handle(self, message):
+        ShaderScene.handle(self, message)
+        if isinstance(message, ShaderMessage.Window.FileDrop):
+            self.back.from_image(message.first)
+
+
+SCENES = [Visualizer]
+
+if __name__ == "__main__":
+    Visualizer().main(width=1920, height=1080, fps=60, ssaa=2, time=2,
+                      output="null")

@@ -49,23 +49,51 @@ def nvcc() -> str:
                        "the port's CUDA kernels build on a machine with the CUDA toolkit")
 
 
+def cuda_sources() -> list[Path]:
+    """Every CUDA C++ source of the package (csrc/*.cu)."""
+    return sorted((Path(__file__).parent / "csrc").glob("*.cu"))
+
+
+def _library_path(source: Path) -> Path:
+    return BUILD_DIR / f"lib{source.stem}.so"
+
+
+def build_cuda_libraries(sources=None) -> list[str]:
+    """Compile every missing or stale library at once: one nvcc per source,
+    all started together, then wait for all. Returns the names built."""
+    stale = [source for source in (sources or cuda_sources())
+             if not _library_path(source).exists()
+             or _library_path(source).stat().st_mtime < source.stat().st_mtime]
+    if not stale:
+        return []
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = nvcc()
+    jobs = []
+    for source in stale:
+        partial = _library_path(source).with_suffix(f".{os.getpid()}.tmp")
+        process = subprocess.Popen([compiler, *NVCC_FLAGS, "-o", str(partial), str(source)],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True)
+        jobs.append((source, partial, process))
+    failures = []
+    for source, partial, process in jobs:
+        output = process.communicate()[0]
+        if process.returncode != 0:
+            failures.append(f"nvcc failed on {source}:\n{output}")
+            continue
+        os.replace(partial, _library_path(source))  # atomic: loaders see old or new
+        build_log[source.stem] = output.strip()
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return [source.stem for source in stale]
+
+
 def cuda_library(source: Path) -> ctypes.CDLL:
     """Compile (when missing or stale) and load lib<stem>.so for `source`."""
     name = source.stem
-    if name in _libraries:
-        return _libraries[name]
-    library = BUILD_DIR / f"lib{name}.so"
-    if not library.exists() or library.stat().st_mtime < source.stat().st_mtime:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        partial = library.with_suffix(f".{os.getpid()}.tmp")
-        result = subprocess.run(
-            [nvcc(), *NVCC_FLAGS, "-o", str(partial), str(source)],
-            capture_output=True, text=True)
-        if result.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{result.stdout}\n{result.stderr}")
-        os.replace(partial, library)  # atomic: a concurrent loader sees old or new
-        build_log[name] = (result.stdout + result.stderr).strip()
-    _libraries[name] = ctypes.CDLL(str(library))
+    if name not in _libraries:
+        build_cuda_libraries([source])
+        _libraries[name] = ctypes.CDLL(str(_library_path(source)))
     return _libraries[name]
 
 

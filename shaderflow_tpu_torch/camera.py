@@ -18,8 +18,8 @@ from typing import Iterable
 
 import numpy as np
 
-from shaderflow_tpu.message import ShaderMessage
-from shaderflow_tpu.variable import ShaderVariable, StaticUniform
+from shaderflow_tpu_torch.message import ShaderMessage
+from shaderflow_tpu_torch.variable import ShaderVariable, StaticUniform
 from shaderflow_tpu_torch.dynamics import ShaderDynamics
 from shaderflow_tpu_torch.keyboard import ShaderKeyboard
 from shaderflow_tpu_torch.module import ShaderModule

@@ -13,7 +13,7 @@ from typing import Iterable, Optional
 
 import numpy as np
 
-from shaderflow_tpu.variable import ShaderVariable
+from shaderflow_tpu_torch.variable import ShaderVariable
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
 

@@ -5,17 +5,32 @@ one CUDA stream -> one (F, H, W, 3) uint8 batch on the device.
 Port of shaderflow_tpu/engine.py. The host advances module state frame by
 frame and captures each frame's uniforms (capture_frame); flush() packs a
 batch's uniforms into one (F, K) float32 matrix, copies it to the device
-once, and renders every frame in a Python loop (the reference's lax.scan):
-the main program's fragment returns a TailSpec, and kernel K1 writes the
-frame's u8 pixels straight into its slot of a preallocated batch tensor.
-Per-frame uniforms are 0-d / 1-d views of the device matrix, so the loop
-never waits on the device (no .item(), float() or bool() of device
-values); statics (program-specializing uniforms) are host values.
+once, runs the scene's batch preludes once for the batch, and renders
+every frame in a Python loop (the reference's lax.scan): the main
+program's fragment returns a TailSpec, and kernel K1 writes the frame's u8
+pixels straight into its slot of a preallocated batch tensor. Per-frame
+uniforms are 0-d / 1-d views of the device matrix, and everything indexed
+per frame (sequence rows, prelude planes) is indexed with host Python ints
+taken from the captured uniforms, so the loop never waits on the device
+(no .item(), float() or bool() of device values); statics
+(program-specializing uniforms) are host values.
+
+Textures not owned by a program come in two kinds:
+  static    host-written (images): uploaded once, again when their version
+            changes between batches
+  sequence  per-frame device content (offline audio): row
+            clip(iFrameIndex, 0, F - 1) each frame, or the ring of the last
+            L columns for a windowed sequence
+Batch preludes (scene.batch_preludes, PreludeCtx) run once per flush; a
+prelude whose value has leading axis 1 is batch-invariant and cached
+across batches, keyed on (name, code), the sequence signature, the render
+size and the aspect.
 
 Ported: one main program (temporal 1, one layer) whose fragment returns a
-TailSpec or an (H, W, C) render, and the SSAA final pass. Not yet: temporal
-feedback carries, multipass programs and texture samplers, batch preludes,
-device sequences, streamed textures, frame/row sharding over devices.
+TailSpec or an (H, W, C) render, static and sequence textures, batch
+preludes, and the SSAA final pass. Not yet: temporal feedback carries,
+multipass programs, textures written every frame (streamed), frame/row
+sharding over devices.
 """
 
 from __future__ import annotations
@@ -26,7 +41,7 @@ from typing import TYPE_CHECKING, Any, Optional
 import numpy as np
 import torch
 
-from shaderflow_tpu import logger
+from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.ops import tailfuse
 from shaderflow_tpu_torch.ops.downsample import final_pass
 from shaderflow_tpu_torch.shader import Frag, ShaderProgram, finish_coords, make_coords
@@ -107,6 +122,70 @@ class FrameUniforms(Mapping):
         return len(self._spec)
 
 
+PRELUDE_KEY = "\0prelude:"
+"""Texture-name prefix under which the reference engine keeps cached
+batch-invariant prelude fields (load_reference_state)."""
+
+
+class PreludeCtx:
+    """The context handed to scene.batch_preludes functions, once per flush.
+
+    A prelude computes, for the whole batch at once, work whose per-pixel
+    indexing is frame-invariant (e.g. expanding per-frame lookup tables over
+    a static index field with kernel K2). Its value's leading axis is the
+    batch (frame i reads value[i]) or 1 (batch-invariant: cached across
+    batches). Return None to deactivate (frames fall back to their
+    per-frame formulation)."""
+
+    def __init__(self, frames: torch.Tensor, sequences: dict, render_size: tuple,
+                 aspect: float):
+        self.frames = frames          # (B,) int64 frame indices on the device
+        self.sequences = sequences    # name -> bound (F_pad, ...) device sequence
+        self.render_size = render_size  # (H, W) of the main program
+        self.aspect = aspect
+
+    def sequence(self, name: str):
+        return self.sequences.get(name)
+
+    def rows(self, name: str):
+        """Per-frame rows of a device sequence: seq[clip(frames)] -> (B, ...)."""
+        seq = self.sequences.get(name)
+        if seq is None:
+            return None
+        return seq.index_select(0, torch.clamp(self.frames, 0, seq.shape[0] - 1))
+
+
+def _tensor(array) -> torch.Tensor:
+    """A host array as a tensor; numpy bfloat16 (ml_dtypes) goes through its
+    bits, which torch.from_numpy does not take."""
+    if isinstance(array, torch.Tensor):
+        return array
+    array = np.ascontiguousarray(array)
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(array.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(array)
+
+
+def load_reference_state(scene: "ShaderScene", sequences: dict, textures: dict) -> None:
+    """Carry a reference engine's state into this scene: `sequences`
+    (name -> bound (F_pad, H, W, C) arrays, ring sequences already
+    front-padded) replace the module-bound sequences of the same name, and
+    `textures` (name -> (T, L, H, W, C) arrays) replace static uploads;
+    entries named PRELUDE_KEY + name replace that batch-invariant prelude.
+    This system has no weights: the precomputed audio sequences and
+    textures are its state, so with them the render path can be held to a
+    tight bar independently of FFT differences."""
+    scene.initialize()
+    engine = scene.engine
+    engine.pinned_sequences = {name: _tensor(v) for name, v in sequences.items()}
+    engine.pinned_textures = {name: _tensor(v) for name, v in textures.items()
+                              if not name.startswith(PRELUDE_KEY)}
+    engine.pinned_preludes = {name[len(PRELUDE_KEY):]: _tensor(v)
+                              for name, v in textures.items()
+                              if name.startswith(PRELUDE_KEY)}
+    engine.invalidate()
+
+
 class RenderEngine:
 
     def __init__(self, scene: "ShaderScene"):
@@ -116,6 +195,18 @@ class RenderEngine:
         self._uniform_kinds: dict[str, str] = {}
         self._coords = None
         self._render_size: tuple[int, int] = (0, 0)
+        # Device textures: static uploads (name -> (T, L, H, W, C), version)
+        # and bound sequences (name -> (source, bound tensor, window))
+        self._static_tex: dict[str, torch.Tensor] = {}
+        self._static_versions: dict[str, int] = {}
+        self._sequences: dict[str, tuple] = {}
+        # Batch-invariant prelude values and the state they were computed for
+        self._prelude_cache: dict[str, torch.Tensor] = {}
+        self._prelude_state = None
+        # Reference state carried in by load_reference_state (host tensors)
+        self.pinned_sequences: dict[str, torch.Tensor] = {}
+        self.pinned_textures: dict[str, torch.Tensor] = {}
+        self.pinned_preludes: dict[str, torch.Tensor] = {}
         # Per-batch capture state
         self._frame_uniforms: list[dict[str, np.ndarray]] = []
 
@@ -157,13 +248,10 @@ class RenderEngine:
                 f"Program {programs[0].name!r} temporal={texture.temporal} "
                 f"layers={texture.layers}: temporal feedback and multi-layer "
                 "programs are not ported yet")
-        externals = self._external_textures()
-        if externals:
-            raise NotImplementedError(
-                f"Textures {sorted(externals)}: host-written, streamed and "
-                "sequence textures are not ported yet")
-        if getattr(scene, "batch_preludes", None):
-            raise NotImplementedError("Batch preludes are not ported yet")
+        self._static_tex.clear()
+        self._static_versions.clear()
+        self._sequences.clear()
+        self._refresh_textures()
 
         self._statics = {v.name: v.value for v in scene.full_pipeline()
                          if v.static and v.value is not None}
@@ -183,7 +271,116 @@ class RenderEngine:
     def begin_batch(self) -> None:
         if self.stale:
             self.build()
+        else:
+            self._refresh_textures()
         self._frame_uniforms = []
+
+    # ------------------------------------------------------------------ #
+    # Textures and sequences
+
+    def _refresh_textures(self) -> None:
+        """Bind every external texture for the next batch: sequences by
+        identity of the module's tensor (ring windows front-padded with L-1
+        zero columns, so the window at frame 0 sees an empty history), host
+        textures uploaded when their version changed."""
+        device = self.device
+        for name, tex in self._external_textures().items():
+            if tex.sequence is not None:
+                self._static_tex.pop(name, None)
+                window = tex.sequence_window or 0
+                bound = self._sequences.get(name)
+                if bound is None or bound[0] is not tex.sequence or bound[2] != window:
+                    if name in self.pinned_sequences:
+                        seq = self.pinned_sequences[name].to(device)
+                    else:
+                        seq = tex.sequence.to(device)
+                        if window > 1:
+                            pad = seq.new_zeros((window - 1,) + tuple(seq.shape[1:]))
+                            seq = torch.cat([pad, seq], dim=0)
+                    self._sequences[name] = (tex.sequence, seq, window)
+                tex.dirty = False
+                continue
+            self._sequences.pop(name, None)
+            if name in self._static_tex and tex.version == self._static_versions.get(name):
+                continue
+            if name in self.pinned_textures:
+                matrix = self.pinned_textures[name]
+            else:
+                if tex.matrix is None:
+                    tex.make()
+                matrix = torch.from_numpy(tex.matrix)
+            self._static_tex[name] = matrix.to(device=device, dtype=torch.float32)
+            self._static_versions[name] = tex.version
+            tex.dirty = False
+
+    def bound_sequences(self) -> dict[str, torch.Tensor]:
+        """name -> the device sequence each frame indexes (ring-padded)."""
+        return {name: bound[1] for name, bound in self._sequences.items()}
+
+    def _frame_textures(self, frame_index: int) -> dict[str, torch.Tensor]:
+        """Every texture one frame reads, (T, L, H, W, C) views: the static
+        uploads and the frame's box of each sequence (row
+        clip(frame_index), or the ring of the last L columns)."""
+        textures = dict(self._static_tex)
+        for name, (_, seq, window) in self._sequences.items():
+            if window > 1:
+                # The slice at k spans columns k-L+1..k (oldest first);
+                # rolling by k+2 puts column k at x = (k+1) % L, the host
+                # write layout of a scrolling texture
+                k = min(max(frame_index, 0), seq.shape[0] - window)
+                ring = torch.roll(seq[k:k + window], k + 2, dims=0)
+                box = ring[:, :, 0, :].permute(1, 0, 2)
+            else:
+                box = seq[min(max(frame_index, 0), seq.shape[0] - 1)]
+            textures[name] = box[None, None]
+        return textures
+
+    # ------------------------------------------------------------------ #
+    # Batch preludes
+
+    def _run_preludes(self, frame_indices: list[int]) -> tuple[dict, dict]:
+        """Run the scene's batch preludes for one flush -> (per-batch values
+        with leading axis B, batch-invariant values with leading axis 1).
+        Invariant values are reused while the state they were computed for
+        holds; values carried by load_reference_state take precedence."""
+        functions = dict(getattr(self.scene, "batch_preludes", None) or {})
+        if not functions:
+            return {}, {}
+        sequences = self.bound_sequences()
+        # (name, __code__): scenes re-register fresh closures from the same
+        # factory on every build, which share semantics by contract
+        state = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
+                              for name, fn in functions.items())),
+                 tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
+                              for name, seq in sequences.items())),
+                 self._render_size, self.scene.aspect_ratio, str(self.device))
+        if state != self._prelude_state:
+            self._prelude_state = state
+            self._prelude_cache = {name: value.to(self.device)
+                                   for name, value in self.pinned_preludes.items()}
+        frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(self.device)
+        ctx = PreludeCtx(frames, sequences, self._render_size, self.scene.aspect_ratio)
+        per_batch = {}
+        for name, fn in functions.items():
+            if name in self._prelude_cache:
+                continue
+            value = fn(ctx)
+            if value is None:
+                continue
+            if value.shape[0] == 1:
+                self._prelude_cache[name] = value
+            elif value.shape[0] != len(frame_indices):
+                raise ValueError(f"Prelude {name!r}: leading axis {value.shape[0]} "
+                                 f"!= batch {len(frame_indices)}")
+            else:
+                per_batch[name] = value
+        return per_batch, self.invariant_preludes()
+
+    def invariant_preludes(self) -> dict[str, torch.Tensor]:
+        """The cached batch-invariant prelude values (leading axis 1)."""
+        functions = getattr(self.scene, "batch_preludes", None) or {}
+        return {name: value for name, value in self._prelude_cache.items()
+                if name in functions}
 
     def capture_frame(self) -> None:
         """Snapshot the current frame's uniforms. Called after the scene ran
@@ -207,6 +404,12 @@ class RenderEngine:
             # A static changed mid-run: the next flush rebuilds around it
             self.invalidate()
         self._frame_uniforms.append(uniforms)
+        for name, tex in self._external_textures().items():
+            if tex.sequence is None and tex.dirty:
+                raise NotImplementedError(
+                    f"Texture {name!r} was written during the frame loop: "
+                    "streamed textures (per-frame host writes) are not "
+                    "ported yet; static uploads and device sequences are")
 
     # ------------------------------------------------------------------ #
     # Flush: render the captured frames
@@ -246,6 +449,26 @@ class RenderEngine:
                 position += value.size
         return packed, tuple(spec)
 
+    def frame_indices(self, count: Optional[int] = None) -> list[int]:
+        """iFrameIndex of each captured frame, host ints (sequence rows)."""
+        frames = self._frame_uniforms[:count]
+        return [int(frame["iFrameIndex"]) for frame in frames]
+
+    def frame_context(self, row: torch.Tensor, spec: tuple, step: int,
+                      frame_index: int, per_batch: dict, invariant: dict) -> Frag:
+        """The Frag of one frame: its packed uniform row on the device, its
+        textures (sequence rows at frame_index), and the batch's prelude
+        values (frame `step` of each per-batch stack, entry 0 of each
+        batch-invariant one)."""
+        uniforms = FrameUniforms(row, spec)
+        return Frag(coords=finish_coords(self._coords, uniforms["iResolution"]),
+                    uniforms=uniforms, statics={**self._statics, "iLayer": 0},
+                    textures=self._frame_textures(frame_index),
+                    texture_meta=self._external_textures(),
+                    preludes={**{n: v[step] for n, v in per_batch.items()},
+                              **{n: v[0] for n, v in invariant.items()}},
+                    prelude_stacks={**per_batch, **invariant}, prelude_step=step)
+
     def flush(self, count: Optional[int] = None) -> Optional[torch.Tensor]:
         """Render the captured frames -> (F, H, W, 3) uint8 on the device.
         Work is enqueued on the current stream; nothing waits for it."""
@@ -255,6 +478,9 @@ class RenderEngine:
         if self.stale:
             # A static changed during capture: rebuild; captures stay valid
             self.build()
+        else:
+            # Modules bind their sequences on their first update
+            self._refresh_textures()
         packed, spec = self.stack_captures(count)
         packed = torch.from_numpy(packed)
         if self.device.type == "cuda":
@@ -268,11 +494,11 @@ class RenderEngine:
         render_h, render_w = self._render_size
         subsample = int(scene.subsample)
         aspect = scene.aspect_ratio
-        statics = {**self._statics, "iLayer": 0}
+        frame_indices = self.frame_indices(count)
+        per_batch, invariant = self._run_preludes(frame_indices)
         for index in range(count):
-            uniforms = FrameUniforms(packed[index], spec)
-            ctx = Frag(coords=finish_coords(self._coords, uniforms["iResolution"]),
-                       uniforms=uniforms, statics=statics)
+            ctx = self.frame_context(packed[index], spec, index, frame_indices[index],
+                                     per_batch, invariant)
             out = program.render_layer(ctx)
             if isinstance(out, tailfuse.TailSpec):
                 # The main program's tail fuses with the final pass: its

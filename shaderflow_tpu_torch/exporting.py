@@ -14,9 +14,10 @@ import time
 from pathlib import Path
 from typing import TYPE_CHECKING, Optional, Union
 
-from shaderflow_tpu import logger
-from shaderflow_tpu.io.ffmpeg import FFmpeg
-from shaderflow_tpu.io.sinks import CV2Sink, FFmpegSink, ImageSink, NullSink, RawSink, VideoSink
+from shaderflow_tpu_torch import logger
+from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+from shaderflow_tpu_torch.io.sinks import (
+    CV2Sink, FFmpegSink, ImageSink, NullSink, RawSink, VideoSink)
 
 if TYPE_CHECKING:
     from shaderflow_tpu_torch.engine import WireBatch
@@ -88,7 +89,7 @@ class ExportingHelper:
             self.sink = ImageSink(path if suffix == "" else path.parent)
         elif FFmpeg.available():
             self._configure_ffmpeg(path, width, height)
-            self.sink = FFmpegSink(self.ffmpeg, pipe_w * pipe_h * 3, buffers, turbo)
+            self.sink = FFmpegSink(self.ffmpeg)
         else:
             logger.warn(f"No ffmpeg binary: encoding {path.name} with OpenCV")
             self.sink = CV2Sink(path, pipe_w, pipe_h, scene.fps)

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Union
 
-from shaderflow_tpu.message import ShaderMessage
+from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 
 

@@ -3,7 +3,7 @@ ShaderModule — the lifecycle trait everything in a scene implements.
 
 Port of shaderflow_tpu/module.py (the reference module system): a module
 registers itself into its scene on construction, exposes build / setup /
-update / pipeline / handle / ffhook / duration / destroy hooks, can relay()
+update / prewarm / pipeline / handle / ffhook / duration / destroy hooks, can relay()
 messages to every module, and full_pipeline() concatenates every module's
 uniforms. The scene itself is the first module. The realtime HUD hooks and
 CLI commands are not ported yet.
@@ -15,10 +15,10 @@ import itertools
 import weakref
 from typing import TYPE_CHECKING, Any, Iterable, Optional
 
-from shaderflow_tpu.variable import ShaderVariable, Uniform
+from shaderflow_tpu_torch.variable import ShaderVariable, Uniform
 
 if TYPE_CHECKING:
-    from shaderflow_tpu.io.ffmpeg import FFmpeg
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
     from shaderflow_tpu_torch.scene import ShaderScene
 
 _uuid_counter = itertools.count(1)
@@ -66,6 +66,10 @@ class ShaderModule:
 
     def update(self) -> None:
         """Called once per frame on the host, before the batch renders."""
+
+    def prewarm(self) -> None:
+        """One-time heavy work before an export's first frame (whole-file
+        audio precomputes); the scene runs it after setup and duration."""
 
     def pipeline(self) -> Iterable[ShaderVariable]:
         """Yield this module's uniforms for the current frame."""

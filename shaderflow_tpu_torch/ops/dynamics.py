@@ -3,10 +3,13 @@ Second-order ODE smoothing — the f / zeta / r system, host form.
 
 Same dynamical system as shaderflow_tpu/ops/dynamics.py (the reference
 dynamics module, t3ssel8r's parameterization integrated with semi-implicit
-Euler, k2 stability clamp, pole matching for fast systems). Host modules
-(ShaderDynamics, camera parameters) step it per frame in numpy. The batched
-whole-trajectory smoother (the reference's lax.scan form) is not ported
-yet: the audio slice needs it.
+Euler, k2 stability clamp, pole matching for fast systems). Two forms:
+
+  * step() and DynamicNumber: one step on numpy arrays or tensors — host
+    modules (ShaderDynamics, camera parameters) step it per frame.
+  * scan(): a whole (F, ...) target trajectory smoothed at a fixed timestep
+    (the reference's lax.scan): a loop over frames on tensors, run once per
+    export by the audio precomputes.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import math
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class Coefficients(NamedTuple):
@@ -42,6 +46,42 @@ class Coefficients(NamedTuple):
             k1 = t2 * (1.0 - t1 * t1)
             k2 = t2 * dt
         return Coefficients(k1, k2, k3)
+
+
+def step(value, derivative, previous, target, dt: float, coeffs: Coefficients):
+    """One semi-implicit Euler step -> (value, derivative, previous), on
+    numpy arrays or tensors alike."""
+    velocity = (target - previous) / dt
+    value = value + derivative * dt
+    acceleration = (target + coeffs.k3 * velocity - value - coeffs.k1 * derivative) / coeffs.k2
+    derivative = derivative + acceleration * dt
+    return value, derivative, target
+
+
+def scan(targets: torch.Tensor, initial_value, dt: float, frequency: float = 1.0,
+         zeta: float = 1.0, response: float = 0.0, integrate: bool = False):
+    """Smooth a whole (F, ...) float32 target trajectory at a fixed timestep
+    -> (F, ...) smoothed values, and with integrate=True also the running
+    integral. One step per frame, in order, on the targets' device."""
+    coeffs = Coefficients.compute(frequency, zeta, response, dt)
+    targets = torch.as_tensor(targets, dtype=torch.float32)
+    value = torch.as_tensor(initial_value, dtype=torch.float32,
+                            device=targets.device).expand(targets.shape[1:])
+    previous = value
+    derivative = torch.zeros_like(value)
+    integral = torch.zeros_like(value)
+    values = torch.empty_like(targets)
+    integrals = torch.empty_like(targets) if integrate else None
+    for index in range(targets.shape[0]):
+        value, derivative, previous = step(value, derivative, previous,
+                                           targets[index], dt, coeffs)
+        values[index] = value
+        if integrate:
+            integral = integral + value * dt
+            integrals[index] = integral
+    if integrate:
+        return values, integrals
+    return values
 
 
 class DynamicNumber:

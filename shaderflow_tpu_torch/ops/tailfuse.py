@@ -18,9 +18,13 @@ emitted into kernel K1's Triton template (ops/tailgen.py: CUDA tensors), so
 both compute the same thing by construction.
 
 Inputs are classified by make_spec: planes (Hr, Wr) [or (Hr, Wr, C) / a
-tuple of channel planes], Row (Hr,), Col (Wr,), 0-d scalars. Table,
-ColSampled and Indexed inputs are classified (so scenes can name them) but
-not ported yet: both paths raise NotImplementedError for them.
+tuple of channel planes], Row (Hr,), Col (Wr,), 0-d scalars, Indexed (one
+plane of an (N, Hr, Wr) prelude stack, picked by a clipped index) and
+ColSampled (row-interpolated (Hr, W_in) planes whose column interpolation
+happens inside the tail). Planes may be float32 or bfloat16; the tail
+computes in float32 (the reference's SHADERFLOW_TAIL_BF16 mode is not
+ported). Table inputs are classified but not ported yet: both paths raise
+NotImplementedError for them.
 """
 
 from __future__ import annotations
@@ -90,16 +94,29 @@ class Table(NamedTuple):
 
 
 class ColSampled(NamedTuple):
-    """Row-interpolated (Hr, W_in) planes column-interpolated inside the
-    kernel (not ported yet: the visualizer slice)."""
+    """A texture input column-interpolated inside the tail.
+
+    `planes` are row-interpolated (Hr, W_in) planes (the output of
+    ops.sampling.sample_rows_planes_blocked); `u_line` (Wr,) holds
+    normalized u in [0, 1]. Column c reads the 2-tap hat interpolation at
+    position clip(u[c] * W_in - 0.5, 0, W_in - 1) (CLAMP), so the
+    full-resolution sampled planes never reach device memory.
+    `texels_per_px` sized the TPU kernel's column window; the port's
+    gathers need no window and ignore it."""
     planes: Any
     u_line: Any
     texels_per_px: float
 
 
+class ColSampledSpec(NamedTuple):
+    planes: tuple          # (Hr, W_in) channel planes, float32 or bfloat16
+    positions: Any         # (Wr,) float32 texel positions, clipped
+
+
 class Indexed(NamedTuple):
-    """One (Hr, Wr) plane picked from an (N, Hr, Wr) prelude stack by index
-    (not ported yet: the visualizer slice)."""
+    """One (Hr, Wr) plane of a stacked (N, Hr, Wr) prelude output, picked
+    by `index` clipped to [0, N - 1]; the kernel reads it straight from the
+    stack (no per-frame copy)."""
     stack: Any
     index: Any
 
@@ -112,8 +129,8 @@ class TailSpec(NamedTuple):
     cols: dict            # name -> (Wr,) tensor
     scalars: dict         # name -> 0-d tensor
     tables: dict = {}     # name -> Table value (not ported)
-    colsampled: dict = {}  # name -> ColSampled (not ported)
-    indexed: dict = {}    # name -> Indexed (not ported)
+    colsampled: dict = {}  # name -> ColSampledSpec
+    indexed: dict = {}    # name -> Indexed (index a Python int)
 
 
 def make_spec(fn: Callable, render_height: int, render_width: int,
@@ -123,9 +140,23 @@ def make_spec(fn: Callable, render_height: int, render_width: int,
     tables, colsampled, indexed = {}, {}, {}
     for name, value in inputs.items():
         if isinstance(value, Indexed):
-            indexed[name] = value
+            stack = torch.as_tensor(value.stack)
+            if tuple(stack.shape[1:]) != (render_height, render_width):
+                raise ValueError(
+                    f"Indexed input {name!r}: stack shape {tuple(stack.shape)} != "
+                    f"(N, {render_height}, {render_width})")
+            indexed[name] = Indexed(stack, value.index)
         elif isinstance(value, ColSampled):
-            colsampled[name] = value
+            channels = tuple(torch.as_tensor(p) for p in value.planes)
+            w_in = channels[0].shape[1]
+            for channel in channels:
+                if tuple(channel.shape) != (render_height, w_in):
+                    raise ValueError(
+                        f"ColSampled input {name!r}: plane shape "
+                        f"{tuple(channel.shape)} != ({render_height}, {w_in})")
+            u = torch.as_tensor(value.u_line).to(torch.float32).reshape(render_width)
+            positions = torch.clamp(u * w_in - 0.5, 0.0, float(w_in - 1))
+            colsampled[name] = ColSampledSpec(channels, positions)
         elif isinstance(value, Table):
             tables[name] = value
         elif isinstance(value, Row):
@@ -163,15 +194,60 @@ def make_spec(fn: Callable, render_height: int, render_width: int,
 
 
 def unported_inputs(spec: TailSpec) -> None:
-    """Raise NotImplementedError naming the first input kind neither path
-    takes yet."""
-    for kind, bucket in (("Table", spec.tables), ("ColSampled", spec.colsampled),
-                         ("Indexed", spec.indexed)):
-        if bucket:
-            raise NotImplementedError(
-                f"Tail input kind {kind} ({sorted(bucket)}) is not ported yet: "
-                "kernel K1's Table/ColSampled/Indexed forms come with the "
-                "visualizer slice")
+    """Raise NotImplementedError for the input kind neither path takes yet."""
+    if spec.tables:
+        raise NotImplementedError(
+            f"Tail input kind Table ({sorted(spec.tables)}) is not ported yet: "
+            "kernel K1's table form comes with the PianoRoll slice")
+
+
+def indexed_position(ix: Indexed) -> int:
+    """An Indexed input's plane: its index clipped to [0, N - 1]. The index
+    is a host value (the engine's frame loop hands Python ints), so picking
+    the plane never waits on the device."""
+    index = ix.index
+    if isinstance(index, torch.Tensor):
+        if index.device.type != "cpu":
+            raise ValueError("Indexed takes a host index (a Python int), not a "
+                             f"tensor on {index.device}: reading it back would "
+                             "stall the frame loop")
+        index = index.item()
+    return min(max(int(index), 0), ix.stack.shape[0] - 1)
+
+
+def colsampled_taps(positions: torch.Tensor, w_in: int, dtype) -> tuple:
+    """The two hat taps of each column -> (x0 int64, x1 int64, w0, w1):
+    texels x0 = floor(pos) and x0 + 1 (clamped; its weight is then 0) with
+    weights max(1 - |pos - x|, 0), the dense reference's expression,
+    rounded through `dtype` (the plane's) when that is bfloat16."""
+    x0f = torch.floor(positions)
+    w0 = torch.clamp(1.0 - torch.abs(positions - x0f), min=0.0)
+    w1 = torch.clamp(1.0 - torch.abs(positions - (x0f + 1.0)), min=0.0)
+    if dtype == torch.bfloat16:
+        w0 = w0.to(torch.bfloat16).to(torch.float32)
+        w1 = w1.to(torch.bfloat16).to(torch.float32)
+    x0 = x0f.to(torch.int64)
+    return x0, torch.clamp(x0 + 1, max=w_in - 1), w0, w1
+
+
+def materialize_colsampled(spec: TailSpec) -> dict:
+    """Column interpolation of the ColSampled inputs -> full (Hr, Wr) f32
+    channel planes: plane[:, x0] * w0 + plane[:, x1] * w1. Equal to the
+    reference's dense product with the hat-weight matrix: the same two
+    nonzero products (exact in f32 for bf16 planes), summed once."""
+    extra = {}
+    for name, cs in spec.colsampled.items():
+        w_in = cs.planes[0].shape[1]
+        x0, x1, w0, w1 = colsampled_taps(cs.positions, w_in, cs.planes[0].dtype)
+        extra[name] = tuple(plane[:, x0].to(torch.float32) * w0
+                            + plane[:, x1].to(torch.float32) * w1
+                            for plane in cs.planes)
+    return extra
+
+
+def materialize_indexed(spec: TailSpec) -> dict:
+    """Each Indexed input's (Hr, Wr) plane of its stack (a view)."""
+    return {name: (ix.stack[indexed_position(ix)],) for name, ix in spec.indexed.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -198,6 +274,9 @@ class TailCtx:
     # -- inputs --------------------------------------------------------------
 
     def plane(self, name: str, channel: int = 0, dtype=None):
+        """A channel plane in float32 (bfloat16 planes upcast at load); an
+        explicit `dtype` names the precision a geometry plane needs, which
+        in the port is always float32."""
         return self._planes[name][channel].to(dtype or torch.float32)
 
     def vec(self, name: str) -> tuple:
@@ -256,7 +335,9 @@ class TailCtx:
 def spec_device(spec: TailSpec) -> torch.device:
     """The device of a spec's tensor inputs (CPU when it has none)."""
     tensors = [*spec.rows.values(), *spec.cols.values(), *spec.scalars.values(),
-               *(c for channels in spec.planes.values() for c in channels)]
+               *(c for channels in spec.planes.values() for c in channels),
+               *(ix.stack for ix in spec.indexed.values()),
+               *(cs.positions for cs in spec.colsampled.values())]
     return tensors[0].device if tensors else torch.device("cpu")
 
 
@@ -272,7 +353,9 @@ def eval_reference(spec: TailSpec, render_height: int, render_width: int,
                              device=device)[:, None].expand(shape)
     col_index = torch.arange(render_width, dtype=torch.float32,
                              device=device)[None, :].expand(shape)
-    ctx = TailCtx(spec.planes, rows, cols, spec.scalars, row_index, col_index,
+    planes = {**spec.planes, **materialize_colsampled(spec),
+              **materialize_indexed(spec)}
+    ctx = TailCtx(planes, rows, cols, spec.scalars, row_index, col_index,
                   render_height, render_width, aspect)
     result = spec.fn(ctx)
     planes = [torch.broadcast_to(torch.as_tensor(p, dtype=torch.float32,

@@ -2,10 +2,14 @@
 Kernel K1: the scene's tail function traced into a Triton tile template.
 
 Replaces shaderflow_tpu/ops/tailfuse.py:fused_tail_final (the Pallas TPU
-kernel dispatched by run_tail_final), in the forms the fractal slice uses:
-planes, rows, columns and scalars, s x s box pooling, GL u8 quantization,
-masked partial tiles. The Indexed, ColSampled, Table and quantize=False
-forms are not ported yet and raise.
+kernel dispatched by run_tail_final), in the forms the fractal and
+visualizer slices use: planes (float32 or bfloat16, upcast at load), rows,
+columns and scalars; Indexed planes (read from the prelude stack at the
+clipped index: the wrapper hands the kernel the plane's own base pointer);
+ColSampled planes (the 2-tap hat interpolation along columns of
+row-interpolated (Hr, W_in) planes, computed per pixel from the column's
+position); s x s box pooling, GL u8 quantization, masked partial tiles. The
+Table and quantize=False forms are not ported yet and raise.
 
 Why Triton: the body is user Python (a different tail per scene), a fused
 elementwise pass plus a tiny s x s reduction and a quantize — what Triton
@@ -27,7 +31,18 @@ Bound on this card: bytes of the SSAA-resolution input planes (each read
 exactly once; the output is 1/s^2 as many pixels at 3 bytes) — the
 full-resolution tail intermediates of the plain path never reach device
 memory. Loads of one sub-position are column-strided by s; the other
-sub-positions of the same tile hit the same cache lines.
+sub-positions of the same tile hit the same cache lines. A ColSampled
+plane is read at two texels per pixel, but its (Hr, W_in) rows are
+narrower than the render (W_in <= Wr) and neighbouring pixels share
+texels, so its device-memory bytes stay those of the row planes; the TPU
+kernel's 128-column window prefetch is not needed for that (gathers go
+through L1/L2).
+
+ColSampled weights are max(1 - |pos - x|, 0) for x = floor(pos) and
+floor(pos) + 1 (the dense reference's expression, not 1 - frac), rounded
+to bf16 for bf16 planes; the two products are exact in f32 for bf16
+operands and are summed once, so the kernel equals
+tailfuse.materialize_colsampled bit for bit.
 
 Float rules: launched with enable_fp_fusion=False (no FMA contraction),
 division as div_rn and sqrt as sqrt_rn (IEEE-rounded, as torch's;
@@ -46,7 +61,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, unported_inputs
+from shaderflow_tpu_torch.ops.tailfuse import (
+    TailCtx, TailSpec, indexed_position, unported_inputs)
 
 BLOCK_H = 8     # output rows per program
 BLOCK_W = 64    # output columns per program
@@ -232,10 +248,13 @@ def trace(spec: TailSpec, render_height: int, render_width: int,
     is a node index or ("const", value)."""
     unported_inputs(spec)
     graph = Graph()
-    planes = _LazyInputs(graph, "plane", {n: len(c) for n, c in spec.planes.items()})
-    rows = _LazyInputs(graph, "row", {n: 1 for n in spec.rows}, single=True)
-    cols = _LazyInputs(graph, "col", {n: 1 for n in spec.cols}, single=True)
-    scalars = _LazyInputs(graph, "scalar", {n: 1 for n in spec.scalars}, single=True)
+    planes = _LazyInputs(graph, {
+        **{n: ("plane", len(c)) for n, c in spec.planes.items()},
+        **{n: ("plane", 1) for n in spec.indexed},
+        **{n: ("colsampled", len(cs.planes)) for n, cs in spec.colsampled.items()}})
+    rows = _LazyInputs(graph, {n: ("row", 1) for n in spec.rows}, single=True)
+    cols = _LazyInputs(graph, {n: ("col", 1) for n in spec.cols}, single=True)
+    scalars = _LazyInputs(graph, {n: ("scalar", 1) for n in spec.scalars}, single=True)
     ctx = TailCtx(planes, rows, cols, scalars,
                   graph.input(("row_index", "", 0)),
                   graph.input(("col_index", "", 0)),
@@ -249,24 +268,25 @@ def trace(spec: TailSpec, render_height: int, render_width: int,
 
 class _LazyInputs(dict):
     """name -> Sym (or tuple of channel Syms); registers the input node on
-    first read, so the kernel loads only what the tail uses."""
+    first read, so the kernel loads only what the tail uses. `kinds` maps
+    each name to (input kind, channel count)."""
 
-    def __init__(self, graph: Graph, kind: str, channels: dict, single=False):
+    def __init__(self, graph: Graph, kinds: dict, single=False):
         super().__init__()
-        self._graph, self._kind, self._channels = graph, kind, channels
+        self._graph, self._kinds = graph, kinds
         self._single = single
 
     def __missing__(self, name):
-        if name not in self._channels:
+        if name not in self._kinds:
             raise KeyError(name)
-        syms = tuple(self._graph.input((self._kind, name, c))
-                     for c in range(self._channels[name]))
+        kind, channels = self._kinds[name]
+        syms = tuple(self._graph.input((kind, name, c)) for c in range(channels))
         value = syms[0] if self._single else syms
         self[name] = value
         return value
 
     def __contains__(self, name):
-        return name in self._channels
+        return name in self._kinds
 
 
 # --------------------------------------------------------------------------- #
@@ -311,7 +331,8 @@ def _extremum(function, bound: str, a, b):
 
 def evaluate(graph: Graph, outputs: list, env: dict) -> list:
     """Evaluate the graph with torch. env maps input keys ("plane", name,
-    channel) / ("row", name, 0) / ... / ("row_index", "", 0) to tensors."""
+    channel) / ("colsampled", name, channel) (the column-interpolated
+    plane) / ("row", name, 0) / ... / ("row_index", "", 0) to tensors."""
     values = []
     for op, args, _ in graph.nodes:
         if op == "input":
@@ -347,13 +368,40 @@ def _literal(value: float) -> str:
     return repr(value) if math.isfinite(value) else f'float("{value}")'
 
 
-def generate(graph: Graph, outputs: list, subsample: int) -> tuple[str, list]:
+def generate(graph: Graph, outputs: list, subsample: int,
+             colsampled_bf16: frozenset = frozenset()) -> tuple[str, list]:
     """Emit the Triton source for this graph -> (source, input keys in
-    kernel-argument order)."""
-    keys = sorted(k for k in graph.inputs if k[0] in ("plane", "row", "col", "scalar"))
+    kernel-argument order). ColSampled inputs also take, per name, their
+    (Wr,) positions and their width W_in (arguments pos<j>, win<j>);
+    `colsampled_bf16` names those whose planes are bfloat16 (their hat
+    weights round to bf16)."""
+    keys = sorted(k for k in graph.inputs
+                  if k[0] in ("plane", "colsampled", "row", "col", "scalar"))
     scalar_keys = [k for k in keys if k[0] == "scalar"]
     pointer_keys = [k for k in keys if k[0] != "scalar"]
     arg_names = {k: f"in{i}" for i, k in enumerate(pointer_keys)}
+    sampled = sorted({k[1] for k in keys if k[0] == "colsampled"})
+    taps_emitted: set = set()
+
+    def colsampled_taps(name: str) -> list:
+        """Per-pixel texels and hat weights of a ColSampled input (emitted
+        once per sub-position, before its first channel load)."""
+        j = sampled.index(name)
+        if name in taps_emitted:
+            return []
+        taps_emitted.add(name)
+        lines = [
+            f"cp{j} = tl.load(pos{j} + ci, mask=valid, other=0.0)",
+            f"cf{j} = tl.floor(cp{j})",
+            f"cw{j}a = tl.maximum(1.0 - tl.abs(cp{j} - cf{j}), 0.0)",
+            f"cw{j}b = tl.maximum(1.0 - tl.abs(cp{j} - (cf{j} + 1.0)), 0.0)",
+        ]
+        if name in colsampled_bf16:
+            lines += [f"cw{j}a = cw{j}a.to(tl.bfloat16).to(tl.float32)",
+                      f"cw{j}b = cw{j}b.to(tl.bfloat16).to(tl.float32)"]
+        lines += [f"cx{j}a = cf{j}.to(tl.int32)",
+                  f"cx{j}b = tl.minimum(cx{j}a + 1, win{j} - 1)"]
+        return lines
 
     consts: dict[Any, str] = {}
     hoisted = []
@@ -382,7 +430,14 @@ def generate(graph: Graph, outputs: list, subsample: int) -> tuple[str, list]:
         if op == "input":
             kind_in, name, channel = args
             if kind_in == "plane":
-                expr = f"tl.load({arg_names[args]} + ri * Wr + ci, mask=valid, other=0.0)"
+                expr = (f"tl.load({arg_names[args]} + ri * Wr + ci, mask=valid, "
+                        "other=0.0).to(tl.float32)")
+            elif kind_in == "colsampled":
+                body.extend(colsampled_taps(name))
+                j = sampled.index(name)
+                row = f"{arg_names[args]} + ri * win{j}"
+                expr = (f"tl.load({row} + cx{j}a, mask=valid, other=0.0).to(tl.float32) * cw{j}a"
+                        f" + tl.load({row} + cx{j}b, mask=valid, other=0.0).to(tl.float32) * cw{j}b")
             elif kind_in == "row":
                 expr = f"tl.load({arg_names[args]} + ri, mask=valid, other=0.0)"
             elif kind_in == "col":
@@ -409,6 +464,8 @@ def generate(graph: Graph, outputs: list, subsample: int) -> tuple[str, list]:
     stores = [f"acc{c} += {ref(o, 'f')}" for c, o in enumerate(outputs)]
 
     params = ["out"] + [arg_names[k] for k in pointer_keys]
+    params += [f"pos{j}" for j in range(len(sampled))]
+    params += [f"win{j}" for j in range(len(sampled))]
     if scalar_keys:
         params.append("scalars")
     params += ["Wr", "Ho", "Wo", "S: tl.constexpr", "BH: tl.constexpr",
@@ -458,24 +515,39 @@ def tail_kernel({", ".join(params)}):
     return source, keys
 
 
+def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
+                 dtypes: tuple, device: torch.device) -> None:
+    if (tensor.device != device or tensor.dtype not in dtypes
+            or not tensor.is_contiguous() or tuple(tensor.shape) != shape):
+        raise ValueError(
+            f"K1 takes contiguous {kind} inputs of shape {shape} and type "
+            f"{' or '.join(str(d) for d in dtypes)} on {device}; {name!r} is "
+            f"{tensor.dtype} {tuple(tensor.shape)} on {tensor.device} "
+            f"contiguous={tensor.is_contiguous()}")
+
+
 def prepare(spec: TailSpec, render_height: int, render_width: int,
             out_height: int, out_width: int, subsample: int, aspect: float,
             device: torch.device):
     """Trace, generate (compiled once per distinct source) and bind K1 for
     this spec -> launch(out): a closure that enqueues the kernel on the
     current stream, writing the (out_h, out_w, 3) u8 tensor `out`. Inputs
-    must be contiguous float32 on `device`; raises on anything the
-    template does not take."""
+    must be contiguous on `device`, planes float32 or bfloat16, everything
+    else float32; raises on anything the template does not take."""
     from shaderflow_tpu_torch.build import triton_module
 
     if device.index is None:   # "cuda" means the current card
         device = torch.device(device.type, torch.cuda.current_device())
     graph, outputs = trace(spec, render_height, render_width, aspect)
-    source, keys = generate(graph, outputs, subsample)
+    bf16 = frozenset(name for name, cs in spec.colsampled.items()
+                     if cs.planes[0].dtype == torch.bfloat16)
+    source, keys = generate(graph, outputs, subsample, bf16)
     kernel = triton_module(source, stem="tail").tail_kernel
 
-    expected = {"plane": (render_height, render_width), "row": (render_height,),
-                "col": (render_width,)}
+    planes = {name: spec.planes[name] for name in spec.planes}
+    planes.update({name: (ix.stack[indexed_position(ix)],)   # a view: no copy
+                   for name, ix in spec.indexed.items()})
+    sampled = sorted({name for kind, name, _ in keys if kind == "colsampled"})
     pointers = []
     scalars = []
     for kind, name, channel in keys:
@@ -483,16 +555,25 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
             scalars.append(torch.as_tensor(spec.scalars[name], dtype=torch.float32,
                                            device=device).reshape(()))
             continue
-        tensor = (spec.planes[name][channel] if kind == "plane" else
-                  spec.rows[name] if kind == "row" else spec.cols[name])
-        if (tensor.device != device or tensor.dtype != torch.float32
-                or not tensor.is_contiguous() or tuple(tensor.shape) != expected[kind]):
-            raise ValueError(
-                f"K1 takes contiguous float32 {kind} inputs of shape "
-                f"{expected[kind]} on {device}; {name!r} is {tensor.dtype} "
-                f"{tuple(tensor.shape)} on {tensor.device} "
-                f"contiguous={tensor.is_contiguous()}")
+        if kind == "plane":
+            tensor, shape = planes[name][channel], (render_height, render_width)
+        elif kind == "colsampled":
+            tensor = spec.colsampled[name].planes[channel]
+            shape = (render_height, spec.colsampled[name].planes[0].shape[1])
+        elif kind == "row":
+            tensor, shape = spec.rows[name], (render_height,)
+        else:
+            tensor, shape = spec.cols[name], (render_width,)
+        dtypes = (torch.float32, torch.bfloat16) if kind in ("plane", "colsampled") \
+            else (torch.float32,)
+        _check_input(tensor, kind, name, shape, dtypes, device)
         pointers.append(tensor)
+    for name in sampled:
+        positions = spec.colsampled[name].positions
+        _check_input(positions, "ColSampled position", name, (render_width,),
+                     (torch.float32,), device)
+        pointers.append(positions)
+    pointers += [spec.colsampled[name].planes[0].shape[1] for name in sampled]
     if scalars:
         pointers.append(torch.stack(scalars))
     grid = (math.ceil(out_height / BLOCK_H), math.ceil(out_width / BLOCK_W))

@@ -10,7 +10,11 @@ flush through the engine; the device renders batch k while the host
 captures batch k+1 and the sink drains batch k-1.
 
 The device is an argument: main(..., device="cuda") by default, and
-device="cpu" runs every kernel's plain PyTorch version. Not ported yet: the
+device="cpu" runs every kernel's plain PyTorch version. Before the first
+frame, modules prewarm (the audio precomputes); the runtime follows the
+longest module duration (the audio file) unless `time` is given; module
+ffhooks mux their inputs (the audio) into FFmpeg outputs; the scene's
+batch_preludes run in the engine once per batch. Not ported yet: the
 realtime loop, window, HUD and input devices, multi-device sharding.
 """
 
@@ -22,19 +26,17 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from shaderflow_tpu import logger
-from shaderflow_tpu.io.ffmpeg import FFmpeg
-from shaderflow_tpu.message import ShaderMessage
-from shaderflow_tpu.resolution import Resolution
-from shaderflow_tpu.scheduler import Scheduler
-from shaderflow_tpu.variable import ShaderVariable, StaticUniform
-from shaderflow_tpu_torch import resolve_device
+from shaderflow_tpu_torch import logger, resolve_device
 from shaderflow_tpu_torch.engine import RenderEngine, to_wire
 from shaderflow_tpu_torch.exporting import ExportingHelper
 from shaderflow_tpu_torch.frametimer import ShaderFrametimer
+from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
 from shaderflow_tpu_torch.keyboard import ShaderKeyboard
+from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.resolution import Resolution
 from shaderflow_tpu_torch.shader import ShaderProgram
+from shaderflow_tpu_torch.variable import ShaderVariable, StaticUniform
 
 
 def _parse_ratio(value: str) -> Optional[float]:
@@ -113,7 +115,6 @@ class ShaderScene(ShaderModule):
         self.mouse_buttons: dict[int, bool] = {k: False for k in range(1, 6)}
         self.exclusive: bool = False
 
-        self.scheduler = Scheduler()
         self.ffmpeg = FFmpeg()
         self.engine: Optional[RenderEngine] = None
         self.batch_preludes: dict = {}
@@ -337,7 +338,6 @@ class ShaderScene(ShaderModule):
         self.rdt = 0.0
         self._frame_counter = 0
         self.relay(ShaderMessage.Shader.Compile)
-        self.scheduler.clear()
 
         final_width, final_height = self.resize(
             width=width, height=height, ratio=ratio, scale=scale)
@@ -362,10 +362,17 @@ class ShaderScene(ShaderModule):
         pixels = self._width * self._height
         return int(np.clip(2 ** 28 // max(1, pixels), 4, 128))
 
+    def _prewarm_modules(self) -> None:
+        """Every module's prewarm() before the first frame (the whole-file
+        spectrogram and waveform precomputes), in module order."""
+        for module in self.modules:
+            module.prewarm()
+
     def _export_loop(self, export: ExportingHelper, batch: Optional[int],
                      start_frame: int = 0):
         total = export.total_frames
         size = int(batch or self.default_batch_size())
+        self._prewarm_modules()
 
         if start_frame:
             logger.info(f"Resuming export at frame {start_frame} (host replay)")

@@ -3,10 +3,12 @@ ShaderProgram — pixel programs as Python functions on torch tensors.
 
 Port of shaderflow_tpu/shader.py. A fragment is `main(sf) -> rgba | TailSpec`
 operating on whole planes through the `Frag` context (coordinate flavors,
-uniforms by name, the camera). The engine runs it once per frame in eager
-PyTorch. Ported: Frag (uniforms, statics, coordinates, `tail`, the trivial
-camera), make_coords / finish_coords, and ShaderProgram with function
-fragments. Not yet: texture samplers, batch preludes, instancing, the GLSL
+uniforms by name, textures, batch preludes, the camera). The engine runs
+it once per frame in eager PyTorch. Ported: Frag (uniforms, statics,
+coordinates, `tex` samplers of external textures and device sequences,
+`prelude` / `prelude_indexed`, `tail`, the trivial camera), make_coords /
+finish_coords, and ShaderProgram with function fragments. Not yet:
+samplers of program textures (multipass), mipmaps, instancing, the GLSL
 front-end, hot reload and the built-in default/missing programs.
 """
 
@@ -19,9 +21,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from shaderflow_tpu.message import ShaderMessage
+from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib
+from shaderflow_tpu_torch.ops.sampling import Sampler2D
 from shaderflow_tpu_torch.texture import ShaderTexture
 
 PixelFunction = Callable[["Frag"], Any]
@@ -134,14 +137,24 @@ def finish_coords(coords: Coords, resolution) -> Coords:
 class Frag:
     """The per-draw context handed to pixel programs: coordinate flavors,
     every pipeline uniform by name (per-frame values are tensors on the
-    run's device, statics are host values), and the camera."""
+    run's device, statics are host values), textures by name, the batch
+    preludes, and the camera."""
 
     def __init__(self, coords: Coords, uniforms: Mapping, statics: dict,
-                 layer: int = 0):
+                 layer: int = 0, textures: Optional[dict] = None,
+                 texture_meta: Optional[dict] = None,
+                 preludes: Optional[dict] = None,
+                 prelude_stacks: Optional[dict] = None,
+                 prelude_step: Optional[int] = None):
         self._coords = coords
         self._uniforms = uniforms
         self._statics = statics
         self.layer = layer
+        self._textures = textures or {}          # name -> (T, L, H, W, C) tensor
+        self._texture_meta = texture_meta or {}  # name -> ShaderTexture
+        self._preludes = preludes or {}          # name -> this frame's value
+        self._prelude_stacks = prelude_stacks or {}  # name -> (B or 1, ...) stack
+        self._prelude_step = prelude_step        # this frame's position in the batch
         self._camera_cache: dict[str, cameralib.CameraRays] = {}
 
     # -- coordinates --------------------------------------------------------
@@ -160,6 +173,12 @@ class Frag:
     def glxy(self): return self._coords["glxy"]
     @property
     def fragcoord(self): return self._coords["stxy"]
+
+    @property
+    def lines(self) -> tuple:
+        """The axis lines of astuv: (u (W,), v (H,)) — astuv[0, :, 0] and
+        astuv[:, 0, 1] without building the grid."""
+        return self._coords["u_line"], self._coords["v_line"]
 
     @property
     def device(self) -> torch.device:
@@ -187,14 +206,44 @@ class Frag:
         raise KeyError(f"Unknown uniform {name!r}; known: {sorted(self._uniforms)}")
 
     def __getattr__(self, name: str):
-        # Fallback attribute access: uniforms (iTime, iResolution, ...)
+        # Fallback attribute access: uniforms, then textures
         if name.startswith("_"):
             raise AttributeError(name)
         if name in self._uniforms:
             return self._uniforms[name]
         if name in self._statics:
             return self._statics[name]
-        raise AttributeError(f"Frag has no uniform {name!r}")
+        if name in self._textures:
+            return self.tex(name)
+        raise AttributeError(f"Frag has no uniform/texture {name!r}")
+
+    # -- textures -----------------------------------------------------------
+
+    def tex(self, name: str, temporal: int = 0, layer: int = -1) -> Sampler2D:
+        """Sampler of one texture box (a static upload, or this frame's row
+        of a device sequence) with the texture's filter and wrap state."""
+        if name not in self._textures:
+            raise KeyError(f"Unknown texture {name!r}; known: {sorted(self._textures)}")
+        meta = self._texture_meta[name]
+        return Sampler2D(self._textures[name][temporal, layer], linear=meta.linear,
+                         repeat_x=meta.repeat_x, repeat_y=meta.repeat_y)
+
+    # -- batch preludes -------------------------------------------------------
+
+    def prelude(self, name: str):
+        """This frame's slice of a batch prelude (engine.PreludeCtx): a
+        value the scene computed once for the whole batch; None when the
+        prelude is inactive (callers branch to their per-frame form)."""
+        return self._preludes.get(name)
+
+    def prelude_indexed(self, name: str):
+        """The whole (B, ...) prelude stack and this frame's position in the
+        batch (a Python int), for ops.tailfuse.Indexed: the tail reads the
+        frame's plane straight from the stack. None when inactive."""
+        stack = self._prelude_stacks.get(name)
+        if stack is None or self._prelude_step is None:
+            return None
+        return stack, self._prelude_step
 
     # -- fused tail stage -----------------------------------------------------
 

@@ -1,9 +1,11 @@
 """The PyTorch port's offline export path against the JAX package: the
 Mandelbrot scene end to end (frames and captured uniforms), the import
-boundary (the port imports no JAX), and the explicit device."""
+boundary (the port imports neither JAX nor the JAX package), and the
+explicit device."""
 
 import inspect
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -135,26 +137,46 @@ def test_start_replays_host_state(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The port's import chain and a tiny CPU export run with jax blocked."""
+    """The port's import chain and tiny CPU exports of both ported scenes
+    (Mandelbrot, the music visualizer) run with jax and the JAX package
+    blocked, and leave no module of either loaded."""
     script = f"""
 import sys
 sys.modules["jax"] = None
+sys.modules["shaderflow_tpu"] = None
 sys.path.insert(0, {str(REPO)!r})
 sys.path.insert(0, {str(REPO / "examples" / "torch")!r})
 import numpy as np
 import shaderflow_tpu_torch.scene, shaderflow_tpu_torch.ops.tailgen, shaderflow_tpu_torch.build
-import torch_fractals
+import torch_demo, torch_fractals
 torch_fractals.Mandelbrot().main(width=32, height=18, fps=10, time=0.2, ssaa=2,
                                  output={str(tmp_path / "out.rgb")!r}, device="cpu")
-assert not any(name == "jax" or name.startswith("jax.") for name in sys.modules
-               if sys.modules[name] is not None)
-print("frames", np.fromfile({str(tmp_path / "out.rgb")!r}, np.uint8).size // (32 * 18 * 3))
+torch_demo.Visualizer().main(width=32, height=18, fps=10, time=0.3, ssaa=2,
+                             output={str(tmp_path / "viz.rgb")!r}, device="cpu")
+loaded = [name for name, module in sys.modules.items() if module is not None
+          and (name in ("jax", "shaderflow_tpu") or name.startswith(("jax.", "shaderflow_tpu.")))]
+assert not loaded, loaded
+print("frames", np.fromfile({str(tmp_path / "out.rgb")!r}, np.uint8).size // (32 * 18 * 3),
+      np.fromfile({str(tmp_path / "viz.rgb")!r}, np.uint8).size // (32 * 18 * 3))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2" in result.stdout
+    assert "frames 2 3" in result.stdout
+
+
+def test_port_sources_never_import_the_jax_package():
+    """No source of the port, of its scenes or of chip_smoke.py imports
+    jax or the JAX package, even a module of it that is free of JAX."""
+    pattern = re.compile(r"^\s*(from\s+(shaderflow_tpu|jax)(\.|\s)|import\s+(shaderflow_tpu|jax)\b)",
+                         re.MULTILINE)
+    sources = [*(REPO / "shaderflow_tpu_torch").rglob("*.py"),
+               *(REPO / "examples" / "torch").glob("*.py"), REPO / "chip_smoke.py"]
+    assert len(sources) > 20
+    offenders = {str(path.relative_to(REPO)): match.group(0).strip()
+                 for path in sources for match in [pattern.search(path.read_text())] if match}
+    assert not offenders, offenders
 
 
 def test_cuda_without_card_raises():

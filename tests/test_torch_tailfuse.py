@@ -1,8 +1,9 @@
 """The fused tail stage of the PyTorch port (shaderflow_tpu_torch/ops/tailfuse.py
 and the tracer/generator of kernel K1, ops/tailgen.py) against the JAX
 package: the plain version that CPU tensors take, against the Pallas kernel
-in interpret mode and against eval_reference + final_pass; the tracer
-against the direct call; and the input kinds and ops K1 refuses."""
+in interpret mode and against eval_reference + final_pass (planes, rows,
+columns, scalars, and the Indexed and ColSampled forms); the tracer against
+the direct call; and the input kinds and ops K1 refuses."""
 
 import sys
 from pathlib import Path
@@ -106,6 +107,80 @@ def test_run_tail_final_equal_resolution_matches_jax():
         jax_spec, out_h, out_w, out_h, out_w, 2, 1.0))
 
 
+def _sampled_inputs(render_h, render_w, dtype):
+    """The ColSampled inputs of tests/test_tailfuse.py (three (Hr, 640)
+    planes, a zoom-in u line of ~0.2 texels per pixel) plus an Indexed stack
+    of 3 planes read at index 7 (clipped to 2), as numpy; `dtype` is the
+    planes' type."""
+    rng = np.random.default_rng(11)
+    planes = [rng.random((render_h, 640), np.float32) for _ in range(3)]
+    u_line = np.linspace(0.2, 0.2 + 0.2 * render_w / 640, render_w, dtype=np.float32)
+    stack = rng.random((3, render_h, render_w), np.float32)
+    gain = rng.random((render_h, render_w), np.float32)
+    if dtype == "bfloat16":   # round through bf16 the same way on both sides
+        planes = [np.asarray(jnp.asarray(p).astype(jnp.bfloat16)) for p in planes]
+        stack = np.asarray(jnp.asarray(stack).astype(jnp.bfloat16))
+    return planes, u_line, stack, gain
+
+
+def _sampled_tail(where):
+    def tail(tp):
+        r, g, b = tp.vec3("tex")
+        k = tp.plane("bar", dtype=None)
+        return (where(k > 0.5, r * tp.plane("gain"), r * 0.5), g * k + 0.1,
+                b + 0.25 * tp.plane("bar"))
+    return tail
+
+
+def _torch_tensor(array):
+    if array.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(array.view(np.uint16))).view(torch.bfloat16)
+    return torch.from_numpy(np.array(array))
+
+
+def _sampled_specs(render_h, render_w, dtype):
+    planes, u_line, stack, gain = _sampled_inputs(render_h, render_w, dtype)
+    jax_spec = jax_tailfuse.make_spec(
+        _sampled_tail(jnp.where), render_h, render_w,
+        tex=jax_tailfuse.ColSampled(tuple(jnp.asarray(p) for p in planes),
+                                    jnp.asarray(u_line), texels_per_px=0.25),
+        bar=jax_tailfuse.Indexed(jnp.asarray(stack), jnp.int32(7)),
+        gain=jnp.asarray(gain))
+    spec = tailfuse.make_spec(
+        _sampled_tail(torch.where), render_h, render_w,
+        tex=tailfuse.ColSampled(tuple(_torch_tensor(p) for p in planes),
+                                torch.from_numpy(u_line), texels_per_px=0.25),
+        bar=tailfuse.Indexed(_torch_tensor(stack), 7),
+        gain=torch.from_numpy(gain))
+    return jax_spec, spec
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("subsample", [1, 2])
+def test_plain_indexed_colsampled_match_jax(subsample, dtype):
+    """The plain Indexed and ColSampled forms (CPU tensors) against the JAX
+    fused kernel in interpret mode and the JAX reference path: at most one
+    u8 step on < 1 %; the column interpolation itself equals the JAX
+    reference's dense product (two nonzero products, exact for bf16)."""
+    out_h, out_w = 64, 512
+    render_h, render_w = out_h * subsample, out_w * subsample
+    aspect = out_w / out_h
+    jax_spec, spec = _sampled_specs(render_h, render_w, dtype)
+    assert set(spec.colsampled) == {"tex"} and set(spec.indexed) == {"bar"}
+    got = tailfuse.fused_tail_final(spec, render_h, render_w, out_h, out_w, subsample, aspect)
+    fused = jax_tailfuse.fused_tail_final(jax_spec, render_h, render_w, out_h, out_w,
+                                          subsample, aspect, interpret=True)
+    reference = jax_final_pass(jax_tailfuse.eval_reference(
+        jax_spec, render_h, render_w, aspect), out_h, out_w, subsample)
+    _assert_u8_close(got.numpy(), fused)
+    _assert_u8_close(got.numpy(), reference)
+    sampled = tailfuse.materialize_colsampled(spec)["tex"]
+    dense = jax_tailfuse._materialize_colsampled(jax_spec)["tex"]
+    for ours, theirs in zip(sampled, dense):
+        np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=1e-6, atol=1e-7)
+    assert torch.equal(tailfuse.materialize_indexed(spec)["bar"][0], spec.indexed["bar"].stack[2])
+
+
 def _mandelbrot_spec(render_h, render_w):
     sys.path.insert(0, str(REPO / "examples" / "torch"))
     try:
@@ -136,7 +211,8 @@ def _transcendental_spec(render_h, render_w):
     return spec._replace(fn=tail)
 
 
-@pytest.mark.parametrize("which", ["make_spec", "mandelbrot", "transcendental"])
+@pytest.mark.parametrize("which", ["make_spec", "mandelbrot", "transcendental",
+                                   "indexed_colsampled"])
 def test_traced_graph_equals_direct_call(which):
     """The expression graph K1 is generated from, evaluated with torch,
     equals the direct tail call bit for bit; the generated Triton source is
@@ -144,14 +220,18 @@ def test_traced_graph_equals_direct_call(which):
     render_h, render_w = 24, 64
     spec = {"make_spec": lambda: _specs(render_h, render_w)[1],
             "mandelbrot": lambda: _mandelbrot_spec(render_h, render_w),
-            "transcendental": lambda: _transcendental_spec(render_h, render_w)}[which]()
+            "transcendental": lambda: _transcendental_spec(render_h, render_w),
+            "indexed_colsampled": lambda: _sampled_specs(render_h, render_w, "bfloat16")[1],
+            }[which]()
     aspect = 1.5
     graph, outputs = tailgen.trace(spec, render_h, render_w, aspect)
     shape = (render_h, render_w)
     env = {("row_index", "", 0): torch.arange(render_h, dtype=torch.float32)[:, None].expand(shape),
            ("col_index", "", 0): torch.arange(render_w, dtype=torch.float32)[None, :].expand(shape)}
-    for name, channels in spec.planes.items():
+    for name, channels in {**spec.planes, **tailfuse.materialize_indexed(spec)}.items():
         env.update({("plane", name, c): plane for c, plane in enumerate(channels)})
+    for name, channels in tailfuse.materialize_colsampled(spec).items():
+        env.update({("colsampled", name, c): plane for c, plane in enumerate(channels)})
     env.update({("row", name, 0): value.reshape(-1, 1) for name, value in spec.rows.items()})
     env.update({("col", name, 0): value.reshape(1, -1) for name, value in spec.cols.items()})
     env.update({("scalar", name, 0): value for name, value in spec.scalars.items()})
@@ -160,31 +240,47 @@ def test_traced_graph_equals_direct_call(which):
     direct = tailfuse.eval_reference(spec, render_h, render_w, aspect)
     assert torch.equal(traced, direct)
 
-    source, keys = tailgen.generate(graph, outputs, 2)
+    source, keys = tailgen.generate(graph, outputs, 2, frozenset(spec.colsampled))
     compile(source, "<generated K1>", "exec")
     color = {("plane", "color", c) for c in range(3)}
     expected = {"make_spec": color | {("plane", "gain", 0), ("row", "rowv", 0),
                                       ("col", "colv", 0), ("scalar", "vol", 0)},
                 "mandelbrot": {("plane", "iters", 0), ("col", "oob", 0)},
-                "transcendental": color | {("col", "colv", 0), ("scalar", "vol", 0)}}
+                "transcendental": color | {("col", "colv", 0), ("scalar", "vol", 0)},
+                "indexed_colsampled": {("colsampled", "tex", c) for c in range(3)}
+                | {("plane", "bar", 0), ("plane", "gain", 0)}}
     assert set(keys) == expected[which]
+    if which == "indexed_colsampled":
+        # one position load and one pair of bf16-rounded hat weights per
+        # sub-position, shared by the three channels
+        assert source.count("tl.load(pos0 + ci") == 1
+        assert source.count(".to(tl.bfloat16).to(tl.float32)") == 2
 
 
 def test_unported_input_kinds_raise():
-    """Indexed, ColSampled and Table inputs are classified but neither path
-    takes them yet: NotImplementedError naming the kind."""
+    """Table inputs are classified but neither path takes them yet:
+    NotImplementedError naming the kind. The Indexed and ColSampled kinds
+    are ported: both paths take them, and Indexed refuses an index that
+    lives on a device (reading it back would stall the frame loop)."""
     h, w = 8, 16
-    cases = {
-        "Indexed": tailfuse.Indexed(torch.zeros(2, h, w), torch.tensor(0)),
-        "ColSampled": tailfuse.ColSampled((torch.zeros(h, 32),), torch.linspace(0, 1, w), 1.0),
-        "Table": tailfuse.Table(torch.zeros(4, 3)),
+    spec = tailfuse.make_spec(lambda tp: (0.0, 0.0, 0.0), h, w,
+                              x=tailfuse.Table(torch.zeros(4, 3)))
+    with pytest.raises(NotImplementedError, match="Table"):
+        tailfuse.eval_reference(spec, h, w, 1.0)
+    with pytest.raises(NotImplementedError, match="Table"):
+        tailgen.trace(spec, h, w, 1.0)
+    ported = {
+        "Indexed": tailfuse.Indexed(torch.ones(2, h, w), torch.tensor(0)),
+        "ColSampled": tailfuse.ColSampled((torch.ones(h, 32),), torch.linspace(0, 1, w), 1.0),
     }
-    for kind, value in cases.items():
-        spec = tailfuse.make_spec(lambda tp: (0.0, 0.0, 0.0), h, w, x=value)
-        with pytest.raises(NotImplementedError, match=kind):
-            tailfuse.eval_reference(spec, h, w, 1.0)
-        with pytest.raises(NotImplementedError, match=kind):
-            tailgen.trace(spec, h, w, 1.0)
+    for kind, value in ported.items():
+        spec = tailfuse.make_spec(lambda tp: (tp.plane("x"),) * 3, h, w, x=value)
+        assert torch.equal(tailfuse.eval_reference(spec, h, w, 1.0), torch.ones(h, w, 3))
+        graph, _ = tailgen.trace(spec, h, w, 1.0)
+        assert len(graph.inputs) == 3   # the plane and the two coordinate indices
+    device_index = tailfuse.Indexed(torch.ones(2, h, w), torch.zeros((), device="meta"))
+    with pytest.raises(ValueError, match="host index"):
+        tailfuse.indexed_position(device_index)
 
 
 def test_unsupported_tail_code_raises():
