@@ -29,6 +29,25 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      frame (Indexed stacks, ColSampled rows) at 3840x2160 -> 1920x1080,
      s = 2: at most 1 u8 step, on < 1 % of values
  10. an output="null" export of the visualizer: frames/s
+  PianoRoll slice (3840x2160, 60 fps, ssaa=1: the equal-resolution regime):
+ 11. the slice through PianoRoll().main(...) to a .rgb file of 0.5 s (30
+     frames): file size, non-constant frames, launch counters (K1 (d) ==
+     frames, K1 (a)/(b)/(c), K2, K3 == 0), one frame recomputed through the
+     plain functions (plain planes, stencil, quantize): at most 1 u8 step
+ 12. K1 (d) vs its plain version on the PianoRoll tail of one real frame
+     (54 columns, 3 scalars) at 3840x2160, s = 1: the bf16 planes bit-equal,
+     the final u8 at most 1 step on < 1 % of values
+ 13. an output="null" export of PianoRoll 4K60 ssaa=1, 2 s: frames/s
+  Fractal plane form (1920x1080, 60 fps, 2x SSAA, 2 s): Julia, and
+  Mandelbrot under a camera rolled 30 degrees (camera.rotate2d)
+ 14. each slice through main(...) to a .rgb file: file size, non-constant
+     frames, launch counters (K3 planes == K1 (a) == frames, K3 lines ==
+     K1 (d) == K2 == 0), one frame recomputed through the plain functions
+ 15. K3 planes vs its plain version at 3840x2160 on each slice's frame 0:
+     Julia (z0 planes, c as 0-d device tensors read through a pointer) and
+     the rotated view (c planes from the general camera, the interior test
+     in-kernel): torch.equal
+ 16. an output="null" export of each: frames/s
 Every timed number is a median of CUDA events; each kernel's bound is the
 larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
 (f32, no tensor cores), the H100 SXM data-sheet peaks. Then the
@@ -88,16 +107,19 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 def k1_bound(spec, render_h: int, render_w: int, out_h: int, out_w: int,
-             aspect: float) -> tuple[float, str]:
+             aspect: float, quantize: bool = True) -> tuple[float, str]:
     """K1's bound for one spec: each input it reads once (planes, column
-    sampled rows and their positions, rows, columns), the u8 frame written
-    once; operations = the traced graph's nodes per SSAA pixel plus the
-    pooling sum and quantize per output channel (transcendentals count as
-    one: a lower bound)."""
+    sampled rows and their positions, rows, columns, tables), the u8 frame
+    written once; operations = the traced graph's nodes per SSAA pixel plus
+    the pooling sum and quantize per output channel (transcendentals count
+    as one: a lower bound). quantize=False (K1 (d)): the three bf16 planes
+    written once, the graph's nodes per pixel."""
     from shaderflow_tpu_torch.ops import tailfuse, tailgen
     graph, _ = tailgen.trace(spec, render_h, render_w, aspect)
     planes = {**spec.planes, **tailfuse.materialize_indexed(spec)}
-    moved = out_h * out_w * 3
+    moved = out_h * out_w * 3 * (1 if quantize else 2)
+    moved += sum(table.numel() * 4 for name, table in spec.tables.items()
+                 if name in graph.tables)
     sampled = set()
     for kind, name, channel in graph.inputs:
         if kind == "plane":
@@ -112,8 +134,18 @@ def k1_bound(spec, render_h: int, render_w: int, out_h: int, out_w: int,
         moved += tensor.numel() * tensor.element_size()
     moved += sum(spec.colsampled[name].positions.numel() * 4 for name in sampled)
     arithmetic = sum(1 for op, _, _ in graph.nodes if op != "input")
+    if not quantize:
+        return bound(moved, render_h * render_w * arithmetic)
     ops = render_h * render_w * (arithmetic + 3) + out_h * out_w * 3 * 5
     return bound(moved, ops)
+
+
+def k3_bound(counts, interior, operand_bytes: float) -> tuple[float, str]:
+    """K3's bound: its operands read once and the counts written once;
+    ESCAPE_STEP_OPS per escape step this run's data takes (the counts of
+    the pixels outside the interior shortcut)."""
+    steps = counts[~interior].sum().item() if interior is not None else counts.sum().item()
+    return bound(operand_bytes + counts.numel() * 4, ESCAPE_STEP_OPS * steps), int(steps)
 
 
 def frame_inputs(scene, index: int):
@@ -171,17 +203,60 @@ def visualizer_spec(scene, index: int):
     return torch_demo.visualizer_frag(frag)
 
 
-def check_export(output: Path, frames: int, name: str):
+def piano_spec(scene, index: int):
+    """The PianoRoll tail spec of frame `index` of the last batch (its
+    column lines and scalars, built on the card by the scene's fragment)."""
+    import torch_piano_roll
+    return torch_piano_roll.piano_roll_frag(frame_inputs(scene, index))
+
+
+def fractal_plain_frame(scene, index: int, render_h: int, render_w: int):
+    """Recompute frame `index` of a Julia or rotated Mandelbrot export with
+    the plain functions only: the camera, escape_plain on its planes, the
+    tail on full tensors, the final pass -> (frame, escape operands)."""
+    import torch
+    import torch_fractals
+    from shaderflow_tpu_torch.ops import fractal, tailfuse
+    ctx = frame_inputs(scene, index)
+    quality = max(1, int(1000.0 * ctx.uniform("iQualityS")))
+    cam = ctx.camera
+    if isinstance(scene, torch_fractals.Julia):
+        cx, cy = torch_fractals.julia_c(ctx)
+        z0 = cam.gluv
+        operands = (z0, cx, cy, None)
+        iters = fractal.escape_plain(z0[..., 0], z0[..., 1], cx, cy, quality, 3.0,
+                                     saturate=torch_fractals.julia_cap(quality),
+                                     out_dtype=torch.float32)
+        tail = torch_fractals.julia_tail(quality)
+    else:
+        gluv = cam.gluv
+        c = torch.stack([gluv[..., 0] - 0.5, gluv[..., 1]], dim=-1)
+        interior = fractal._interior_mask(c[..., 0], c[..., 1])
+        operands = (c, None, None, interior)
+        iters = fractal.escape_plain(c[..., 0], c[..., 1], c[..., 0], c[..., 1], quality, 3.0,
+                                     interior=interior,
+                                     saturate=torch_fractals.mandelbrot_cap(quality),
+                                     out_dtype=torch.float32)
+        tail = torch_fractals.mandelbrot_tail(quality, False)
+    spec = tailfuse.make_spec(tail, render_h, render_w, iters=iters,
+                              oob=cam.out_of_bounds.to(torch.float32))
+    frame = tailfuse.tail_plain(spec, render_h, render_w, HEIGHT, WIDTH, SSAA,
+                                scene.aspect_ratio)
+    return frame, operands, quality
+
+
+def check_export(output: Path, frames: int, name: str, height: int = HEIGHT,
+                 width: int = WIDTH):
     """File size and two non-constant frames of a .rgb export."""
     import numpy as np
-    frame_bytes = HEIGHT * WIDTH * 3
+    frame_bytes = height * width * 3
     if output.stat().st_size != frames * frame_bytes:
         raise AssertionError(f"{name}: {output.stat().st_size} bytes, "
                              f"expected {frames} frames of {frame_bytes}")
     check = frames // 2
     exported = np.fromfile(output, np.uint8, count=frame_bytes,
-                           offset=check * frame_bytes).reshape(HEIGHT, WIDTH, 3)
-    first = np.fromfile(output, np.uint8, count=frame_bytes).reshape(HEIGHT, WIDTH, 3)
+                           offset=check * frame_bytes).reshape(height, width, 3)
+    first = np.fromfile(output, np.uint8, count=frame_bytes).reshape(height, width, 3)
     if exported.std() == 0 or first.std() == 0:
         raise AssertionError(f"{name}: constant exported frame")
     return check, exported
@@ -208,6 +283,7 @@ def main() -> int:
     import torch_demo
     import torch_fractals
     from shaderflow_tpu_torch import build
+    import torch_piano_roll
     from shaderflow_tpu_torch.engine import PreludeCtx
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     from shaderflow_tpu_torch.ops.cameralib import project_trivial
@@ -291,13 +367,17 @@ def main() -> int:
 
     def zero_counters():
         fractal.escape_iterations_sep.launches = 0
+        fractal.escape_iterations.launches = 0
         sampling.expand_tables.launches = 0
         tailfuse.fused_tail_final.launches = 0
+        tailfuse.fused_tail_final.planes_launches = 0
 
     def read_counters():
         return {"k3": fractal.escape_iterations_sep.launches,
+                "k3p": fractal.escape_iterations.launches,
                 "k2": sampling.expand_tables.launches,
-                "k1": tailfuse.fused_tail_final.launches}
+                "k1": tailfuse.fused_tail_final.launches,
+                "k1d": tailfuse.fused_tail_final.planes_launches}
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. The Mandelbrot slice through the port's entry point
@@ -309,7 +389,7 @@ def main() -> int:
                    output=str(output), device="cuda")
         export_s = time.perf_counter() - started
         mandelbrot_launches = read_counters()
-        if mandelbrot_launches != {"k3": frames, "k2": 0, "k1": frames}:
+        if mandelbrot_launches != {"k3": frames, "k3p": 0, "k2": 0, "k1": frames, "k1d": 0}:
             raise AssertionError(f"Mandelbrot launch counters {mandelbrot_launches}, "
                                  f"expected K3 == K1 == {frames} frames, K2 == 0")
         check, exported = check_export(output, frames, output.name)
@@ -341,7 +421,7 @@ def main() -> int:
         export_s = time.perf_counter() - started
         visualizer_launches = read_counters()
         flushes = -(-frames // scene.default_batch_size())
-        if visualizer_launches != {"k3": 0, "k2": flushes, "k1": frames}:
+        if visualizer_launches != {"k3": 0, "k3p": 0, "k2": flushes, "k1": frames, "k1d": 0}:
             raise AssertionError(f"Visualizer launch counters {visualizer_launches}, "
                                  f"expected K2 == {flushes} flushes, K1 == {frames} "
                                  "frames, K3 == 0")
@@ -411,6 +491,145 @@ def main() -> int:
         frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
         card=repr(card))
 
+    # 11. The PianoRoll slice at 4K60, ssaa=1, 0.5 s, through the entry point
+    piano_w, piano_h, piano_frames = 3840, 2160, 30
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "pianoroll.rgb"
+        scene = torch_piano_roll.PianoRoll()
+        zero_counters()
+        started = time.perf_counter()
+        scene.main(width=piano_w, height=piano_h, fps=FPS, ssaa=1, time=piano_frames / FPS,
+                   output=str(output), device="cuda")
+        export_s = time.perf_counter() - started
+        piano_launches = read_counters()
+        if piano_launches != {"k3": 0, "k3p": 0, "k2": 0, "k1": 0, "k1d": piano_frames}:
+            raise AssertionError(f"PianoRoll launch counters {piano_launches}, expected "
+                                 f"K1 (d) == {piano_frames} frames and no other kernel")
+        check, exported = check_export(output, piano_frames, output.name, piano_h, piano_w)
+        frame_spec = piano_spec(scene, check)
+        planes_args = (frame_spec, piano_h, piano_w, piano_h, piano_w, 1, scene.aspect_ratio)
+        plain_planes = tailfuse.planes_plain(frame_spec, piano_h, piano_w, scene.aspect_ratio)
+        plain_frame = tailfuse.final_equal_resolution(plain_planes, scene.subsample)
+        frame_err, frame_share = u8_diff(exported, plain_frame.cpu())
+        if frame_err > 1:
+            raise AssertionError(f"PianoRoll frame {check} vs plain functions: "
+                                 f"max {frame_err} u8 steps on {frame_share:.4%}")
+        say("pianoroll_slice", size=f"{piano_w}x{piano_h}", ssaa=1, frames=piano_frames,
+            seconds=f"{export_s:.3f}", launches=piano_launches, frame_checked=check,
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
+        del exported
+
+    # 12. K1 (d) vs plain: the PianoRoll tail of that real frame at 4K, s = 1
+    planes = tailfuse.fused_tail_final(*planes_args, quantize=False)
+    torch.cuda.synchronize()
+    if not torch.equal(planes.view(torch.int16), plain_planes.view(torch.int16)):
+        differing = int((planes.view(torch.int16) != plain_planes.view(torch.int16)).sum())
+        raise AssertionError(f"K1 (d) bf16 planes differ from the plain version on "
+                             f"{differing} values")
+    k1d_err = (planes.float() - plain_planes.float()).abs().max().item()
+    final = tailfuse.final_equal_resolution(planes, scene.subsample)
+    k1d_u8, k1d_share = u8_diff(final.cpu(), plain_frame.cpu())
+    if k1d_u8 > 1 or k1d_share >= 0.01:
+        raise AssertionError(f"K1 (d) final u8 vs plain: max {k1d_u8} on {k1d_share:.4%}")
+    launch = tailgen.prepare(*planes_args, device, quantize=False)
+    planes_out = torch.empty_like(planes)
+    k1d_ms = median_ms(lambda: launch(planes_out), 20)
+    k1d_plain_ms = median_ms(lambda: tailfuse.planes_plain(
+        frame_spec, piano_h, piano_w, scene.aspect_ratio), 5)
+    stencil_ms = median_ms(lambda: tailfuse.final_equal_resolution(planes, scene.subsample), 10)
+    k1d_bound_ms, k1d_bound_by = k1_bound(frame_spec, piano_h, piano_w, piano_h, piano_w,
+                                          scene.aspect_ratio, quantize=False)
+    graph, _ = tailgen.trace(frame_spec, piano_h, piano_w, scene.aspect_ratio)
+    started = time.perf_counter()
+    for _ in range(20):
+        tailgen.prepare(*planes_args, device, quantize=False)
+    prepare_ms = (time.perf_counter() - started) / 20 * 1e3
+    say("k1d", render=f"{piano_h}x{piano_w}", s=1, frame=check, inputs=len(graph.inputs) - 2,
+        nodes=len(graph.nodes), planes_bit_equal=True, max_u8_diff=k1d_u8,
+        differing_share=f"{k1d_share:.6f}", ms=f"{k1d_ms:.4f}", plain_ms=f"{k1d_plain_ms:.4f}",
+        bound_ms=f"{k1d_bound_ms:.4f}", bound_by=k1d_bound_by,
+        stencil_quantize_ms=f"{stencil_ms:.4f}", host_trace_prepare_ms=f"{prepare_ms:.4f}")
+    del planes, planes_out, plain_planes, final, plain_frame
+
+    # 13. PianoRoll render throughput into the NullSink
+    scene = torch_piano_roll.PianoRoll()
+    started = time.perf_counter()
+    scene.main(width=piano_w, height=piano_h, fps=FPS, ssaa=1, time=SECONDS,
+               output="null", device="cuda")
+    null_s = time.perf_counter() - started
+    say("pianoroll_timing", config="PianoRoll 3840x2160 60fps ssaa=1 2s null",
+        frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}", card=repr(card))
+
+    # 14. + 15. Julia and the rotated Mandelbrot through the entry point, then
+    # K3 planes vs plain on each slice's frame 0
+    plane_slices = {}
+    for name, cls in (("julia", torch_fractals.Julia),
+                      ("rotated_mandelbrot", torch_fractals.MandelbrotRotated)):
+        with tempfile.TemporaryDirectory() as tmp:
+            output = Path(tmp) / f"{name}.rgb"
+            scene = cls()
+            zero_counters()
+            started = time.perf_counter()
+            scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                       output=str(output), device="cuda")
+            export_s = time.perf_counter() - started
+            launches = read_counters()
+            if launches != {"k3": 0, "k3p": frames, "k2": 0, "k1": frames, "k1d": 0}:
+                raise AssertionError(f"{name} launch counters {launches}, expected K3 planes "
+                                     f"== K1 == {frames} frames, no other kernel")
+            check, exported = check_export(output, frames, output.name)
+            plain_frame, _, _ = fractal_plain_frame(scene, check, render_h, render_w)
+            frame_err, frame_share = u8_diff(exported, plain_frame.cpu())
+            if frame_err > 1:
+                raise AssertionError(f"{name} frame {check} vs plain functions: "
+                                     f"max {frame_err} u8 steps on {frame_share:.4%}")
+            say(f"{name}_slice", frames=frames, seconds=f"{export_s:.3f}", launches=launches,
+                frame_checked=check, max_u8_diff_vs_plain=frame_err,
+                differing_share=f"{frame_share:.6f}")
+        _, (z0, cx, cy, interior), quality = fractal_plain_frame(scene, 0, render_h, render_w)
+        if name == "julia":
+            cap = torch_fractals.julia_cap(quality)
+            k3p_args = (z0, cx, cy, quality, 3.0, None, cap, True, torch.float32)
+            run_kernel = lambda: fractal.escape_iterations_z0(*k3p_args)
+            run_plain = lambda: fractal.escape_plain(z0[..., 0], z0[..., 1], cx, cy, quality,
+                                                     3.0, saturate=cap, out_dtype=torch.float32)
+            operand_bytes = z0.numel() * 4 + 8
+        else:
+            cap = torch_fractals.mandelbrot_cap(quality)
+            c = z0
+            run_kernel = lambda: fractal.escape_iterations(c, quality, 3.0, cap, torch.float32)
+            run_plain = lambda: fractal.escape_plain(c[..., 0], c[..., 1], c[..., 0], c[..., 1],
+                                                     quality, 3.0, interior=interior,
+                                                     saturate=cap, out_dtype=torch.float32)
+            operand_bytes = c.numel() * 4
+        counts, plain_counts = run_kernel(), run_plain()
+        torch.cuda.synchronize()
+        err = (counts - plain_counts).abs().max().item()
+        if not torch.equal(counts, plain_counts):
+            raise AssertionError(f"K3 planes ({name}) counts differ from the plain loop on "
+                                 f"{int((counts != plain_counts).sum())} pixels (max {err})")
+        k3p_ms = median_ms(run_kernel, 20)
+        k3p_plain_ms = median_ms(run_plain, 5)
+        (k3p_bound_ms, k3p_bound_by), steps = k3_bound(counts, interior, operand_bytes)
+        plane_slices[name] = dict(launches=launches, err=err, ms=k3p_ms, plain_ms=k3p_plain_ms,
+                                  bound_ms=k3p_bound_ms, bound_by=k3p_bound_by)
+        say(f"k3p_{name}", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
+            steps=steps, c="0-d device tensors" if name == "julia" else "planes, interior "
+            "in-kernel", equal=True, ms=f"{k3p_ms:.4f}", plain_ms=f"{k3p_plain_ms:.4f}",
+            bound_ms=f"{k3p_bound_ms:.4f}", bound_by=k3p_bound_by)
+        del counts, plain_counts, z0, interior
+
+        # 16. Render throughput into the NullSink
+        scene = cls()
+        started = time.perf_counter()
+        scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                   output="null", device="cuda")
+        null_s = time.perf_counter() - started
+        say(f"{name}_timing", config=f"{cls.__name__} 1920x1080 60fps 2xSSAA 2s null",
+            frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
+            card=repr(card))
+
+    julia = plane_slices["julia"]
     kernels = [
         {"name": "K1 (a) fused tail + 2x2 pool + u8 quantize (Mandelbrot tail: planes, cols)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
@@ -430,12 +649,24 @@ def main() -> int:
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_library_ms},
+        {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
+         "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
+         "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
+         "launches": piano_launches["k1d"], "max_abs_err": k1d_err,
+         "ms": k1d_ms, "plain_ms": k1d_plain_ms, "bound_ms": k1d_bound_ms,
+         "bound_by": k1d_bound_by, "library_ms": None},
         {"name": "K3 escape_lines (Mandelbrot escape counts, lines form)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None},
+        {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
+         "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
+         "replaces": "shaderflow_tpu/ops/fractal.py:66",
+         "launches": julia["launches"]["k3p"], "max_abs_err": julia["err"],
+         "ms": julia["ms"], "plain_ms": julia["plain_ms"], "bound_ms": julia["bound_ms"],
+         "bound_by": julia["bound_by"], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,20 @@
 """
 Where the time of a port export goes, on one CUDA card.
 
-    python examples/torch/profile_export.py [visualizer|mandelbrot] [--seconds 2]
-                                           [--runs 5] [--json PATH]
+    python examples/torch/profile_export.py
+        [visualizer|mandelbrot|mandelbrot_rotated|julia|pianoroll]
+        [--seconds 2] [--runs 5] [--json PATH]
 
-Exports the scene at 1920x1080, 60 fps, 2x SSAA into the NullSink: one cold
-run (builds and compiles), `--runs` warm runs timed by the wall clock
+Exports the scene into the NullSink at its graded configuration (1920x1080,
+60 fps, 2x SSAA; pianoroll: 3840x2160, 60 fps, ssaa=1): one cold run
+(builds and compiles), `--runs` warm runs timed by the wall clock
 (median), then one warm run under torch.profiler. Prints as JSON (and
 writes to PATH with --json): the warm walls and frames/s, the device
 time by kernel and in all (CUDA activity of the profiled run), the device
 busy share of the profiled wall, and host milliseconds per frame of the
 export loop's stages (perf_counter around scene.next, the batch preludes,
-the fragment, the tail's trace, codegen and launch, the whole flush).
+the fragment, the tail's trace, codegen and launch, the equal-resolution
+stencil, the whole flush).
 Needs a CUDA card; no JAX.
 """
 
@@ -55,7 +58,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("scene", nargs="?", default="visualizer",
-                        choices=("visualizer", "mandelbrot"))
+                        choices=("visualizer", "mandelbrot", "mandelbrot_rotated", "julia",
+                                 "pianoroll"))
     parser.add_argument("--seconds", type=float, default=2.0)
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--json", type=Path, default=None)
@@ -66,12 +70,19 @@ def main() -> int:
 
     import torch_demo
     import torch_fractals
+    import torch_piano_roll
     from shaderflow_tpu_torch import engine as engine_module
     from shaderflow_tpu_torch import scene as scene_module
     from shaderflow_tpu_torch.ops import tailfuse, tailgen
     from shaderflow_tpu_torch.shader import ShaderProgram
 
-    make = torch_demo.Visualizer if args.scene == "visualizer" else torch_fractals.Mandelbrot
+    make, width, height, ssaa = {
+        "visualizer": (torch_demo.Visualizer, 1920, 1080, 2),
+        "mandelbrot": (torch_fractals.Mandelbrot, 1920, 1080, 2),
+        "mandelbrot_rotated": (torch_fractals.MandelbrotRotated, 1920, 1080, 2),
+        "julia": (torch_fractals.Julia, 1920, 1080, 2),
+        "pianoroll": (torch_piano_roll.PianoRoll, 3840, 2160, 1),
+    }[args.scene]
     frames = round(args.seconds * 60)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -81,7 +92,7 @@ def main() -> int:
         scene = make()
         torch.cuda.synchronize()
         started = time.perf_counter()
-        scene.main(width=1920, height=1080, fps=60, ssaa=2, time=args.seconds,
+        scene.main(width=width, height=height, fps=60, ssaa=ssaa, time=args.seconds,
                    output="null", device="cuda")
         torch.cuda.synchronize()
         return time.perf_counter() - started
@@ -105,11 +116,13 @@ def main() -> int:
     _timed(ShaderProgram, "render_layer", "fragment", totals)
     _timed(tailfuse, "fused_tail_final", "tail: trace, codegen and launch", totals)
     _timed(tailgen, "prepare", "tail: trace and codegen", totals)
+    _timed(tailfuse, "final_equal_resolution", "equal-resolution stencil + quantize", totals)
     _timed(engine_module.RenderEngine, "flush", "engine.flush (all frames)", totals)
     instrumented = export()
 
     result = {
-        "scene": args.scene, "frames": frames, "card": card,
+        "scene": args.scene, "size": f"{width}x{height}", "ssaa": ssaa,
+        "frames": frames, "card": card,
         "cold_wall_s": cold, "warm_walls_s": walls,
         "median_fps": frames / statistics.median(walls),
         "profiled_wall_s": profiled, "device_ms": device_ms,

@@ -21,13 +21,13 @@ import math
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))
 
 from shaderflow_tpu_torch.message import ShaderMessage  # noqa: E402
 from shaderflow_tpu_torch.ops import TAU, PI, tailfuse  # noqa: E402
+from shaderflow_tpu_torch.ops.stdlib import reciprocal  # noqa: E402
 from shaderflow_tpu_torch.scene import ShaderScene  # noqa: E402
 from shaderflow_tpu_torch.texture import ShaderTexture  # noqa: E402
 
@@ -37,16 +37,9 @@ BACKGROUND = ASSETS / "background.png"
 BLUR_LEVEL = 4   # the pyramid level the radial blur is computed on
 
 
-def _recip(value: float) -> float:
-    """1 / value rounded once to float32. The preludes divide by constants
-    as products with the reciprocal: the reference's fields as XLA computes
-    them (its algebraic simplifier folds x / c into x * (1 / c))."""
-    return float(np.float32(1.0) / np.float32(value))
-
-
 def _axis_line(count: int, device) -> torch.Tensor:
     """Pixel centers over [0, 1]: (i + 0.5) / count."""
-    return (torch.arange(count, dtype=torch.float32, device=device) + 0.5) * _recip(count)
+    return (torch.arange(count, dtype=torch.float32, device=device) + 0.5) * reciprocal(count)
 
 
 def _screen_lines(ctx):
@@ -60,7 +53,7 @@ def _screen_lines(ctx):
 
 def _angle_field(gx, gy):
     """|atan2(x, -y)| / pi over the screen: the bar's radial angle."""
-    return torch.abs(tailfuse.atan2(gx[None, :], -gy[:, None]) * _recip(PI))
+    return torch.abs(tailfuse.atan2(gx[None, :], -gy[:, None]) * reciprocal(PI))
 
 
 def bar_field_inputs(ctx):

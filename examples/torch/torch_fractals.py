@@ -2,13 +2,16 @@
 Fractal scenes on the PyTorch port (shaderflow_tpu_torch).
 
 Port of examples/fractals/fractals.py: Mandelbrot, the escape-time loop
-bounded by the scene quality (a static uniform), magma palette. With the
-default (trivial) 2D camera the escape counts run on two coordinate lines
-(kernel K3, ops/fractal.py) and the palette, out-of-bounds mask, SSAA
-downsample and u8 quantize run in the fused tail (kernel K1,
-ops/tailfuse.py).
+bounded by the scene quality (a static uniform), magma palette; and Julia,
+the same loop from z0 = pixel with a c that orbits with time, hue-wheel
+palette. With the default (trivial) 2D camera Mandelbrot's escape counts
+run on two coordinate lines (kernel K3's lines form, ops/fractal.py); a
+rotated camera (MandelbrotRotated) and Julia run K3's planes form on
+per-pixel planes. The palette, out-of-bounds mask, SSAA downsample and u8
+quantize run in the fused tail (kernel K1, ops/tailfuse.py).
 
-    python examples/torch/torch_fractals.py            # 1080p60 2xSSAA, 2 s, to null
+    python examples/torch/torch_fractals.py [Mandelbrot|MandelbrotRotated|Julia]
+                                              # 1080p60 2xSSAA, 2 s, to null
 """
 
 import math
@@ -21,6 +24,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))
 
 from shaderflow_tpu_torch import ops  # noqa: E402
+from shaderflow_tpu_torch.ops import TAU  # noqa: E402
+from shaderflow_tpu_torch.ops.stdlib import reciprocal  # noqa: E402
 from shaderflow_tpu_torch.scene import ShaderScene  # noqa: E402
 
 
@@ -82,8 +87,10 @@ def mandelbrot_frag(sf):
                                       out_dtype=torch.float32)
         oob_in = tailfuse.Col(cam.out_of_bounds_x.to(torch.float32))
     else:
-        shift = torch.tensor([0.5, 0.0], dtype=torch.float32, device=sf.device)
-        iters = escape_iterations(cam.gluv - shift, quality, radius=3.0,
+        # c = gluv - vec2(0.5, 0.0), built on the device (y - 0.0 == y)
+        gluv = cam.gluv
+        c = torch.stack([gluv[..., 0] - 0.5, gluv[..., 1]], dim=-1)
+        iters = escape_iterations(c, quality, radius=3.0,
                                   saturate=cap, out_dtype=torch.float32)
         oob_in = cam.out_of_bounds.to(torch.float32)
     return sf.tail(mandelbrot_tail(quality, trivial), iters=iters, oob=oob_in)
@@ -96,8 +103,93 @@ class Mandelbrot(ShaderScene):
         self.shader.fragment = mandelbrot_frag
 
 
-SCENES = [Mandelbrot]
+class MandelbrotRotated(Mandelbrot):
+    """Mandelbrot under a camera rolled by `angle` degrees (camera.rotate2d),
+    held from the first frame: c comes from the general per-pixel camera."""
+    angle = 30.0
+
+    def build(self):
+        super().build()
+        self.camera.rotate2d(self.angle)
+        self.camera.rotation.set(self.camera.rotation.target)
+
+
+def julia_cap(quality: int) -> int:
+    """Visual iteration cap (see mandelbrot_cap): every channel is bounded
+    by pow(1 - i/q, 8), so once 255 t^8 < 0.25 the capped and the true
+    colours round alike. Counts below the cap stay exact."""
+    return math.ceil(quality * (1.0 - (0.25 / 255.0) ** (1.0 / 8.0)))
+
+
+def julia_tail(quality: int):
+    """hsv2rgb of the count on a hue wheel (s = 0.8), black out of bounds."""
+    # the reference divides by these constants: products with reciprocals
+    inv_quality = reciprocal(quality)
+    inv_sector = reciprocal(math.pi / 3.0)
+    inv_tau = reciprocal(TAU)
+
+    def tail(tp):
+        it = tp.plane("iters")
+        t = 1.0 - it * inv_quality
+        t2 = t * t
+        t8 = (t2 * t2) * (t2 * t2)             # == power(t, 8), exact
+        h = torch.remainder(TAU * (it * 0.015625), TAU)   # it / 64
+        value = t8
+        c = value * 0.8
+        x = c * (1.0 - torch.abs(torch.remainder(h * inv_sector, 2.0) - 1.0))
+        m = value - c
+        sector = torch.floor(6.0 * (h * inv_tau))
+        zero = torch.zeros_like(c)
+
+        def pick(options):
+            out = zero
+            for k, option in enumerate(options):
+                out = torch.where(sector == float(k), option, out)
+            return out
+
+        oob = tp.plane("oob") > 0.5
+        r = pick([c, x, zero, zero, x, c]) + m
+        g = pick([x, c, c, x, zero, zero]) + m
+        b = pick([zero, zero, x, c, c, x]) + m
+        return (torch.where(oob, 0.0, r), torch.where(oob, 0.0, g),
+                torch.where(oob, 0.0, b))
+
+    return tail
+
+
+def julia_c(sf):
+    """The orbiting parameter c as two 0-d tensors on the device, from the
+    frame's iTime (no host read-back)."""
+    cx = -0.8 + 0.156 * torch.cos(sf.iTime * 0.31)
+    cy = 0.156 + 0.08 * torch.sin(sf.iTime * 0.17)
+    return cx, cy
+
+
+def julia_frag(sf):
+    """Julia set: the escape loop from z0 = pixel with c orbiting over time.
+    The counts run in K3's planes form with c read on the device."""
+    from shaderflow_tpu_torch.ops.fractal import escape_iterations_z0
+    cam = sf.camera
+    cx, cy = julia_c(sf)
+    quality = max(1, int(1000.0 * sf.uniform("iQualityS")))
+    # monotone: the orbiting c stays within |c| <= 0.96 << r^2 - r = 6
+    iters = escape_iterations_z0(cam.gluv, cx, cy, quality, radius=3.0,
+                                 saturate=julia_cap(quality), monotone=True,
+                                 out_dtype=torch.float32)
+    return sf.tail(julia_tail(quality), iters=iters,
+                   oob=cam.out_of_bounds.to(torch.float32))
+
+
+class Julia(ShaderScene):
+    """Julia fractal with a time-orbiting parameter"""
+
+    def build(self):
+        self.shader.fragment = julia_frag
+
+
+SCENES = [Mandelbrot, MandelbrotRotated, Julia]
 
 if __name__ == "__main__":
-    Mandelbrot().main(width=1920, height=1080, fps=60, ssaa=2, time=2,
-                      output="null")
+    scene = {cls.__name__: cls for cls in SCENES}[sys.argv[1] if len(sys.argv) > 1
+                                                   else "Mandelbrot"]
+    scene().main(width=1920, height=1080, fps=60, ssaa=2, time=2, output="null")

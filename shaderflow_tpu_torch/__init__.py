@@ -14,10 +14,12 @@ moving to the CPU. The CPU path runs every kernel's plain PyTorch version.
 
 Hand-written Hopper kernels (built from the sources in this checkout at
 first use, into BUILD_DIR):
-  ops/fractal.py   K3 escape-time counts, CUDA C++ (csrc/escape.cu)
+  ops/fractal.py   K3 escape-time counts, CUDA C++ (csrc/escape.cu): the
+                   lines form (trivial camera) and the planes form
   ops/sampling.py  K2 bar-field table expand, CUDA C++ (csrc/lookup.cu)
   ops/tailfuse.py  K1 fused tail + SSAA pool + u8 quantize, Triton
-                   (generated per tail by ops/tailgen.py)
+                   (generated per tail by ops/tailgen.py), and its
+                   quantize=False form (bf16 planes, equal resolution)
 """
 
 import logging as _logging

@@ -129,6 +129,16 @@ class ShaderCamera(ShaderModule):
         self.dolly = ShaderDynamics(scene=scene, name=f"{name}Dolly", real=True,
                                     frequency=1, zeta=1, response=0, value=0.0)
 
+    def load_state(self, state: dict) -> None:
+        """Carry a reference run's orientation: "rotation" (4,) is the
+        quaternion the camera holds from the first frame on (value, target
+        and the initial value setup() returns to)."""
+        unknown = set(state) - {"rotation"}
+        if unknown:
+            raise KeyError(f"ShaderCamera carries no state named {sorted(unknown)}")
+        if "rotation" in state:
+            self.rotation.set(np.asarray(state["rotation"], np.float64))
+
     # -- field of view <-> zoom (camera.py:187-194) --------------------------
 
     @property

@@ -166,23 +166,33 @@ def _tensor(array) -> torch.Tensor:
     return torch.from_numpy(array)
 
 
-def load_reference_state(scene: "ShaderScene", sequences: dict, textures: dict) -> None:
+def load_reference_state(scene: "ShaderScene", sequences: Optional[dict] = None,
+                         textures: Optional[dict] = None,
+                         modules: Optional[dict] = None) -> None:
     """Carry a reference engine's state into this scene: `sequences`
     (name -> bound (F_pad, H, W, C) arrays, ring sequences already
     front-padded) replace the module-bound sequences of the same name, and
     `textures` (name -> (T, L, H, W, C) arrays) replace static uploads;
     entries named PRELUDE_KEY + name replace that batch-invariant prelude.
-    This system has no weights: the precomputed audio sequences and
-    textures are its state, so with them the render path can be held to a
-    tight bar independently of FFT differences."""
+    `modules` (module name -> {field: numpy array}) hands host state to
+    the module of that name (ShaderModule.load_state): the piano's
+    note-range replay and sequences, the camera's rotation. This system
+    has no weights: precomputed sequences, textures and host module state
+    are its state, so with them the render path can be held to a tight bar
+    independently of FFT or host-math differences."""
     scene.initialize()
     engine = scene.engine
-    engine.pinned_sequences = {name: _tensor(v) for name, v in sequences.items()}
-    engine.pinned_textures = {name: _tensor(v) for name, v in textures.items()
+    engine.pinned_sequences = {name: _tensor(v) for name, v in (sequences or {}).items()}
+    engine.pinned_textures = {name: _tensor(v) for name, v in (textures or {}).items()
                               if not name.startswith(PRELUDE_KEY)}
     engine.pinned_preludes = {name[len(PRELUDE_KEY):]: _tensor(v)
-                              for name, v in textures.items()
+                              for name, v in (textures or {}).items()
                               if name.startswith(PRELUDE_KEY)}
+    by_name = {module.name: module for module in scene.modules if module.name}
+    for name, state in (modules or {}).items():
+        if name not in by_name:
+            raise KeyError(f"No module named {name!r} in the scene")
+        by_name[name].load_state(state)
     engine.invalidate()
 
 

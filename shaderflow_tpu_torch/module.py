@@ -3,7 +3,8 @@ ShaderModule — the lifecycle trait everything in a scene implements.
 
 Port of shaderflow_tpu/module.py (the reference module system): a module
 registers itself into its scene on construction, exposes build / setup /
-update / prewarm / pipeline / handle / ffhook / duration / destroy hooks, can relay()
+update / prewarm / pipeline / handle / ffhook / duration / destroy /
+load_state hooks, can relay()
 messages to every module, and full_pipeline() concatenates every module's
 uniforms. The scene itself is the first module. The realtime HUD hooks and
 CLI commands are not ported yet.
@@ -83,6 +84,12 @@ class ShaderModule:
 
     def destroy(self) -> None:
         """Release resources; called when the scene is destroyed."""
+
+    def load_state(self, state: dict) -> None:
+        """Take a reference run's module state, name -> numpy array
+        (engine.load_reference_state); modules that carry none refuse."""
+        raise NotImplementedError(
+            f"{type(self).__name__} carries no reference state ({sorted(state)})")
 
     @property
     def duration(self) -> float:

@@ -1,11 +1,13 @@
 """
 Camera ray generation — the device-side half of the camera system.
 
-Port of shaderflow_tpu/ops/cameralib.py (the reference camera.glsl). Only
-the trivial camera is ported: identity orientation, perspective projection,
-where the ray/plane math is separable. The general `project` (rotated
-cameras, stereoscopic and equirectangular projections) waits for the
-RayMarch slice and raises.
+Port of shaderflow_tpu/ops/cameralib.py (the reference camera.glsl): the
+trivial camera (identity orientation, perspective projection, where the
+ray/plane math is separable into axis lines) and the general per-pixel
+`project` (any orientation; perspective, stereoscopic and equirectangular
+projections) with the CameraRay2D plane hit. The general form computes
+in the reference's expression order, so its fields equal the reference's
+on the same inputs wherever the math is elementwise products and sums.
 """
 
 from __future__ import annotations
@@ -13,6 +15,17 @@ from __future__ import annotations
 from functools import cached_property
 
 import torch
+
+from shaderflow_tpu_torch.ops import stdlib as sl
+
+# Enum values match camera.glsl:4-12 and camera.py
+MODE_FREE = 0
+MODE_2D = 1
+MODE_SPHERICAL = 2
+
+PROJECTION_PERSPECTIVE = 0
+PROJECTION_STEREOSCOPIC = 1
+PROJECTION_EQUIRECTANGULAR = 2
 
 
 def _grid(x_line, y_line, height: int, width: int) -> torch.Tensor:
@@ -137,8 +150,133 @@ def project_trivial(
                       forward=basis[2], up=basis[1], right=basis[0])
 
 
-def project(**kwargs) -> CameraRays:
-    """The general per-pixel camera (any orientation and projection)."""
-    raise NotImplementedError(
-        "cameralib.project (rotated / stereoscopic / equirectangular "
-        "cameras) is not ported yet; the trivial camera is (project_trivial)")
+class PlaneCameraRays:
+    """The fields of the GLSL Camera struct for the general camera: the
+    per-pixel ray origin and target (H, W, 3) and the plane hit (H, W, 2),
+    from which the coordinate flavors are derived on first access."""
+
+    def __init__(self, *, origin, target, hit, t, gluv_x, aspect, want_aspect,
+                 resolution, position, forward, up, right):
+        self.origin = origin
+        self.target = target
+        self.gluv = hit
+        self._t = t
+        self._gluv_x = gluv_x
+        self._aspect = aspect
+        self._want_aspect = want_aspect
+        self._resolution = resolution
+        self.position = position
+        self.forward = forward
+        self.up = up
+        self.right = right
+
+    @cached_property
+    def out_of_bounds(self) -> torch.Tensor:
+        """(H, W) bool: behind the camera or outside the wanted aspect."""
+        return (self._t < 0) | (torch.abs(self._gluv_x) > self._want_aspect)
+
+    @cached_property
+    def agluv(self):
+        return self.gluv / sl.vec2(self._aspect, 1.0)
+
+    @cached_property
+    def stuv(self):
+        return (self.gluv + 1.0) / 2.0
+
+    @cached_property
+    def astuv(self):
+        return (self.agluv + 1.0) / 2.0
+
+    @cached_property
+    def stxy(self):
+        return self._resolution * self.astuv
+
+    @cached_property
+    def glxy(self):
+        return self.stxy - self._resolution / 2.0
+
+
+def _rectangle(gluv: torch.Tensor, right, up, size) -> torch.Tensor:
+    """Projection plane offsets (CameraRectangle, camera.glsl:55-57)."""
+    return size * (gluv[..., 0:1] * right + gluv[..., 1:2] * up)
+
+
+def project(
+    *,
+    gluv: torch.Tensor,    # (H, W, 2) screen gluv
+    agluv: torch.Tensor,   # (H, W, 2)
+    mode: int,
+    projection: int,
+    position,
+    right,
+    up,
+    forward,
+    zoom,
+    isometric,
+    orbital,
+    dolly,
+    focal_length,
+    separation,
+    aspect,
+    want_aspect,
+    resolution,
+) -> PlaneCameraRays:
+    """Per-pixel rays and the 2D uv set (CameraProject + CameraRay2D).
+    mode/projection are static Python ints (they select the path, as the
+    GLSL if-chain resolves uniformly per draw); everything else may be a
+    per-frame 0-d / (3,) tensor on the grids' device.
+
+    The plane hit intersects z = 1 (point (0, 0, 1), normal (0, 0, 1)):
+    the reference's two dot products with that normal are the z
+    components, 1 - origin.z and target.z - origin.z, for finite rays."""
+    del mode  # affects only host-side interaction, not ray math
+    device = gluv.device
+
+    def vector(value):
+        return torch.as_tensor(value, dtype=torch.float32, device=device)
+
+    position, right, up, forward = (vector(v) for v in (position, right, up, forward))
+    resolution = vector(resolution)
+    backward = -forward
+
+    def ray_origin(pos, g):
+        return (pos
+                + _rectangle(g, right, up, zoom * isometric)
+                + backward * orbital
+                + backward * dolly)
+
+    def ray_target(pos, g):
+        return (pos
+                + _rectangle(g, right, up, zoom)
+                + backward * orbital
+                + forward * focal_length)
+
+    if projection == PROJECTION_PERSPECTIVE:
+        origin = ray_origin(position, gluv)
+        target = ray_target(position, gluv)
+    elif projection == PROJECTION_STEREOSCOPIC:
+        # Each half of the screen gets its own centered gluv (camera.glsl:101-109)
+        eye = torch.sign(agluv[..., 0:1])
+        g = gluv - eye * sl.vec2(aspect / 2.0, 0.0)
+        pos = position + eye * separation * right
+        origin = ray_origin(pos, g)
+        target = ray_target(pos, g)
+    elif projection == PROJECTION_EQUIRECTANGULAR:
+        # The screen rectangle as azimuth/inclination (camera.glsl:112-125)
+        inclination = zoom * (float(sl.PI) * agluv[..., 1] / 2.0)
+        azimuth = zoom * (float(sl.PI) * agluv[..., 0])
+        direction = sl.rotate3d(forward, right, -inclination)
+        direction = sl.rotate3d(direction, up, azimuth)
+        origin = torch.broadcast_to(position, gluv.shape[:-1] + (3,))
+        target = origin + direction
+    else:
+        raise ValueError(f"Unknown camera projection: {projection}")
+
+    num = 1.0 - origin[..., 2]
+    den = target[..., 2] - origin[..., 2]
+    t = num / den
+    hit = origin[..., 0:2] + t[..., None] * (target[..., 0:2] - origin[..., 0:2])
+    return PlaneCameraRays(origin=origin, target=target, hit=hit, t=t,
+                           gluv_x=gluv[..., 0], aspect=aspect,
+                           want_aspect=want_aspect, resolution=resolution,
+                           position=position, forward=forward, up=up, right=right)

@@ -9,11 +9,13 @@ exact).
 
   escape_plain           the plain PyTorch loop (_escape_xla, same math and
                          order) — what the kernel is held against
-  escape_iterations_sep  the lines form: kernel K3 (csrc/escape.cu) on CUDA
-                         tensors, escape_plain on CPU tensors
-  escape_iterations      the plane form: plain on CPU; its kernel (K3 plane
-                         form, Julia/Tetration/rotated cameras) is not
-                         ported yet and CUDA tensors raise
+  escape_iterations_sep  the lines form: kernel K3 (csrc/escape.cu,
+                         escape_lines) on CUDA tensors, escape_plain on CPU
+  escape_iterations      the plane form, z0 == c (rotated cameras): K3's
+                         planes form (escape_planes, interior computed
+                         in-kernel from c) on CUDA, escape_plain on CPU
+  escape_iterations_z0   the plane form with c given apart (Julia): planes or
+                         0-d values read on the device through a pointer
 
 Not ported (TPU workarounds, ROADMAP "Not ported"): predicted rounds, the
 unroll between early-exit checks, f32 mask carries, the maskless monotone
@@ -85,6 +87,15 @@ def _escape_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_void_p]
+    function = library.escape_planes
+    if function.argtypes is None:
+        function.restype = ctypes.c_int
+        function.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
     return library
 
 
@@ -135,18 +146,128 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
 escape_iterations_sep.launches = 0
 
 
+# escape_planes' c and interior kinds (csrc/escape.cu)
+_C_IS_Z0, _C_PLANES, _C_SCALARS = 0, 1, 2
+_INTERIOR_NONE, _INTERIOR_FROM_C, _INTERIOR_PLANE = 0, 1, 2
+
+
+def _strided_plane(plane: torch.Tensor, shape: tuple) -> tuple:
+    """(base tensor, element stride) of a plane whose k-th pixel (row-major)
+    sits at base[k * stride]: a contiguous plane, or one channel of a
+    contiguous (..., 2) vector field. Anything else is made contiguous."""
+    plane = torch.broadcast_to(plane, shape)
+    stride = plane.stride(-1) if plane.ndim else 1
+    expected = [stride]
+    for size in reversed(plane.shape[1:]):
+        expected.insert(0, expected[0] * size)
+    if plane.ndim and list(plane.stride()) == expected and stride in (1, 2):
+        return plane, stride
+    return plane.contiguous(), 1
+
+
+def _escape_planes_cuda(zx0: torch.Tensor, zy0: torch.Tensor, cx, cy, c_kind: int,
+                        interior: torch.Tensor, interior_kind: int, max_iter: int,
+                        radius: float, saturate, out_dtype) -> torch.Tensor:
+    """Launch K3's planes form (csrc/escape.cu:escape_planes) on the
+    current stream -> counts of zx0's shape."""
+    shape = tuple(zx0.shape)
+    device = zx0.device
+    zx0, z_stride = _strided_plane(zx0, shape)
+    zy0, zy_stride = _strided_plane(zy0, shape)
+    if zy_stride != z_stride:
+        zx0, zy0, z_stride = zx0.contiguous(), zy0.contiguous(), 1
+    c_stride = 1
+    if c_kind == _C_PLANES:
+        cx, c_stride = _strided_plane(cx, shape)
+        cy, cy_stride = _strided_plane(cy, shape)
+        if cy_stride != c_stride:
+            cx, cy, c_stride = cx.contiguous(), cy.contiguous(), 1
+    tensors = [zx0, zy0] + ([cx, cy] if c_kind != _C_IS_Z0 else [])
+    if interior_kind == _INTERIOR_PLANE:
+        interior = torch.broadcast_to(interior, shape).to(torch.bool).contiguous()
+        tensors.append(interior)
+    for tensor in tensors:
+        if tensor.device != device or (tensor.dtype != torch.float32
+                                       and tensor is not interior):
+            raise ValueError(f"K3 takes float32 planes on {device}, got "
+                             f"{tensor.dtype} on {tensor.device}")
+    trip = int(max_iter) if saturate is None else min(int(max_iter), int(saturate))
+    out = torch.empty(shape, dtype=out_dtype, device=device)
+    library = _escape_library()
+    pointer = lambda t: t.data_ptr() if isinstance(t, torch.Tensor) else None
+    with torch.cuda.device(device):   # the launch targets the current card
+        status = library.escape_planes(
+            zx0.data_ptr(), zy0.data_ptr(), z_stride,
+            pointer(cx) if c_kind != _C_IS_Z0 else None,
+            pointer(cy) if c_kind != _C_IS_Z0 else None, c_stride, c_kind,
+            interior.data_ptr() if interior_kind == _INTERIOR_PLANE else None,
+            interior_kind, out.data_ptr(), int(out_dtype == torch.float32),
+            out.numel(), int(max_iter), trip, float(radius) * float(radius),
+            torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"escape_planes launch failed: cudaError {status}")
+    escape_iterations.launches += 1
+    return out
+
+
+def _check_out_dtype(out_dtype) -> None:
+    if out_dtype not in (torch.int32, torch.float32):
+        raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
+
+
 def escape_iterations(c: torch.Tensor, max_iter: int, radius: float = 3.0,
                       saturate: int = None, out_dtype=torch.int32) -> torch.Tensor:
     """Mandelbrot escape counts for per-pixel c = (..., 2) (the plane form:
-    rotated or non-perspective cameras). Plain on CPU tensors; the plane
-    form of kernel K3 is not ported yet, so CUDA tensors raise."""
-    if c.device.type != "cpu":
-        raise NotImplementedError(
-            "escape_iterations plane form: kernel K3's plane form "
-            "(shaderflow_tpu/ops/fractal.py:_escape_pallas, planes) is not "
-            "ported yet; the trivial camera's lines form is "
-            "(escape_iterations_sep)")
+    rotated or non-perspective cameras), z0 = c, interior pixels reported
+    as max_iter. K3's planes form on CUDA tensors (c read in place from a
+    contiguous (..., 2) field, the interior test computed in-kernel);
+    escape_plain on CPU tensors. `escape_iterations.launches` counts the
+    launches of the planes form (escape_iterations_z0's too)."""
+    _check_out_dtype(out_dtype)
     cx, cy = c[..., 0], c[..., 1]
-    return escape_plain(cx, cy, cx, cy, int(max_iter), float(radius),
-                        interior=_interior_mask(cx, cy), saturate=saturate,
-                        out_dtype=out_dtype)
+    if c.device.type == "cpu":
+        return escape_plain(cx, cy, cx, cy, int(max_iter), float(radius),
+                            interior=_interior_mask(cx, cy), saturate=saturate,
+                            out_dtype=out_dtype)
+    if c.device.type != "cuda" or c.dtype != torch.float32:
+        raise ValueError(f"K3 takes float32 CUDA tensors, got {c.dtype} on {c.device}")
+    c = c.contiguous()
+    return _escape_planes_cuda(c[..., 0], c[..., 1], None, None, _C_IS_Z0, None,
+                               _INTERIOR_FROM_C, max_iter, radius, saturate, out_dtype)
+
+
+escape_iterations.launches = 0
+
+
+def escape_iterations_z0(z0: torch.Tensor, cx, cy, max_iter: int, radius: float = 3.0,
+                         interior: torch.Tensor = None, saturate: int = None,
+                         monotone: bool = False, out_dtype=torch.int32) -> torch.Tensor:
+    """General escape counts: per-pixel z0 (..., 2), c per pixel or as
+    scalars (the Julia form; no interior shortcut unless `interior` is
+    given, as it is sound only when z0 == c). `monotone` is the
+    reference's licence for a maskless TPU step; the counts do not depend
+    on it and the port ignores it.
+
+    On CUDA, K3's planes form: a 0-d (or one-element) tensor c is read on
+    the device through a pointer (no host sync), Python numbers become
+    0-d tensors, anything else is broadcast to z0's planes. escape_plain
+    on CPU tensors."""
+    del monotone
+    _check_out_dtype(out_dtype)
+    zx0, zy0 = z0[..., 0], z0[..., 1]
+    if z0.device.type == "cpu":
+        cx = torch.as_tensor(cx, dtype=torch.float32)
+        cy = torch.as_tensor(cy, dtype=torch.float32)
+        return escape_plain(zx0, zy0, cx, cy, int(max_iter), float(radius),
+                            interior=interior, saturate=saturate, out_dtype=out_dtype)
+    if z0.device.type != "cuda" or z0.dtype != torch.float32:
+        raise ValueError(f"K3 takes float32 CUDA tensors, got {z0.dtype} on {z0.device}")
+    cx = torch.as_tensor(cx, dtype=torch.float32, device=z0.device)
+    cy = torch.as_tensor(cy, dtype=torch.float32, device=z0.device)
+    scalars = cx.numel() == 1 and cy.numel() == 1
+    c_kind = _C_SCALARS if scalars else _C_PLANES
+    if scalars:
+        cx, cy = cx.reshape(()).contiguous(), cy.reshape(()).contiguous()
+    return _escape_planes_cuda(zx0, zy0, cx, cy, c_kind, interior,
+                               _INTERIOR_NONE if interior is None else _INTERIOR_PLANE,
+                               max_iter, radius, saturate, out_dtype)

@@ -6,6 +6,7 @@ tensors sampled with GL semantics: texel centers at (i + 0.5)/N, GL_REPEAT
 wraps, CLAMP_TO_EDGE clamps, row 0 = the top of the image (v = 1).
 
   Sampler2D, sample_separable         axis-aligned grid sampling
+  texel_fetch                         GLSL texelFetch (bottom-left origin)
   sample_rows_planes_blocked          banded row interpolation (the
                                       background and blur rows the tail
                                       column-samples in kernel K1)
@@ -93,6 +94,20 @@ def sample_separable(tex: Sampler2D, u_line: torch.Tensor,
     w_cols = _interp_matrix(u, w, tex.repeat_x)               # (W', W)
     rows = torch.einsum("oh,hwc->owc", w_rows, tex.data.to(torch.float32))
     return torch.einsum("pw,owc->opc", w_cols, rows)          # (H', W', C)
+
+
+def texel_fetch(tex: Sampler2D, xy: torch.Tensor) -> torch.Tensor:
+    """GLSL texelFetch: integer texel coordinates (..., 2), x right / y up
+    from the bottom-left (GL convention), no filtering, zero outside the
+    texture -> (..., C)."""
+    h, w = tex.height, tex.width
+    x = xy[..., 0].to(torch.int64)
+    y = xy[..., 1].to(torch.int64)
+    inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    row = torch.clamp((h - 1) - y, 0, h - 1)
+    flat = tex.data.reshape(h * w, *tex.data.shape[2:])
+    texels = flat[row * w + torch.clamp(x, 0, w - 1)]
+    return torch.where(inside[..., None], texels, 0.0)
 
 
 def _blocked_axis(pos: torch.Tensor, out_len: int, n: int, block: int,

@@ -18,13 +18,18 @@ emitted into kernel K1's Triton template (ops/tailgen.py: CUDA tensors), so
 both compute the same thing by construction.
 
 Inputs are classified by make_spec: planes (Hr, Wr) [or (Hr, Wr, C) / a
-tuple of channel planes], Row (Hr,), Col (Wr,), 0-d scalars, Indexed (one
-plane of an (N, Hr, Wr) prelude stack, picked by a clipped index) and
-ColSampled (row-interpolated (Hr, W_in) planes whose column interpolation
-happens inside the tail). Planes may be float32 or bfloat16; the tail
-computes in float32 (the reference's SHADERFLOW_TAIL_BF16 mode is not
-ported). Table inputs are classified but not ported yet: both paths raise
-NotImplementedError for them.
+tuple of channel planes], Row (Hr,), Col (Wr,), 0-d scalars, Table (a
+small (bins, C) lookup table read by TailCtx.lookup), Indexed (one plane
+of an (N, Hr, Wr) prelude stack, picked by a clipped index) and ColSampled
+(row-interpolated (Hr, W_in) planes whose column interpolation happens
+inside the tail). Planes may be float32 or bfloat16; the tail computes in
+float32 (the reference's SHADERFLOW_TAIL_BF16 mode is not ported).
+
+Two final forms: the exact-pooling regime (render == out * s) pools and
+quantizes in K1 itself; the equal-resolution regime (render == out,
+subsample s > 1, e.g. ssaa=1 with the default subsample 2) runs K1's
+quantize=False form — the tail written as three bfloat16 planes — then the
+reference's planar 3-tap stencil and the u8 quantize (final_equal_resolution).
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from shaderflow_tpu_torch.ops.downsample import final_pass
+from shaderflow_tpu_torch.ops.downsample import final_pass, quantize_u8
+from shaderflow_tpu_torch.ops.stdlib import reciprocal
 
 
 # --------------------------------------------------------------------------- #
@@ -89,7 +95,8 @@ class Col(NamedTuple):
 
 
 class Table(NamedTuple):
-    """A small (bins, channels) lookup table (not ported yet)."""
+    """A small (bins, channels) lookup table (a 1-D table is one channel),
+    read per pixel by TailCtx.lookup; K1 keeps it resident (tiny, cached)."""
     value: Any
 
 
@@ -128,7 +135,7 @@ class TailSpec(NamedTuple):
     rows: dict            # name -> (Hr,) tensor
     cols: dict            # name -> (Wr,) tensor
     scalars: dict         # name -> 0-d tensor
-    tables: dict = {}     # name -> Table value (not ported)
+    tables: dict = {}     # name -> (bins, C) tensor
     colsampled: dict = {}  # name -> ColSampledSpec
     indexed: dict = {}    # name -> Indexed (index a Python int)
 
@@ -158,7 +165,8 @@ def make_spec(fn: Callable, render_height: int, render_width: int,
             positions = torch.clamp(u * w_in - 0.5, 0.0, float(w_in - 1))
             colsampled[name] = ColSampledSpec(channels, positions)
         elif isinstance(value, Table):
-            tables[name] = value
+            table = torch.as_tensor(value.value)
+            tables[name] = table[:, None] if table.ndim == 1 else table
         elif isinstance(value, Row):
             rows[name] = torch.as_tensor(value.value).reshape(render_height)
         elif isinstance(value, Col):
@@ -191,14 +199,6 @@ def make_spec(fn: Callable, render_height: int, render_width: int,
             else:
                 raise ValueError(f"Unsupported tail input {name!r} ndim={value.ndim}")
     return TailSpec(fn, planes, rows, cols, scalars, tables, colsampled, indexed)
-
-
-def unported_inputs(spec: TailSpec) -> None:
-    """Raise NotImplementedError for the input kind neither path takes yet."""
-    if spec.tables:
-        raise NotImplementedError(
-            f"Tail input kind Table ({sorted(spec.tables)}) is not ported yet: "
-            "kernel K1's table form comes with the PianoRoll slice")
 
 
 def indexed_position(ix: Indexed) -> int:
@@ -260,11 +260,13 @@ class TailCtx:
     which. Render sizes and aspect are Python numbers."""
 
     def __init__(self, planes, rows, cols, scalars, row_index, col_index,
-                 render_height: int, render_width: int, aspect: float):
+                 render_height: int, render_width: int, aspect: float,
+                 tables=None):
         self._planes = planes      # name -> tuple of 2D values
         self._rows = rows          # name -> (Hr, 1) column vector
         self._cols = cols          # name -> (1, Wr) row vector
         self._scalars = scalars
+        self._tables = tables or {}  # name -> (bins, C) tensor (symbolic when traced)
         self._row_index = row_index  # (Hr, Wr) f32 global row index
         self._col_index = col_index
         self.render_height = render_height
@@ -301,16 +303,31 @@ class TailCtx:
         """Cast into the color-math dtype (always float32 in the port)."""
         return _f32(x)
 
+    def lookup(self, name: str, index_plane, channel: int = 0):
+        """Nearest lookup table[clip(trunc(index), 0, bins - 1), channel] of
+        a Table input, in float32 (tailfuse.py:323-335's clip and select;
+        a select of one value per pixel is a gather)."""
+        table = self._tables[name]
+        if not isinstance(table, torch.Tensor):   # traced: kernel K1 reads it in-kernel
+            return table.lookup(index_plane, channel)
+        index = torch.clamp(index_plane.to(torch.int32), 0, table.shape[0] - 1)
+        return table[:, channel].to(torch.float32)[index.to(torch.int64)]
+
     # -- coordinates (ssaa-resolution, GL conventions) ------------------------
+    # (i + 0.5) * (1 / n) with the f32 reciprocal, not (i + 0.5) / n: the
+    # reference's compiled coordinates (XLA folds a division by a constant
+    # into that product), and one value on every path — eager torch on the
+    # card also divides by a host scalar through its reciprocal, while K1
+    # and torch on the CPU would round a true quotient.
 
     @property
     def astuv_x(self):
-        return (self._col_index + 0.5) / self.render_width
+        return (self._col_index + 0.5) * reciprocal(self.render_width)
 
     @property
     def astuv_y(self):
         """astuv y grows UP the screen: row 0 (top) is y near 1."""
-        return 1.0 - (self._row_index + 0.5) / self.render_height
+        return 1.0 - (self._row_index + 0.5) * reciprocal(self.render_height)
 
     @property
     def agluv_x(self):
@@ -337,14 +354,14 @@ def spec_device(spec: TailSpec) -> torch.device:
     tensors = [*spec.rows.values(), *spec.cols.values(), *spec.scalars.values(),
                *(c for channels in spec.planes.values() for c in channels),
                *(ix.stack for ix in spec.indexed.values()),
-               *(cs.positions for cs in spec.colsampled.values())]
+               *(cs.positions for cs in spec.colsampled.values()),
+               *spec.tables.values()]
     return tensors[0].device if tensors else torch.device("cpu")
 
 
 def eval_reference(spec: TailSpec, render_height: int, render_width: int,
                    aspect: float) -> torch.Tensor:
     """Run the tail on full-resolution tensors -> (Hr, Wr, 3) float32."""
-    unported_inputs(spec)
     device = spec_device(spec)
     rows = {k: v.reshape(-1, 1) for k, v in spec.rows.items()}
     cols = {k: v.reshape(1, -1) for k, v in spec.cols.items()}
@@ -355,8 +372,9 @@ def eval_reference(spec: TailSpec, render_height: int, render_width: int,
                              device=device)[None, :].expand(shape)
     planes = {**spec.planes, **materialize_colsampled(spec),
               **materialize_indexed(spec)}
+    tables = {name: table.to(device) for name, table in spec.tables.items()}
     ctx = TailCtx(planes, rows, cols, spec.scalars, row_index, col_index,
-                  render_height, render_width, aspect)
+                  render_height, render_width, aspect, tables=tables)
     result = spec.fn(ctx)
     planes = [torch.broadcast_to(torch.as_tensor(p, dtype=torch.float32,
                                                  device=device), shape)
@@ -377,37 +395,102 @@ def tail_plain(spec: TailSpec, render_height: int, render_width: int,
 
 def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
                      out_height: int, out_width: int, subsample: int,
-                     aspect: float, out: torch.Tensor = None) -> torch.Tensor:
+                     aspect: float, out: torch.Tensor = None,
+                     quantize: bool = True) -> torch.Tensor:
     """The tail + s x s box pool + GL u8 quantize -> (out_h, out_w, 3) u8,
     written into `out` when given (e.g. one frame's slot of a batch).
 
+    quantize=False (s = 1 only; the equal-resolution regime) writes the
+    tail's three planes as bfloat16 (round to nearest even), no pool and
+    no quantize -> (3, out_h, out_w) bf16, into `out` when given; the
+    caller runs the stencil (final_equal_resolution).
+
     Requires the exact-pooling regime: render == out * subsample. Kernel
-    K1 (Triton, generated by ops/tailgen.py) for CUDA inputs; tail_plain
-    for CPU inputs. `fused_tail_final.launches` counts kernel launches."""
+    K1 (Triton, generated by ops/tailgen.py) for CUDA inputs; the plain
+    version (tail_plain, planes_plain) for CPU inputs.
+    `fused_tail_final.launches` counts launches of the u8 form,
+    `fused_tail_final.planes_launches` those of the quantize=False form."""
     s = int(subsample)
     if (render_height, render_width) != (out_height * s, out_width * s):
         raise ValueError(
             f"fused_tail_final needs render == out * subsample, got render "
             f"{render_width}x{render_height}, out {out_width}x{out_height}, s={s}")
+    if not quantize and s != 1:
+        raise ValueError(f"fused_tail_final(quantize=False) runs at s = 1, got s={s}")
     device = out.device if out is not None else spec_device(spec)
     if device.type == "cpu":
-        frame = tail_plain(spec, render_height, render_width, out_height,
-                           out_width, s, aspect)
+        if quantize:
+            result = tail_plain(spec, render_height, render_width, out_height,
+                                out_width, s, aspect)
+        else:
+            result = planes_plain(spec, render_height, render_width, aspect)
         if out is None:
-            return frame
-        out.copy_(frame)
+            return result
+        out.copy_(result)
         return out
     from shaderflow_tpu_torch.ops import tailgen
     launch = tailgen.prepare(spec, render_height, render_width, out_height,
-                             out_width, s, aspect, device)
+                             out_width, s, aspect, device, quantize=quantize)
     if out is None:
-        out = torch.empty((out_height, out_width, 3), dtype=torch.uint8, device=device)
+        shape, dtype = (((out_height, out_width, 3), torch.uint8) if quantize
+                        else ((3, out_height, out_width), torch.bfloat16))
+        out = torch.empty(shape, dtype=dtype, device=device)
     launch(out)
-    fused_tail_final.launches += 1
+    if quantize:
+        fused_tail_final.launches += 1
+    else:
+        fused_tail_final.planes_launches += 1
     return out
 
 
 fused_tail_final.launches = 0
+fused_tail_final.planes_launches = 0
+
+
+def planes_plain(spec: TailSpec, render_height: int, render_width: int,
+                 aspect: float) -> torch.Tensor:
+    """Plain version of K1's quantize=False form: the tail's three float32
+    planes rounded to bfloat16 -> (3, Hr, Wr)."""
+    rgb = eval_reference(spec, render_height, render_width, aspect)
+    return rgb.permute(2, 0, 1).to(torch.bfloat16)
+
+
+def stencil_weight(subsample: int) -> float:
+    """The equal-resolution stencil's side weight m (the center is 1 - 2m):
+    sum_k max(0, -0.5 + (k + 0.5) / s) / s, as a bfloat16 value (the
+    reference multiplies bf16 planes by it as a weakly typed constant)."""
+    s = int(subsample)
+    m = sum(max(0.0, -0.5 + (k + 0.5) / s) for k in range(s)) / s
+    return float(torch.tensor(m).to(torch.bfloat16).float())
+
+
+def final_equal_resolution(planes: torch.Tensor, subsample: int,
+                           out: torch.Tensor = None) -> torch.Tensor:
+    """The reference's equal-resolution final pass on K1's (3, H, W) bf16
+    planes (shaderflow_tpu/ops/tailfuse.py:779-807): per plane the
+    separable [m, 1 - 2m, m] stencil with edge replication, rows then
+    columns, then quantize_u8 -> (H, W, 3) u8 (into `out` when given). The
+    three planes go through each op together (one launch per op).
+
+    Arithmetic as the reference's compiled stencil does it (its optimized
+    program, on XLA:CPU): every product and sum rounded to bfloat16, but
+    the last sum in float32 — the bf16 rounding of the final sum folds
+    into quantize_u8's upcast. Torch's bfloat16 ops compute in float32 and
+    round each result, on the CPU and on the card alike."""
+    m = stencil_weight(subsample)
+    center = 1.0 - 2.0 * m
+    channels, height, width = planes.shape
+    if out is None:
+        out = torch.empty((height, width, channels), dtype=torch.uint8,
+                          device=planes.device)
+    up = torch.cat([planes[:, :1], planes[:, :-1]], dim=1)
+    down = torch.cat([planes[:, 1:], planes[:, -1:]], dim=1)
+    rows = center * planes + m * (up + down)
+    left = torch.cat([rows[..., :1], rows[..., :-1]], dim=2)
+    right = torch.cat([rows[..., 1:], rows[..., -1:]], dim=2)
+    mixed = (center * rows).to(torch.float32) + (m * (left + right)).to(torch.float32)
+    out.copy_(quantize_u8(mixed).permute(1, 2, 0))
+    return out
 
 
 def supports_fusion(render_height: int, render_width: int,
@@ -418,22 +501,43 @@ def supports_fusion(render_height: int, render_width: int,
     return s >= 1 and (render_height, render_width) == (out_height * s, out_width * s)
 
 
+_PLANES: dict = {}
+
+
+def _frame_planes(height: int, width: int, device: torch.device) -> torch.Tensor:
+    """One (3, H, W) bf16 buffer per size and device, reused by every
+    frame: the frame loop runs on one stream, so frame k + 1's K1 (d)
+    writes it only after frame k's stencil read it."""
+    key = (height, width, str(device))
+    if key not in _PLANES:
+        _PLANES.clear()
+        _PLANES[key] = torch.empty((3, height, width), dtype=torch.bfloat16, device=device)
+    return _PLANES[key]
+
+
 def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
                    out_height: int, out_width: int, subsample: int,
                    aspect: float, out: torch.Tensor = None) -> torch.Tensor:
-    """K1 in the exact-pooling regime; otherwise the plain path on CPU. On
-    CUDA the other regimes need K1's quantize=False form (equal resolution,
-    then the 3-tap stencil) or the general resampler, not ported yet."""
+    """The final pass of a tail, by regime: the exact-pooling regime runs
+    K1 (u8); the equal-resolution regime (render == out, s > 1) runs K1's
+    quantize=False form into a reused set of bf16 planes, then
+    final_equal_resolution; any other regime takes the plain path on CPU
+    (on CUDA it needs the general resampler, not ported yet, and raises)."""
     if supports_fusion(render_height, render_width, out_height, out_width, subsample):
         return fused_tail_final(spec, render_height, render_width, out_height,
                                 out_width, subsample, aspect, out=out)
     device = out.device if out is not None else spec_device(spec)
+    if (render_height, render_width) == (out_height, out_width) and int(subsample) > 1:
+        planes = fused_tail_final(spec, render_height, render_width, out_height,
+                                  out_width, 1, aspect, quantize=False,
+                                  out=_frame_planes(out_height, out_width, device))
+        return final_equal_resolution(planes, subsample, out=out)
     if device.type != "cpu":
         raise NotImplementedError(
             f"Tail regime render {render_width}x{render_height} -> out "
-            f"{out_width}x{out_height} subsample {subsample}: kernel K1's "
-            "quantize=False form (equal-resolution stencil) is not ported "
-            "yet; the exact-pooling regime (render == out * subsample) is")
+            f"{out_width}x{out_height} subsample {subsample}: the general "
+            "resampler is not ported yet; the exact-pooling and "
+            "equal-resolution regimes are")
     frame = tail_plain(spec, render_height, render_width, out_height,
                        out_width, subsample, aspect)
     if out is None:

@@ -2,14 +2,17 @@
 Kernel K1: the scene's tail function traced into a Triton tile template.
 
 Replaces shaderflow_tpu/ops/tailfuse.py:fused_tail_final (the Pallas TPU
-kernel dispatched by run_tail_final), in the forms the fractal and
-visualizer slices use: planes (float32 or bfloat16, upcast at load), rows,
-columns and scalars; Indexed planes (read from the prelude stack at the
-clipped index: the wrapper hands the kernel the plane's own base pointer);
-ColSampled planes (the 2-tap hat interpolation along columns of
-row-interpolated (Hr, W_in) planes, computed per pixel from the column's
-position); s x s box pooling, GL u8 quantization, masked partial tiles. The
-Table and quantize=False forms are not ported yet and raise.
+kernel dispatched by run_tail_final), in all its forms: planes (float32 or
+bfloat16, upcast at load), rows, columns and scalars; Indexed planes (read
+from the prelude stack at the clipped index: the wrapper hands the kernel
+the plane's own base pointer); ColSampled planes (the 2-tap hat
+interpolation along columns of row-interpolated (Hr, W_in) planes,
+computed per pixel from the column's position); Table inputs (small
+(bins, C) float32 tables read by a clipped gather, which stays in L1: the
+same value the reference's clip and select-accumulate picks); s x s box
+pooling, GL u8 quantization, masked partial tiles; and the quantize=False
+form (s = 1, the equal-resolution regime), which stores the three results
+as bfloat16 planes, rounded to nearest even, instead of u8 pixels.
 
 Why Triton: the body is user Python (a different tail per scene), a fused
 elementwise pass plus a tiny s x s reduction and a quantize — what Triton
@@ -44,6 +47,14 @@ to bf16 for bf16 planes; the two products are exact in f32 for bf16
 operands and are summed once, so the kernel equals
 tailfuse.materialize_colsampled bit for bit.
 
+Host cost: tracing and generating a large tail (the piano roll's: 449
+nodes, 57 inputs) takes milliseconds per frame, so prepare() keeps the
+traced kernel per tail and input structure (_tail_key): a tail is a pure
+function of its code, its closure values and the kinds, names, channel
+counts and dtypes of its inputs. Tails whose closure holds a value the key
+cannot hash (anything but numbers, strings, tuples of them and numpy
+arrays) are traced every frame.
+
 Float rules: launched with enable_fp_fusion=False (no FMA contraction),
 division as div_rn and sqrt as sqrt_rn (IEEE-rounded, as torch's;
 Triton's default `/` and tl.sqrt are approximate on sm_90 and differ from
@@ -61,8 +72,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch.ops.tailfuse import (
-    TailCtx, TailSpec, indexed_position, unported_inputs)
+from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, indexed_position
 
 BLOCK_H = 8     # output rows per program
 BLOCK_W = 64    # output columns per program
@@ -80,6 +90,7 @@ class Graph:
     def __init__(self):
         self.nodes: list[tuple] = []
         self.inputs: dict[tuple, int] = {}   # (kind, name, channel) -> node
+        self.tables: dict[str, tuple] = {}   # Table name -> (bins, channels) read
 
     def add(self, op: str, args: tuple, kind: str) -> "Sym":
         self.nodes.append((op, args, kind))
@@ -176,6 +187,8 @@ class Sym:
     __ge__ = _binary("ge")
     __eq__ = _binary("eq")
     __ne__ = _binary("ne")
+    __mod__ = _binary("mod")
+    __rmod__ = _binary("mod", True)
     __and__ = _binary("and")
     __rand__ = _binary("and", True)
     __or__ = _binary("or")
@@ -236,17 +249,35 @@ _TORCH_OPS = {
     torch.sqrt: lambda g, a: _op(g, "sqrt", a),
     torch.exp: lambda g, a: _op(g, "exp", a),
     torch.log: lambda g, a: _op(g, "log", a),
+    torch.remainder: lambda g, a, b: _op(g, "mod", a, b),
     # Shape plumbing: every traced value already stands for the full tile
     torch.broadcast_to: lambda g, a, shape: a,
-    torch.zeros_like: lambda g, a, **k: 0.0,
+    torch.zeros_like: lambda g, a, **k: g.add("full", (("const", 0.0),), "f"),
 }
+
+
+class _SymTable:
+    """A Table input while tracing: lookup() records a clipped-gather node
+    and registers the table (bins, channels) with the graph."""
+
+    def __init__(self, graph: Graph, name: str, bins: int, channels: int):
+        self.graph, self.name = graph, name
+        self.bins, self.channels = bins, channels
+
+    def lookup(self, index, channel: int = 0) -> Sym:
+        channel = int(channel)
+        if not 0 <= channel < self.channels:
+            raise IndexError(f"Table {self.name!r} has {self.channels} channels, "
+                             f"not channel {channel}")
+        self.graph.tables[self.name] = (self.bins, self.channels)
+        return self.graph.add(
+            "lookup", (_operand(self.graph, index), ("table", self.name, channel)), "f")
 
 
 def trace(spec: TailSpec, render_height: int, render_width: int,
           aspect: float) -> tuple[Graph, list]:
     """Run spec.fn on symbolic inputs -> (graph, [3 outputs]); each output
     is a node index or ("const", value)."""
-    unported_inputs(spec)
     graph = Graph()
     planes = _LazyInputs(graph, {
         **{n: ("plane", len(c)) for n, c in spec.planes.items()},
@@ -255,10 +286,12 @@ def trace(spec: TailSpec, render_height: int, render_width: int,
     rows = _LazyInputs(graph, {n: ("row", 1) for n in spec.rows}, single=True)
     cols = _LazyInputs(graph, {n: ("col", 1) for n in spec.cols}, single=True)
     scalars = _LazyInputs(graph, {n: ("scalar", 1) for n in spec.scalars}, single=True)
+    tables = {name: _SymTable(graph, name, *table.shape)
+              for name, table in spec.tables.items()}
     ctx = TailCtx(planes, rows, cols, scalars,
                   graph.input(("row_index", "", 0)),
                   graph.input(("col_index", "", 0)),
-                  render_height, render_width, aspect)
+                  render_height, render_width, aspect, tables=tables)
     result = spec.fn(ctx)
     outputs = [_operand(graph, value) for value in tuple(result)[:3]]
     if len(outputs) != 3:
@@ -306,6 +339,9 @@ _TORCH_EVAL = {
     "and": lambda a, b: a & b,
     "or": lambda a, b: a | b,
     "not": lambda a: ~a,
+    "mod": lambda a, b: torch.remainder(a, b) if isinstance(a, torch.Tensor)
+    else torch.remainder(torch.as_tensor(a, dtype=torch.float32), b),
+    "full": lambda a: a,
     "neg": lambda a: -a,
     "abs": torch.abs,
     "floor": torch.floor,
@@ -332,11 +368,18 @@ def _extremum(function, bound: str, a, b):
 def evaluate(graph: Graph, outputs: list, env: dict) -> list:
     """Evaluate the graph with torch. env maps input keys ("plane", name,
     channel) / ("colsampled", name, channel) (the column-interpolated
-    plane) / ("row", name, 0) / ... / ("row_index", "", 0) to tensors."""
+    plane) / ("row", name, 0) / ... / ("row_index", "", 0) / ("table",
+    name, 0) (the (bins, C) table) to tensors."""
     values = []
     for op, args, _ in graph.nodes:
         if op == "input":
             values.append(env[args])
+            continue
+        if op == "lookup":
+            _, name, channel = args[1]
+            table = env[("table", name, 0)]
+            index = torch.clamp(values[args[0]].to(torch.int32), 0, table.shape[0] - 1)
+            values.append(table[:, channel].to(torch.float32)[index.to(torch.int64)])
             continue
         operands = [a[1] if isinstance(a, tuple) else values[a] for a in args]
         values.append(_TORCH_EVAL[op](*operands))
@@ -369,14 +412,20 @@ def _literal(value: float) -> str:
 
 
 def generate(graph: Graph, outputs: list, subsample: int,
-             colsampled_bf16: frozenset = frozenset()) -> tuple[str, list]:
+             colsampled_bf16: frozenset = frozenset(),
+             quantize: bool = True) -> tuple[str, list]:
     """Emit the Triton source for this graph -> (source, input keys in
     kernel-argument order). ColSampled inputs also take, per name, their
     (Wr,) positions and their width W_in (arguments pos<j>, win<j>);
     `colsampled_bf16` names those whose planes are bfloat16 (their hat
-    weights round to bf16)."""
+    weights round to bf16). Table inputs are keys ("table", name, 0): a
+    (bins, C) float32 pointer, bins and C baked into the source.
+    quantize=False (subsample 1) stores three bf16 planes (3, Ho, Wo)."""
+    if not quantize and subsample != 1:
+        raise ValueError(f"K1's quantize=False form runs at s = 1, got s={subsample}")
     keys = sorted(k for k in graph.inputs
                   if k[0] in ("plane", "colsampled", "row", "col", "scalar"))
+    keys += [("table", name, 0) for name in sorted(graph.tables)]
     scalar_keys = [k for k in keys if k[0] == "scalar"]
     pointer_keys = [k for k in keys if k[0] != "scalar"]
     arg_names = {k: f"in{i}" for i, k in enumerate(pointer_keys)}
@@ -448,6 +497,21 @@ def generate(graph: Graph, outputs: list, subsample: int,
                 expr = "ri.to(tl.float32)"
             else:
                 expr = "ci.to(tl.float32)"
+        elif op == "lookup":
+            _, name, channel = args[1]
+            bins, channels = graph.tables[name]
+            index = (f"tl.minimum(tl.maximum({ref(args[0], 'f')}.to(tl.int32), 0), "
+                     f"{bins - 1})")
+            expr = (f"tl.load({arg_names[('table', name, 0)]} + {index} * {channels} "
+                    f"+ {channel}, mask=valid, other=0.0)")
+        elif op == "full":
+            expr = ref(args[0])
+        elif op == "mod":
+            # torch.remainder / jnp.mod on floats: fmod, then + b where the
+            # remainder is nonzero and its sign differs from b's
+            a, b = ref(args[0], "f"), ref(args[1], "f")
+            r = f"libdevice.fmod({a}, {b})"
+            expr = f"tl.where(({r} != 0.0) & (({r} < 0.0) != ({b} < 0.0)), {r} + {b}, {r})"
         elif op == "where":
             branch_kind = "f" if kind == "f" else None
             expr = (f"tl.where({ref(args[0])}, {ref(args[1], branch_kind)}, "
@@ -461,7 +525,9 @@ def generate(graph: Graph, outputs: list, subsample: int,
             need = "f" if op not in ("not", "float") else None
             expr = _TRITON_UNARY[op].format(ref(args[0], need))
         body.append(f"{target} = {expr}")
-    stores = [f"acc{c} += {ref(o, 'f')}" for c, o in enumerate(outputs)]
+    # s = 1: the value itself (0.0 + x would turn a -0.0 into +0.0)
+    stores = [f"acc{c} {'+=' if subsample > 1 else '='} {ref(o, 'f')}"
+              for c, o in enumerate(outputs)]
 
     params = ["out"] + [arg_names[k] for k in pointer_keys]
     params += [f"pos{j}" for j in range(len(sampled))]
@@ -478,6 +544,7 @@ def generate(graph: Graph, outputs: list, subsample: int,
             f"{_literal(subsample * subsample)}, tl.float32))" for c in range(3))
     else:
         pool = "    pass"
+    store = _STORE_U8 if quantize else _STORE_BF16
     source = f'''"""Generated by shaderflow_tpu_torch/ops/tailgen.py — kernel K1 for one tail."""
 import triton
 import triton.language as tl
@@ -502,7 +569,12 @@ def tail_kernel({", ".join(params)}):
             ci = oj * S + dx
 {inner}
 {pool}
-    base = out + (oi * Wo + oj) * 3
+{store}
+'''
+    return source, keys
+
+
+_STORE_U8 = """    base = out + (oi * Wo + oj) * 3
     zero_f = tl.zeros([BH, BW], tl.float32)
     one_f = zero_f + 1.0
     q0 = tl.floor(tl.minimum(tl.maximum(acc0, zero_f), one_f) * 255.0 + 0.5)
@@ -510,9 +582,49 @@ def tail_kernel({", ".join(params)}):
     q2 = tl.floor(tl.minimum(tl.maximum(acc2, zero_f), one_f) * 255.0 + 0.5)
     tl.store(base, q0.to(tl.uint8), mask=valid)
     tl.store(base + 1, q1.to(tl.uint8), mask=valid)
-    tl.store(base + 2, q2.to(tl.uint8), mask=valid)
-'''
-    return source, keys
+    tl.store(base + 2, q2.to(tl.uint8), mask=valid)"""
+
+_STORE_BF16 = """    base = out + oi * Wo + oj
+    plane = Ho * Wo
+    tl.store(base, acc0.to(tl.bfloat16), mask=valid)
+    tl.store(base + plane, acc1.to(tl.bfloat16), mask=valid)
+    tl.store(base + 2 * plane, acc2.to(tl.bfloat16), mask=valid)"""
+
+
+def _value_key(value):
+    """A hashable stand-in for a closure value, or None if it has none."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return (type(value).__name__, value)
+    if isinstance(value, np.ndarray):
+        return ("ndarray", value.dtype.str, value.shape, value.tobytes())
+    if isinstance(value, tuple):
+        items = tuple(_value_key(item) for item in value)
+        return None if any(item is None for item in items) else ("tuple", items)
+    return None
+
+
+def _tail_key(spec: TailSpec, *shape) -> tuple:
+    """What a traced K1 depends on: the tail's code and closure values, the
+    structure of its inputs (kinds, names, channels, dtypes, table shapes)
+    and the static arguments; None when a closure value has no key."""
+    fn = spec.fn
+    code = getattr(fn, "__code__", None)
+    if code is None or getattr(fn, "__defaults__", None) or getattr(fn, "__kwdefaults__", None):
+        return None
+    cells = tuple(_value_key(cell.cell_contents) for cell in fn.__closure__ or ())
+    if any(cell is None for cell in cells):
+        return None
+    structure = (
+        tuple((n, tuple(str(c.dtype) for c in spec.planes[n])) for n in sorted(spec.planes)),
+        tuple(sorted(spec.rows)), tuple(sorted(spec.cols)), tuple(sorted(spec.scalars)),
+        tuple((n, tuple(spec.tables[n].shape)) for n in sorted(spec.tables)),
+        tuple((n, len(cs.planes), str(cs.planes[0].dtype), cs.planes[0].shape[1])
+              for n, cs in sorted(spec.colsampled.items())),
+        tuple(sorted(spec.indexed)))
+    return (code, cells, structure) + shape
+
+
+_PREPARED: dict = {}   # _tail_key -> (input keys, compiled kernel)
 
 
 def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
@@ -528,21 +640,32 @@ def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
 
 def prepare(spec: TailSpec, render_height: int, render_width: int,
             out_height: int, out_width: int, subsample: int, aspect: float,
-            device: torch.device):
+            device: torch.device, quantize: bool = True):
     """Trace, generate (compiled once per distinct source) and bind K1 for
     this spec -> launch(out): a closure that enqueues the kernel on the
-    current stream, writing the (out_h, out_w, 3) u8 tensor `out`. Inputs
-    must be contiguous on `device`, planes float32 or bfloat16, everything
-    else float32; raises on anything the template does not take."""
+    current stream, writing the (out_h, out_w, 3) u8 tensor `out` (with
+    quantize=False: the (3, out_h, out_w) bf16 planes). Inputs must be
+    contiguous on `device`, planes float32 or bfloat16, everything else
+    float32 (tables are cast to float32 here); raises on anything the
+    template does not take."""
     from shaderflow_tpu_torch.build import triton_module
 
     if device.index is None:   # "cuda" means the current card
         device = torch.device(device.type, torch.cuda.current_device())
-    graph, outputs = trace(spec, render_height, render_width, aspect)
-    bf16 = frozenset(name for name, cs in spec.colsampled.items()
-                     if cs.planes[0].dtype == torch.bfloat16)
-    source, keys = generate(graph, outputs, subsample, bf16)
-    kernel = triton_module(source, stem="tail").tail_kernel
+    key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
+                    bool(quantize), str(device))
+    if key is None or key not in _PREPARED:
+        graph, outputs = trace(spec, render_height, render_width, aspect)
+        bf16 = frozenset(name for name, cs in spec.colsampled.items()
+                         if cs.planes[0].dtype == torch.bfloat16)
+        source, keys = generate(graph, outputs, subsample, bf16, quantize)
+        kernel = triton_module(source, stem="tail").tail_kernel
+        if key is not None:
+            if len(_PREPARED) >= 64:
+                _PREPARED.clear()
+            _PREPARED[key] = (keys, kernel)
+    else:
+        keys, kernel = _PREPARED[key]
 
     planes = {name: spec.planes[name] for name in spec.planes}
     planes.update({name: (ix.stack[indexed_position(ix)],)   # a view: no copy
@@ -554,6 +677,10 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
         if kind == "scalar":
             scalars.append(torch.as_tensor(spec.scalars[name], dtype=torch.float32,
                                            device=device).reshape(()))
+            continue
+        if kind == "table":
+            table = spec.tables[name]
+            pointers.append(table.to(device=device, dtype=torch.float32).contiguous())
             continue
         if kind == "plane":
             tensor, shape = planes[name][channel], (render_height, render_width)
@@ -578,12 +705,15 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
         pointers.append(torch.stack(scalars))
     grid = (math.ceil(out_height / BLOCK_H), math.ceil(out_width / BLOCK_W))
 
+    out_shape, out_dtype = (((out_height, out_width, 3), torch.uint8) if quantize
+                            else ((3, out_height, out_width), torch.bfloat16))
+
     def launch(out: torch.Tensor) -> torch.Tensor:
-        if (out.device != device or out.dtype != torch.uint8 or not out.is_contiguous()
-                or tuple(out.shape) != (out_height, out_width, 3)):
-            raise ValueError(f"K1 writes a contiguous ({out_height}, {out_width}, 3) "
-                             f"uint8 tensor on {device}, got {out.dtype} "
-                             f"{tuple(out.shape)} on {out.device}")
+        if (out.device != device or out.dtype != out_dtype or not out.is_contiguous()
+                or tuple(out.shape) != out_shape):
+            raise ValueError(f"K1 writes a contiguous {out_shape} {out_dtype} tensor "
+                             f"on {device}, got {out.dtype} {tuple(out.shape)} on "
+                             f"{out.device}")
         with torch.cuda.device(device):   # Triton launches on the current card
             kernel[grid](out, *pointers, render_width, out_height, out_width,
                          S=int(subsample), BH=BLOCK_H, BW=BLOCK_W, num_warps=NUM_WARPS,

@@ -6,8 +6,9 @@ operating on whole planes through the `Frag` context (coordinate flavors,
 uniforms by name, textures, batch preludes, the camera). The engine runs
 it once per frame in eager PyTorch. Ported: Frag (uniforms, statics,
 coordinates, `tex` samplers of external textures and device sequences,
-`prelude` / `prelude_indexed`, `tail`, the trivial camera), make_coords /
-finish_coords, and ShaderProgram with function fragments. Not yet:
+`prelude` / `prelude_indexed`, `tail`, `texel_fetch`, the trivial and the
+general camera), make_coords / finish_coords, and ShaderProgram with
+function fragments. Not yet:
 samplers of program textures (multipass), mipmaps, instancing, the GLSL
 front-end, hot reload and the built-in default/missing programs.
 """
@@ -18,13 +19,13 @@ import copy
 from collections.abc import Mapping
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib
-from shaderflow_tpu_torch.ops.sampling import Sampler2D
+from shaderflow_tpu_torch.ops.stdlib import reciprocal
+from shaderflow_tpu_torch.ops.sampling import Sampler2D, texel_fetch
 from shaderflow_tpu_torch.texture import ShaderTexture
 
 PixelFunction = Callable[["Frag"], Any]
@@ -32,11 +33,6 @@ PixelFunction = Callable[["Frag"], Any]
 
 # --------------------------------------------------------------------------- #
 # Coordinates
-
-def _reciprocal(n: int) -> float:
-    """1 / n rounded once to float32, as XLA folds it."""
-    return float(np.float32(1.0) / np.float32(n))
-
 
 class Coords(Mapping):
     """Pixel-center coordinate flavors over one render resolution (the
@@ -62,8 +58,8 @@ class Coords(Mapping):
         # division by a constant into a product with the reciprocal). The
         # two differ by an ulp on about a third of the pixels, and escape
         # counts of chaotic boundary pixels amplify an ulp of c.
-        self.u_line = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) * _reciprocal(width)
-        self.v_line = 1.0 - (torch.arange(height, dtype=torch.float32, device=device) + 0.5) * _reciprocal(height)
+        self.u_line = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) * reciprocal(width)
+        self.v_line = 1.0 - (torch.arange(height, dtype=torch.float32, device=device) + 0.5) * reciprocal(height)
         self.resolution = None   # per-frame iResolution, set by finish_coords
         self._grids: dict[str, torch.Tensor] = {}
         self._frame: dict[str, torch.Tensor] = {}
@@ -155,7 +151,7 @@ class Frag:
         self._preludes = preludes or {}          # name -> this frame's value
         self._prelude_stacks = prelude_stacks or {}  # name -> (B or 1, ...) stack
         self._prelude_step = prelude_step        # this frame's position in the batch
-        self._camera_cache: dict[str, cameralib.CameraRays] = {}
+        self._camera_cache: dict = {}
 
     # -- coordinates --------------------------------------------------------
 
@@ -228,6 +224,12 @@ class Frag:
         return Sampler2D(self._textures[name][temporal, layer], linear=meta.linear,
                          repeat_x=meta.repeat_x, repeat_y=meta.repeat_y)
 
+    def texel_fetch(self, sampler, xy: torch.Tensor) -> torch.Tensor:
+        """GLSL texelFetch on a Sampler2D or a texture name (ops.sampling)."""
+        if isinstance(sampler, str):
+            sampler = self.tex(sampler)
+        return texel_fetch(sampler, xy)
+
     # -- batch preludes -------------------------------------------------------
 
     def prelude(self, name: str):
@@ -256,14 +258,37 @@ class Frag:
 
     # -- camera -------------------------------------------------------------
 
-    def get_camera(self, name: str = "iCamera") -> cameralib.CameraRays:
+    def get_camera(self, name: str = "iCamera"):
         """GetCamera(name) (camera.glsl:132-155): the camera module's
-        uniforms wired into ray generation."""
+        uniforms wired into ray generation — the separable lines of the
+        trivial camera (cameralib.CameraRays), else the per-pixel rays of
+        cameralib.project (cameralib.PlaneCameraRays)."""
         if name in self._camera_cache:
             return self._camera_cache[name]
         u, s = self._uniforms, self._statics
         if not s.get(f"{name}Trivial"):
-            return cameralib.project()  # raises: the general camera is not ported
+            rays = cameralib.project(
+                gluv=self.gluv,
+                agluv=self.agluv,
+                mode=int(s.get(f"{name}Mode", cameralib.MODE_2D)),
+                projection=int(s.get(f"{name}Projection",
+                                     cameralib.PROJECTION_PERSPECTIVE)),
+                position=u[f"{name}Position"],
+                right=u[f"{name}Right"],
+                up=u[f"{name}Upward"],
+                forward=u[f"{name}Forward"],
+                zoom=u[f"{name}Zoom"],
+                isometric=u[f"{name}Isometric"],
+                orbital=u[f"{name}Orbital"],
+                dolly=u[f"{name}Dolly"],
+                focal_length=u[f"{name}FocalLength"],
+                separation=u[f"{name}Separation"],
+                aspect=self.aspect_ratio,
+                want_aspect=u["iWantAspect"],
+                resolution=u["iResolution"],
+            )
+            self._camera_cache[name] = rays
+            return rays
         aspect = self._coords["aspect"]
         rays = cameralib.project_trivial(
             gluv_x=(self._coords["u_line"] * 2.0 - 1.0) * aspect,
@@ -282,7 +307,7 @@ class Frag:
         return rays
 
     @property
-    def camera(self) -> cameralib.CameraRays:
+    def camera(self):
         return self.get_camera()
 
 

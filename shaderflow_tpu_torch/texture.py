@@ -245,6 +245,14 @@ class ShaderTexture(ShaderModule):
         temporal, layer = self._box(temporal, layer)
         return self.matrix[temporal, layer].copy()
 
+    def clear(self, temporal: int = 0, layer: int = -1) -> "ShaderTexture":
+        """Zero one (temporal, layer) box."""
+        if self.matrix is None:
+            self.make()
+        height, width, components = self.matrix.shape[2:]
+        return self.write(np.zeros((height, width, components), np.float32),
+                          temporal=temporal, layer=layer)
+
     def from_numpy(self, data: np.ndarray) -> "ShaderTexture":
         """Size the texture to an image array (H, W, C) and upload it."""
         data = np.asarray(data)

@@ -3,6 +3,7 @@ Mandelbrot scene end to end (frames and captured uniforms), the import
 boundary (the port imports neither JAX nor the JAX package), and the
 explicit device."""
 
+import importlib
 import inspect
 import os
 import re
@@ -46,9 +47,18 @@ def _fix_reference_texture(monkeypatch):
 
 
 def _import_example(directory: str, module: str):
-    sys.path.insert(0, str(REPO / "examples" / directory))
+    """examples/<directory>/<module>.py of this checkout. A module of that
+    name (or the examples' `assets` helper) imported from elsewhere earlier
+    in the same process is dropped first: tests/test_cli.py imports every
+    example from a copied install tree, and test files share workers."""
+    path = REPO / "examples" / directory / f"{module}.py"
+    for name, expected in ((module, path), ("assets", REPO / "examples" / "assets.py")):
+        cached = sys.modules.get(name)
+        if cached is not None and Path(getattr(cached, "__file__", None) or "") != expected:
+            del sys.modules[name]
+    sys.path.insert(0, str(path.parent))
     try:
-        return __import__(module)
+        return importlib.import_module(module)
     finally:
         sys.path.pop(0)
 
@@ -137,9 +147,9 @@ def test_start_replays_host_state(tmp_path):
 
 
 def test_port_imports_no_jax(tmp_path):
-    """The port's import chain and tiny CPU exports of both ported scenes
-    (Mandelbrot, the music visualizer) run with jax and the JAX package
-    blocked, and leave no module of either loaded."""
+    """The port's import chain and tiny CPU exports of the ported scenes
+    (Mandelbrot, the music visualizer, PianoRoll at ssaa=1, Julia) run with
+    jax and the JAX package blocked, and leave no module of either loaded."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -148,22 +158,26 @@ sys.path.insert(0, {str(REPO)!r})
 sys.path.insert(0, {str(REPO / "examples" / "torch")!r})
 import numpy as np
 import shaderflow_tpu_torch.scene, shaderflow_tpu_torch.ops.tailgen, shaderflow_tpu_torch.build
-import torch_demo, torch_fractals
+import torch_demo, torch_fractals, torch_piano_roll
 torch_fractals.Mandelbrot().main(width=32, height=18, fps=10, time=0.2, ssaa=2,
                                  output={str(tmp_path / "out.rgb")!r}, device="cpu")
 torch_demo.Visualizer().main(width=32, height=18, fps=10, time=0.3, ssaa=2,
                              output={str(tmp_path / "viz.rgb")!r}, device="cpu")
+torch_piano_roll.PianoRoll().main(width=32, height=18, fps=10, time=0.4, ssaa=1,
+                                  output={str(tmp_path / "piano.rgb")!r}, device="cpu")
+torch_fractals.Julia().main(width=32, height=18, fps=10, time=0.1, ssaa=2,
+                            output={str(tmp_path / "julia.rgb")!r}, device="cpu")
 loaded = [name for name, module in sys.modules.items() if module is not None
           and (name in ("jax", "shaderflow_tpu") or name.startswith(("jax.", "shaderflow_tpu.")))]
 assert not loaded, loaded
-print("frames", np.fromfile({str(tmp_path / "out.rgb")!r}, np.uint8).size // (32 * 18 * 3),
-      np.fromfile({str(tmp_path / "viz.rgb")!r}, np.uint8).size // (32 * 18 * 3))
+print("frames", *(np.fromfile({str(tmp_path)!r} + "/" + name, np.uint8).size // (32 * 18 * 3)
+                  for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb")))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2 3" in result.stdout
+    assert "frames 2 3 4 1" in result.stdout
 
 
 def test_port_sources_never_import_the_jax_package():

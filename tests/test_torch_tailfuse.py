@@ -2,12 +2,15 @@
 and the tracer/generator of kernel K1, ops/tailgen.py) against the JAX
 package: the plain version that CPU tensors take, against the Pallas kernel
 in interpret mode and against eval_reference + final_pass (planes, rows,
-columns, scalars, and the Indexed and ColSampled forms); the tracer against
-the direct call; and the input kinds and ops K1 refuses."""
+columns, scalars, and the Indexed, ColSampled and Table forms); the
+quantize=False form and the equal-resolution regime against the JAX
+package's fused path (SHADERFLOW_TAILFUSE_INTERPRET=1); the tracer against
+the direct call; and the ops K1 refuses."""
 
 import sys
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ import torch
 from shaderflow_tpu.ops import tailfuse as jax_tailfuse
 from shaderflow_tpu.ops.downsample import final_pass as jax_final_pass
 from shaderflow_tpu_torch.ops import tailfuse, tailgen
+from test_torch_scene import _import_example
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -95,16 +99,102 @@ def test_plain_k1_matches_jax(out_h, out_w, subsample):
         rtol=1e-6, atol=float(np.spacing(np.float32(4.0))))
 
 
-def test_run_tail_final_equal_resolution_matches_jax():
-    """ssaa=1 with subsample 2 (the 3-tap stencil regime) takes the plain
-    path on CPU, as the JAX package's fallback does."""
+def _jit_run_tail_final(fn, inputs: dict, render_h, render_w, out_h, out_w, subsample,
+                        aspect):
+    """The JAX package's run_tail_final under jit, as its render runs it."""
+    def run(**arrays):
+        spec = jax_tailfuse.make_spec(fn, render_h, render_w, **arrays)
+        return jax_tailfuse.run_tail_final(spec, render_h, render_w, out_h, out_w,
+                                           subsample, aspect)
+    return np.asarray(jax.jit(run)(**inputs))
+
+
+def test_run_tail_final_equal_resolution_matches_jax(monkeypatch):
+    """ssaa=1 with subsample 2 (the 3-tap stencil regime): K1's
+    quantize=False form, then the stencil, as the JAX package's fused path
+    runs it (SHADERFLOW_TAILFUSE_INTERPRET=1, the Pallas kernel in
+    interpret mode, under jit): at most one u8 step on < 1 % (XLA:CPU
+    contracts the tail's a * b + c into FMAs)."""
+    monkeypatch.setenv("SHADERFLOW_TAILFUSE_INTERPRET", "1")
     out_h, out_w = 40, 160
-    jax_spec, spec = _specs(out_h, out_w)
+    _, spec = _specs(out_h, out_w)
+    raw = _inputs(out_h, out_w)
     out = torch.empty((out_h, out_w, 3), dtype=torch.uint8)
     got = tailfuse.run_tail_final(spec, out_h, out_w, out_h, out_w, 2, 1.0, out=out)
     assert got is out
-    _assert_u8_close(out.numpy(), jax_tailfuse.run_tail_final(
-        jax_spec, out_h, out_w, out_h, out_w, 2, 1.0))
+    want = _jit_run_tail_final(
+        _tail(jnp.where), dict(color=jnp.asarray(raw["color"]), gain=jnp.asarray(raw["gain"]),
+                               rowv=jax_tailfuse.Row(jnp.asarray(raw["rowv"])),
+                               colv=jax_tailfuse.Col(jnp.asarray(raw["colv"])),
+                               vol=jnp.asarray(raw["vol"])),
+        out_h, out_w, out_h, out_w, 2, 1.0)
+    _assert_u8_close(out.numpy(), want)
+
+
+@pytest.mark.parametrize("subsample", [2, 3])
+def test_equal_resolution_stencil_matches_jax(monkeypatch, subsample):
+    """The stencil arithmetic alone: an identity tail over bf16-exact
+    planes, so K1 (d)'s planes are the inputs bit for bit. The port's
+    final_equal_resolution equals the JAX package's compiled stencil
+    exactly: every product and sum rounded to bf16 except the last sum,
+    which XLA keeps in f32 (the bf16 rounding folds into quantize_u8's
+    upcast). s = 3 has a side weight that rounds to bf16."""
+    monkeypatch.setenv("SHADERFLOW_TAILFUSE_INTERPRET", "1")
+    rng = np.random.default_rng(subsample)
+    out_h, out_w = 40, 64
+    color = (rng.random((out_h, out_w, 3), np.float32) * 1.2 - 0.1)
+    color = torch.from_numpy(color).to(torch.bfloat16).to(torch.float32).numpy()
+
+    def tail(tp):
+        return tp.vec3("c")
+
+    spec = tailfuse.make_spec(tail, out_h, out_w, c=torch.from_numpy(color))
+    got = tailfuse.run_tail_final(spec, out_h, out_w, out_h, out_w, subsample, 1.6)
+    want = _jit_run_tail_final(tail, dict(c=jnp.asarray(color)), out_h, out_w, out_h, out_w,
+                               subsample, 1.6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    planes = tailfuse.fused_tail_final(spec, out_h, out_w, out_h, out_w, 1, 1.6, quantize=False)
+    assert planes.dtype == torch.bfloat16 and tuple(planes.shape) == (3, out_h, out_w)
+    assert torch.equal(planes.float(), torch.from_numpy(color).permute(2, 0, 1))
+
+
+def test_quantize_false_planes_match_jax():
+    """K1's quantize=False form (its plain version) against the JAX fused
+    kernel's quantize=False output in interpret mode: the three bf16 planes
+    equal bit for bit (a tail of products, selects and a sqrt over its
+    inputs: no a * b + c for XLA to contract, no division by a constant
+    for it to fold)."""
+    out_h, out_w = 40, 160
+    raw = _inputs(out_h, out_w)
+
+    def tail_for(where, sqrt):
+        def tail(tp):
+            r, g, b = tp.vec3("color")
+            vig = tp.col("colv") * (1.0 - tp.row("rowv"))
+            mask = tp.col("colv") * tp.col("colv") < tp.plane("gain")
+            return r * tp.plane("gain") * vig, where(mask, g, b * 0.5), sqrt(b) * tp.scalar("vol")
+        return tail
+
+    spec = tailfuse.make_spec(tail_for(torch.where, torch.sqrt), out_h, out_w,
+                              color=torch.from_numpy(raw["color"]),
+                              gain=torch.from_numpy(raw["gain"]), vol=torch.tensor(raw["vol"]),
+                              rowv=tailfuse.Row(torch.from_numpy(raw["rowv"])),
+                              colv=tailfuse.Col(torch.from_numpy(raw["colv"])))
+    jax_spec = jax_tailfuse.make_spec(tail_for(jnp.where, jnp.sqrt), out_h, out_w,
+                                      color=jnp.asarray(raw["color"]),
+                                      gain=jnp.asarray(raw["gain"]), vol=jnp.asarray(raw["vol"]),
+                                      rowv=jax_tailfuse.Row(jnp.asarray(raw["rowv"])),
+                                      colv=jax_tailfuse.Col(jnp.asarray(raw["colv"])))
+    got = tailfuse.fused_tail_final(spec, out_h, out_w, out_h, out_w, 1, 4.0, quantize=False)
+    want = jax_tailfuse.fused_tail_final(jax_spec, out_h, out_w, out_h, out_w, 1, 4.0,
+                                         interpret=True, quantize=False, stack=False)
+    for ours, theirs in zip(got, want):
+        theirs = np.asarray(theirs)
+        assert theirs.dtype.name == "bfloat16"
+        np.testing.assert_array_equal(ours.view(torch.int16).numpy(), theirs.view(np.int16))
+    with pytest.raises(ValueError, match="s = 1"):
+        tailfuse.fused_tail_final(spec, out_h, out_w, out_h // 2, out_w // 2, 2, 4.0,
+                                  quantize=False)
 
 
 def _sampled_inputs(render_h, render_w, dtype):
@@ -182,11 +272,7 @@ def test_plain_indexed_colsampled_match_jax(subsample, dtype):
 
 
 def _mandelbrot_spec(render_h, render_w):
-    sys.path.insert(0, str(REPO / "examples" / "torch"))
-    try:
-        import torch_fractals
-    finally:
-        sys.path.pop(0)
+    torch_fractals = _example("torch_fractals")
     rng = np.random.default_rng(2)
     iters = torch.from_numpy(np.round(rng.random((render_h, render_w)) * 150).astype(np.float32))
     iters[::7] = 500.0   # interior rows
@@ -211,8 +297,55 @@ def _transcendental_spec(render_h, render_w):
     return spec._replace(fn=tail)
 
 
+def _example(name: str):
+    return _import_example("torch", name)
+
+
+def _table_spec(render_h, render_w):
+    """Table lookups, torch.remainder, zeros_like and a maximum on it."""
+    table, index = _table_inputs(render_h, render_w)
+
+    def tail(tp):
+        k = tp.plane("k")
+        wrapped = torch.remainder(k * 3.7, 5.0) + torch.remainder(-k, 2.5)
+        floor = torch.maximum(torch.zeros_like(k), tp.lookup("pal", wrapped, 1) - 0.3)
+        return tp.lookup("pal", k, 0), floor, wrapped * 0.1
+
+    return tailfuse.make_spec(tail, render_h, render_w, k=torch.from_numpy(index),
+                              pal=tailfuse.Table(torch.from_numpy(table)))
+
+
+def _julia_spec(render_h, render_w):
+    rng = np.random.default_rng(5)
+    iters = torch.from_numpy(np.round(rng.random((render_h, render_w)) * 160).astype(np.float32))
+    oob = torch.from_numpy((rng.random((render_h, render_w)) > 0.9).astype(np.float32))
+    return tailfuse.make_spec(_example("torch_fractals").julia_tail(500), render_h, render_w,
+                              iters=iters, oob=oob)
+
+
+def _piano_spec(render_h, render_w):
+    """The piano-roll tail over seeded column lines and scalars."""
+    piano = _example("torch_piano_roll")
+    rng = np.random.default_rng(6)
+    cols = {}
+    for slot in range(piano.MAX_SLOTS):
+        start = rng.uniform(0.0, 3.0, render_w).astype(np.float32)
+        cols[f"s{slot}a"] = start
+        cols[f"s{slot}b"] = start + rng.uniform(0.0, 1.0, render_w).astype(np.float32)
+        cols[f"s{slot}v"] = np.where(rng.random(render_w) > 0.3,
+                                     rng.uniform(0.55, 1.0, render_w), 0.0).astype(np.float32)
+        for c in "rgc":
+            cols[f"s{slot}{c}"] = rng.random(render_w, np.float32)
+    for name in ("edge", "glow", "isc", "kb0", "kb1", "kb2"):
+        cols[name] = rng.random(render_w, np.float32)
+    return tailfuse.make_spec(
+        piano.piano_roll_tail, render_h, render_w,
+        **{name: tailfuse.Col(torch.from_numpy(v)) for name, v in cols.items()},
+        kbh=torch.tensor(0.275), rolltime=torch.tensor(2.0), time=torch.tensor(1.2))
+
+
 @pytest.mark.parametrize("which", ["make_spec", "mandelbrot", "transcendental",
-                                   "indexed_colsampled"])
+                                   "indexed_colsampled", "table", "julia", "piano"])
 def test_traced_graph_equals_direct_call(which):
     """The expression graph K1 is generated from, evaluated with torch,
     equals the direct tail call bit for bit; the generated Triton source is
@@ -222,6 +355,9 @@ def test_traced_graph_equals_direct_call(which):
             "mandelbrot": lambda: _mandelbrot_spec(render_h, render_w),
             "transcendental": lambda: _transcendental_spec(render_h, render_w),
             "indexed_colsampled": lambda: _sampled_specs(render_h, render_w, "bfloat16")[1],
+            "table": lambda: _table_spec(render_h, render_w),
+            "julia": lambda: _julia_spec(render_h, render_w),
+            "piano": lambda: _piano_spec(render_h, render_w),
             }[which]()
     aspect = 1.5
     graph, outputs = tailgen.trace(spec, render_h, render_w, aspect)
@@ -235,6 +371,7 @@ def test_traced_graph_equals_direct_call(which):
     env.update({("row", name, 0): value.reshape(-1, 1) for name, value in spec.rows.items()})
     env.update({("col", name, 0): value.reshape(1, -1) for name, value in spec.cols.items()})
     env.update({("scalar", name, 0): value for name, value in spec.scalars.items()})
+    env.update({("table", name, 0): value for name, value in spec.tables.items()})
     traced = torch.stack([torch.broadcast_to(torch.as_tensor(v, dtype=torch.float32), shape)
                           for v in tailgen.evaluate(graph, outputs, env)], dim=-1)
     direct = tailfuse.eval_reference(spec, render_h, render_w, aspect)
@@ -242,13 +379,21 @@ def test_traced_graph_equals_direct_call(which):
 
     source, keys = tailgen.generate(graph, outputs, 2, frozenset(spec.colsampled))
     compile(source, "<generated K1>", "exec")
+    planes_source, planes_keys = tailgen.generate(graph, outputs, 1, frozenset(spec.colsampled),
+                                                  quantize=False)
+    compile(planes_source, "<generated K1 (d)>", "exec")
+    assert planes_keys == keys and "tl.bfloat16), mask=valid" in planes_source
     color = {("plane", "color", c) for c in range(3)}
     expected = {"make_spec": color | {("plane", "gain", 0), ("row", "rowv", 0),
                                       ("col", "colv", 0), ("scalar", "vol", 0)},
                 "mandelbrot": {("plane", "iters", 0), ("col", "oob", 0)},
                 "transcendental": color | {("col", "colv", 0), ("scalar", "vol", 0)},
                 "indexed_colsampled": {("colsampled", "tex", c) for c in range(3)}
-                | {("plane", "bar", 0), ("plane", "gain", 0)}}
+                | {("plane", "bar", 0), ("plane", "gain", 0)},
+                "table": {("plane", "k", 0), ("table", "pal", 0)},
+                "julia": {("plane", "iters", 0), ("plane", "oob", 0)},
+                "piano": {("col", name, 0) for name in spec.cols}
+                | {("scalar", name, 0) for name in ("kbh", "rolltime", "time")}}
     assert set(keys) == expected[which]
     if which == "indexed_colsampled":
         # one position load and one pair of bf16-rounded hat weights per
@@ -257,28 +402,54 @@ def test_traced_graph_equals_direct_call(which):
         assert source.count(".to(tl.bfloat16).to(tl.float32)") == 2
 
 
+def _table_inputs(render_h, render_w):
+    """A (12, 3) table and an index plane reaching below 0 and past the
+    last bin (the clip), as numpy."""
+    rng = np.random.default_rng(21)
+    table = rng.random((12, 3), np.float32)
+    index = rng.uniform(-3.0, 15.0, (render_h, render_w)).astype(np.float32)
+    return table, index
+
+
+def _table_tail(tp):
+    k = tp.plane("k")
+    return tp.lookup("pal", k, 0), tp.lookup("pal", k * 0.5, 2) * tp.astuv_x, tp.lookup("pal", k, 1)
+
+
 def test_unported_input_kinds_raise():
-    """Table inputs are classified but neither path takes them yet:
-    NotImplementedError naming the kind. The Indexed and ColSampled kinds
-    are ported: both paths take them, and Indexed refuses an index that
-    lives on a device (reading it back would stall the frame loop)."""
-    h, w = 8, 16
-    spec = tailfuse.make_spec(lambda tp: (0.0, 0.0, 0.0), h, w,
-                              x=tailfuse.Table(torch.zeros(4, 3)))
-    with pytest.raises(NotImplementedError, match="Table"):
-        tailfuse.eval_reference(spec, h, w, 1.0)
-    with pytest.raises(NotImplementedError, match="Table"):
-        tailgen.trace(spec, h, w, 1.0)
-    ported = {
-        "Indexed": tailfuse.Indexed(torch.ones(2, h, w), torch.tensor(0)),
-        "ColSampled": tailfuse.ColSampled((torch.ones(h, 32),), torch.linspace(0, 1, w), 1.0),
-    }
-    for kind, value in ported.items():
-        spec = tailfuse.make_spec(lambda tp: (tp.plane("x"),) * 3, h, w, x=value)
-        assert torch.equal(tailfuse.eval_reference(spec, h, w, 1.0), torch.ones(h, w, 3))
-        graph, _ = tailgen.trace(spec, h, w, 1.0)
-        assert len(graph.inputs) == 3   # the plane and the two coordinate indices
-    device_index = tailfuse.Indexed(torch.ones(2, h, w), torch.zeros((), device="meta"))
+    """Every input kind is ported now. The Table kind (a small (bins, C)
+    table read by TailCtx.lookup: clip(trunc(index), 0, bins - 1), one
+    channel) against the JAX package: the float planes equal its reference
+    path (compiled, as its render runs it) exactly, and the u8 frames its
+    fused kernel in interpret mode
+    within one step; a 1-D table is one channel; Indexed still refuses an
+    index that lives on a device (reading it back would stall the frame
+    loop)."""
+    out_h, out_w, s = 24, 40, 2
+    render_h, render_w = out_h * s, out_w * s
+    table, index = _table_inputs(render_h, render_w)
+    spec = tailfuse.make_spec(_table_tail, render_h, render_w, k=torch.from_numpy(index),
+                              pal=tailfuse.Table(torch.from_numpy(table)))
+    jax_spec = jax_tailfuse.make_spec(_table_tail, render_h, render_w, k=jnp.asarray(index),
+                                      pal=jax_tailfuse.Table(jnp.asarray(table)))
+    aspect = out_w / out_h
+    reference = jax.jit(lambda k, pal: jax_tailfuse.eval_reference(
+        jax_tailfuse.make_spec(_table_tail, render_h, render_w, k=k,
+                               pal=jax_tailfuse.Table(pal)), render_h, render_w, aspect))
+    np.testing.assert_array_equal(
+        tailfuse.eval_reference(spec, render_h, render_w, aspect).numpy(),
+        np.asarray(reference(jnp.asarray(index), jnp.asarray(table))))
+    got = tailfuse.fused_tail_final(spec, render_h, render_w, out_h, out_w, s, aspect)
+    fused = jax_tailfuse.fused_tail_final(jax_spec, render_h, render_w, out_h, out_w, s,
+                                          aspect, interpret=True)
+    _assert_u8_close(got.numpy(), fused)
+    one = tailfuse.make_spec(lambda tp: (tp.lookup("t", tp.plane("k")),) * 3, render_h,
+                             render_w, k=torch.from_numpy(index),
+                             t=tailfuse.Table(torch.from_numpy(table[:, 1])))
+    assert tuple(one.tables["t"].shape) == (12, 1)
+    assert torch.equal(tailfuse.eval_reference(one, render_h, render_w, 1.0)[..., 0],
+                       tailfuse.eval_reference(spec, render_h, render_w, 1.0)[..., 2])
+    device_index = tailfuse.Indexed(torch.ones(2, 8, 16), torch.zeros((), device="meta"))
     with pytest.raises(ValueError, match="host index"):
         tailfuse.indexed_position(device_index)
 
@@ -309,3 +480,25 @@ def test_make_spec_classification():
         tailfuse.make_spec(lambda tp: None, 32, 32, x=torch.zeros(32))
     with pytest.raises(ValueError, match="render == out"):
         tailfuse.fused_tail_final(spec, 16, 32, 10, 16, 2, 1.0)
+
+
+def test_trace_cache_key():
+    """K1 keeps a traced kernel per tail code, closure values and input
+    structure (tailgen._tail_key): two closures of the same factory with
+    equal values share it; another closure value, another input dtype or
+    size, or a closure value the key cannot hash (traced every frame) do
+    not."""
+    fractals = _example("torch_fractals")
+    h, w = 8, 16
+
+    def key(fn, iters=None, size=(h, w)):
+        iters = torch.zeros(size) if iters is None else iters
+        return tailgen._tail_key(tailfuse.make_spec(fn, *size, iters=iters), *size, 2, 1.5)
+
+    same = key(fractals.mandelbrot_tail(500, True))
+    assert same is not None and same == key(fractals.mandelbrot_tail(500, True))
+    assert same != key(fractals.mandelbrot_tail(400, True))
+    assert same != key(fractals.mandelbrot_tail(500, True), torch.zeros(h, w, dtype=torch.bfloat16))
+    assert same != key(fractals.mandelbrot_tail(500, True), size=(h, w + 2))
+    opaque = object()
+    assert key(lambda tp: (tp.plane("iters"), opaque, 0.0)) is None

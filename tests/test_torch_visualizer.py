@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from test_torch_scene import _import_example
 
 REPO = Path(__file__).resolve().parent.parent
 WIDTH, HEIGHT, FPS, SECONDS = 128, 72, 10, 0.5
@@ -47,14 +48,6 @@ np.savez(UNIFORMS, **{f"{index}/{name}": value
                       for index, frame in enumerate(engine._frame_uniforms)
                       for name, value in frame.items()})
 """
-
-
-def _import_example(directory: str, module: str):
-    sys.path.insert(0, str(REPO / "examples" / directory))
-    try:
-        return __import__(module)
-    finally:
-        sys.path.pop(0)
 
 
 def _read_rgb(path: Path) -> np.ndarray:
