@@ -48,16 +48,37 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      the rotated view (c planes from the general camera, the interior test
      in-kernel): torch.equal
  16. an output="null" export of each: frames/s
-Every timed number is a median of CUDA events; each kernel's bound is the
-larger of its bytes over 3.35 TB/s and its operations over 67 TFLOP/s
-(f32, no tensor cores), the H100 SXM data-sheet peaks. Then the
-per-kernel JSON line, the card line, and last {"ok": true, "device":
-{...}}. Needs no network and no JAX.
+  The tools (each its own path: counters zeroed before, read after)
+ 17. T3: the cost walker's fixture (csrc/fixture.cu, x * 2 + 1 over four
+     (32, 128) blocks) equal to its plain version, and the walker's counts
+     equal to the hand counts (body x grid)
+ 18. T1: the bf16 op probe through K1's compiler, its table printed; every
+     op of the recorded table (tailgen.BF16_PROBE_OK) must still be `ok`
+ 19. T2: the f32-vs-bf16 chain, both times, the speedup and the verdict;
+     each kernel equal to its plain chain
+  The bf16 tail mode at blur level 1 (SHADERFLOW_TAIL_BF16=1,
+  SHADERFLOW_VIZ_BLUR_LEVEL=1: what the JAX package grades)
+ 20. the visualizer slice (1920x1080, 60 fps, 2x SSAA, 2 s) through main(...)
+     to a .rgb file: counters (K2 == flushes, K1 == K1 bf16 == frames,
+     K3 == 0), one frame recomputed through the plain functions
+ 21. K1 bf16 (b)+(c) vs its plain version on frame 0's tail spec, and
+ 22. K1 bf16 (a) on the Mandelbrot spec of phase 4: 0 u8 steps targeted,
+     at most 1 on < 1 % of values; and each against the tail run eagerly
+     on tensors (no tracer) within tailfuse.EAGER_BF16_BAR
+ 23. an output="null" export of the bf16 level-1 visualizer: frames/s
+Every timed number is a median of CUDA events; each kernel's bound comes
+from the cost walker (shaderflow_tpu_torch/tools/flopcount.py: the
+kernel's declared ops and bytes for this run's inputs): the larger of its
+bytes over 3.35 TB/s and its ALU ops over 67 TFLOP/s (f32, no tensor
+cores) or its special-function ops over 16 per SM and clock, the H100 SXM
+peaks. Then the per-kernel JSON line, the card line, and last {"ok":
+true, "device": {...}}. Needs no network and no JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -67,9 +88,6 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, FPS, SSAA, SECONDS = 1920, 1080, 60, 2, 2.0
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
-ESCAPE_STEP_OPS = 9           # escape.cu's loop body: 4 mul, 4 add/sub, 1 compare
 
 
 def say(phase: str, **fields) -> None:
@@ -98,54 +116,24 @@ def median_ms(fn, repeats: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    """The least time the card could take: the larger of bytes over memory
-    rate and operations over peak rate -> (ms, what bounds it)."""
-    memory_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    compute_ms = 1e3 * ops / F32_OPS_PER_S
-    return (memory_ms, "bytes") if memory_ms >= compute_ms else (compute_ms, "operations")
+def walked_bound(run, loop_trips: float = 0.0) -> tuple[float, str]:
+    """Run `run` (one kernel call) under the cost walker -> the kernel's
+    bound (ms, "bytes" or "operations") for this run's inputs: each kernel
+    declares its ops by class and its bytes (each input read once, each
+    output written once); `loop_trips` closes a data-dependent loop with
+    the measured mean trips per pixel."""
+    from shaderflow_tpu_torch.tools import flopcount
+    with flopcount.Walker() as walker:
+        run()
+    if not walker.kernels:
+        raise AssertionError("the walked call declared no kernel")
+    return flopcount.roofline(walker.cost, loop_trips)
 
 
-def k1_bound(spec, render_h: int, render_w: int, out_h: int, out_w: int,
-             aspect: float, quantize: bool = True) -> tuple[float, str]:
-    """K1's bound for one spec: each input it reads once (planes, column
-    sampled rows and their positions, rows, columns, tables), the u8 frame
-    written once; operations = the traced graph's nodes per SSAA pixel plus
-    the pooling sum and quantize per output channel (transcendentals count
-    as one: a lower bound). quantize=False (K1 (d)): the three bf16 planes
-    written once, the graph's nodes per pixel."""
-    from shaderflow_tpu_torch.ops import tailfuse, tailgen
-    graph, _ = tailgen.trace(spec, render_h, render_w, aspect)
-    planes = {**spec.planes, **tailfuse.materialize_indexed(spec)}
-    moved = out_h * out_w * 3 * (1 if quantize else 2)
-    moved += sum(table.numel() * 4 for name, table in spec.tables.items()
-                 if name in graph.tables)
-    sampled = set()
-    for kind, name, channel in graph.inputs:
-        if kind == "plane":
-            tensor = planes[name][channel]
-        elif kind == "colsampled":
-            tensor = spec.colsampled[name].planes[channel]
-            sampled.add(name)
-        elif kind in ("row", "col"):
-            tensor = (spec.rows if kind == "row" else spec.cols)[name]
-        else:
-            continue
-        moved += tensor.numel() * tensor.element_size()
-    moved += sum(spec.colsampled[name].positions.numel() * 4 for name in sampled)
-    arithmetic = sum(1 for op, _, _ in graph.nodes if op != "input")
-    if not quantize:
-        return bound(moved, render_h * render_w * arithmetic)
-    ops = render_h * render_w * (arithmetic + 3) + out_h * out_w * 3 * 5
-    return bound(moved, ops)
-
-
-def k3_bound(counts, interior, operand_bytes: float) -> tuple[float, str]:
-    """K3's bound: its operands read once and the counts written once;
-    ESCAPE_STEP_OPS per escape step this run's data takes (the counts of
-    the pixels outside the interior shortcut)."""
-    steps = counts[~interior].sum().item() if interior is not None else counts.sum().item()
-    return bound(operand_bytes + counts.numel() * 4, ESCAPE_STEP_OPS * steps), int(steps)
+def escape_steps(counts, interior) -> int:
+    """The escape steps this run's data takes: the counts of the pixels
+    outside the interior shortcut."""
+    return int((counts[~interior] if interior is not None else counts).sum().item())
 
 
 def frame_inputs(scene, index: int):
@@ -268,6 +256,23 @@ def u8_diff(got, want) -> tuple[int, float]:
     return int(diff.max()), float((diff != 0).mean())
 
 
+def eager_check(name: str, frame, tail_args) -> tuple[int, float]:
+    """A bf16 K1 frame against the tail run eagerly on tensors (no tracer:
+    tailfuse.eval_reference(eager=True)) -> (max u8 steps, PSNR dB); fails
+    outside tailfuse.EAGER_BF16_BAR."""
+    import numpy as np
+    from shaderflow_tpu_torch.ops import tailfuse
+    eager = tailfuse.tail_plain(*tail_args, eager=True).cpu().numpy()
+    diff = np.abs(np.asarray(frame).astype(np.int16) - eager.astype(np.int16))
+    mse = float(np.mean(diff.astype(np.float64) ** 2))
+    psnr = float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+    steps, psnr_bar = tailfuse.EAGER_BF16_BAR
+    if diff.max() > steps or psnr < psnr_bar:
+        raise AssertionError(f"{name} vs the eager tail: max {diff.max()} u8 steps, "
+                             f"{psnr:.2f} dB (bar {steps} steps, {psnr_bar} dB)")
+    return int(diff.max()), psnr
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -288,6 +293,7 @@ def main() -> int:
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     from shaderflow_tpu_torch.ops.cameralib import project_trivial
     from shaderflow_tpu_torch.shader import make_coords
+    from shaderflow_tpu_torch.tools import bench_dtype, flopcount, probe_bf16_ops
 
     device = torch.device("cuda")
     card = card_line()
@@ -308,10 +314,11 @@ def main() -> int:
     built = build.build_cuda_libraries()
     fractal._escape_library()
     sampling._lookup_library()
+    flopcount._fixture_library()
     say("build", libraries=",".join(built) or "cached",
         seconds=f"{time.perf_counter() - started:.3f}",
         ptxas=repr(" | ".join(build.build_log.get(n, "cached").replace("\n", " ; ")
-                              for n in ("escape", "lookup"))))
+                              for n in ("escape", "lookup", "fixture"))))
 
     # 3. K3 vs plain at the slice's shapes: the default view's lines
     coords = make_coords(render_h, render_w, aspect, device)
@@ -334,9 +341,9 @@ def main() -> int:
     k3_ms = median_ms(lambda: fractal.escape_iterations_sep(*k3_args), 20)
     k3_plain_ms = median_ms(lambda: fractal.escape_lines_plain(*k3_args), 10)
     grid_x, grid_y = torch.broadcast_tensors(cx[None, :], cy[:, None])
-    steps = counts[~fractal._interior_mask(grid_x, grid_y)].sum().item()
-    k3_bound_ms, k3_bound_by = bound((render_h + render_w + render_h * render_w) * 4,
-                                     ESCAPE_STEP_OPS * steps)
+    steps = escape_steps(counts, fractal._interior_mask(grid_x, grid_y))
+    k3_bound_ms, k3_bound_by = walked_bound(lambda: fractal.escape_iterations_sep(*k3_args),
+                                            steps / counts.numel())
     say("k3", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
         steps=int(steps), equal=True, ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
         bound_ms=f"{k3_bound_ms:.4f}", bound_by=k3_bound_by)
@@ -359,9 +366,9 @@ def main() -> int:
     k1_out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device=device)
     k1_ms = median_ms(lambda: launch(k1_out), 20)
     k1_plain_ms = median_ms(lambda: tailfuse.tail_plain(*k1_args), 10)
-    k1_bound_ms, k1_bound_by = k1_bound(spec, render_h, render_w, HEIGHT, WIDTH, aspect)
+    k1_bound_ms, k1_bound_by = walked_bound(lambda: launch(k1_out))
     say("k1a", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
-        max_u8_diff=k1_err, differing_share=f"{k1_share:.6f}",
+        max_u8_diff=k1_err, differing_share=f"{k1_share:.3e}",
         ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
         bound_ms=f"{k1_bound_ms:.4f}", bound_by=k1_bound_by)
 
@@ -371,13 +378,15 @@ def main() -> int:
         sampling.expand_tables.launches = 0
         tailfuse.fused_tail_final.launches = 0
         tailfuse.fused_tail_final.planes_launches = 0
+        tailfuse.fused_tail_final.bf16_launches = 0
 
     def read_counters():
         return {"k3": fractal.escape_iterations_sep.launches,
                 "k3p": fractal.escape_iterations.launches,
                 "k2": sampling.expand_tables.launches,
                 "k1": tailfuse.fused_tail_final.launches,
-                "k1d": tailfuse.fused_tail_final.planes_launches}
+                "k1d": tailfuse.fused_tail_final.planes_launches,
+                "k1h": tailfuse.fused_tail_final.bf16_launches}
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. The Mandelbrot slice through the port's entry point
@@ -389,7 +398,8 @@ def main() -> int:
                    output=str(output), device="cuda")
         export_s = time.perf_counter() - started
         mandelbrot_launches = read_counters()
-        if mandelbrot_launches != {"k3": frames, "k3p": 0, "k2": 0, "k1": frames, "k1d": 0}:
+        if mandelbrot_launches != {"k3": frames, "k3p": 0, "k2": 0, "k1": frames, "k1d": 0,
+                                   "k1h": 0}:
             raise AssertionError(f"Mandelbrot launch counters {mandelbrot_launches}, "
                                  f"expected K3 == K1 == {frames} frames, K2 == 0")
         check, exported = check_export(output, frames, output.name)
@@ -399,7 +409,7 @@ def main() -> int:
                                  f"max {frame_err} u8 steps")
         say("mandelbrot_slice", frames=frames, seconds=f"{export_s:.3f}",
             launches=mandelbrot_launches, frame_checked=check,
-            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.3e}")
 
         # 6. Mandelbrot render throughput into the NullSink
         scene = torch_fractals.Mandelbrot()
@@ -421,7 +431,8 @@ def main() -> int:
         export_s = time.perf_counter() - started
         visualizer_launches = read_counters()
         flushes = -(-frames // scene.default_batch_size())
-        if visualizer_launches != {"k3": 0, "k3p": 0, "k2": flushes, "k1": frames, "k1d": 0}:
+        if visualizer_launches != {"k3": 0, "k3p": 0, "k2": flushes, "k1": frames, "k1d": 0,
+                                    "k1h": 0}:
             raise AssertionError(f"Visualizer launch counters {visualizer_launches}, "
                                  f"expected K2 == {flushes} flushes, K1 == {frames} "
                                  "frames, K3 == 0")
@@ -434,7 +445,7 @@ def main() -> int:
                                  f"max {frame_err} u8 steps on {frame_share:.4%}")
         say("visualizer_slice", frames=frames, flushes=flushes, seconds=f"{export_s:.3f}",
             launches=visualizer_launches, frame_checked=check,
-            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.3e}")
 
     # 8. K2 vs plain: seeded tables over the visualizer's angle field
     import numpy as np
@@ -458,8 +469,8 @@ def main() -> int:
     k2_plain_ms = median_ms(lambda: sampling.expand_plain(flat16, index_field,
                                                           torch.bfloat16), 10)
     k2_library_ms = median_ms(lambda: flat16.index_select(1, index_field), 10)
-    npx = index_field.numel()
-    k2_bound_ms, k2_bound_by = bound(npx * 4 + flat16.numel() * 2 + batch * npx * 2, 0)
+    k2_bound_ms, k2_bound_by = walked_bound(
+        lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16))
     say("k2", tables=f"{batch}x{bins}x{channels}", field=f"{render_h}x{render_w}",
         equal=True, ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
         library_ms=f"{k2_library_ms:.4f}", bound_ms=f"{k2_bound_ms:.4f}",
@@ -474,10 +485,9 @@ def main() -> int:
     launch = tailgen.prepare(*tail_args, device)
     k1v_ms = median_ms(lambda: launch(k1_out), 20)
     k1v_plain_ms = median_ms(lambda: tailfuse.tail_plain(*tail_args), 10)
-    k1v_bound_ms, k1v_bound_by = k1_bound(frame_spec, render_h, render_w, HEIGHT, WIDTH,
-                                          aspect)
+    k1v_bound_ms, k1v_bound_by = walked_bound(lambda: launch(k1_out))
     say("k1bc", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
-        frame=check, max_u8_diff=k1v_err, differing_share=f"{k1v_share:.6f}",
+        frame=check, max_u8_diff=k1v_err, differing_share=f"{k1v_share:.3e}",
         ms=f"{k1v_ms:.4f}", plain_ms=f"{k1v_plain_ms:.4f}",
         bound_ms=f"{k1v_bound_ms:.4f}", bound_by=k1v_bound_by)
 
@@ -502,7 +512,8 @@ def main() -> int:
                    output=str(output), device="cuda")
         export_s = time.perf_counter() - started
         piano_launches = read_counters()
-        if piano_launches != {"k3": 0, "k3p": 0, "k2": 0, "k1": 0, "k1d": piano_frames}:
+        if piano_launches != {"k3": 0, "k3p": 0, "k2": 0, "k1": 0, "k1d": piano_frames,
+                              "k1h": 0}:
             raise AssertionError(f"PianoRoll launch counters {piano_launches}, expected "
                                  f"K1 (d) == {piano_frames} frames and no other kernel")
         check, exported = check_export(output, piano_frames, output.name, piano_h, piano_w)
@@ -516,7 +527,7 @@ def main() -> int:
                                  f"max {frame_err} u8 steps on {frame_share:.4%}")
         say("pianoroll_slice", size=f"{piano_w}x{piano_h}", ssaa=1, frames=piano_frames,
             seconds=f"{export_s:.3f}", launches=piano_launches, frame_checked=check,
-            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.6f}")
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.3e}")
         del exported
 
     # 12. K1 (d) vs plain: the PianoRoll tail of that real frame at 4K, s = 1
@@ -537,8 +548,7 @@ def main() -> int:
     k1d_plain_ms = median_ms(lambda: tailfuse.planes_plain(
         frame_spec, piano_h, piano_w, scene.aspect_ratio), 5)
     stencil_ms = median_ms(lambda: tailfuse.final_equal_resolution(planes, scene.subsample), 10)
-    k1d_bound_ms, k1d_bound_by = k1_bound(frame_spec, piano_h, piano_w, piano_h, piano_w,
-                                          scene.aspect_ratio, quantize=False)
+    k1d_bound_ms, k1d_bound_by = walked_bound(lambda: launch(planes_out))
     graph, _ = tailgen.trace(frame_spec, piano_h, piano_w, scene.aspect_ratio)
     started = time.perf_counter()
     for _ in range(20):
@@ -546,7 +556,7 @@ def main() -> int:
     prepare_ms = (time.perf_counter() - started) / 20 * 1e3
     say("k1d", render=f"{piano_h}x{piano_w}", s=1, frame=check, inputs=len(graph.inputs) - 2,
         nodes=len(graph.nodes), planes_bit_equal=True, max_u8_diff=k1d_u8,
-        differing_share=f"{k1d_share:.6f}", ms=f"{k1d_ms:.4f}", plain_ms=f"{k1d_plain_ms:.4f}",
+        differing_share=f"{k1d_share:.3e}", ms=f"{k1d_ms:.4f}", plain_ms=f"{k1d_plain_ms:.4f}",
         bound_ms=f"{k1d_bound_ms:.4f}", bound_by=k1d_bound_by,
         stencil_quantize_ms=f"{stencil_ms:.4f}", host_trace_prepare_ms=f"{prepare_ms:.4f}")
     del planes, planes_out, plain_planes, final, plain_frame
@@ -574,7 +584,8 @@ def main() -> int:
                        output=str(output), device="cuda")
             export_s = time.perf_counter() - started
             launches = read_counters()
-            if launches != {"k3": 0, "k3p": frames, "k2": 0, "k1": frames, "k1d": 0}:
+            if launches != {"k3": 0, "k3p": frames, "k2": 0, "k1": frames, "k1d": 0,
+                            "k1h": 0}:
                 raise AssertionError(f"{name} launch counters {launches}, expected K3 planes "
                                      f"== K1 == {frames} frames, no other kernel")
             check, exported = check_export(output, frames, output.name)
@@ -585,7 +596,7 @@ def main() -> int:
                                      f"max {frame_err} u8 steps on {frame_share:.4%}")
             say(f"{name}_slice", frames=frames, seconds=f"{export_s:.3f}", launches=launches,
                 frame_checked=check, max_u8_diff_vs_plain=frame_err,
-                differing_share=f"{frame_share:.6f}")
+                differing_share=f"{frame_share:.3e}")
         _, (z0, cx, cy, interior), quality = fractal_plain_frame(scene, 0, render_h, render_w)
         if name == "julia":
             cap = torch_fractals.julia_cap(quality)
@@ -593,7 +604,6 @@ def main() -> int:
             run_kernel = lambda: fractal.escape_iterations_z0(*k3p_args)
             run_plain = lambda: fractal.escape_plain(z0[..., 0], z0[..., 1], cx, cy, quality,
                                                      3.0, saturate=cap, out_dtype=torch.float32)
-            operand_bytes = z0.numel() * 4 + 8
         else:
             cap = torch_fractals.mandelbrot_cap(quality)
             c = z0
@@ -601,7 +611,6 @@ def main() -> int:
             run_plain = lambda: fractal.escape_plain(c[..., 0], c[..., 1], c[..., 0], c[..., 1],
                                                      quality, 3.0, interior=interior,
                                                      saturate=cap, out_dtype=torch.float32)
-            operand_bytes = c.numel() * 4
         counts, plain_counts = run_kernel(), run_plain()
         torch.cuda.synchronize()
         err = (counts - plain_counts).abs().max().item()
@@ -610,7 +619,8 @@ def main() -> int:
                                  f"{int((counts != plain_counts).sum())} pixels (max {err})")
         k3p_ms = median_ms(run_kernel, 20)
         k3p_plain_ms = median_ms(run_plain, 5)
-        (k3p_bound_ms, k3p_bound_by), steps = k3_bound(counts, interior, operand_bytes)
+        steps = escape_steps(counts, interior)
+        k3p_bound_ms, k3p_bound_by = walked_bound(run_kernel, steps / counts.numel())
         plane_slices[name] = dict(launches=launches, err=err, ms=k3p_ms, plain_ms=k3p_plain_ms,
                                   bound_ms=k3p_bound_ms, bound_by=k3p_bound_by)
         say(f"k3p_{name}", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
@@ -628,6 +638,146 @@ def main() -> int:
         say(f"{name}_timing", config=f"{cls.__name__} 1920x1080 60fps 2xSSAA 2s null",
             frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
             card=repr(card))
+
+    # 17. T3: the cost walker's fixture and the walker's counts (its own path)
+    x = (torch.arange(128 * 128, dtype=torch.float32, device=device) / 7.0).reshape(128, 128)
+    flopcount.fixture.launches = 0
+    with flopcount.Walker() as walker:
+        fixture_out = flopcount.fixture(x)
+    t3_launches = flopcount.fixture.launches
+    fixture_want = flopcount.fixture_plain(x)
+    torch.cuda.synchronize()
+    t3_err = (fixture_out - fixture_want).abs().max().item()
+    hand = (4 * 2 * 32 * 128, 2 * 128 * 128 * 4)   # body x grid: ops, bytes
+    if not torch.equal(fixture_out, fixture_want) or t3_launches != 1:
+        raise AssertionError(f"T3 fixture vs x * 2 + 1: max {t3_err}, launches {t3_launches}")
+    if (walker.cost.alu, walker.cost.kernel_bytes) != hand:
+        raise AssertionError(f"walker counted {walker.cost}, hand count (ops, bytes) {hand}")
+    t3_ms = median_ms(lambda: flopcount.fixture(x), 20)
+    t3_plain_ms = median_ms(lambda: flopcount.fixture_plain(x), 20)
+    one, two = torch.ones((), device=device), torch.full((), 2.0, device=device)
+    if not torch.equal(torch.addcmul(one, x, two), fixture_want):
+        raise AssertionError("T3's library call differs from x * 2 + 1")
+    t3_library_ms = median_ms(lambda: torch.addcmul(one, x, two), 20)
+    t3_bound_ms, t3_bound_by = flopcount.roofline(walker.cost)
+    say("t3", shape="128x128", blocks=4, equal=True, walker_alu=int(walker.cost.alu),
+        walker_bytes=int(walker.cost.kernel_bytes), hand=hand, launches=t3_launches,
+        ms=f"{t3_ms:.4f}", plain_ms=f"{t3_plain_ms:.4f}", bound_ms=f"{t3_bound_ms:.6f}",
+        bound_by=t3_bound_by, library_ms=f"{t3_library_ms:.4f}")
+
+    # 18. T1: the bf16 op probe through K1's compiler (its own path)
+    probe_bf16_ops.run_op.launches = 0
+    started = time.perf_counter()
+    table = probe_bf16_ops.probe_all(device)
+    t1_s = time.perf_counter() - started
+    t1_launches = probe_bf16_ops.run_op.launches
+    for name, result in table.items():
+        say("t1", op=name, result=repr(result))
+    probe_faults = {op: table[op] for op in tailgen.BF16_PROBE_OK if table[op] != "ok"}
+    if probe_faults or t1_launches == 0:
+        raise AssertionError(f"the recorded bf16 probe table says ok, but the probe finds "
+                             f"{probe_faults} on this card (launches {t1_launches})")
+    a16, b16 = probe_bf16_ops.inputs(device)[1]
+    mul = probe_bf16_ops.compile_op("mul")
+    t1_err = (probe_bf16_ops.run_op(mul, a16, b16).float() - (a16 * b16).float()).abs().max().item()
+    t1_ms = median_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16), 20)
+    t1_plain_ms = median_ms(lambda: a16 * b16, 20)
+    t1_bound_ms, t1_bound_by = walked_bound(lambda: probe_bf16_ops.run_op(mul, a16, b16))
+    say("t1_summary", ops=len(table), ok=sum(r == "ok" for r in table.values()),
+        seconds=f"{t1_s:.3f}", launches=t1_launches,
+        mul_ms=f"{t1_ms:.4f}", mul_plain_ms=f"{t1_plain_ms:.4f}",
+        bound_ms=f"{t1_bound_ms:.6f}", bound_by=t1_bound_by)
+
+    # 19. T2: the tail-shaped chain in float32 and bfloat16 (its own path)
+    bench_dtype.chain.launches = 0
+    t2 = bench_dtype.bench()
+    t2_launches = bench_dtype.chain.launches
+    t2_f32, t2_bf16 = t2["float32"], t2["bfloat16"]
+    if not (t2_f32["equal"] and t2_bf16["equal"]):
+        raise AssertionError(f"T2 chain vs plain: f32 max {t2_f32['max_abs_err']}, "
+                             f"bf16 max {t2_bf16['max_abs_err']}")
+    t2_inputs = bench_dtype.inputs(torch.bfloat16)
+    t2_bound_ms, t2_bound_by = walked_bound(lambda: bench_dtype.chain(*t2_inputs))
+    say("t2", shape=f"{bench_dtype.H}x{bench_dtype.W}", reps=bench_dtype.REPS,
+        launches=t2_launches, f32_ms=f"{t2_f32['ms']:.4f}", bf16_ms=f"{t2_bf16['ms']:.4f}",
+        f32_tops=f"{t2_f32['tops']:.2f}", bf16_tops=f"{t2_bf16['tops']:.2f}",
+        f32_plain_ms=f"{t2_f32['plain_ms']:.4f}", bf16_plain_ms=f"{t2_bf16['plain_ms']:.4f}",
+        bound_ms=f"{t2_bound_ms:.4f}", bound_by=t2_bound_by,
+        verdict=repr(bench_dtype.verdict(t2_f32["ms"], t2_bf16["ms"])))
+
+    # 20. The bf16 tail mode at blur level 1: the visualizer slice
+    os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "visualizer_bf16.rgb"
+        scene = torch_demo.Visualizer()
+        zero_counters()
+        started = time.perf_counter()
+        scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                   output=str(output), device="cuda")
+        export_s = time.perf_counter() - started
+        bf16_launches = read_counters()
+        flushes = -(-frames // scene.default_batch_size())
+        if bf16_launches != {"k3": 0, "k3p": 0, "k2": flushes, "k1": frames, "k1d": 0,
+                             "k1h": frames}:
+            raise AssertionError(f"bf16 visualizer launch counters {bf16_launches}, expected "
+                                 f"K2 == {flushes} flushes, K1 == K1 bf16 == {frames} "
+                                 "frames, K3 == 0")
+        check, exported = check_export(output, frames, output.name)
+        frame_spec = visualizer_spec(scene, check)
+        tail_args = (frame_spec, render_h, render_w, HEIGHT, WIDTH, SSAA, aspect)
+        frame_err, frame_share = u8_diff(exported, tailfuse.tail_plain(*tail_args).cpu())
+        if frame_err > 1:
+            raise AssertionError(f"bf16 visualizer frame {check} vs plain functions: "
+                                 f"max {frame_err} u8 steps on {frame_share:.4%}")
+        say("visualizer_bf16_slice", frames=frames, flushes=flushes, blur_level=1,
+            seconds=f"{export_s:.3f}", launches=bf16_launches, frame_checked=check,
+            max_u8_diff_vs_plain=frame_err, differing_share=f"{frame_share:.3e}")
+        spec0 = visualizer_spec(scene, 0)
+        del exported
+
+    # 21. K1 bf16 (b)+(c) vs plain: the bf16 level-1 visualizer tail of frame 0
+    tail0 = (spec0, render_h, render_w, HEIGHT, WIDTH, SSAA, aspect)
+    frame = tailfuse.fused_tail_final(*tail0).cpu()
+    k1h_err, k1h_share = u8_diff(frame, tailfuse.tail_plain(*tail0).cpu())
+    if k1h_err > 1 or k1h_share >= 0.01:
+        raise AssertionError(f"K1 bf16 (b)+(c) vs plain: max {k1h_err} u8 steps on "
+                             f"{k1h_share:.4%}")
+    k1h_eager = eager_check("K1 bf16 (b)+(c)", frame, tail0)
+    launch = tailgen.prepare(*tail0, device)
+    k1h_ms = median_ms(lambda: launch(k1_out), 20)
+    k1h_plain_ms = median_ms(lambda: tailfuse.tail_plain(*tail0), 5)
+    k1h_bound_ms, k1h_bound_by = walked_bound(lambda: launch(k1_out))
+    say("k1bf16_bc", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+        frame=0, max_u8_diff=k1h_err, differing_share=f"{k1h_share:.3e}",
+        eager_max_u8_diff=k1h_eager[0], eager_psnr_db=f"{k1h_eager[1]:.2f}",
+        ms=f"{k1h_ms:.4f}", plain_ms=f"{k1h_plain_ms:.4f}",
+        bound_ms=f"{k1h_bound_ms:.4f}", bound_by=k1h_bound_by)
+
+    # 22. K1 bf16 (a) vs plain: the Mandelbrot tail spec of phase 4 in bf16
+    frame = tailfuse.fused_tail_final(*k1_args).cpu()
+    k1ha_err, k1ha_share = u8_diff(frame, tailfuse.tail_plain(*k1_args).cpu())
+    if k1ha_err > 1 or k1ha_share >= 0.01:
+        raise AssertionError(f"K1 bf16 (a) vs plain: max {k1ha_err} u8 steps on "
+                             f"{k1ha_share:.4%}")
+    k1ha_eager = eager_check("K1 bf16 (a)", frame, k1_args)
+    launch = tailgen.prepare(*k1_args, device)
+    k1ha_ms = median_ms(lambda: launch(k1_out), 20)
+    k1ha_bound_ms, k1ha_bound_by = walked_bound(lambda: launch(k1_out))
+    say("k1bf16_a", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+        max_u8_diff=k1ha_err, differing_share=f"{k1ha_share:.3e}",
+        eager_max_u8_diff=k1ha_eager[0], eager_psnr_db=f"{k1ha_eager[1]:.2f}",
+        ms=f"{k1ha_ms:.4f}",
+        bound_ms=f"{k1ha_bound_ms:.4f}", bound_by=k1ha_bound_by)
+
+    # 23. bf16 level-1 visualizer throughput into the NullSink
+    scene = torch_demo.Visualizer()
+    started = time.perf_counter()
+    scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+               output="null", device="cuda")
+    null_s = time.perf_counter() - started
+    say("visualizer_bf16_timing",
+        config="Visualizer 1920x1080 60fps 2xSSAA 2s null, bf16 tail, blur level 1",
+        frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}", card=repr(card))
 
     julia = plane_slices["julia"]
     kernels = [
@@ -667,6 +817,33 @@ def main() -> int:
          "launches": julia["launches"]["k3p"], "max_abs_err": julia["err"],
          "ms": julia["ms"], "plain_ms": julia["plain_ms"], "bound_ms": julia["bound_ms"],
          "bound_by": julia["bound_by"], "library_ms": None},
+        {"name": "K1 bf16 (b)+(c): the bf16 color chain (bf16 level-1 visualizer tail)",
+         "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
+         "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
+         "launches": bf16_launches["k1h"], "max_abs_err": k1h_err,
+         "ms": k1h_ms, "plain_ms": k1h_plain_ms, "bound_ms": k1h_bound_ms,
+         "bound_by": k1h_bound_by, "library_ms": None},
+        {"name": "T1 probe_bf16_ops (one bf16 kernel per op; timed: mul at 256x256)",
+         "route": "triton", "source": "shaderflow_tpu_torch/tools/probe_bf16_ops.py",
+         "replaces": "tools/probe_bf16_ops.py:45",
+         "launches": t1_launches, "max_abs_err": t1_err,
+         "ms": t1_ms, "plain_ms": t1_plain_ms, "bound_ms": t1_bound_ms,
+         "bound_by": t1_bound_by, "library_ms": t1_plain_ms,
+         "table": table},
+        {"name": "T2 bench_dtype chain (timed: bf16; f32 beside it)",
+         "route": "triton", "source": "shaderflow_tpu_torch/tools/bench_dtype.py",
+         "replaces": "tools/bench_vpu_dtype.py:35",
+         "launches": t2_launches, "max_abs_err": t2_bf16["max_abs_err"],
+         "ms": t2_bf16["ms"], "plain_ms": t2_bf16["plain_ms"], "bound_ms": t2_bound_ms,
+         "bound_by": t2_bound_by, "library_ms": None,
+         "f32_ms": t2_f32["ms"], "f32_plain_ms": t2_f32["plain_ms"],
+         "speedup": t2_f32["ms"] / t2_bf16["ms"]},
+        {"name": "T3 cost-walker fixture x * 2 + 1 (128x128, four (32, 128) blocks)",
+         "route": "cuda", "source": "shaderflow_tpu_torch/csrc/fixture.cu",
+         "replaces": "tests/test_flopcount.py:64",
+         "launches": t3_launches, "max_abs_err": t3_err,
+         "ms": t3_ms, "plain_ms": t3_plain_ms, "bound_ms": t3_bound_ms,
+         "bound_by": t3_bound_by, "library_ms": t3_library_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,11 +2,13 @@
 Where the time of a port export goes, on one CUDA card.
 
     python examples/torch/profile_export.py
-        [visualizer|mandelbrot|mandelbrot_rotated|julia|pianoroll]
+        [visualizer|visualizer_bf16|mandelbrot|mandelbrot_rotated|julia|pianoroll]
         [--seconds 2] [--runs 5] [--json PATH]
 
 Exports the scene into the NullSink at its graded configuration (1920x1080,
-60 fps, 2x SSAA; pianoroll: 3840x2160, 60 fps, ssaa=1): one cold run
+60 fps, 2x SSAA; pianoroll: 3840x2160, 60 fps, ssaa=1; visualizer_bf16:
+the visualizer under SHADERFLOW_TAIL_BF16=1 and SHADERFLOW_VIZ_BLUR_LEVEL=1,
+the combination the JAX package grades): one cold run
 (builds and compiles), `--runs` warm runs timed by the wall clock
 (median), then one warm run under torch.profiler. Prints as JSON (and
 writes to PATH with --json): the warm walls and frames/s, the device
@@ -23,6 +25,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -58,8 +61,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser()
     parser.add_argument("scene", nargs="?", default="visualizer",
-                        choices=("visualizer", "mandelbrot", "mandelbrot_rotated", "julia",
-                                 "pianoroll"))
+                        choices=("visualizer", "visualizer_bf16", "mandelbrot",
+                                 "mandelbrot_rotated", "julia", "pianoroll"))
     parser.add_argument("--seconds", type=float, default=2.0)
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--json", type=Path, default=None)
@@ -67,6 +70,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_export: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.scene == "visualizer_bf16":
+        os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
 
     import torch_demo
     import torch_fractals
@@ -78,6 +83,7 @@ def main() -> int:
 
     make, width, height, ssaa = {
         "visualizer": (torch_demo.Visualizer, 1920, 1080, 2),
+        "visualizer_bf16": (torch_demo.Visualizer, 1920, 1080, 2),
         "mandelbrot": (torch_fractals.Mandelbrot, 1920, 1080, 2),
         "mandelbrot_rotated": (torch_fractals.MandelbrotRotated, 1920, 1080, 2),
         "julia": (torch_fractals.Julia, 1920, 1080, 2),

@@ -12,12 +12,22 @@ ops/tailfuse.py) with the background and blur columns sampled inside it.
 
     python examples/torch/torch_demo.py        # 1080p60 2xSSAA, 2 s, to null
 
+Two environment variables select what the reference grades, read where
+the reference reads them: SHADERFLOW_VIZ_BLUR_LEVEL (the pyramid level of
+the radial blur, default 4; level 1 blurs the full-resolution background
+with the literal 9 x 9 splat kernel) when the fragment is built, and
+SHADERFLOW_TAIL_BF16=1 (the tail's color chain in bfloat16,
+ops/tailfuse.py) when the tail is traced.
+
+    SHADERFLOW_TAIL_BF16=1 SHADERFLOW_VIZ_BLUR_LEVEL=1 python examples/torch/torch_demo.py
+
 The per-frame fallback the reference keeps for its realtime preview (no
 sequences, camera-dependent geometry in the tail) is not ported yet: the
 scene raises NotImplementedError without its offline preludes.
 """
 
 import math
+import os
 import sys
 from pathlib import Path
 
@@ -34,7 +44,16 @@ from shaderflow_tpu_torch.texture import ShaderTexture  # noqa: E402
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 MUSIC = ASSETS / "music.wav"
 BACKGROUND = ASSETS / "background.png"
-BLUR_LEVEL = 4   # the pyramid level the radial blur is computed on
+
+
+def blur_level() -> int:
+    """The pyramid level the radial blur is computed on:
+    SHADERFLOW_VIZ_BLUR_LEVEL, default 4 (examples/basic/demo.py:413-425).
+    Level 1 is the literal 80 taps on the full-resolution background; the
+    default costs about 1/16th of its convolution. Nothing the engine caches
+    depends on it: the batch-invariant prelude fields are geometry, and the
+    blur is built per frame in the fragment."""
+    return int(os.environ.get("SHADERFLOW_VIZ_BLUR_LEVEL", "4"))
 
 
 def _axis_line(count: int, device) -> torch.Tensor:
@@ -153,7 +172,7 @@ def visualizer_tail(color_inv: float):
         fscale = tp.plane("fscale", dtype=torch.float32)
         rad0 = tp.plane("rad0", dtype=torch.float32)
         r = rad0 * scale
-        bar = torch.sqrt(tp.plane("bar", dtype=torch.float32) / 1000.0) * fscale
+        bar = torch.sqrt(tailfuse.divide(tp.plane("bar", dtype=torch.float32), 1000.0)) * fscale
         ring = radius + 0.5 * bar
         inside = r < radius
         on_bar = r < ring
@@ -164,7 +183,7 @@ def visualizer_tail(color_inv: float):
                for c in rgb]
 
         # Fade to deep space with camera-plane distance (|uv| == rad0)
-        dmix = tp.f(_sstep01(rad0 / 20.0))
+        dmix = tp.f(_sstep01(tailfuse.divide(rad0, 20.0)))
         rgb = [c + (s - c) * dmix for c, s in zip(rgb, space_rgb)]
 
         # Vignette: only exp(p * lvig) is per frame
@@ -191,7 +210,7 @@ def visualizer_frag(sf):
     camera), so its bilinear sample is a row interpolation here and a column
     interpolation inside the tail; the 80-tap radial blur is one small
     convolution of the texture (sampling is linear, so blur and sample
-    commute) on a quarter-resolution level, sampled the same way."""
+    commute) on a pyramid level (blur_level), sampled the same way."""
     from shaderflow_tpu_torch.ops.downsample import box_downsample
     from shaderflow_tpu_torch.ops.sampling import (
         Sampler2D, convolve2d, sample_rows_planes_blocked, sample_separable,
@@ -226,7 +245,7 @@ def visualizer_frag(sf):
         precision="bfloat16", out_dtype=torch.bfloat16)[:3]
 
     # Radial blur (8 directions x 10 walks) as one texture-space kernel on
-    # the quarter-resolution level
+    # pyramid level `level` (1: the texture itself)
     intensity = 0.01 * torch.clamp(
         torch.pow(torch.clamp(sf.iAudioVolume, min=0.0), 2.5), 0.0, 0.3)
     quality, directions = 10, 8
@@ -237,14 +256,18 @@ def visualizer_frag(sf):
             walk = s / quality
             taps.append((math.cos(angle) * walk, math.sin(angle) * walk))
     taps = torch.tensor(taps, dtype=torch.float32, device=device) * intensity
-    level = BLUR_LEVEL
+    level = blur_level()
     quarter_h, quarter_w = tex.height // level, tex.width // level
-    quarter = box_downsample(tex.data[:quarter_h * level, :quarter_w * level], level)
+    quarter = (box_downsample(tex.data[:quarter_h * level, :quarter_w * level], level)
+               if level > 1 else tex.data)
     # stuv offsets -> level texel units: both axes scale by the level height
     # (gtexture aspect correction), v-up flips to row-down
     offsets = taps * torch.tensor([quarter_h, -quarter_h], dtype=torch.float32,
                                   device=device)
-    kernel = splat_kernel(offsets, size=5)
+    # The kernel covers the largest tap offset: intensity <= 0.003 stuv is
+    # about 3.5 texels at level 1 (size 9), at most one level texel from
+    # level 2 up (size 5 leaves margin)
+    kernel = splat_kernel(offsets, size=5 if level >= 2 else 9)
     blurred = convolve2d(quarter, kernel)
     blur_tex = Sampler2D(blurred, linear=True, repeat_x=tex.repeat_x, repeat_y=tex.repeat_y)
     blur_tpp = 0.96 ** 2 * blur_tex.height / render_h

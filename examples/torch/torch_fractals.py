@@ -24,8 +24,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))
 
 from shaderflow_tpu_torch import ops  # noqa: E402
-from shaderflow_tpu_torch.ops import TAU  # noqa: E402
-from shaderflow_tpu_torch.ops.stdlib import reciprocal  # noqa: E402
+from shaderflow_tpu_torch.ops import TAU, tailfuse  # noqa: E402
 from shaderflow_tpu_torch.scene import ShaderScene  # noqa: E402
 
 
@@ -122,23 +121,20 @@ def julia_cap(quality: int) -> int:
 
 
 def julia_tail(quality: int):
-    """hsv2rgb of the count on a hue wheel (s = 0.8), black out of bounds."""
-    # the reference divides by these constants: products with reciprocals
-    inv_quality = reciprocal(quality)
-    inv_sector = reciprocal(math.pi / 3.0)
-    inv_tau = reciprocal(TAU)
-
+    """hsv2rgb of the count on a hue wheel (s = 0.8), black out of bounds.
+    The reference divides by constants: tailfuse.divide computes each
+    quotient as its compiled program does, in float32 and in bfloat16."""
     def tail(tp):
         it = tp.plane("iters")
-        t = 1.0 - it * inv_quality
+        t = 1.0 - tailfuse.divide(it, quality)
         t2 = t * t
         t8 = (t2 * t2) * (t2 * t2)             # == power(t, 8), exact
         h = torch.remainder(TAU * (it * 0.015625), TAU)   # it / 64
         value = t8
         c = value * 0.8
-        x = c * (1.0 - torch.abs(torch.remainder(h * inv_sector, 2.0) - 1.0))
+        x = c * (1.0 - torch.abs(torch.remainder(tailfuse.divide(h, math.pi / 3.0), 2.0) - 1.0))
         m = value - c
-        sector = torch.floor(6.0 * (h * inv_tau))
+        sector = torch.floor(6.0 * tailfuse.divide(h, TAU))
         zero = torch.zeros_like(c)
 
         def pick(options):

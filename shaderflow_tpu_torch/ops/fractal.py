@@ -29,6 +29,19 @@ from pathlib import Path
 
 import torch
 
+from shaderflow_tpu_torch.tools import flopcount
+
+ESCAPE_STEP_OPS = 9   # one escape step in csrc/escape.cu: 4 products, 4 sums, 1 compare
+
+
+def _escape_cost(pixels: int, operand_bytes: float) -> flopcount.Cost:
+    """One pixel's share of a K3 launch (one thread per pixel) for the
+    cost walker: its operands read once and its count written once; the
+    escape loop reported per trip (ESCAPE_STEP_OPS), which the caller closes
+    with the measured counts."""
+    return flopcount.Cost(kernel_bytes=4 + operand_bytes / pixels,
+                          unknown_loops=[("K3 escape step", ESCAPE_STEP_OPS, 1.0)])
+
 
 def _interior_mask(cx: torch.Tensor, cy: torch.Tensor) -> torch.Tensor:
     """Main-cardioid + period-2-bulb membership (exact: such points never
@@ -131,7 +144,8 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
     trip = int(max_iter) if saturate is None else min(int(max_iter), int(saturate))
     out = torch.empty((height, width), dtype=out_dtype, device=cx_line.device)
     library = _escape_library()
-    with torch.cuda.device(cx_line.device):   # the launch targets the current card
+    cost = lambda: _escape_cost(height * width, 4 * (height + width))
+    with flopcount.kernel("K3 lines", height * width, cost), torch.cuda.device(cx_line.device):
         status = library.escape_lines(
             cx_line.data_ptr(), cy_line.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.float32), height, width, int(max_iter), trip,
@@ -195,7 +209,9 @@ def _escape_planes_cuda(zx0: torch.Tensor, zy0: torch.Tensor, cx, cy, c_kind: in
     out = torch.empty(shape, dtype=out_dtype, device=device)
     library = _escape_library()
     pointer = lambda t: t.data_ptr() if isinstance(t, torch.Tensor) else None
-    with torch.cuda.device(device):   # the launch targets the current card
+    operand_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    cost = lambda: _escape_cost(out.numel(), operand_bytes)
+    with flopcount.kernel("K3 planes", out.numel(), cost), torch.cuda.device(device):
         status = library.escape_planes(
             zx0.data_ptr(), zy0.data_ptr(), z_stride,
             pointer(cx) if c_kind != _C_IS_Z0 else None,

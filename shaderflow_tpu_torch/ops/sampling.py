@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+from shaderflow_tpu_torch.tools import flopcount
+
 
 class Sampler2D(NamedTuple):
     """A texture bound for sampling: (H, W, C) float32 data and its sampler
@@ -260,7 +262,12 @@ def expand_tables(flat16: torch.Tensor, index: torch.Tensor,
     batch, n = flat16.shape
     out = torch.empty((batch, index.shape[0]), dtype=out_dtype, device=flat16.device)
     library = _lookup_library()
-    with torch.cuda.device(flat16.device):
+    npx = index.shape[0]
+    # per pixel for the cost walker: its index read, its value of every
+    # frame written, the tables read once
+    cost = lambda: flopcount.Cost(kernel_bytes=4 + batch * out.element_size()
+                                  + flat16.numel() * 2 / npx)
+    with flopcount.kernel("K2", npx, cost), torch.cuda.device(flat16.device):
         status = library.lookup_expand(
             index.data_ptr(), flat16.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.float32), batch, n, index.shape[0],

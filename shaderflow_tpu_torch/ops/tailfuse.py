@@ -22,8 +22,11 @@ tuple of channel planes], Row (Hr,), Col (Wr,), 0-d scalars, Table (a
 small (bins, C) lookup table read by TailCtx.lookup), Indexed (one plane
 of an (N, Hr, Wr) prelude stack, picked by a clipped index) and ColSampled
 (row-interpolated (Hr, W_in) planes whose column interpolation happens
-inside the tail). Planes may be float32 or bfloat16; the tail computes in
-float32 (the reference's SHADERFLOW_TAIL_BF16 mode is not ported).
+inside the tail). Planes may be float32 or bfloat16. The tail's color math
+runs in tail_dtype(): float32, or bfloat16 under SHADERFLOW_TAIL_BF16=1
+(TailCtx.plane/vec/f serve that dtype; rows, columns, coordinates and
+geometry planes read with dtype=torch.float32 stay float32, and pooling,
+masking and the u8 quantize run in float32 in either mode).
 
 Two final forms: the exact-pooling regime (render == out * s) pools and
 quantizes in K1 itself; the equal-resolution regime (render == out,
@@ -35,6 +38,7 @@ reference's planar 3-tap stencil and the u8 quantize (final_equal_resolution).
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -79,6 +83,24 @@ def powf(x, p):
     0). Computes in f32."""
     x = _f32(x)
     return torch.exp(p * torch.log(x))
+
+
+def divide(x, value: float):
+    """x / value for a constant `value`, as the reference's compiled program
+    computes it: in float32 XLA folds the division into a product with the
+    float32 reciprocal (stdlib.reciprocal); in bfloat16 it divides (and
+    rounds the quotient)."""
+    if x.dtype == torch.bfloat16:
+        return x / value
+    return x * reciprocal(value)
+
+
+def tail_dtype() -> torch.dtype:
+    """Compute dtype of a tail's COLOR math: SHADERFLOW_TAIL_BF16=1 runs the
+    per-pixel color chain in bfloat16 (shaderflow_tpu/ops/tailfuse.py:
+    tail_dtype). Coordinates, rows, columns, pooling and quantization stay
+    float32. Read when a tail is traced or evaluated."""
+    return torch.bfloat16 if os.environ.get("SHADERFLOW_TAIL_BF16") == "1" else torch.float32
 
 
 # --------------------------------------------------------------------------- #
@@ -254,10 +276,11 @@ def materialize_indexed(spec: TailSpec) -> dict:
 # The tail context: what the tail function sees
 
 class TailCtx:
-    """Handed to the tail function. Values are 2D (rows, cols) float32
-    planes (full-resolution tensors on the plain path, symbolic values
-    while ops/tailgen.py traces the kernel); the function cannot tell
-    which. Render sizes and aspect are Python numbers."""
+    """Handed to the tail function. Values are 2D (rows, cols) planes
+    (full-resolution tensors on the float32 plain path, symbolic values
+    while ops/tailgen.py traces the kernel or a bfloat16 tail); the
+    function cannot tell which. Render sizes and aspect are Python
+    numbers; `dtype` is the color dtype (tail_dtype)."""
 
     def __init__(self, planes, rows, cols, scalars, row_index, col_index,
                  render_height: int, render_width: int, aspect: float,
@@ -272,17 +295,18 @@ class TailCtx:
         self.render_height = render_height
         self.render_width = render_width
         self.aspect = aspect
+        self.dtype = tail_dtype()
 
     # -- inputs --------------------------------------------------------------
 
     def plane(self, name: str, channel: int = 0, dtype=None):
-        """A channel plane in float32 (bfloat16 planes upcast at load); an
-        explicit `dtype` names the precision a geometry plane needs, which
-        in the port is always float32."""
-        return self._planes[name][channel].to(dtype or torch.float32)
+        """A channel plane in the color dtype, or in an explicit `dtype`:
+        GEOMETRY planes (fields gating hard edges) read float32 even in the
+        bfloat16 mode."""
+        return self._planes[name][channel].to(dtype or self.dtype)
 
     def vec(self, name: str) -> tuple:
-        return tuple(p.to(torch.float32) for p in self._planes[name])
+        return tuple(p.to(self.dtype) for p in self._planes[name])
 
     def vec3(self, name: str) -> tuple:
         return self.vec(name)
@@ -300,8 +324,9 @@ class TailCtx:
         return self._scalars[name]
 
     def f(self, x):
-        """Cast into the color-math dtype (always float32 in the port)."""
-        return _f32(x)
+        """Cast into the color dtype: tails wrap the float32 factors they
+        apply to the color chain, so that the chain stays in that dtype."""
+        return x.to(self.dtype) if hasattr(x, "to") else torch.tensor(x, dtype=self.dtype)
 
     def lookup(self, name: str, index_plane, channel: int = 0):
         """Nearest lookup table[clip(trunc(index), 0, bins - 1), channel] of
@@ -359,9 +384,31 @@ def spec_device(spec: TailSpec) -> torch.device:
     return tensors[0].device if tensors else torch.device("cpu")
 
 
+# How far a bfloat16 tail's eager frames (eval_reference(eager=True)) may
+# sit from the reference's: (max u8 steps, min PSNR in dB). Measured on the
+# CPU against the JAX fused path at 128x72 and 96x54: 1-2 steps on 8-23 %
+# of values, 54.5-58.9 dB (tests/test_torch_bf16.py); one step of room for
+# a 1080p frame's rarer tails. A wrong op or operand falls far below.
+EAGER_BF16_BAR = (3, 50.0)
+
+
 def eval_reference(spec: TailSpec, render_height: int, render_width: int,
-                   aspect: float) -> torch.Tensor:
-    """Run the tail on full-resolution tensors -> (Hr, Wr, 3) float32."""
+                   aspect: float, eager: bool = False) -> torch.Tensor:
+    """Run the tail on full-resolution tensors -> (Hr, Wr, 3) float32.
+
+    In float32 the tail function runs on the tensors themselves. In
+    bfloat16 (tail_dtype) it runs through its traced graph
+    (tailgen.evaluate): every bfloat16 op computed in float32 and rounded,
+    typed by JAX's promotion rules, not torch's — the values kernel K1
+    computes and the reference's compiled program holds.
+
+    eager=True runs the tail function on the tensors in bfloat16 too, with
+    no tracer: the 0-d scalars enter as (1, 1) tensors, so that torch
+    promotes a bfloat16 value with them to float32 as JAX does. Torch
+    rounds every bfloat16 op, also where the reference's upcast reads the
+    unrounded value, so its frames may sit one u8 step from K1's: a check
+    of the tracer that does not share its typing or rounding rules, held
+    to EAGER_BF16_BAR."""
     device = spec_device(spec)
     rows = {k: v.reshape(-1, 1) for k, v in spec.rows.items()}
     cols = {k: v.reshape(1, -1) for k, v in spec.cols.items()}
@@ -370,12 +417,28 @@ def eval_reference(spec: TailSpec, render_height: int, render_width: int,
                              device=device)[:, None].expand(shape)
     col_index = torch.arange(render_width, dtype=torch.float32,
                              device=device)[None, :].expand(shape)
-    planes = {**spec.planes, **materialize_colsampled(spec),
-              **materialize_indexed(spec)}
+    sampled = materialize_colsampled(spec)
+    planes = {**spec.planes, **sampled, **materialize_indexed(spec)}
     tables = {name: table.to(device) for name, table in spec.tables.items()}
-    ctx = TailCtx(planes, rows, cols, spec.scalars, row_index, col_index,
-                  render_height, render_width, aspect, tables=tables)
-    result = spec.fn(ctx)
+    bf16 = tail_dtype() == torch.bfloat16
+    if bf16 and not eager:
+        from shaderflow_tpu_torch.ops import tailgen
+        env = {("row_index", "", 0): row_index, ("col_index", "", 0): col_index}
+        for name, channels in planes.items():
+            kind = "colsampled" if name in sampled else "plane"
+            env.update({(kind, name, c): plane for c, plane in enumerate(channels)})
+        env.update({("row", name, 0): value for name, value in rows.items()})
+        env.update({("col", name, 0): value for name, value in cols.items()})
+        env.update({("scalar", name, 0): value for name, value in spec.scalars.items()})
+        env.update({("table", name, 0): value for name, value in tables.items()})
+        graph, outputs = tailgen.trace(spec, render_height, render_width, aspect)
+        result = tailgen.evaluate(graph, outputs, env)
+    else:
+        scalars = ({k: v.reshape(1, 1) for k, v in spec.scalars.items()} if bf16
+                   else spec.scalars)
+        ctx = TailCtx(planes, rows, cols, scalars, row_index, col_index,
+                      render_height, render_width, aspect, tables=tables)
+        result = spec.fn(ctx)
     planes = [torch.broadcast_to(torch.as_tensor(p, dtype=torch.float32,
                                                  device=device), shape)
               for p in result[:3]]
@@ -384,9 +447,9 @@ def eval_reference(spec: TailSpec, render_height: int, render_width: int,
 
 def tail_plain(spec: TailSpec, render_height: int, render_width: int,
                out_height: int, out_width: int, subsample: int,
-               aspect: float) -> torch.Tensor:
+               aspect: float, eager: bool = False) -> torch.Tensor:
     """Plain version of kernel K1: eval_reference + final_pass."""
-    rgb = eval_reference(spec, render_height, render_width, aspect)
+    rgb = eval_reference(spec, render_height, render_width, aspect, eager)
     return final_pass(rgb, out_height, out_width, int(subsample))
 
 
@@ -409,7 +472,9 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
     K1 (Triton, generated by ops/tailgen.py) for CUDA inputs; the plain
     version (tail_plain, planes_plain) for CPU inputs.
     `fused_tail_final.launches` counts launches of the u8 form,
-    `fused_tail_final.planes_launches` those of the quantize=False form."""
+    `fused_tail_final.planes_launches` those of the quantize=False form,
+    `fused_tail_final.bf16_launches` those of either form traced with the
+    bfloat16 color chain (tail_dtype)."""
     s = int(subsample)
     if (render_height, render_width) != (out_height * s, out_width * s):
         raise ValueError(
@@ -440,11 +505,14 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
         fused_tail_final.launches += 1
     else:
         fused_tail_final.planes_launches += 1
+    if tail_dtype() == torch.bfloat16:
+        fused_tail_final.bf16_launches += 1
     return out
 
 
 fused_tail_final.launches = 0
 fused_tail_final.planes_launches = 0
+fused_tail_final.bf16_launches = 0
 
 
 def planes_plain(spec: TailSpec, render_height: int, render_width: int,

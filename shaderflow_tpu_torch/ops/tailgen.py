@@ -55,7 +55,22 @@ counts and dtypes of its inputs. Tails whose closure holds a value the key
 cannot hash (anything but numbers, strings, tuples of them and numpy
 arrays) are traced every frame.
 
-Float rules: launched with enable_fp_fusion=False (no FMA contraction),
+bfloat16 tails (tailfuse.tail_dtype, SHADERFLOW_TAIL_BF16=1): the tracer
+types every node as JAX does (Graph: float32, bfloat16, weak Python
+numbers, bool) and the template computes each bfloat16 op in float32, then
+rounds it to bfloat16 (.to(tl.bfloat16)): the value the reference's
+compiled program holds, and the plain version on the card (torch computes
+its bfloat16 ops so). An upcast of a rounded op, an output included, reads
+the unrounded float32 value, as XLA drops a convert to bfloat16 followed by
+a convert back. T1 (shaderflow_tpu_torch/tools/probe_bf16_ops.py) records
+which native bfloat16 forms match that on the card (BF16_PROBE_OK).
+
+Bound on this card, for the cost walker (tools/flopcount.py): each
+launch declares its graph's ops by class (ALU; sqrt, exp and log on the
+special-function units) per SSAA pixel and its bytes (kernel_cost).
+
+Float rules: launched with enable_fp_fusion=False (no FMA contraction, so
+no bfloat16 product skips its rounding inside a fused multiply-add),
 division as div_rn and sqrt as sqrt_rn (IEEE-rounded, as torch's;
 Triton's default `/` and tl.sqrt are approximate on sm_90 and differ from
 torch on about a quarter of random f32 inputs), min/max
@@ -72,7 +87,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, indexed_position
+from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, indexed_position, tail_dtype
+from shaderflow_tpu_torch.tools import flopcount
 
 BLOCK_H = 8     # output rows per program
 BLOCK_W = 64    # output columns per program
@@ -82,10 +98,39 @@ NUM_WARPS = 4
 # --------------------------------------------------------------------------- #
 # Tracing
 
+# Value kinds in JAX's promotion order (jnp.promote_types over the types a
+# tail meets): "b" bool < "w" a weakly typed float (Python numbers, and what
+# is computed from them alone) < "h" bfloat16 < "f" float32. A bfloat16
+# value combined with a Python number stays bfloat16, combined with a
+# strong float32 value (a 0-d scalar input too) becomes float32: JAX's
+# rules, not torch's (torch keeps bf16_tensor * f32_0d_tensor in bfloat16).
+_RANK = {"b": 0, "w": 1, "h": 2, "f": 3}
+_LOGIC = ("and", "or", "not")
+_COMPARE = ("lt", "le", "gt", "ge", "eq", "ne")
+# Nodes whose value is one of their operands' (already rounded) values, or
+# computed and rounded inside the node: their upcast is exact. A cast to
+# bfloat16 ("bf16": tp.plane, tp.vec, tp.f of a float32 value) is one: XLA
+# keeps an explicit convert pair and rounds, as it does not for an op's
+# result (Graph.rounds)
+_SELECTING = ("input", "where", "mod", "full", "lookup", "float", "bf16")
+_SFU_OPS = ("sqrt", "exp", "log")
+_FREE_OPS = ("input", "float", "bf16", "full")
+
+
+def promote(*kinds: str) -> str:
+    return max(kinds, key=_RANK.__getitem__)
+
+
+def round_bf16(value: float) -> float:
+    """A Python number rounded to the nearest bfloat16 (ties to even)."""
+    return float(torch.tensor(float(value), dtype=torch.float32).to(torch.bfloat16))
+
+
 class Graph:
     """Expression graph of one tail call. nodes[i] = (op, args, kind):
     args are node indices (int) for symbolic operands, or ("const", value)
-    for Python scalars; kind is "f" (float32) or "b" (bool)."""
+    for Python scalars; kind is one of _RANK's ("f" float32, "h" bfloat16,
+    "w" weak float, "b" bool)."""
 
     def __init__(self):
         self.nodes: list[tuple] = []
@@ -100,6 +145,38 @@ class Graph:
         if key not in self.inputs:
             self.inputs[key] = self.add("input", key, kind).index
         return Sym(self, self.inputs[key])
+
+    def kind(self, operand) -> str:
+        if isinstance(operand, tuple):
+            return "b" if isinstance(operand[1], bool) else "w"
+        return self.nodes[operand][2]
+
+    def compute_kind(self, index: int) -> str:
+        """The type node `index` computes in: its operands promoted (a
+        compare's operands, a where's two branches); a cast reads its
+        operand in float32."""
+        op, args, kind = self.nodes[index]
+        if op in _COMPARE:
+            return promote(*(self.kind(a) for a in args))
+        if op in ("float", "bf16"):
+            return "f"
+        return kind
+
+    def rounds(self, index: int) -> bool:
+        """Whether node `index` is a bfloat16 op computed in float32 and
+        then rounded; an upcast of it reads the unrounded float32 value, as
+        the reference's compiled program does (XLA drops a convert to
+        bfloat16 that a convert back to float32 follows)."""
+        op, _, kind = self.nodes[index]
+        return kind == "h" and op not in _SELECTING
+
+    def op_counts(self) -> tuple[int, int]:
+        """(ALU ops, special-function ops) one pixel's evaluation takes:
+        sqrt, exp and log run on the special-function units; loads, casts
+        and constants count 0 (tools/flopcount.py's classes)."""
+        sfu = sum(1 for op, _, _ in self.nodes if op in _SFU_OPS)
+        free = sum(1 for op, _, _ in self.nodes if op in _FREE_OPS)
+        return len(self.nodes) - sfu - free, sfu
 
 
 def _operand(graph: Graph, value):
@@ -116,24 +193,20 @@ def _operand(graph: Graph, value):
         "must enter through tail inputs (planes, Row, Col, scalars), not closures")
 
 
-def _kind(graph: Graph, operand) -> str:
-    if isinstance(operand, tuple):
-        return "b" if isinstance(operand[1], bool) else "f"
-    return graph.nodes[operand][2]
-
-
-def _op(graph: Graph, op: str, *values, kind: str = None) -> "Sym":
+def _op(graph: Graph, op: str, *values) -> "Sym":
     args = tuple(_operand(graph, v) for v in values)
-    kinds = [_kind(graph, a) for a in args]
-    if op in ("and", "or", "not"):
+    kinds = [graph.kind(a) for a in args]
+    if op in _LOGIC:
         if any(k != "b" for k in kinds):
             raise NotImplementedError(f"Bitwise {op} on float tail values")
         result = "b"
-    elif op in ("lt", "le", "gt", "ge", "eq", "ne"):
+    elif op in _COMPARE:
         result = "b"
     else:
-        result = "f"
-    return graph.add(op, args, kind or result)
+        result = promote(*kinds)
+        if result == "b":     # arithmetic on booleans counts in float32
+            result = "f"
+    return graph.add(op, args, result)
 
 
 class Sym:
@@ -151,12 +224,19 @@ class Sym:
         # torch's argument parsing happy on the way to __torch_function__
         return ()
 
+    @property
+    def dtype(self):
+        return {"b": torch.bool, "h": torch.bfloat16}.get(self.graph.nodes[self.index][2],
+                                                          torch.float32)
+
     def to(self, dtype=None, *args, **kwargs):
+        kind = self.graph.nodes[self.index][2]
         if dtype in (None, torch.float32):
-            if self.graph.nodes[self.index][2] == "b":
-                return _op(self.graph, "float", self)
-            return self
-        raise NotImplementedError(f"Tail cast to {dtype}: kernel K1 computes in float32")
+            return self if kind == "f" else self.graph.add("float", (self.index,), "f")
+        if dtype == torch.bfloat16:
+            return self if kind == "h" else self.graph.add("bf16", (self.index,), "h")
+        raise NotImplementedError(f"Tail cast to {dtype}: kernel K1 computes in "
+                                  "float32 and bfloat16")
 
     def __bool__(self):
         raise TypeError("Tail functions are elementwise: a traced value has no "
@@ -231,12 +311,18 @@ def _clamp(graph, x, min=None, max=None):
 
 
 def _where(graph, condition, a, b) -> "Sym":
-    """torch.where: a boolean condition (as torch requires); the result is
-    boolean only when both branches are."""
-    if _kind(graph, _operand(graph, condition)) != "b":
+    """torch.where: a boolean condition (as torch requires); the branches
+    promote as jnp.where's do (boolean only when both branches are)."""
+    args = tuple(_operand(graph, v) for v in (condition, a, b))
+    if graph.kind(args[0]) != "b":
         raise TypeError("torch.where in a tail needs a boolean condition")
-    kinds = {_kind(graph, _operand(graph, v)) for v in (a, b)}
-    return _op(graph, "where", condition, a, b, kind="b" if kinds == {"b"} else "f")
+    kinds = {graph.kind(a) for a in args[1:]}
+    return graph.add("where", args, "b" if kinds == {"b"} else promote(*kinds))
+
+
+def _zeros_like(graph, a, **kwargs):
+    kind = graph.kind(_operand(graph, a))
+    return graph.add("full", (("const", 0.0),), "f" if kind == "b" else kind)
 
 
 _TORCH_OPS = {
@@ -252,7 +338,7 @@ _TORCH_OPS = {
     torch.remainder: lambda g, a, b: _op(g, "mod", a, b),
     # Shape plumbing: every traced value already stands for the full tile
     torch.broadcast_to: lambda g, a, shape: a,
-    torch.zeros_like: lambda g, a, **k: g.add("full", (("const", 0.0),), "f"),
+    torch.zeros_like: _zeros_like,
 }
 
 
@@ -274,18 +360,24 @@ class _SymTable:
             "lookup", (_operand(self.graph, index), ("table", self.name, channel)), "f")
 
 
+def _dtype_kind(tensor) -> str:
+    return "h" if tensor.dtype == torch.bfloat16 else "f"
+
+
 def trace(spec: TailSpec, render_height: int, render_width: int,
           aspect: float) -> tuple[Graph, list]:
     """Run spec.fn on symbolic inputs -> (graph, [3 outputs]); each output
-    is a node index or ("const", value)."""
+    is a node index or ("const", value). Planes keep their dtype (a
+    bfloat16 plane is a bfloat16 input); the context serves the color
+    dtype of tail_dtype() at trace time."""
     graph = Graph()
     planes = _LazyInputs(graph, {
-        **{n: ("plane", len(c)) for n, c in spec.planes.items()},
-        **{n: ("plane", 1) for n in spec.indexed},
-        **{n: ("colsampled", len(cs.planes)) for n, cs in spec.colsampled.items()}})
-    rows = _LazyInputs(graph, {n: ("row", 1) for n in spec.rows}, single=True)
-    cols = _LazyInputs(graph, {n: ("col", 1) for n in spec.cols}, single=True)
-    scalars = _LazyInputs(graph, {n: ("scalar", 1) for n in spec.scalars}, single=True)
+        **{n: ("plane", tuple(_dtype_kind(p) for p in c)) for n, c in spec.planes.items()},
+        **{n: ("plane", (_dtype_kind(ix.stack),)) for n, ix in spec.indexed.items()},
+        **{n: ("colsampled", ("f",) * len(cs.planes)) for n, cs in spec.colsampled.items()}})
+    rows = _LazyInputs(graph, {n: ("row", ("f",)) for n in spec.rows}, single=True)
+    cols = _LazyInputs(graph, {n: ("col", ("f",)) for n in spec.cols}, single=True)
+    scalars = _LazyInputs(graph, {n: ("scalar", ("f",)) for n in spec.scalars}, single=True)
     tables = {name: _SymTable(graph, name, *table.shape)
               for name, table in spec.tables.items()}
     ctx = TailCtx(planes, rows, cols, scalars,
@@ -302,7 +394,7 @@ def trace(spec: TailSpec, render_height: int, render_width: int,
 class _LazyInputs(dict):
     """name -> Sym (or tuple of channel Syms); registers the input node on
     first read, so the kernel loads only what the tail uses. `kinds` maps
-    each name to (input kind, channel count)."""
+    each name to (input kind, value kind of each channel)."""
 
     def __init__(self, graph: Graph, kinds: dict, single=False):
         super().__init__()
@@ -313,7 +405,8 @@ class _LazyInputs(dict):
         if name not in self._kinds:
             raise KeyError(name)
         kind, channels = self._kinds[name]
-        syms = tuple(self._graph.input((kind, name, c)) for c in range(channels))
+        syms = tuple(self._graph.input((kind, name, c), value_kind)
+                     for c, value_kind in enumerate(channels))
         value = syms[0] if self._single else syms
         self[name] = value
         return value
@@ -323,13 +416,14 @@ class _LazyInputs(dict):
 
 
 # --------------------------------------------------------------------------- #
-# Evaluation with torch (the test oracle for the tracer)
+# Evaluation with torch: the plain version of a traced tail (bfloat16 mode)
+# and the test oracle for the tracer
 
 _TORCH_EVAL = {
     "add": lambda a, b: a + b,
     "sub": lambda a, b: a - b,
     "mul": lambda a, b: a * b,
-    "div": lambda a, b: a / b,
+    "div": lambda a, b: _divide(a, b),
     "lt": lambda a, b: a < b,
     "le": lambda a, b: a <= b,
     "gt": lambda a, b: a > b,
@@ -348,11 +442,23 @@ _TORCH_EVAL = {
     "sqrt": torch.sqrt,
     "exp": torch.exp,
     "log": torch.log,
-    "float": lambda a: a.to(torch.float32),
+    "float": lambda a: a,
+    "bf16": lambda a: a,     # rounded below, as every bfloat16 node
     "maximum": lambda a, b: _extremum(torch.maximum, "min", a, b),
     "minimum": lambda a, b: _extremum(torch.minimum, "max", a, b),
     "where": torch.where,
 }
+
+
+def _divide(a, b):
+    """a / b rounded once (IEEE), as K1's div_rn and XLA's division: a
+    Python number becomes a 0-d tensor on the other operand's device (eager
+    torch on CUDA divides by a host number through its reciprocal)."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.full((), a, dtype=torch.float32, device=b.device)
+    if not isinstance(b, torch.Tensor):
+        b = torch.full((), b, dtype=torch.float32, device=a.device)
+    return torch.div(a, b)
 
 
 def _extremum(function, bound: str, a, b):
@@ -365,25 +471,80 @@ def _extremum(function, bound: str, a, b):
     return function(a, b)
 
 
+def _round_value(x):
+    """Round to bfloat16, held in float32 (tensors or Python numbers)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.bfloat16).to(torch.float32)
+    return round_bf16(x)
+
+
+def _as_float(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return float(x)
+
+
 def evaluate(graph: Graph, outputs: list, env: dict) -> list:
-    """Evaluate the graph with torch. env maps input keys ("plane", name,
-    channel) / ("colsampled", name, channel) (the column-interpolated
-    plane) / ("row", name, 0) / ... / ("row_index", "", 0) / ("table",
-    name, 0) (the (bins, C) table) to tensors."""
-    values = []
-    for op, args, _ in graph.nodes:
+    """Evaluate the graph with torch -> the three outputs as float32 values
+    (tensors, or Python numbers for constant outputs). env maps input keys
+    ("plane", name, channel) / ("colsampled", name, channel) (the
+    column-interpolated plane) / ("row", name, 0) / ... / ("row_index", "",
+    0) / ("table", name, 0) (the (bins, C) table) to tensors.
+
+    Every value is held in float32; a bfloat16 node is its op computed in
+    float32 on its operands' values, then rounded to bfloat16 (the
+    unrounded value is what an upcast of it reads), exactly what kernel K1
+    emits. Operands are first converted to the type the node computes in:
+    Python numbers round to bfloat16 in a bfloat16 op, bfloat16 values
+    enter a float32 op as they are (unrounded where the node rounds)."""
+    rounded, exact = [], []   # per node: its value, and what an upcast reads
+    # the last node that reads each node: full-size values are dropped after it
+    last_use = {arg: index for index, (op, args, _) in enumerate(graph.nodes)
+                if op != "input" for arg in args if isinstance(arg, int)}
+    for output in outputs:
+        if isinstance(output, int):
+            last_use[output] = len(graph.nodes)
+
+    def operand(arg, kind: str):
+        if isinstance(arg, tuple):
+            value = arg[1]
+            return round_bf16(value) if kind == "h" and not isinstance(value, bool) else value
+        arg_kind = graph.nodes[arg][2]
+        if kind == "b":
+            return rounded[arg]
+        if arg_kind == "b":
+            return _as_float(rounded[arg])
+        if kind == "h":
+            return rounded[arg] if arg_kind == "h" else _round_value(rounded[arg])
+        return exact[arg] if graph.rounds(arg) else rounded[arg]
+
+    for index, (op, args, kind) in enumerate(graph.nodes):
         if op == "input":
-            values.append(env[args])
-            continue
-        if op == "lookup":
+            value = env[args]
+            value = value.to(torch.float32) if value.is_floating_point() else value
+        elif op == "lookup":
             _, name, channel = args[1]
             table = env[("table", name, 0)]
-            index = torch.clamp(values[args[0]].to(torch.int32), 0, table.shape[0] - 1)
-            values.append(table[:, channel].to(torch.float32)[index.to(torch.int64)])
-            continue
-        operands = [a[1] if isinstance(a, tuple) else values[a] for a in args]
-        values.append(_TORCH_EVAL[op](*operands))
-    return [o[1] if isinstance(o, tuple) else values[o] for o in outputs]
+            position = operand(args[0], "f") if graph.kind(args[0]) != "h" \
+                else rounded[args[0]]
+            position = torch.clamp(torch.as_tensor(position).to(torch.int32), 0,
+                                   table.shape[0] - 1)
+            value = table[:, channel].to(torch.float32)[position.to(torch.int64)]
+        elif op == "where":
+            value = torch.where(operand(args[0], "b"), operand(args[1], kind),
+                                operand(args[2], kind))
+        else:
+            compute = graph.compute_kind(index)
+            value = _TORCH_EVAL[op](*(operand(a, compute) for a in args))
+        exact.append(value)
+        if kind == "h" and op not in ("input", "where", "full"):
+            value = _round_value(value)
+        rounded.append(value)
+        if op != "input":
+            for arg in set(a for a in args if isinstance(a, int)):
+                if last_use[arg] == index:
+                    rounded[arg] = exact[arg] = None
+    return [operand(o, "f") for o in outputs]
 
 
 # --------------------------------------------------------------------------- #
@@ -401,8 +562,20 @@ _TRITON_BINARY = {
 _TRITON_UNARY = {
     "neg": "-{}", "not": "~{}", "abs": "tl.abs({})", "floor": "tl.floor({})",
     "sqrt": "tl.sqrt_rn({})", "exp": "libdevice.exp({})",
-    "log": "libdevice.log({})", "float": "{}.to(tl.float32)",
+    "log": "libdevice.log({})", "float": "{}",
+    "bf16": "{}.to(tl.bfloat16).to(tl.float32)",
 }
+_ROUND = "{}.to(tl.bfloat16).to(tl.float32)"
+
+# T1's table (tools/probe_bf16_ops.py) on an NVIDIA H100 80GB HBM3 (700 W),
+# Triton 3.6.0, 2026-10-16: the probe ops whose native bfloat16 Triton form
+# is bit-equal to the op computed in float32 and rounded to bfloat16; sqrt,
+# rsqrt, exp, log, tanh, sin and pow through exp/log have no bfloat16
+# lowering there. K1 computes every bfloat16 op in float32 and rounds it
+# (the native forms of mul and add gave the same bits and no measured
+# gain). chip_smoke.py probes again and fails if an op below is not `ok`.
+BF16_PROBE_OK = ("mul", "add", "max", "where", "select_f32cmp", "div_array",
+                 "div_const", "recip")
 
 
 def _literal(value: float) -> str:
@@ -420,7 +593,11 @@ def generate(graph: Graph, outputs: list, subsample: int,
     `colsampled_bf16` names those whose planes are bfloat16 (their hat
     weights round to bf16). Table inputs are keys ("table", name, 0): a
     (bins, C) float32 pointer, bins and C baked into the source.
-    quantize=False (subsample 1) stores three bf16 planes (3, Ho, Wo)."""
+    quantize=False (subsample 1) stores three bf16 planes (3, Ho, Wo).
+
+    Values live in float32 registers: v<i> is node i's value (a bfloat16
+    node's rounded to bfloat16), u<i> the unrounded value of a node that
+    rounds (Graph.rounds), which upcasts and the outputs read."""
     if not quantize and subsample != 1:
         raise ValueError(f"K1's quantize=False form runs at s = 1, got s={subsample}")
     keys = sorted(k for k in graph.inputs
@@ -465,17 +642,25 @@ def generate(graph: Graph, outputs: list, subsample: int,
                 hoisted.append(f"{consts[key]} = tl.full([BH, BW], {_literal(value)}, tl.float32)")
         return consts[key]
 
-    def ref(arg, kind_needed: str = None) -> str:
+    def operand(arg, kind: str) -> str:
+        """Node or constant `arg` as a value of type `kind` (see evaluate)."""
         if isinstance(arg, tuple):
-            return const(arg[1])
-        name = f"v{arg}"
-        if kind_needed == "f" and graph.nodes[arg][2] == "b":
-            return f"{name}.to(tl.float32)"
-        return name
+            value = arg[1]
+            return const(round_bf16(value) if kind == "h" and not isinstance(value, bool)
+                         else value)
+        arg_kind = graph.nodes[arg][2]
+        if kind == "b":
+            return f"v{arg}"
+        if arg_kind == "b":
+            return f"v{arg}.to(tl.float32)"
+        if kind == "h":
+            return f"v{arg}" if arg_kind == "h" else _ROUND.format(f"v{arg}")
+        return f"u{arg}" if graph.rounds(arg) else f"v{arg}"
 
     body = []
     for index, (op, args, kind) in enumerate(graph.nodes):
         target = f"v{index}"
+        compute = graph.compute_kind(index)
         if op == "input":
             kind_in, name, channel = args
             if kind_in == "plane":
@@ -500,33 +685,34 @@ def generate(graph: Graph, outputs: list, subsample: int,
         elif op == "lookup":
             _, name, channel = args[1]
             bins, channels = graph.tables[name]
-            index = (f"tl.minimum(tl.maximum({ref(args[0], 'f')}.to(tl.int32), 0), "
-                     f"{bins - 1})")
-            expr = (f"tl.load({arg_names[('table', name, 0)]} + {index} * {channels} "
+            position = f"v{args[0]}" if graph.kind(args[0]) == "h" else operand(args[0], "f")
+            index_expr = f"tl.minimum(tl.maximum({position}.to(tl.int32), 0), {bins - 1})"
+            expr = (f"tl.load({arg_names[('table', name, 0)]} + {index_expr} * {channels} "
                     f"+ {channel}, mask=valid, other=0.0)")
         elif op == "full":
-            expr = ref(args[0])
+            expr = operand(args[0], kind)
         elif op == "mod":
             # torch.remainder / jnp.mod on floats: fmod, then + b where the
-            # remainder is nonzero and its sign differs from b's
-            a, b = ref(args[0], "f"), ref(args[1], "f")
+            # remainder is nonzero and its sign differs from b's (fmod is
+            # exact; the sum rounds in bfloat16)
+            a, b = operand(args[0], compute), operand(args[1], compute)
             r = f"libdevice.fmod({a}, {b})"
-            expr = f"tl.where(({r} != 0.0) & (({r} < 0.0) != ({b} < 0.0)), {r} + {b}, {r})"
+            plus = f"{r} + {b}" if compute != "h" else _ROUND.format(f"({r} + {b})")
+            expr = f"tl.where(({r} != 0.0) & (({r} < 0.0) != ({b} < 0.0)), {plus}, {r})"
         elif op == "where":
-            branch_kind = "f" if kind == "f" else None
-            expr = (f"tl.where({ref(args[0])}, {ref(args[1], branch_kind)}, "
-                    f"{ref(args[2], branch_kind)})")
+            expr = (f"tl.where({operand(args[0], 'b')}, {operand(args[1], kind)}, "
+                    f"{operand(args[2], kind)})")
         elif op in _TRITON_BINARY:
-            arith = op in ("add", "sub", "mul", "div", "maximum", "minimum",
-                           "lt", "le", "gt", "ge")
-            need = "f" if arith else None
-            expr = _TRITON_BINARY[op].format(ref(args[0], need), ref(args[1], need))
+            expr = _TRITON_BINARY[op].format(*(operand(a, compute) for a in args))
         else:
-            need = "f" if op not in ("not", "float") else None
-            expr = _TRITON_UNARY[op].format(ref(args[0], need))
-        body.append(f"{target} = {expr}")
+            expr = _TRITON_UNARY[op].format(operand(args[0], compute))
+        if graph.rounds(index):
+            body.append(f"u{index} = {expr}")
+            body.append(f"{target} = {_ROUND.format(f'u{index}')}")
+        else:
+            body.append(f"{target} = {expr}")
     # s = 1: the value itself (0.0 + x would turn a -0.0 into +0.0)
-    stores = [f"acc{c} {'+=' if subsample > 1 else '='} {ref(o, 'f')}"
+    stores = [f"acc{c} {'+=' if subsample > 1 else '='} {operand(o, 'f')}"
               for c, o in enumerate(outputs)]
 
     params = ["out"] + [arg_names[k] for k in pointer_keys]
@@ -624,7 +810,23 @@ def _tail_key(spec: TailSpec, *shape) -> tuple:
     return (code, cells, structure) + shape
 
 
-_PREPARED: dict = {}   # _tail_key -> (input keys, compiled kernel)
+_PREPARED: dict = {}   # _tail_key -> (input keys, compiled kernel, op counts)
+
+
+def kernel_cost(op_counts: tuple, inputs: list, out_shape: tuple, out_dtype: torch.dtype,
+                subsample: int, quantize: bool) -> flopcount.Cost:
+    """What one K1 launch must do: `op_counts` (Graph.op_counts) per SSAA
+    pixel, plus with quantize the pooling sum of three channels per SSAA
+    pixel and five ops per output channel (average, clamp, scale, offset,
+    floor); bytes of each tensor in `inputs` read once and the output
+    written once."""
+    alu, sfu = op_counts
+    pixels = math.prod(out_shape[:2] if quantize else out_shape[1:])
+    render_pixels = pixels * subsample * subsample
+    alu = render_pixels * alu + (render_pixels * 3 + pixels * 3 * 5 if quantize else 0)
+    moved = math.prod(out_shape) * torch.empty((), dtype=out_dtype).element_size()
+    moved += sum(t.numel() * t.element_size() for t in inputs if isinstance(t, torch.Tensor))
+    return flopcount.Cost(alu=alu, sfu=render_pixels * sfu, kernel_bytes=moved)
 
 
 def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
@@ -638,6 +840,29 @@ def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
             f"contiguous={tensor.is_contiguous()}")
 
 
+def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: int,
+             aspect: float, quantize: bool, device: torch.device) -> tuple:
+    """The traced, generated and compiled K1 for this spec -> (input keys in
+    kernel-argument order, the Triton kernel, Graph.op_counts()), kept per
+    _tail_key. The key holds the color dtype: a float32 trace must not
+    serve a tail traced after SHADERFLOW_TAIL_BF16 flipped."""
+    from shaderflow_tpu_torch.build import triton_module
+    key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
+                    bool(quantize), str(device), str(tail_dtype()))
+    if key is not None and key in _PREPARED:
+        return _PREPARED[key]
+    graph, outputs = trace(spec, render_height, render_width, aspect)
+    bf16 = frozenset(name for name, cs in spec.colsampled.items()
+                     if cs.planes[0].dtype == torch.bfloat16)
+    source, keys = generate(graph, outputs, subsample, bf16, quantize)
+    entry = (keys, triton_module(source, stem="tail").tail_kernel, graph.op_counts())
+    if key is not None:
+        if len(_PREPARED) >= 64:
+            _PREPARED.clear()
+        _PREPARED[key] = entry
+    return entry
+
+
 def prepare(spec: TailSpec, render_height: int, render_width: int,
             out_height: int, out_width: int, subsample: int, aspect: float,
             device: torch.device, quantize: bool = True):
@@ -648,24 +873,10 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     contiguous on `device`, planes float32 or bfloat16, everything else
     float32 (tables are cast to float32 here); raises on anything the
     template does not take."""
-    from shaderflow_tpu_torch.build import triton_module
-
     if device.index is None:   # "cuda" means the current card
         device = torch.device(device.type, torch.cuda.current_device())
-    key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
-                    bool(quantize), str(device))
-    if key is None or key not in _PREPARED:
-        graph, outputs = trace(spec, render_height, render_width, aspect)
-        bf16 = frozenset(name for name, cs in spec.colsampled.items()
-                         if cs.planes[0].dtype == torch.bfloat16)
-        source, keys = generate(graph, outputs, subsample, bf16, quantize)
-        kernel = triton_module(source, stem="tail").tail_kernel
-        if key is not None:
-            if len(_PREPARED) >= 64:
-                _PREPARED.clear()
-            _PREPARED[key] = (keys, kernel)
-    else:
-        keys, kernel = _PREPARED[key]
+    keys, kernel, op_counts = compiled(spec, render_height, render_width, subsample,
+                                       aspect, quantize, device)
 
     planes = {name: spec.planes[name] for name in spec.planes}
     planes.update({name: (ix.stack[indexed_position(ix)],)   # a view: no copy
@@ -707,6 +918,16 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
 
     out_shape, out_dtype = (((out_height, out_width, 3), torch.uint8) if quantize
                             else ((3, out_height, out_width), torch.bfloat16))
+    blocks = grid[0] * grid[1]
+
+    def block_cost() -> flopcount.Cost:
+        """One program's share of the launch for the cost walker: its
+        pixels' graph ops (plus, per SSAA pixel, the pooling sum of three
+        channels, and per output channel the average and the quantize's
+        clamp, scale, offset and floor), and its share of the bytes: each
+        input read once, the output written once."""
+        return kernel_cost(op_counts, pointers, out_shape, out_dtype, subsample,
+                           quantize).scaled(1.0 / blocks)
 
     def launch(out: torch.Tensor) -> torch.Tensor:
         if (out.device != device or out.dtype != out_dtype or not out.is_contiguous()
@@ -714,7 +935,7 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
             raise ValueError(f"K1 writes a contiguous {out_shape} {out_dtype} tensor "
                              f"on {device}, got {out.dtype} {tuple(out.shape)} on "
                              f"{out.device}")
-        with torch.cuda.device(device):   # Triton launches on the current card
+        with flopcount.kernel("K1", blocks, block_cost), torch.cuda.device(device):
             kernel[grid](out, *pointers, render_width, out_height, out_width,
                          S=int(subsample), BH=BLOCK_H, BW=BLOCK_W, num_warps=NUM_WARPS,
                          enable_fp_fusion=False)
