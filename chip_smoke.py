@@ -23,7 +23,7 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      K3 == 0), one frame recomputed through the plain functions (plain K2
      gather, plain tail) within 1 u8 step
   8. K2 vs its plain version: seeded (128, 115, 2) tables over the
-     visualizer's angle field at 2160x3840: torch.equal; medians of the
+     visualizer's angle field at 2160x3840: torch.equal; times of the
      kernel, the plain gather and one library call (index_select)
   9. K1 (b)+(c) vs its plain version: the visualizer's tail spec of one real
      frame (Indexed stacks, ColSampled rows) at 3840x2160 -> 1920x1080,
@@ -66,13 +66,18 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      at most 1 on < 1 % of values; and each against the tail run eagerly
      on tensors (no tracer) within tailfuse.EAGER_BF16_BAR
  23. an output="null" export of the bf16 level-1 visualizer: frames/s
-Every timed number is a median of CUDA events; each kernel's bound comes
-from the cost walker (shaderflow_tpu_torch/tools/flopcount.py: the
-kernel's declared ops and bytes for this run's inputs): the larger of its
-bytes over 3.35 TB/s and its ALU ops over 67 TFLOP/s (f32, no tensor
-cores) or its special-function ops over 16 per SM and clock, the H100 SXM
-peaks. Then the per-kernel JSON line, the card line, and last {"ok":
-true, "device": {...}}. Needs no network and no JAX.
+Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
+durations of the kernels a call launched, from torch.profiler's CUDA
+events, averaged over repeated calls; `call_ms` is the median of CUDA
+events recorded around one call, host launch time included. Each K1 row
+also has the compiled kernel's registers and spills (Triton's n_regs,
+n_spills) and its tile. Each kernel's bound comes from the cost walker
+(shaderflow_tpu_torch/tools/flopcount.py: the kernel's declared ops and
+bytes for this run's inputs): the larger of its bytes over 3.35 TB/s and
+its ALU ops over one float32 instruction per lane and clock (128 x 132 x
+1.98e9 a second) or its special-function ops over 16 per SM and clock,
+the H100 SXM peaks. Then the per-kernel JSON line, the card line, and
+last {"ok": true, "device": {...}}. Needs no network and no JAX.
 """
 
 from __future__ import annotations
@@ -101,7 +106,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, repeats: int = 10) -> float:
-    """Median CUDA-event time of fn() over `repeats` runs, after one warm-up."""
+    """Median CUDA-event time of fn() over `repeats` runs, after one warm-up:
+    events recorded around the call, so on an idle stream the host's launch
+    time counts too (call_ms)."""
     import torch
     fn()
     times = []
@@ -114,6 +121,44 @@ def median_ms(fn, repeats: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, repeats: int = 20) -> float:
+    """Device time of one fn() call: the durations of the kernels and copies
+    it launched, from torch.profiler's CUDA events (device_type CUDA) over
+    `repeats` calls after one warm-up. The profiler can lose an activity
+    record or hand it to the next session, so each kernel counts by its
+    mean duration times its launches a call (its records over `repeats`,
+    rounded; a stray record rounds to none)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    durations: dict = {}
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            durations.setdefault(event.name, []).append(event.device_time)
+    total = sum(statistics.mean(times) * round(len(times) / repeats)
+                for times in durations.values())
+    if total <= 0:
+        raise AssertionError(f"torch.profiler recorded no device time for {repeats} calls")
+    return total / 1e3
+
+
+def k1_figures(launch) -> dict:
+    """The compiled K1 behind `launch` (after a launch): registers a thread,
+    spills, and its tile (output rows, output columns, warps); fails on a
+    spilled register."""
+    from shaderflow_tpu_torch.ops import tailgen
+    regs, spills = tailgen.registers(launch.compiled)
+    if spills:
+        raise AssertionError(f"K1 with tile {launch.tile} spills {spills} registers")
+    return {"n_regs": regs, "n_spills": spills, "tile": list(launch.tile)}
 
 
 def walked_bound(run, loop_trips: float = 0.0) -> tuple[float, str]:
@@ -338,14 +383,16 @@ def main() -> int:
     if not torch.equal(counts, plain_counts):
         raise AssertionError(f"K3 counts differ from the plain loop on "
                              f"{int((counts != plain_counts).sum())} pixels (max {k3_err})")
-    k3_ms = median_ms(lambda: fractal.escape_iterations_sep(*k3_args), 20)
-    k3_plain_ms = median_ms(lambda: fractal.escape_lines_plain(*k3_args), 10)
+    k3_ms = device_ms(lambda: fractal.escape_iterations_sep(*k3_args))
+    k3_call_ms = median_ms(lambda: fractal.escape_iterations_sep(*k3_args), 20)
+    k3_plain_ms = device_ms(lambda: fractal.escape_lines_plain(*k3_args), 5)
     grid_x, grid_y = torch.broadcast_tensors(cx[None, :], cy[:, None])
     steps = escape_steps(counts, fractal._interior_mask(grid_x, grid_y))
     k3_bound_ms, k3_bound_by = walked_bound(lambda: fractal.escape_iterations_sep(*k3_args),
                                             steps / counts.numel())
     say("k3", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
-        steps=int(steps), equal=True, ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain_ms:.4f}",
+        steps=int(steps), equal=True, ms=f"{k3_ms:.4f}", call_ms=f"{k3_call_ms:.4f}",
+        plain_ms=f"{k3_plain_ms:.4f}",
         bound_ms=f"{k3_bound_ms:.4f}", bound_by=k3_bound_by)
 
     # 4. K1 (a) vs plain: the Mandelbrot tail spec at the slice's shapes
@@ -364,13 +411,15 @@ def main() -> int:
     # host work, overlapped with the device in the export loop)
     launch = tailgen.prepare(*k1_args, device)
     k1_out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device=device)
-    k1_ms = median_ms(lambda: launch(k1_out), 20)
-    k1_plain_ms = median_ms(lambda: tailfuse.tail_plain(*k1_args), 10)
+    k1_ms = device_ms(lambda: launch(k1_out))
+    k1_call_ms = median_ms(lambda: launch(k1_out), 20)
+    k1_plain_ms = device_ms(lambda: tailfuse.tail_plain(*k1_args), 5)
     k1_bound_ms, k1_bound_by = walked_bound(lambda: launch(k1_out))
+    k1_compiled = k1_figures(launch)
     say("k1a", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
         max_u8_diff=k1_err, differing_share=f"{k1_share:.3e}",
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
-        bound_ms=f"{k1_bound_ms:.4f}", bound_by=k1_bound_by)
+        ms=f"{k1_ms:.4f}", call_ms=f"{k1_call_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
+        bound_ms=f"{k1_bound_ms:.4f}", bound_by=k1_bound_by, **k1_compiled)
 
     def zero_counters():
         fractal.escape_iterations_sep.launches = 0
@@ -465,15 +514,18 @@ def main() -> int:
     if not (torch.equal(got, want) and torch.equal(library, want)):
         raise AssertionError(f"K2 differs from the plain gather on "
                              f"{int((got != want).sum())} values (max {k2_err})")
-    k2_ms = median_ms(lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16), 20)
-    k2_plain_ms = median_ms(lambda: sampling.expand_plain(flat16, index_field,
+    k2_ms = device_ms(lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16))
+    k2_call_ms = median_ms(lambda: sampling.expand_tables(flat16, index_field,
+                                                          torch.bfloat16), 20)
+    k2_plain_ms = device_ms(lambda: sampling.expand_plain(flat16, index_field,
                                                           torch.bfloat16), 10)
-    k2_library_ms = median_ms(lambda: flat16.index_select(1, index_field), 10)
+    k2_library_ms = device_ms(lambda: flat16.index_select(1, index_field), 10)
     k2_bound_ms, k2_bound_by = walked_bound(
         lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16))
     say("k2", tables=f"{batch}x{bins}x{channels}", field=f"{render_h}x{render_w}",
-        equal=True, ms=f"{k2_ms:.4f}", plain_ms=f"{k2_plain_ms:.4f}",
-        library_ms=f"{k2_library_ms:.4f}", bound_ms=f"{k2_bound_ms:.4f}",
+        equal=True, ms=f"{k2_ms:.4f}", call_ms=f"{k2_call_ms:.4f}",
+        plain_ms=f"{k2_plain_ms:.4f}", library_ms=f"{k2_library_ms:.4f}",
+        bound_ms=f"{k2_bound_ms:.4f}",
         bound_by=k2_bound_by)
     del got, want, library
 
@@ -483,13 +535,15 @@ def main() -> int:
     if k1v_err > 1 or k1v_share >= 0.01:
         raise AssertionError(f"K1 (b)+(c) vs plain: max {k1v_err} u8 steps on {k1v_share:.4%}")
     launch = tailgen.prepare(*tail_args, device)
-    k1v_ms = median_ms(lambda: launch(k1_out), 20)
-    k1v_plain_ms = median_ms(lambda: tailfuse.tail_plain(*tail_args), 10)
+    k1v_ms = device_ms(lambda: launch(k1_out))
+    k1v_call_ms = median_ms(lambda: launch(k1_out), 20)
+    k1v_plain_ms = device_ms(lambda: tailfuse.tail_plain(*tail_args), 5)
     k1v_bound_ms, k1v_bound_by = walked_bound(lambda: launch(k1_out))
+    k1v_compiled = k1_figures(launch)
     say("k1bc", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
         frame=check, max_u8_diff=k1v_err, differing_share=f"{k1v_share:.3e}",
-        ms=f"{k1v_ms:.4f}", plain_ms=f"{k1v_plain_ms:.4f}",
-        bound_ms=f"{k1v_bound_ms:.4f}", bound_by=k1v_bound_by)
+        ms=f"{k1v_ms:.4f}", call_ms=f"{k1v_call_ms:.4f}", plain_ms=f"{k1v_plain_ms:.4f}",
+        bound_ms=f"{k1v_bound_ms:.4f}", bound_by=k1v_bound_by, **k1v_compiled)
 
     # 10. Visualizer render throughput into the NullSink
     scene = torch_demo.Visualizer()
@@ -544,11 +598,13 @@ def main() -> int:
         raise AssertionError(f"K1 (d) final u8 vs plain: max {k1d_u8} on {k1d_share:.4%}")
     launch = tailgen.prepare(*planes_args, device, quantize=False)
     planes_out = torch.empty_like(planes)
-    k1d_ms = median_ms(lambda: launch(planes_out), 20)
-    k1d_plain_ms = median_ms(lambda: tailfuse.planes_plain(
+    k1d_ms = device_ms(lambda: launch(planes_out))
+    k1d_call_ms = median_ms(lambda: launch(planes_out), 20)
+    k1d_plain_ms = device_ms(lambda: tailfuse.planes_plain(
         frame_spec, piano_h, piano_w, scene.aspect_ratio), 5)
-    stencil_ms = median_ms(lambda: tailfuse.final_equal_resolution(planes, scene.subsample), 10)
+    stencil_ms = device_ms(lambda: tailfuse.final_equal_resolution(planes, scene.subsample), 10)
     k1d_bound_ms, k1d_bound_by = walked_bound(lambda: launch(planes_out))
+    k1d_compiled = k1_figures(launch)
     graph, _ = tailgen.trace(frame_spec, piano_h, piano_w, scene.aspect_ratio)
     started = time.perf_counter()
     for _ in range(20):
@@ -556,9 +612,10 @@ def main() -> int:
     prepare_ms = (time.perf_counter() - started) / 20 * 1e3
     say("k1d", render=f"{piano_h}x{piano_w}", s=1, frame=check, inputs=len(graph.inputs) - 2,
         nodes=len(graph.nodes), planes_bit_equal=True, max_u8_diff=k1d_u8,
-        differing_share=f"{k1d_share:.3e}", ms=f"{k1d_ms:.4f}", plain_ms=f"{k1d_plain_ms:.4f}",
-        bound_ms=f"{k1d_bound_ms:.4f}", bound_by=k1d_bound_by,
-        stencil_quantize_ms=f"{stencil_ms:.4f}", host_trace_prepare_ms=f"{prepare_ms:.4f}")
+        differing_share=f"{k1d_share:.3e}", ms=f"{k1d_ms:.4f}", call_ms=f"{k1d_call_ms:.4f}",
+        plain_ms=f"{k1d_plain_ms:.4f}", bound_ms=f"{k1d_bound_ms:.4f}",
+        bound_by=k1d_bound_by, stencil_quantize_ms=f"{stencil_ms:.4f}",
+        host_trace_prepare_ms=f"{prepare_ms:.4f}", **k1d_compiled)
     del planes, planes_out, plain_planes, final, plain_frame
 
     # 13. PianoRoll render throughput into the NullSink
@@ -617,15 +674,18 @@ def main() -> int:
         if not torch.equal(counts, plain_counts):
             raise AssertionError(f"K3 planes ({name}) counts differ from the plain loop on "
                                  f"{int((counts != plain_counts).sum())} pixels (max {err})")
-        k3p_ms = median_ms(run_kernel, 20)
-        k3p_plain_ms = median_ms(run_plain, 5)
+        k3p_ms = device_ms(run_kernel)
+        k3p_call_ms = median_ms(run_kernel, 20)
+        k3p_plain_ms = device_ms(run_plain, 3)
         steps = escape_steps(counts, interior)
         k3p_bound_ms, k3p_bound_by = walked_bound(run_kernel, steps / counts.numel())
-        plane_slices[name] = dict(launches=launches, err=err, ms=k3p_ms, plain_ms=k3p_plain_ms,
-                                  bound_ms=k3p_bound_ms, bound_by=k3p_bound_by)
+        plane_slices[name] = dict(launches=launches, err=err, ms=k3p_ms, call_ms=k3p_call_ms,
+                                  plain_ms=k3p_plain_ms, bound_ms=k3p_bound_ms,
+                                  bound_by=k3p_bound_by)
         say(f"k3p_{name}", shape=f"{render_h}x{render_w}", max_iter=quality, cap=cap,
             steps=steps, c="0-d device tensors" if name == "julia" else "planes, interior "
-            "in-kernel", equal=True, ms=f"{k3p_ms:.4f}", plain_ms=f"{k3p_plain_ms:.4f}",
+            "in-kernel", equal=True, ms=f"{k3p_ms:.4f}", call_ms=f"{k3p_call_ms:.4f}",
+            plain_ms=f"{k3p_plain_ms:.4f}",
             bound_ms=f"{k3p_bound_ms:.4f}", bound_by=k3p_bound_by)
         del counts, plain_counts, z0, interior
 
@@ -653,16 +713,18 @@ def main() -> int:
         raise AssertionError(f"T3 fixture vs x * 2 + 1: max {t3_err}, launches {t3_launches}")
     if (walker.cost.alu, walker.cost.kernel_bytes) != hand:
         raise AssertionError(f"walker counted {walker.cost}, hand count (ops, bytes) {hand}")
-    t3_ms = median_ms(lambda: flopcount.fixture(x), 20)
-    t3_plain_ms = median_ms(lambda: flopcount.fixture_plain(x), 20)
+    t3_ms = device_ms(lambda: flopcount.fixture(x))
+    t3_call_ms = median_ms(lambda: flopcount.fixture(x), 20)
+    t3_plain_ms = device_ms(lambda: flopcount.fixture_plain(x))
     one, two = torch.ones((), device=device), torch.full((), 2.0, device=device)
     if not torch.equal(torch.addcmul(one, x, two), fixture_want):
         raise AssertionError("T3's library call differs from x * 2 + 1")
-    t3_library_ms = median_ms(lambda: torch.addcmul(one, x, two), 20)
+    t3_library_ms = device_ms(lambda: torch.addcmul(one, x, two))
     t3_bound_ms, t3_bound_by = flopcount.roofline(walker.cost)
     say("t3", shape="128x128", blocks=4, equal=True, walker_alu=int(walker.cost.alu),
         walker_bytes=int(walker.cost.kernel_bytes), hand=hand, launches=t3_launches,
-        ms=f"{t3_ms:.4f}", plain_ms=f"{t3_plain_ms:.4f}", bound_ms=f"{t3_bound_ms:.6f}",
+        ms=f"{t3_ms:.4f}", call_ms=f"{t3_call_ms:.4f}", plain_ms=f"{t3_plain_ms:.4f}",
+        bound_ms=f"{t3_bound_ms:.6f}",
         bound_by=t3_bound_by, library_ms=f"{t3_library_ms:.4f}")
 
     # 18. T1: the bf16 op probe through K1's compiler (its own path)
@@ -680,12 +742,14 @@ def main() -> int:
     a16, b16 = probe_bf16_ops.inputs(device)[1]
     mul = probe_bf16_ops.compile_op("mul")
     t1_err = (probe_bf16_ops.run_op(mul, a16, b16).float() - (a16 * b16).float()).abs().max().item()
-    t1_ms = median_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16), 20)
-    t1_plain_ms = median_ms(lambda: a16 * b16, 20)
+    t1_ms = device_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16))
+    t1_call_ms = median_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16), 20)
+    t1_plain_ms = device_ms(lambda: a16 * b16)
     t1_bound_ms, t1_bound_by = walked_bound(lambda: probe_bf16_ops.run_op(mul, a16, b16))
     say("t1_summary", ops=len(table), ok=sum(r == "ok" for r in table.values()),
         seconds=f"{t1_s:.3f}", launches=t1_launches,
-        mul_ms=f"{t1_ms:.4f}", mul_plain_ms=f"{t1_plain_ms:.4f}",
+        mul_ms=f"{t1_ms:.4f}", mul_call_ms=f"{t1_call_ms:.4f}",
+        mul_plain_ms=f"{t1_plain_ms:.4f}",
         bound_ms=f"{t1_bound_ms:.6f}", bound_by=t1_bound_by)
 
     # 19. T2: the tail-shaped chain in float32 and bfloat16 (its own path)
@@ -698,12 +762,20 @@ def main() -> int:
                              f"bf16 max {t2_bf16['max_abs_err']}")
     t2_inputs = bench_dtype.inputs(torch.bfloat16)
     t2_bound_ms, t2_bound_by = walked_bound(lambda: bench_dtype.chain(*t2_inputs))
+    t2_f32_inputs = bench_dtype.inputs(torch.float32)
+    t2_times = {}
+    for dtype, inputs in (("bf16", t2_inputs), ("f32", t2_f32_inputs)):
+        t2_times[dtype] = dict(
+            ms=device_ms(lambda: bench_dtype.chain(*inputs)),
+            call_ms=median_ms(lambda: bench_dtype.chain(*inputs), 20),
+            plain_ms=device_ms(lambda: bench_dtype.chain_plain(*inputs), 3))
     say("t2", shape=f"{bench_dtype.H}x{bench_dtype.W}", reps=bench_dtype.REPS,
-        launches=t2_launches, f32_ms=f"{t2_f32['ms']:.4f}", bf16_ms=f"{t2_bf16['ms']:.4f}",
+        launches=t2_launches, **{f"{dtype}_{key}": f"{value:.4f}" for dtype in t2_times
+                                 for key, value in t2_times[dtype].items()},
+        f32_bench_ms=f"{t2_f32['ms']:.4f}", bf16_bench_ms=f"{t2_bf16['ms']:.4f}",
         f32_tops=f"{t2_f32['tops']:.2f}", bf16_tops=f"{t2_bf16['tops']:.2f}",
-        f32_plain_ms=f"{t2_f32['plain_ms']:.4f}", bf16_plain_ms=f"{t2_bf16['plain_ms']:.4f}",
         bound_ms=f"{t2_bound_ms:.4f}", bound_by=t2_bound_by,
-        verdict=repr(bench_dtype.verdict(t2_f32["ms"], t2_bf16["ms"])))
+        verdict=repr(bench_dtype.verdict(t2_times["f32"]["ms"], t2_times["bf16"]["ms"])))
 
     # 20. The bf16 tail mode at blur level 1: the visualizer slice
     os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
@@ -744,14 +816,16 @@ def main() -> int:
                              f"{k1h_share:.4%}")
     k1h_eager = eager_check("K1 bf16 (b)+(c)", frame, tail0)
     launch = tailgen.prepare(*tail0, device)
-    k1h_ms = median_ms(lambda: launch(k1_out), 20)
-    k1h_plain_ms = median_ms(lambda: tailfuse.tail_plain(*tail0), 5)
+    k1h_ms = device_ms(lambda: launch(k1_out))
+    k1h_call_ms = median_ms(lambda: launch(k1_out), 20)
+    k1h_plain_ms = device_ms(lambda: tailfuse.tail_plain(*tail0), 5)
     k1h_bound_ms, k1h_bound_by = walked_bound(lambda: launch(k1_out))
+    k1h_compiled = k1_figures(launch)
     say("k1bf16_bc", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
         frame=0, max_u8_diff=k1h_err, differing_share=f"{k1h_share:.3e}",
         eager_max_u8_diff=k1h_eager[0], eager_psnr_db=f"{k1h_eager[1]:.2f}",
-        ms=f"{k1h_ms:.4f}", plain_ms=f"{k1h_plain_ms:.4f}",
-        bound_ms=f"{k1h_bound_ms:.4f}", bound_by=k1h_bound_by)
+        ms=f"{k1h_ms:.4f}", call_ms=f"{k1h_call_ms:.4f}", plain_ms=f"{k1h_plain_ms:.4f}",
+        bound_ms=f"{k1h_bound_ms:.4f}", bound_by=k1h_bound_by, **k1h_compiled)
 
     # 22. K1 bf16 (a) vs plain: the Mandelbrot tail spec of phase 4 in bf16
     frame = tailfuse.fused_tail_final(*k1_args).cpu()
@@ -761,13 +835,15 @@ def main() -> int:
                              f"{k1ha_share:.4%}")
     k1ha_eager = eager_check("K1 bf16 (a)", frame, k1_args)
     launch = tailgen.prepare(*k1_args, device)
-    k1ha_ms = median_ms(lambda: launch(k1_out), 20)
+    k1ha_ms = device_ms(lambda: launch(k1_out))
+    k1ha_call_ms = median_ms(lambda: launch(k1_out), 20)
     k1ha_bound_ms, k1ha_bound_by = walked_bound(lambda: launch(k1_out))
+    k1ha_compiled = k1_figures(launch)
     say("k1bf16_a", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
         max_u8_diff=k1ha_err, differing_share=f"{k1ha_share:.3e}",
         eager_max_u8_diff=k1ha_eager[0], eager_psnr_db=f"{k1ha_eager[1]:.2f}",
-        ms=f"{k1ha_ms:.4f}",
-        bound_ms=f"{k1ha_bound_ms:.4f}", bound_by=k1ha_bound_by)
+        ms=f"{k1ha_ms:.4f}", call_ms=f"{k1ha_call_ms:.4f}",
+        bound_ms=f"{k1ha_bound_ms:.4f}", bound_by=k1ha_bound_by, **k1ha_compiled)
 
     # 23. bf16 level-1 visualizer throughput into the NullSink
     scene = torch_demo.Visualizer()
@@ -785,64 +861,69 @@ def main() -> int:
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": mandelbrot_launches["k1"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-         "bound_by": k1_bound_by, "library_ms": None},
+         "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
+         "bound_by": k1_bound_by, "library_ms": None, **k1_compiled,
+         "bf16_ms": k1ha_ms, "bf16_call_ms": k1ha_call_ms, "bf16_bound_ms": k1ha_bound_ms,
+         "bf16_compiled": k1ha_compiled},
         {"name": "K1 (b)+(c) fused tail with Indexed and ColSampled inputs (visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": visualizer_launches["k1"], "max_abs_err": k1v_err,
-         "ms": k1v_ms, "plain_ms": k1v_plain_ms, "bound_ms": k1v_bound_ms,
-         "bound_by": k1v_bound_by, "library_ms": None},
+         "ms": k1v_ms, "call_ms": k1v_call_ms, "plain_ms": k1v_plain_ms,
+         "bound_ms": k1v_bound_ms, "bound_by": k1v_bound_by, "library_ms": None,
+         **k1v_compiled},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
+         "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_library_ms},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": piano_launches["k1d"], "max_abs_err": k1d_err,
-         "ms": k1d_ms, "plain_ms": k1d_plain_ms, "bound_ms": k1d_bound_ms,
-         "bound_by": k1d_bound_by, "library_ms": None},
+         "ms": k1d_ms, "call_ms": k1d_call_ms, "plain_ms": k1d_plain_ms,
+         "bound_ms": k1d_bound_ms, "bound_by": k1d_bound_by, "library_ms": None,
+         **k1d_compiled},
         {"name": "K3 escape_lines (Mandelbrot escape counts, lines form)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
+         "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None},
         {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": julia["launches"]["k3p"], "max_abs_err": julia["err"],
-         "ms": julia["ms"], "plain_ms": julia["plain_ms"], "bound_ms": julia["bound_ms"],
-         "bound_by": julia["bound_by"], "library_ms": None},
+         "ms": julia["ms"], "call_ms": julia["call_ms"], "plain_ms": julia["plain_ms"],
+         "bound_ms": julia["bound_ms"], "bound_by": julia["bound_by"], "library_ms": None,
+         "rotated": plane_slices["rotated_mandelbrot"]},
         {"name": "K1 bf16 (b)+(c): the bf16 color chain (bf16 level-1 visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": bf16_launches["k1h"], "max_abs_err": k1h_err,
-         "ms": k1h_ms, "plain_ms": k1h_plain_ms, "bound_ms": k1h_bound_ms,
-         "bound_by": k1h_bound_by, "library_ms": None},
+         "ms": k1h_ms, "call_ms": k1h_call_ms, "plain_ms": k1h_plain_ms,
+         "bound_ms": k1h_bound_ms, "bound_by": k1h_bound_by, "library_ms": None,
+         **k1h_compiled},
         {"name": "T1 probe_bf16_ops (one bf16 kernel per op; timed: mul at 256x256)",
          "route": "triton", "source": "shaderflow_tpu_torch/tools/probe_bf16_ops.py",
          "replaces": "tools/probe_bf16_ops.py:45",
          "launches": t1_launches, "max_abs_err": t1_err,
-         "ms": t1_ms, "plain_ms": t1_plain_ms, "bound_ms": t1_bound_ms,
+         "ms": t1_ms, "call_ms": t1_call_ms, "plain_ms": t1_plain_ms, "bound_ms": t1_bound_ms,
          "bound_by": t1_bound_by, "library_ms": t1_plain_ms,
          "table": table},
         {"name": "T2 bench_dtype chain (timed: bf16; f32 beside it)",
          "route": "triton", "source": "shaderflow_tpu_torch/tools/bench_dtype.py",
          "replaces": "tools/bench_vpu_dtype.py:35",
          "launches": t2_launches, "max_abs_err": t2_bf16["max_abs_err"],
-         "ms": t2_bf16["ms"], "plain_ms": t2_bf16["plain_ms"], "bound_ms": t2_bound_ms,
-         "bound_by": t2_bound_by, "library_ms": None,
-         "f32_ms": t2_f32["ms"], "f32_plain_ms": t2_f32["plain_ms"],
-         "speedup": t2_f32["ms"] / t2_bf16["ms"]},
+         **t2_times["bf16"], "bound_ms": t2_bound_ms, "bound_by": t2_bound_by, "library_ms": None,
+         **{f"f32_{key}": value for key, value in t2_times["f32"].items()},
+         "speedup": t2_times["f32"]["ms"] / t2_times["bf16"]["ms"]},
         {"name": "T3 cost-walker fixture x * 2 + 1 (128x128, four (32, 128) blocks)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/fixture.cu",
          "replaces": "tests/test_flopcount.py:64",
          "launches": t3_launches, "max_abs_err": t3_err,
-         "ms": t3_ms, "plain_ms": t3_plain_ms, "bound_ms": t3_bound_ms,
+         "ms": t3_ms, "call_ms": t3_call_ms, "plain_ms": t3_plain_ms, "bound_ms": t3_bound_ms,
          "bound_by": t3_bound_by, "library_ms": t3_library_ms},
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """
 Export orchestration: pick the sink, move frame batches, track stats.
 
-Port of shaderflow_tpu/exporting.py on the reused sinks (shaderflow_tpu.io):
-NullSink for "null"/None, RawSink for .rgb/.raw, ImageSink for directories
-and .png, FFmpegSink when an ffmpeg binary exists, else CV2Sink. Batches
+Port of shaderflow_tpu/exporting.py on the port's own sinks
+(shaderflow_tpu_torch/io/sinks.py): NullSink for "null"/None, RawSink for
+.rgb/.raw, ImageSink for directories and .png, FFmpegSink when an ffmpeg
+binary exists, else CV2Sink. Batches
 arrive as engine.WireBatch (the device->host copy already in flight). Not
 ported yet: pipe and TCP outputs, sidecar audio, the progress bar.
 """

@@ -23,23 +23,40 @@ How: `trace` runs the tail function once on a symbolic TailCtx whose
 planes, rows, columns, scalars and coordinate indices are `Sym` proxies.
 Python operators and the torch functions in _TORCH_OPS (dispatched through
 `__torch_function__`) record an expression graph. `generate` emits that
-graph into a fixed template that owns everything else: masked loads of the
-inputs the graph reads, the row/column indices behind the coordinate
-properties, a static loop over the s x s sub-positions summing the three
-outputs, the 1/s^2 average, floor(clamp(c, 0, 1) * 255 + 0.5), and u8
-stores into the frame's (H, W, 3) slot. `evaluate` runs the same graph with
-torch ops (tests hold it equal to the direct call).
+graph into a fixed tile template that owns everything else: the loads of
+the inputs the graph reads, the row/column indices behind the coordinate
+properties, the s x s box pool, the 1/s^2 average, floor(clamp(c, 0, 1) *
+255 + 0.5), and the stores into the frame's (H, W, 3) slot. `evaluate`
+runs the same graph with torch ops (tests hold it equal to the direct
+call).
+
+The tile, designed for Hopper: one program owns BH x BW output pixels
+and reads their render block once, as s passes of BH render rows of
+BW * s contiguous columns (where s is a power of two; else s strided
+column passes). Plane channels load through block pointers (16-byte
+vectors along the row; tensor descriptors, the copy engine, measured
+slower: PERF.md). Every value is computed at its own rank: a row
+input loads as [BH, 1], a column as [1, BWC], a scalar and a constant as
+0-d values, and the nodes that read only those are computed at that rank,
+once a program (0-d) or once a column block (hoisted out of the row
+passes), broadcast in registers where they meet a plane. The horizontal
+pool is a reshape to [BH, BW, s] and a sum in registers, the vertical one
+the sum over the row passes. The u8 frame is written as 32-bit words, four
+pixels in three words, where the row pitch and the frame's base are
+multiples of 4 bytes (one byte store a channel otherwise). The tile's
+height follows from the graph (tile_shape: the live values a thread holds
+at the fullest point of the body, weighted by rank, within a register
+budget) so that every graded tail compiles with no spill.
 
 Bound on this card: bytes of the SSAA-resolution input planes (each read
-exactly once; the output is 1/s^2 as many pixels at 3 bytes) — the
-full-resolution tail intermediates of the plain path never reach device
-memory. Loads of one sub-position are column-strided by s; the other
-sub-positions of the same tile hit the same cache lines. A ColSampled
-plane is read at two texels per pixel, but its (Hr, W_in) rows are
-narrower than the render (W_in <= Wr) and neighbouring pixels share
-texels, so its device-memory bytes stay those of the row planes; the TPU
-kernel's 128-column window prefetch is not needed for that (gathers go
-through L1/L2).
+exactly once; the output is 1/s^2 as many pixels at 3 bytes) for the
+visualizer and fractal tails, the ALU instructions of the graph for the
+piano roll's; the full-resolution tail intermediates of the plain path
+never reach device memory. A ColSampled plane is read at two texels per
+pixel, but its (Hr, W_in) rows are narrower than the render (W_in <= Wr)
+and neighbouring pixels share texels, so its device-memory bytes stay
+those of the row planes; the TPU kernel's 128-column window prefetch is
+not needed for that (gathers go through L1/L2).
 
 ColSampled weights are max(1 - |pos - x|, 0) for x = floor(pos) and
 floor(pos) + 1 (the dense reference's expression, not 1 - frac), rounded
@@ -67,7 +84,8 @@ which native bfloat16 forms match that on the card (BF16_PROBE_OK).
 
 Bound on this card, for the cost walker (tools/flopcount.py): each
 launch declares its graph's ops by class (ALU; sqrt, exp and log on the
-special-function units) per SSAA pixel and its bytes (kernel_cost).
+special-function units), each counted once at its rank (once a render
+pixel, column or row, or once), and its bytes (kernel_cost).
 
 Float rules: launched with enable_fp_fusion=False (no FMA contraction, so
 no bfloat16 product skips its rounding inside a fused multiply-add),
@@ -82,17 +100,13 @@ path (differences come only from the order of the s x s sum).
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, indexed_position, tail_dtype
 from shaderflow_tpu_torch.tools import flopcount
-
-BLOCK_H = 8     # output rows per program
-BLOCK_W = 64    # output columns per program
-NUM_WARPS = 4
 
 
 # --------------------------------------------------------------------------- #
@@ -170,13 +184,36 @@ class Graph:
         op, _, kind = self.nodes[index]
         return kind == "h" and op not in _SELECTING
 
-    def op_counts(self) -> tuple[int, int]:
-        """(ALU ops, special-function ops) one pixel's evaluation takes:
-        sqrt, exp and log run on the special-function units; loads, casts
-        and constants count 0 (tools/flopcount.py's classes)."""
-        sfu = sum(1 for op, _, _ in self.nodes if op in _SFU_OPS)
-        free = sum(1 for op, _, _ in self.nodes if op in _FREE_OPS)
-        return len(self.nodes) - sfu - free, sfu
+    def op_counts(self, outputs: list) -> dict:
+        """The ops the tail needs, by rank (node_ranks) -> {rank: (ALU ops,
+        special-function ops)}: (1, 1) ops count once a render pixel, (0, 1)
+        once a render column, (1, 0) once a render row, (0, 0) once. Only
+        nodes the outputs read count, and identical nodes (one op on the
+        same operands, which the trace records again where a tail repeats a
+        subexpression) count once, as the compiler merges them. sqrt, exp
+        and log run on the special-function units; loads, casts and
+        constants count 0 (tools/flopcount.py's classes)."""
+        ranks = node_ranks(self)
+        merged, first = [], {}     # node -> the first node identical to it
+        for index, (op, args, kind) in enumerate(self.nodes):
+            if op != "input":
+                args = tuple(merged[a] if isinstance(a, int) else (type(a[1]), a)
+                             for a in args)
+            merged.append(first.setdefault((op, args, kind), index))
+        live, stack = set(), [merged[o] for o in outputs if isinstance(o, int)]
+        while stack:
+            node = stack.pop()
+            if node not in live:
+                live.add(node)
+                op, args, _ = self.nodes[node]
+                if op != "input":
+                    stack += [merged[a] for a in args if isinstance(a, int)]
+        counts = {rank: [0, 0] for rank in ((1, 1), (0, 1), (1, 0), (0, 0))}
+        for node in live:
+            op = self.nodes[node][0]
+            if op not in _FREE_OPS:
+                counts[ranks[node]][op in _SFU_OPS] += 1
+        return {rank: tuple(count) for rank, count in counts.items()}
 
 
 def _operand(graph: Graph, value):
@@ -584,6 +621,128 @@ def _literal(value: float) -> str:
     return repr(value) if math.isfinite(value) else f'float("{value}")'
 
 
+# Ranks: which axes of the tile a value varies along, (rows, columns). A
+# value is computed at its own rank and broadcast in registers only where
+# an op meets a value of a higher rank: scalars and constants are 0-d,
+# rows [BH, 1], columns [1, BWC], planes [BH, BWC].
+_INPUT_RANK = {"plane": (1, 1), "colsampled": (1, 1), "row": (1, 0), "col": (0, 1),
+               "scalar": (0, 0), "row_index": (1, 0), "col_index": (0, 1)}
+_TILE = (1, 1)
+
+
+def node_ranks(graph: Graph) -> list:
+    """Each node's rank: an input's by its kind, any other node's the union
+    of its operands' (a constant is 0-d)."""
+    ranks = []
+    for op, args, _ in graph.nodes:
+        if op == "input":
+            ranks.append(_INPUT_RANK[args[0]])
+            continue
+        rank = (0, 0)
+        for arg in args:
+            if isinstance(arg, int):
+                rank = (rank[0] | ranks[arg][0], rank[1] | ranks[arg][1])
+        ranks.append(rank)
+    return ranks
+
+
+def _scope(rank: tuple, subsample: int) -> int:
+    """Where a node of `rank` is emitted: 0 once per program (0-d), 1 once
+    per column block (columns, hoisted out of the s row passes), 2 in each
+    pass of render rows (rows, tile; at s = 1 columns too, in graph order:
+    with one pass, hoisting only lengthens their lives)."""
+    if rank[0] or (rank[1] and subsample == 1):
+        return 2
+    return 1 if rank[1] else 0
+
+
+def emission_order(graph: Graph, subsample: int) -> list:
+    """Node indices in the order the template emits them: by scope, then in
+    graph order (an operand's scope never follows its user's)."""
+    ranks = node_ranks(graph)
+    return sorted(range(len(graph.nodes)), key=lambda i: (_scope(ranks[i], subsample), i))
+
+
+def column_split(subsample: int) -> int:
+    """Render columns of one output column that a load reads side by side:
+    all s of them where s is a power of two (the tile's render block is then
+    contiguous rows, pooled by a reshape), else 1 (the s column
+    sub-positions are separate strided passes)."""
+    return subsample if subsample & (subsample - 1) == 0 else 1
+
+
+# Tile rule. A warp reads a row of 128 float32 (32 lanes x one 16-byte
+# vector), so a program's render block is [BH, 128] and each of its 4
+# warps' threads holds E = BH elements of a plane value, 4 of a column
+# value (each warp holds the whole column vector), about one of a row or a
+# 0-d value. The compiler issues a pass's plane loads and texel gathers
+# before the arithmetic that reads them, so those are live from the start
+# of the pass; a ColSampled input holds its two gathered texels and their
+# two 64-bit addresses (6 E). E is the largest of 8, 4, 2, 1 whose live
+# peak fits K1_REGISTERS, the share of a thread's registers left for
+# values after masks and the compiler's temporaries. Measured on the card
+# (PERF.md, examples/torch/bench_k1.py): every graded tail compiles to no
+# spill under it, and gets the fastest E of those tried with 4 warps; the
+# gather-bound visualizer tails E = 1 (more programs a multiprocessor hide
+# the gathers' latency), the piano roll's E = 4 (its column values are
+# computed once for more rows), the fractals' E = 8.
+K1_COLUMNS = 128
+K1_WARPS = 4
+K1_REGISTERS = 96
+
+
+def live_peak(graph: Graph, outputs: list, per_thread: int, subsample: int) -> int:
+    """Registers a thread holds at the fullest point of the emitted body
+    when it holds `per_thread` (E) elements of a plane value: each live
+    value weighted by its rank and kind (the tile rule above) plus the
+    three pooling sums."""
+    ranks = node_ranks(graph)
+    order = emission_order(graph, subsample)
+    position = {node: p for p, node in enumerate(order)}
+    end = len(order)
+    last = {node: position[node] for node in order}
+    for node in order:
+        for arg in graph.nodes[node][1]:
+            if isinstance(arg, int):
+                last[arg] = max(last[arg], position[node])
+    for output in outputs:
+        if isinstance(output, int):
+            last[output] = end
+    weight = {(1, 1): per_thread, (0, 1): 4, (1, 0): 1, (0, 0): 1}
+    first_pass = min((position[n] for n in order if _scope(ranks[n], subsample) == 2),
+                     default=0)
+    delta = [0] * (end + 1)
+    for node in order:
+        op, args, _ = graph.nodes[node]
+        value = weight[ranks[node]]
+        if op == "input" and args[0] in ("plane", "colsampled"):
+            start = first_pass
+            value *= 6 if args[0] == "colsampled" else 1
+        else:
+            start = position[node]
+        delta[start] += value
+        delta[last[node] + 1 if last[node] < end else end] -= value
+    running = peak = 0
+    for p in range(end):
+        running += delta[p]
+        peak = max(peak, running)
+    pooled = 3 * max(per_thread // column_split(subsample), 1) if subsample > 1 else 0
+    return peak + pooled
+
+
+def tile_shape(graph: Graph, outputs: list, subsample: int) -> tuple[int, int, int]:
+    """(BH output rows, BW output columns, num_warps) of one K1 program: a
+    pure function of the graph's live values (live_peak) and s, by the tile
+    rule above: BH = E. BW * s = K1_COLUMNS render columns (64 output
+    columns for an s that is not a power of two)."""
+    split = column_split(subsample)
+    width = K1_COLUMNS // split if split == subsample else K1_COLUMNS // 2
+    rows = 8
+    while rows > 1 and live_peak(graph, outputs, rows, subsample) > K1_REGISTERS:
+        rows //= 2
+    return rows, width, K1_WARPS
+
+
 def generate(graph: Graph, outputs: list, subsample: int,
              colsampled_bf16: frozenset = frozenset(),
              quantize: bool = True) -> tuple[str, list]:
@@ -597,9 +756,14 @@ def generate(graph: Graph, outputs: list, subsample: int,
 
     Values live in float32 registers: v<i> is node i's value (a bfloat16
     node's rounded to bfloat16), u<i> the unrounded value of a node that
-    rounds (Graph.rounds), which upcasts and the outputs read."""
-    if not quantize and subsample != 1:
-        raise ValueError(f"K1's quantize=False form runs at s = 1, got s={subsample}")
+    rounds (Graph.rounds), which upcasts and the outputs read. Each node is
+    emitted at its rank (node_ranks) in the outermost scope that holds its
+    operands: 0-d values once per program, column values once per column
+    block, row and plane values once per row block of render rows."""
+    s = int(subsample)
+    if not quantize and s != 1:
+        raise ValueError(f"K1's quantize=False form runs at s = 1, got s={s}")
+    split = column_split(s)
     keys = sorted(k for k in graph.inputs
                   if k[0] in ("plane", "colsampled", "row", "col", "scalar"))
     keys += [("table", name, 0) for name in sorted(graph.tables)]
@@ -607,39 +771,20 @@ def generate(graph: Graph, outputs: list, subsample: int,
     pointer_keys = [k for k in keys if k[0] != "scalar"]
     arg_names = {k: f"in{i}" for i, k in enumerate(pointer_keys)}
     sampled = sorted({k[1] for k in keys if k[0] == "colsampled"})
-    taps_emitted: set = set()
-
-    def colsampled_taps(name: str) -> list:
-        """Per-pixel texels and hat weights of a ColSampled input (emitted
-        once per sub-position, before its first channel load)."""
-        j = sampled.index(name)
-        if name in taps_emitted:
-            return []
-        taps_emitted.add(name)
-        lines = [
-            f"cp{j} = tl.load(pos{j} + ci, mask=valid, other=0.0)",
-            f"cf{j} = tl.floor(cp{j})",
-            f"cw{j}a = tl.maximum(1.0 - tl.abs(cp{j} - cf{j}), 0.0)",
-            f"cw{j}b = tl.maximum(1.0 - tl.abs(cp{j} - (cf{j} + 1.0)), 0.0)",
-        ]
-        if name in colsampled_bf16:
-            lines += [f"cw{j}a = cw{j}a.to(tl.bfloat16).to(tl.float32)",
-                      f"cw{j}b = cw{j}b.to(tl.bfloat16).to(tl.float32)"]
-        lines += [f"cx{j}a = cf{j}.to(tl.int32)",
-                  f"cx{j}b = tl.minimum(cx{j}a + 1, win{j} - 1)"]
-        return lines
+    ranks = node_ranks(graph)
+    width = f"BW * {split}" if split > 1 else "BW"      # BWC: render columns a load reads
+    scopes = [[], [], []]     # program, column block, row block
 
     consts: dict[Any, str] = {}
-    hoisted = []
 
     def const(value) -> str:
         key = (type(value), value)
         if key not in consts:
             consts[key] = f"k{len(consts)}"
             if isinstance(value, bool):
-                hoisted.append(f"{consts[key]} = zero_i == {0 if value else 1}")
+                scopes[0].append(f"{consts[key]} = tl.full([], {int(value)}, tl.int1)")
             else:
-                hoisted.append(f"{consts[key]} = tl.full([BH, BW], {_literal(value)}, tl.float32)")
+                scopes[0].append(f"{consts[key]} = tl.full([], {_literal(value)}, tl.float32)")
         return consts[key]
 
     def operand(arg, kind: str) -> str:
@@ -657,38 +802,62 @@ def generate(graph: Graph, outputs: list, subsample: int,
             return f"v{arg}" if arg_kind == "h" else _ROUND.format(f"v{arg}")
         return f"u{arg}" if graph.rounds(arg) else f"v{arg}"
 
-    body = []
-    for index, (op, args, kind) in enumerate(graph.nodes):
+    def plane_load(key) -> str:
+        name = arg_names[key]
+        base = name + (" + dy * Wr" if s > 1 else "") + (" + dx" if split != s else "")
+        shape, step = ("Wr", "1") if split == s else ("Wo", str(s))
+        return (f"tl.load(tl.make_block_ptr({base}, shape=(Ho, {shape}), "
+                f"strides=({s} * Wr, {step}), offsets=(pid_r * BH, pid_c * {width}), "
+                f"block_shape=(BH, {width}), order=(1, 0)), boundary_check=(0, 1), "
+                f"padding_option=\"zero\").to(tl.float32)")
+
+    for j, name in enumerate(sampled):
+        # the per-column texels and hat weights of a ColSampled input
+        scopes[1] += [
+            f"cp{j} = tl.load(pos{j} + ci, mask=col_ok, other=0.0)",
+            f"cf{j} = tl.floor(cp{j})",
+            f"cw{j}a = tl.maximum(1.0 - tl.abs(cp{j} - cf{j}), 0.0)",
+            f"cw{j}b = tl.maximum(1.0 - tl.abs(cp{j} - (cf{j} + 1.0)), 0.0)",
+        ]
+        if name in colsampled_bf16:
+            scopes[1] += [f"cw{j}a = cw{j}a.to(tl.bfloat16).to(tl.float32)",
+                          f"cw{j}b = cw{j}b.to(tl.bfloat16).to(tl.float32)"]
+        scopes[1] += [f"cx{j}a = cf{j}.to(tl.int32)",
+                      f"cx{j}b = tl.minimum(cx{j}a + 1, win{j} - 1)"]
+
+    for index in emission_order(graph, s):
+        op, args, kind = graph.nodes[index]
+        lines = scopes[_scope(ranks[index], s)]
         target = f"v{index}"
         compute = graph.compute_kind(index)
         if op == "input":
             kind_in, name, channel = args
             if kind_in == "plane":
-                expr = (f"tl.load({arg_names[args]} + ri * Wr + ci, mask=valid, "
-                        "other=0.0).to(tl.float32)")
+                expr = plane_load(args)
             elif kind_in == "colsampled":
-                body.extend(colsampled_taps(name))
                 j = sampled.index(name)
                 row = f"{arg_names[args]} + ri * win{j}"
-                expr = (f"tl.load({row} + cx{j}a, mask=valid, other=0.0).to(tl.float32) * cw{j}a"
-                        f" + tl.load({row} + cx{j}b, mask=valid, other=0.0).to(tl.float32) * cw{j}b")
+                expr = (f"tl.load({row} + cx{j}a, mask=row_ok & col_ok, other=0.0)"
+                        f".to(tl.float32) * cw{j}a + tl.load({row} + cx{j}b, "
+                        f"mask=row_ok & col_ok, other=0.0).to(tl.float32) * cw{j}b")
             elif kind_in == "row":
-                expr = f"tl.load({arg_names[args]} + ri, mask=valid, other=0.0)"
+                expr = f"tl.load({arg_names[args]} + ri, mask=row_ok, other=0.0)"
             elif kind_in == "col":
-                expr = f"tl.load({arg_names[args]} + ci, mask=valid, other=0.0)"
+                expr = f"tl.load({arg_names[args]} + ci, mask=col_ok, other=0.0)"
             elif kind_in == "scalar":
-                expr = f"tl.load(scalars + {scalar_keys.index(args)} + zero_i)"
+                expr = f"tl.load(scalars + {scalar_keys.index(args)})"
             elif kind_in == "row_index":
                 expr = "ri.to(tl.float32)"
             else:
                 expr = "ci.to(tl.float32)"
         elif op == "lookup":
+            # the index is clipped into the table: every lane reads in bounds
             _, name, channel = args[1]
             bins, channels = graph.tables[name]
             position = f"v{args[0]}" if graph.kind(args[0]) == "h" else operand(args[0], "f")
             index_expr = f"tl.minimum(tl.maximum({position}.to(tl.int32), 0), {bins - 1})"
             expr = (f"tl.load({arg_names[('table', name, 0)]} + {index_expr} * {channels} "
-                    f"+ {channel}, mask=valid, other=0.0)")
+                    f"+ {channel})")
         elif op == "full":
             expr = operand(args[0], kind)
         elif op == "mod":
@@ -707,30 +876,60 @@ def generate(graph: Graph, outputs: list, subsample: int,
         else:
             expr = _TRITON_UNARY[op].format(operand(args[0], compute))
         if graph.rounds(index):
-            body.append(f"u{index} = {expr}")
-            body.append(f"{target} = {_ROUND.format(f'u{index}')}")
+            lines.append(f"u{index} = {expr}")
+            lines.append(f"{target} = {_ROUND.format(f'u{index}')}")
         else:
-            body.append(f"{target} = {expr}")
-    # s = 1: the value itself (0.0 + x would turn a -0.0 into +0.0)
-    stores = [f"acc{c} {'+=' if subsample > 1 else '='} {operand(o, 'f')}"
-              for c, o in enumerate(outputs)]
+            lines.append(f"{target} = {expr}")
+
+    # The three outputs at the full tile (a lower-rank or constant output
+    # broadcast in registers), pooled over the render block
+    for c, output in enumerate(outputs):
+        value = operand(output, "f")
+        if not isinstance(output, int) or ranks[output] != _TILE:
+            value = f"tl.broadcast_to({value}, (BH, {width}))"
+        if s == 1:   # the value itself: 0.0 + x would turn a -0.0 into +0.0
+            scopes[2].append(f"acc{c} = {value}")
+        elif split > 1:
+            scopes[2].append(f"acc{c} += tl.sum(tl.reshape({value}, [BH, BW, {split}]), axis=2)")
+        else:
+            scopes[2].append(f"acc{c} += {value}")
 
     params = ["out"] + [arg_names[k] for k in pointer_keys]
     params += [f"pos{j}" for j in range(len(sampled))]
     params += [f"win{j}" for j in range(len(sampled))]
     if scalar_keys:
         params.append("scalars")
-    params += ["Wr", "Ho", "Wo", "S: tl.constexpr", "BH: tl.constexpr",
+    params += ["Ho", "Wo", "Wr", "PACK: tl.constexpr", "BH: tl.constexpr",
                "BW: tl.constexpr"]
-    inner = "\n".join(f"            {line}" for line in body + stores)
-    consts_src = "\n".join(f"    {line}" for line in hoisted)
-    if subsample > 1:
-        pool = "\n".join(
-            f"    acc{c} = tl.math.div_rn(acc{c}, tl.full([BH, BW], "
-            f"{_literal(subsample * subsample)}, tl.float32))" for c in range(3))
+
+    body = ["pid_r = tl.program_id(0)", "pid_c = tl.program_id(1)",
+            "oi = pid_r * BH + tl.arange(0, BH)[:, None]      # output rows [BH, 1]",
+            "row_ok = oi < Ho"] + scopes[0]
+    if s > 1:
+        body += [f"acc{c} = tl.zeros([BH, BW], tl.float32)" for c in range(3)]
+    depth = 0
+    if split != s:
+        body.append(f"for dx in tl.static_range({s}):")
+        depth = 1
+        column = f"(pid_c * BW + tl.arange(0, BW)[None, :]) * {s} + dx"
     else:
-        pool = "    pass"
-    store = _STORE_U8 if quantize else _STORE_BF16
+        column = f"pid_c * {width} + tl.arange(0, {width})[None, :]"
+    body += ["    " * depth + line for line in
+             [f"ci = {column}      # render columns [1, BWC]", "col_ok = ci < Wr"] + scopes[1]]
+    if s > 1:
+        body.append("    " * depth + f"for dy in tl.static_range({s}):")
+        depth += 1
+        rows = [f"ri = oi * {s} + dy      # render rows [BH, 1]"]
+    else:
+        rows = ["ri = oi"]
+    body += ["    " * depth + line for line in rows + scopes[2]]
+    if s > 1:
+        # the box average: a product with the exact reciprocal where s^2 is
+        # a power of two (the same bits as the division), else div_rn
+        area = s * s
+        body += [f"acc{c} = acc{c} * {_literal(1.0 / area)}" if split == s else
+                 f"acc{c} = tl.math.div_rn(acc{c}, {_literal(area)})" for c in range(3)]
+    body += (_STORE_U8 if quantize else _STORE_BF16).splitlines()
     source = f'''"""Generated by shaderflow_tpu_torch/ops/tailgen.py — kernel K1 for one tail."""
 import triton
 import triton.language as tl
@@ -738,43 +937,51 @@ from triton.language.extra import libdevice
 
 
 @triton.jit
+def _quads(q, BH: tl.constexpr, BW: tl.constexpr):
+    """Pixels 4g, 4g + 1, 4g + 2, 4g + 3 of each group g of four, as uint32."""
+    lo, hi = tl.split(tl.reshape(q.to(tl.uint32), [BH, BW // 4, 2, 2]))
+    p0, p2 = tl.split(lo)
+    p1, p3 = tl.split(hi)
+    return p0, p1, p2, p3
+
+
+@triton.jit
 def tail_kernel({", ".join(params)}):
-    oi = tl.program_id(0) * BH + tl.arange(0, BH)[:, None]
-    oj = tl.program_id(1) * BW + tl.arange(0, BW)[None, :]
-    zero_i = tl.zeros([BH, BW], tl.int32)
-    oi = oi + zero_i
-    oj = oj + zero_i
-    valid = (oi < Ho) & (oj < Wo)
-{consts_src}
-    acc0 = tl.zeros([BH, BW], tl.float32)
-    acc1 = tl.zeros([BH, BW], tl.float32)
-    acc2 = tl.zeros([BH, BW], tl.float32)
-    for dy in tl.static_range(S):
-        for dx in tl.static_range(S):
-            ri = oi * S + dy
-            ci = oj * S + dx
-{inner}
-{pool}
-{store}
+{chr(10).join("    " + line for line in body)}
 '''
     return source, keys
 
 
-_STORE_U8 = """    base = out + (oi * Wo + oj) * 3
-    zero_f = tl.zeros([BH, BW], tl.float32)
-    one_f = zero_f + 1.0
-    q0 = tl.floor(tl.minimum(tl.maximum(acc0, zero_f), one_f) * 255.0 + 0.5)
-    q1 = tl.floor(tl.minimum(tl.maximum(acc1, zero_f), one_f) * 255.0 + 0.5)
-    q2 = tl.floor(tl.minimum(tl.maximum(acc2, zero_f), one_f) * 255.0 + 0.5)
-    tl.store(base, q0.to(tl.uint8), mask=valid)
-    tl.store(base + 1, q1.to(tl.uint8), mask=valid)
-    tl.store(base + 2, q2.to(tl.uint8), mask=valid)"""
+# GL u8 quantize and the (Ho, Wo, 3) store. PACK (the row pitch 3 * Wo and
+# the frame's base a multiple of 4 bytes): four pixels make three 32-bit
+# words, one store each; else one byte store a channel and pixel.
+_STORE_U8 = """q0 = tl.floor(tl.minimum(tl.maximum(acc0, 0.0), 1.0) * 255.0 + 0.5)
+q1 = tl.floor(tl.minimum(tl.maximum(acc1, 0.0), 1.0) * 255.0 + 0.5)
+q2 = tl.floor(tl.minimum(tl.maximum(acc2, 0.0), 1.0) * 255.0 + 0.5)
+if PACK:
+    r0, r1, r2, r3 = _quads(q0, BH, BW)
+    g0, g1, g2, g3 = _quads(q1, BH, BW)
+    b0, b1, b2, b3 = _quads(q2, BH, BW)
+    quad = pid_c * (BW // 4) + tl.arange(0, BW // 4)[None, :]
+    words = out.to(tl.pointer_type(tl.uint32)) + oi * (Wo * 3 // 4) + quad * 3
+    ok = row_ok & (quad * 4 < Wo)
+    tl.store(words, r0 | (g0 << 8) | (b0 << 16) | (r1 << 24), mask=ok)
+    tl.store(words + 1, g1 | (b1 << 8) | (r2 << 16) | (g2 << 24), mask=ok)
+    tl.store(words + 2, b2 | (r3 << 8) | (g3 << 16) | (b3 << 24), mask=ok)
+else:
+    oj = pid_c * BW + tl.arange(0, BW)[None, :]
+    base = out + (oi * Wo + oj) * 3
+    ok = row_ok & (oj < Wo)
+    tl.store(base, q0.to(tl.uint8), mask=ok)
+    tl.store(base + 1, q1.to(tl.uint8), mask=ok)
+    tl.store(base + 2, q2.to(tl.uint8), mask=ok)"""
 
-_STORE_BF16 = """    base = out + oi * Wo + oj
-    plane = Ho * Wo
-    tl.store(base, acc0.to(tl.bfloat16), mask=valid)
-    tl.store(base + plane, acc1.to(tl.bfloat16), mask=valid)
-    tl.store(base + 2 * plane, acc2.to(tl.bfloat16), mask=valid)"""
+_STORE_BF16 = """oj = pid_c * BW + tl.arange(0, BW)[None, :]
+base = out + oi * Wo + oj
+ok = row_ok & (oj < Wo)
+tl.store(base, acc0.to(tl.bfloat16), mask=ok)
+tl.store(base + Ho * Wo, acc1.to(tl.bfloat16), mask=ok)
+tl.store(base + 2 * Ho * Wo, acc2.to(tl.bfloat16), mask=ok)"""
 
 
 def _value_key(value):
@@ -810,23 +1017,36 @@ def _tail_key(spec: TailSpec, *shape) -> tuple:
     return (code, cells, structure) + shape
 
 
-_PREPARED: dict = {}   # _tail_key -> (input keys, compiled kernel, op counts)
+class Compiled(NamedTuple):
+    """One traced and generated K1: input keys in kernel-argument order, the
+    Triton kernel, Graph.op_counts(outputs), and its tile (tile_shape)."""
+    keys: list
+    kernel: Any
+    op_counts: dict
+    tile: tuple
 
 
-def kernel_cost(op_counts: tuple, inputs: list, out_shape: tuple, out_dtype: torch.dtype,
+_PREPARED: dict = {}   # _tail_key -> Compiled
+
+
+def kernel_cost(op_counts: dict, inputs: list, out_shape: tuple, out_dtype: torch.dtype,
                 subsample: int, quantize: bool) -> flopcount.Cost:
-    """What one K1 launch must do: `op_counts` (Graph.op_counts) per SSAA
-    pixel, plus with quantize the pooling sum of three channels per SSAA
-    pixel and five ops per output channel (average, clamp, scale, offset,
-    floor); bytes of each tensor in `inputs` read once and the output
+    """What one K1 launch must do: `op_counts` (Graph.op_counts) each
+    times its rank's extent (render pixels, columns, rows, or once), plus
+    with quantize, per output channel, the s x s pooling sum (s^2 - 1
+    adds), the average (s > 1) and the quantize's max, min, scale, offset
+    and floor; bytes of each tensor in `inputs` read once and the output
     written once."""
-    alu, sfu = op_counts
-    pixels = math.prod(out_shape[:2] if quantize else out_shape[1:])
-    render_pixels = pixels * subsample * subsample
-    alu = render_pixels * alu + (render_pixels * 3 + pixels * 3 * 5 if quantize else 0)
+    out_h, out_w = out_shape[:2] if quantize else out_shape[1:]
+    render_h, render_w = out_h * subsample, out_w * subsample
+    extent = {(1, 1): render_h * render_w, (0, 1): render_w, (1, 0): render_h, (0, 0): 1}
+    alu = sum(extent[rank] * count[0] for rank, count in op_counts.items())
+    sfu = sum(extent[rank] * count[1] for rank, count in op_counts.items())
+    if quantize:
+        alu += out_h * out_w * 3 * (subsample * subsample - 1 + (subsample > 1) + 5)
     moved = math.prod(out_shape) * torch.empty((), dtype=out_dtype).element_size()
     moved += sum(t.numel() * t.element_size() for t in inputs if isinstance(t, torch.Tensor))
-    return flopcount.Cost(alu=alu, sfu=render_pixels * sfu, kernel_bytes=moved)
+    return flopcount.Cost(alu=alu, sfu=sfu, kernel_bytes=moved)
 
 
 def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
@@ -841,9 +1061,8 @@ def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
 
 
 def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: int,
-             aspect: float, quantize: bool, device: torch.device) -> tuple:
-    """The traced, generated and compiled K1 for this spec -> (input keys in
-    kernel-argument order, the Triton kernel, Graph.op_counts()), kept per
+             aspect: float, quantize: bool, device: torch.device) -> Compiled:
+    """The traced, generated and compiled K1 for this spec, kept per
     _tail_key. The key holds the color dtype: a float32 trace must not
     serve a tail traced after SHADERFLOW_TAIL_BF16 flipped."""
     from shaderflow_tpu_torch.build import triton_module
@@ -855,12 +1074,20 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
     bf16 = frozenset(name for name, cs in spec.colsampled.items()
                      if cs.planes[0].dtype == torch.bfloat16)
     source, keys = generate(graph, outputs, subsample, bf16, quantize)
-    entry = (keys, triton_module(source, stem="tail").tail_kernel, graph.op_counts())
+    entry = Compiled(keys, triton_module(source, stem="tail").tail_kernel,
+                     graph.op_counts(outputs), tile_shape(graph, outputs, subsample))
     if key is not None:
         if len(_PREPARED) >= 64:
             _PREPARED.clear()
         _PREPARED[key] = entry
     return entry
+
+
+def registers(compiled_kernel) -> tuple[int, int]:
+    """(registers a thread, spilled registers) of a compiled Triton kernel
+    (K1's launch keeps its last one as `launch.compiled`)."""
+    compiled_kernel._init_handles()
+    return int(compiled_kernel.n_regs), int(compiled_kernel.n_spills)
 
 
 def prepare(spec: TailSpec, render_height: int, render_width: int,
@@ -872,19 +1099,19 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     quantize=False: the (3, out_h, out_w) bf16 planes). Inputs must be
     contiguous on `device`, planes float32 or bfloat16, everything else
     float32 (tables are cast to float32 here); raises on anything the
-    template does not take."""
+    template does not take. launch.compiled is the compiled kernel of the
+    last launch (registers() reads it), launch.tile the tile it runs."""
     if device.index is None:   # "cuda" means the current card
         device = torch.device(device.type, torch.cuda.current_device())
-    keys, kernel, op_counts = compiled(spec, render_height, render_width, subsample,
-                                       aspect, quantize, device)
+    entry = compiled(spec, render_height, render_width, subsample, aspect, quantize, device)
 
     planes = {name: spec.planes[name] for name in spec.planes}
     planes.update({name: (ix.stack[indexed_position(ix)],)   # a view: no copy
                    for name, ix in spec.indexed.items()})
-    sampled = sorted({name for kind, name, _ in keys if kind == "colsampled"})
+    sampled = sorted({name for kind, name, _ in entry.keys if kind == "colsampled"})
     pointers = []
     scalars = []
-    for kind, name, channel in keys:
+    for kind, name, channel in entry.keys:
         if kind == "scalar":
             scalars.append(torch.as_tensor(spec.scalars[name], dtype=torch.float32,
                                            device=device).reshape(()))
@@ -914,19 +1141,17 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     pointers += [spec.colsampled[name].planes[0].shape[1] for name in sampled]
     if scalars:
         pointers.append(torch.stack(scalars))
-    grid = (math.ceil(out_height / BLOCK_H), math.ceil(out_width / BLOCK_W))
+    rows, width, warps = entry.tile
+    grid = (math.ceil(out_height / rows), math.ceil(out_width / width))
 
     out_shape, out_dtype = (((out_height, out_width, 3), torch.uint8) if quantize
                             else ((3, out_height, out_width), torch.bfloat16))
     blocks = grid[0] * grid[1]
 
     def block_cost() -> flopcount.Cost:
-        """One program's share of the launch for the cost walker: its
-        pixels' graph ops (plus, per SSAA pixel, the pooling sum of three
-        channels, and per output channel the average and the quantize's
-        clamp, scale, offset and floor), and its share of the bytes: each
-        input read once, the output written once."""
-        return kernel_cost(op_counts, pointers, out_shape, out_dtype, subsample,
+        """One program's share of the launch (kernel_cost) for the cost
+        walker."""
+        return kernel_cost(entry.op_counts, pointers, out_shape, out_dtype, subsample,
                            quantize).scaled(1.0 / blocks)
 
     def launch(out: torch.Tensor) -> torch.Tensor:
@@ -935,10 +1160,13 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
             raise ValueError(f"K1 writes a contiguous {out_shape} {out_dtype} tensor "
                              f"on {device}, got {out.dtype} {tuple(out.shape)} on "
                              f"{out.device}")
+        pack = quantize and out_width % 4 == 0 and out.data_ptr() % 4 == 0
         with flopcount.kernel("K1", blocks, block_cost), torch.cuda.device(device):
-            kernel[grid](out, *pointers, render_width, out_height, out_width,
-                         S=int(subsample), BH=BLOCK_H, BW=BLOCK_W, num_warps=NUM_WARPS,
-                         enable_fp_fusion=False)
+            launch.compiled = entry.kernel[grid](
+                out, *pointers, out_height, out_width, render_width, PACK=pack, BH=rows,
+                BW=width, num_warps=warps, enable_fp_fusion=False)
         return out
 
+    launch.compiled = None
+    launch.tile = (rows, width, warps)
     return launch

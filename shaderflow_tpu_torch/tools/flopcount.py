@@ -33,7 +33,11 @@ Bytes: `io_bytes` is the floor of the top-level inputs and outputs
 
 `roofline` turns a count into the least time the card could take: the
 larger of its bytes over the memory rate and its operations over the peak
-rate of their unit.
+rate of their unit. ALU operations go at one float32 instruction per lane
+and clock: the data sheet's 67 TFLOP/s counts a fused multiply-add as two
+operations, and the port's kernels forbid that contraction (K1 launches
+with enable_fp_fusion=False, the CUDA C++ kernels build with -fmad=false),
+so each mul and each add is its own instruction.
 """
 
 from __future__ import annotations
@@ -50,7 +54,10 @@ from torch.utils._pytree import tree_flatten
 
 # Peaks of one H100 SXM (NVIDIA's data sheet; Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12     # device memory
-F32_OPS_PER_S = 67e12         # float32 outside the tensor cores
+# 128 float32 lanes per SM x 132 SMs x the 1.98 GHz boost clock: one
+# uncontracted instruction per lane and clock
+ALU_OPS_PER_S = 128 * 132 * 1.98e9
+MMA_FLOPS_PER_S = 67e12       # float32 matrix products, an FMA counted as two
 # 16 special-function units per SM x 132 SMs x the 1.98 GHz boost clock
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
@@ -215,14 +222,15 @@ def roofline(cost: Cost, loop_trips: float = 0.0) -> tuple[float, str]:
     """The least time the card could take for `cost` -> (ms, "bytes" or
     "operations"): the larger of its bytes over the memory rate and its
     operations over their unit's peak (ALU and matrix work share the
-    float32 pipes; the special-function units run beside them).
+    float32 pipes, so their times add; the special-function units run
+    beside them).
     `loop_trips` closes the unknown loops: each entry's per-trip ops times
     the measured trips (per unit of its multiplier) times the multiplier."""
-    alu = cost.alu + cost.mma
-    alu += sum(per_trip * loop_trips * multiplier
-               for _, per_trip, multiplier in cost.unknown_loops)
+    alu = cost.alu + sum(per_trip * loop_trips * multiplier
+                         for _, per_trip, multiplier in cost.unknown_loops)
     memory_ms = 1e3 * cost.bytes / HBM_BYTES_PER_S
-    compute_ms = 1e3 * max(alu / F32_OPS_PER_S, cost.sfu / SFU_OPS_PER_S)
+    compute_ms = 1e3 * max(alu / ALU_OPS_PER_S + cost.mma / MMA_FLOPS_PER_S,
+                           cost.sfu / SFU_OPS_PER_S)
     return (memory_ms, "bytes") if memory_ms >= compute_ms else (compute_ms, "operations")
 
 

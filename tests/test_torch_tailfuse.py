@@ -382,7 +382,7 @@ def test_traced_graph_equals_direct_call(which):
     planes_source, planes_keys = tailgen.generate(graph, outputs, 1, frozenset(spec.colsampled),
                                                   quantize=False)
     compile(planes_source, "<generated K1 (d)>", "exec")
-    assert planes_keys == keys and "tl.bfloat16), mask=valid" in planes_source
+    assert planes_keys == keys and "tl.bfloat16), mask=ok" in planes_source
     color = {("plane", "color", c) for c in range(3)}
     expected = {"make_spec": color | {("plane", "gain", 0), ("row", "rowv", 0),
                                       ("col", "colv", 0), ("scalar", "vol", 0)},
@@ -400,6 +400,74 @@ def test_traced_graph_equals_direct_call(which):
         # sub-position, shared by the three channels
         assert source.count("tl.load(pos0 + ci") == 1
         assert source.count(".to(tl.bfloat16).to(tl.float32)") == 2
+
+
+_GRADED = {"make_spec": lambda h, w: _specs(h, w)[1],
+           "mandelbrot": lambda h, w: _mandelbrot_spec(h, w),
+           "transcendental": lambda h, w: _transcendental_spec(h, w),
+           "indexed_colsampled": lambda h, w: _sampled_specs(h, w, "bfloat16")[1],
+           "table": lambda h, w: _table_spec(h, w),
+           "julia": lambda h, w: _julia_spec(h, w),
+           "piano": lambda h, w: _piano_spec(h, w)}
+
+
+@pytest.mark.parametrize("which", list(_GRADED))
+def test_generated_template_loads_each_input_once(which):
+    """K1's tile template for every graded tail: the source compiles as
+    Python at s = 1, 2 and 3 and in the quantize=False form; each row,
+    column and scalar input is loaded once a tile
+    at its own rank (a row as [BH, 1], a column as [1, BWC], a scalar as a
+    0-d value: no per-element loads of one address), constants are 0-d,
+    and each plane channel is one block load a pass of render rows."""
+    spec = _GRADED[which](24, 64)
+    graph, outputs = tailgen.trace(spec, 24, 64, 1.5)
+    for s in (1, 2, 3):
+        source, keys = tailgen.generate(graph, outputs, s, frozenset(spec.colsampled))
+        compile(source, f"<K1 {which} s={s}>", "exec")
+        pointers = [k for k in keys if k[0] != "scalar"]
+        for number, key in enumerate(pointers):
+            kind, name = key[0], f"in{number}"
+            if kind == "row":
+                assert source.count(f"tl.load({name} + ri, mask=row_ok") == 1
+            elif kind == "col":
+                assert source.count(f"tl.load({name} + ci, mask=col_ok") == 1
+            elif kind == "plane":
+                assert source.count(f"tl.make_block_ptr({name}") == 1
+        scalars = [k for k in keys if k[0] == "scalar"]
+        for number in range(len(scalars)):
+            assert source.count(f"tl.load(scalars + {number})") == 1
+        assert "zero_i" not in source and "tl.full([BH" not in source
+        assert ("tl.sum(tl.reshape(" in source) == (s == 2)
+        assert ("for dx in tl.static_range(3)" in source) == (s == 3)
+    source, _ = tailgen.generate(graph, outputs, 1, frozenset(spec.colsampled), quantize=False)
+    compile(source, f"<K1 {which} quantize=False>", "exec")
+    with pytest.raises(ValueError, match="quantize=False"):
+        tailgen.generate(graph, outputs, 2, quantize=False)
+
+
+@pytest.mark.parametrize("which", list(_GRADED))
+def test_tile_rule_is_a_function_of_the_graph(monkeypatch, which):
+    """The tile K1 runs (tailgen.tile_shape) follows from the graph's live
+    values and s alone: 128 render columns a row of the render block, 4
+    warps, and the most rows (8, 4, 2 or 1: the elements a thread holds of a
+    plane value) whose live peak fits the register budget; the same graph
+    gives the same tile at any render size, and a smaller budget a thinner
+    tile."""
+    s = 1 if which == "piano" else 2
+    graph, outputs = tailgen.trace(_GRADED[which](24, 64), 24, 64, 1.5)
+    rows, width, warps = tailgen.tile_shape(graph, outputs, s)
+    again = tailgen.trace(_GRADED[which](40, 128), 40, 128, 1.5)
+    assert tailgen.tile_shape(*again, s) == (rows, width, warps)
+    assert width * s == tailgen.K1_COLUMNS and warps == tailgen.K1_WARPS
+    assert rows in (1, 2, 4, 8)
+    assert rows == 1 or tailgen.live_peak(graph, outputs, rows, s) <= tailgen.K1_REGISTERS
+    assert rows == 8 or tailgen.live_peak(graph, outputs, rows * 2, s) > tailgen.K1_REGISTERS
+    assert rows == {"make_spec": 8, "mandelbrot": 8, "transcendental": 4,
+                    "indexed_colsampled": 2, "table": 8, "julia": 8, "piano": 4}[which]
+    if rows > 1:
+        monkeypatch.setattr(tailgen, "K1_REGISTERS",
+                            tailgen.live_peak(graph, outputs, rows // 2, s))
+        assert tailgen.tile_shape(graph, outputs, s) == (rows // 2, width, warps)
 
 
 def _table_inputs(render_h, render_w):

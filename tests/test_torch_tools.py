@@ -80,7 +80,7 @@ def test_kernel_loop_reported_per_trip():
     assert walker.cost.unknown_loops == [("K3 escape step", fractal.ESCAPE_STEP_OPS, 128.0)]
     assert walker.cost.kernel_bytes == 128 * 4 + 4 * (16 + 8)
     steps = int(counts.sum())
-    compute_ms = 1e3 * fractal.ESCAPE_STEP_OPS * steps / flopcount.F32_OPS_PER_S
+    compute_ms = 1e3 * fractal.ESCAPE_STEP_OPS * steps / flopcount.ALU_OPS_PER_S
     memory_ms = 1e3 * walker.cost.kernel_bytes / flopcount.HBM_BYTES_PER_S
     assert flopcount.roofline(walker.cost, steps / 128)[0] == pytest.approx(
         max(compute_ms, memory_ms))
@@ -97,6 +97,23 @@ def test_kernel_body_times_grid():
     assert walker.cost.alu == 4 * 2 * 32 * 128
     assert walker.cost.sfu == 4 * 32 * 128
     assert walker.cost.kernel_bytes == 2 * 128 * 128 * 4
+
+
+def test_alu_bound_at_the_instruction_rate():
+    """ALU operations are bounded at one float32 instruction per lane and
+    clock (128 lanes x 132 SMs x 1.98 GHz), half the data sheet's
+    67 TFLOP/s, which counts an FMA as two and which the port's kernels
+    never issue; matrix FLOPs stay at 67e12, and the two times add. One
+    corrected bound: 386 ALU ops a pixel over a 3840x2160 frame take
+    0.0957 ms, not 0.0479."""
+    assert flopcount.ALU_OPS_PER_S == 128 * 132 * 1.98e9
+    assert flopcount.MMA_FLOPS_PER_S == 67e12
+    assert flopcount.ALU_OPS_PER_S == pytest.approx(flopcount.MMA_FLOPS_PER_S / 2, rel=0.01)
+    frame = flopcount.Cost(alu=386 * 3840 * 2160, kernel_bytes=1.0)
+    assert flopcount.roofline(frame) == (pytest.approx(0.0957, abs=5e-5), "operations")
+    both = flopcount.Cost(alu=1e9, mma=2e9)
+    assert flopcount.roofline(both)[0] == pytest.approx(
+        1e3 * (1e9 / flopcount.ALU_OPS_PER_S + 2e9 / flopcount.MMA_FLOPS_PER_S))
 
 
 def test_io_bytes_floor():
@@ -150,8 +167,9 @@ def test_walker_counts_reductions_and_layout():
 
 def test_k1_declares_graph_ops_and_bytes():
     """K1's declared cost (tailgen.kernel_cost): graph ops by class per
-    SSAA pixel, the pooling sum and the quantize per output channel, each
-    input read once and the u8 frame written once."""
+    SSAA pixel; per output channel the 2x2 pool's three adds, the average
+    and the quantize's max, min, scale, offset and floor; each input read
+    once and the u8 frame written once."""
     from shaderflow_tpu_torch.ops import tailgen
 
     def tail(tp):
@@ -159,13 +177,44 @@ def test_k1_declares_graph_ops_and_bytes():
         return torch.sqrt(x) * 2.0, torch.exp(x), x + 1.0
 
     spec = tailfuse.make_spec(tail, 8, 16, x=torch.ones((8, 16)))
-    graph, _ = tailgen.trace(spec, 8, 16, 2.0)
-    assert graph.op_counts() == (2, 2)               # mul, add; sqrt, exp
-    cost = tailgen.kernel_cost(graph.op_counts(), [spec.planes["x"][0]], (4, 8, 3),
-                               torch.uint8, 2, True)
-    assert cost.alu == 128 * (2 + 3) + 32 * 3 * 5
+    graph, outputs = tailgen.trace(spec, 8, 16, 2.0)
+    counts = graph.op_counts(outputs)
+    assert counts == {(1, 1): (2, 2), (0, 1): (0, 0), (1, 0): (0, 0), (0, 0): (0, 0)}
+    cost = tailgen.kernel_cost(counts, [spec.planes["x"][0]], (4, 8, 3), torch.uint8, 2, True)
+    assert cost.alu == 128 * 2 + 32 * 3 * (3 + 1 + 5)
     assert cost.sfu == 128 * 2
     assert cost.kernel_bytes == 128 * 4 + 32 * 3
+
+
+def test_k1_counts_ops_once_at_their_rank():
+    """K1's op counts are what the tail needs: a node counts once a render
+    pixel, column or row, or once, by its rank (a 0-d scalar's product
+    once, a column's once a render column); a subexpression the tail
+    writes twice counts once (the compiler merges it); a value no output
+    reads counts 0. kernel_cost scales each rank by its extent: over an
+    8x16 render, 128 pixels, 16 columns, 8 rows."""
+    from shaderflow_tpu_torch.ops import tailgen
+
+    def tail(tp):
+        x, c, r, v = tp.plane("x"), tp.col("c"), tp.row("r"), tp.scalar("v")
+        gain = v * 2.0
+        wave = c * 4.0 - 0.25
+        again = c * 4.0 - 0.25
+        unused = torch.exp(x) + 1.0      # noqa: F841: read by no output
+        return x * gain + wave, x * again, torch.sqrt(r + 1.0) * x
+
+    spec = tailfuse.make_spec(tail, 8, 16, x=torch.ones((8, 16)), c=tailfuse.Col(torch.ones(16)),
+                              r=tailfuse.Row(torch.ones(8)), v=torch.tensor(0.5))
+    graph, outputs = tailgen.trace(spec, 8, 16, 2.0)
+    counts = graph.op_counts(outputs)
+    assert counts == {(1, 1): (4, 0), (0, 1): (2, 0), (1, 0): (1, 1), (0, 0): (1, 0)}
+    inputs = [spec.planes["x"][0], spec.cols["c"], spec.rows["r"]]
+    cost = tailgen.kernel_cost(counts, inputs, (4, 8, 3), torch.uint8, 2, True)
+    assert cost.alu == 128 * 4 + 16 * 2 + 8 * 1 + 1 + 32 * 3 * (3 + 1 + 5)
+    assert cost.sfu == 8
+    assert cost.kernel_bytes == (128 + 16 + 8) * 4 + 32 * 3
+    planes = tailgen.kernel_cost(counts, inputs, (3, 8, 16), torch.bfloat16, 1, False)
+    assert planes.alu == 128 * 4 + 16 * 2 + 8 * 1 + 1 and planes.sfu == 8
 
 
 # --------------------------------------------------------------------------- #
