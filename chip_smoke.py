@@ -7,7 +7,9 @@ Smoke test of the PyTorch port (shaderflow_tpu_torch) on one CUDA card.
 Phases, each printing its own line (any failure raises; exit code != 0):
   1. card and toolchain: nvidia-smi name / power limit, torch, CUDA,
      Triton and nvcc versions
-  2. build: every CUDA C++ library (one nvcc per source, all at once)
+  2. build: every CUDA C++ library (one nvcc per source, all at once),
+     ptxas's report; K3's registers, spills and SASS instructions an
+     escape step for each form (shaderflow_tpu_torch/tools/sass.py)
   Mandelbrot slice (1920x1080, 60 fps, 2x SSAA, 2 s):
   3. K3 vs its plain version at the slice's shapes (the default view's
      lines at 3840x2160, max_iter 500 and its cap): counts exactly equal
@@ -93,6 +95,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, FPS, SSAA, SECONDS = 1920, 1080, 60, 2, 2.0
+# K3's float32-output kernel of each form (parts of its mangled name)
+K3_KERNELS = {"lines": ("escape_kernel", "6LinesCfE"),
+              "rotated": ("escape_kernel", "5PairCfE"),
+              "julia": ("escape_kernel", "6ApartCfE")}
 
 
 def say(phase: str, **fields) -> None:
@@ -129,25 +135,28 @@ def device_ms(fn, repeats: int = 20) -> float:
     `repeats` calls after one warm-up. The profiler can lose an activity
     record or hand it to the next session, so each kernel counts by its
     mean duration times its launches a call (its records over `repeats`,
-    rounded; a stray record rounds to none)."""
+    rounded; a stray record rounds to none). A process's first profile can
+    come back empty: a profile that records nothing is taken again, twice
+    at most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(repeats):
-            fn()
-        torch.cuda.synchronize()
-    durations: dict = {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            durations.setdefault(event.name, []).append(event.device_time)
-    total = sum(statistics.mean(times) * round(len(times) / repeats)
-                for times in durations.values())
-    if total <= 0:
-        raise AssertionError(f"torch.profiler recorded no device time for {repeats} calls")
-    return total / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                fn()
+            torch.cuda.synchronize()
+        durations: dict = {}
+        for event in prof.events():
+            if event.device_type == DeviceType.CUDA:
+                durations.setdefault(event.name, []).append(event.device_time)
+        total = sum(statistics.mean(times) * round(len(times) / repeats)
+                    for times in durations.values())
+        if total > 0:
+            return total / 1e3
+    raise AssertionError(f"torch.profiler recorded no device time for {repeats} calls")
 
 
 def k1_figures(launch) -> dict:
@@ -338,7 +347,7 @@ def main() -> int:
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     from shaderflow_tpu_torch.ops.cameralib import project_trivial
     from shaderflow_tpu_torch.shader import make_coords
-    from shaderflow_tpu_torch.tools import bench_dtype, flopcount, probe_bf16_ops
+    from shaderflow_tpu_torch.tools import bench_dtype, flopcount, probe_bf16_ops, sass
 
     device = torch.device("cuda")
     card = card_line()
@@ -354,16 +363,28 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, triton=triton.__version__, nvcc=repr(nvcc_version))
 
-    # 2. Build: every CUDA library at once (plain C interfaces)
+    # 2. Build: every missing or stale CUDA library at once (plain C
+    # interfaces), and ptxas's report of each; K3's registers, spills and
+    # SASS instructions a step of each form's float32 kernel
     started = time.perf_counter()
     built = build.build_cuda_libraries()
     fractal._escape_library()
     sampling._lookup_library()
     flopcount._fixture_library()
+    sources = {source.stem: source for source in build.cuda_sources()}
     say("build", libraries=",".join(built) or "cached",
         seconds=f"{time.perf_counter() - started:.3f}",
-        ptxas=repr(" | ".join(build.build_log.get(n, "cached").replace("\n", " ; ")
+        ptxas=repr(" | ".join(build.ptxas_report(sources[n]).strip().replace("\n", " ; ")
                               for n in ("escape", "lookup", "fixture"))))
+    escape_sass = sass.dump(build.library_path(sources["escape"]))
+    escape_ptxas = build.ptxas_report(sources["escape"])
+    k3_compiled = {}
+    for form, parts in K3_KERNELS.items():
+        step = sass.step_figures(escape_sass, *parts)
+        k3_compiled[form] = {**sass.ptxas_figures(escape_ptxas, *parts),
+                             **{key: step[key] for key in ("loop_instructions", "loop_steps",
+                                                           "instructions_per_step")}}
+        say("k3_compiled", form=form, **k3_compiled[form], ops=step["ops"])
 
     # 3. K3 vs plain at the slice's shapes: the default view's lines
     coords = make_coords(render_h, render_w, aspect, device)
@@ -890,14 +911,15 @@ def main() -> int:
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
-         "bound_by": k3_bound_by, "library_ms": None},
+         "bound_by": k3_bound_by, "library_ms": None, **k3_compiled["lines"]},
         {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": julia["launches"]["k3p"], "max_abs_err": julia["err"],
          "ms": julia["ms"], "call_ms": julia["call_ms"], "plain_ms": julia["plain_ms"],
          "bound_ms": julia["bound_ms"], "bound_by": julia["bound_by"], "library_ms": None,
-         "rotated": plane_slices["rotated_mandelbrot"]},
+         **k3_compiled["julia"],
+         "rotated": {**plane_slices["rotated_mandelbrot"], **k3_compiled["rotated"]}},
         {"name": "K1 bf16 (b)+(c): the bf16 color chain (bf16 level-1 visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",

@@ -4,8 +4,9 @@ libraries (bound with ctypes), and generated Triton sources written to
 files (`@triton.jit` reads its function's source from a file).
 
 Everything builds from the sources in this checkout, at first use, into
-BUILD_DIR (gitignored); a library is rebuilt when its source is newer. A
-failed build raises — there is no fallback to the plain PyTorch versions.
+BUILD_DIR (gitignored); a library is rebuilt when its source is newer, and
+ptxas's register/spill report is kept beside it (ptxas_report). A failed
+build raises — there is no fallback to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -29,10 +30,6 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-build_log: dict[str, str] = {}
-"""Library name -> nvcc's output (ptxas register/spill report) of the last
-build in this process."""
-
 _libraries: dict[str, ctypes.CDLL] = {}
 _modules: dict[str, ModuleType] = {}
 
@@ -54,23 +51,29 @@ def cuda_sources() -> list[Path]:
     return sorted((Path(__file__).parent / "csrc").glob("*.cu"))
 
 
-def _library_path(source: Path) -> Path:
+def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}.so"
+
+
+def ptxas_report(source: Path) -> str:
+    """nvcc's output when `source`'s library was built: ptxas's register
+    and spill report (-Xptxas -v)."""
+    return library_path(source).with_suffix(".ptxas.txt").read_text()
 
 
 def build_cuda_libraries(sources=None) -> list[str]:
     """Compile every missing or stale library at once: one nvcc per source,
     all started together, then wait for all. Returns the names built."""
     stale = [source for source in (sources or cuda_sources())
-             if not _library_path(source).exists()
-             or _library_path(source).stat().st_mtime < source.stat().st_mtime]
+             if not library_path(source).exists()
+             or library_path(source).stat().st_mtime < source.stat().st_mtime]
     if not stale:
         return []
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compiler = nvcc()
     jobs = []
     for source in stale:
-        partial = _library_path(source).with_suffix(f".{os.getpid()}.tmp")
+        partial = library_path(source).with_suffix(f".{os.getpid()}.tmp")
         process = subprocess.Popen([compiler, *NVCC_FLAGS, "-o", str(partial), str(source)],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                    text=True)
@@ -81,8 +84,8 @@ def build_cuda_libraries(sources=None) -> list[str]:
         if process.returncode != 0:
             failures.append(f"nvcc failed on {source}:\n{output}")
             continue
-        os.replace(partial, _library_path(source))  # atomic: loaders see old or new
-        build_log[source.stem] = output.strip()
+        library_path(source).with_suffix(".ptxas.txt").write_text(output.strip() + "\n")
+        os.replace(partial, library_path(source))  # atomic: loaders see old or new
     if failures:
         raise RuntimeError("\n".join(failures))
     return [source.stem for source in stale]
@@ -93,7 +96,7 @@ def cuda_library(source: Path) -> ctypes.CDLL:
     name = source.stem
     if name not in _libraries:
         build_cuda_libraries([source])
-        _libraries[name] = ctypes.CDLL(str(_library_path(source)))
+        _libraries[name] = ctypes.CDLL(str(library_path(source)))
     return _libraries[name]
 
 

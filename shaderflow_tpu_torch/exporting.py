@@ -4,16 +4,21 @@ Export orchestration: pick the sink, move frame batches, track stats.
 Port of shaderflow_tpu/exporting.py on the port's own sinks
 (shaderflow_tpu_torch/io/sinks.py): NullSink for "null"/None, RawSink for
 .rgb/.raw, ImageSink for directories and .png, FFmpegSink when an ffmpeg
-binary exists, else CV2Sink. Batches
-arrive as engine.WireBatch (the device->host copy already in flight). Not
-ported yet: pipe and TCP outputs, sidecar audio, the progress bar.
+binary exists, else CV2Sink, beside which the scene's audio track is
+written as '<output>.wav' (16-bit PCM of the export's runtime; the
+reference warns and goes on where the write fails, the port raises).
+Batches arrive as engine.WireBatch (the device->host copy already in
+flight). Not ported yet: pipe and TCP outputs, the progress bar.
 """
 
 from __future__ import annotations
 
 import time
+import wave
 from pathlib import Path
 from typing import TYPE_CHECKING, Optional, Union
+
+import numpy as np
 
 from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
@@ -33,6 +38,7 @@ class ExportingHelper:
         self.frame = 0
         self.start = time.monotonic()
         self.took: Optional[float] = None
+        self.sidecar_audio: Optional[Path] = None
 
     @property
     def ffmpeg(self) -> FFmpeg:
@@ -92,9 +98,35 @@ class ExportingHelper:
             self._configure_ffmpeg(path, width, height)
             self.sink = FFmpegSink(self.ffmpeg)
         else:
-            logger.warn(f"No ffmpeg binary: encoding {path.name} with OpenCV")
+            logger.warn(f"No ffmpeg binary: encoding {path.name} with OpenCV "
+                        f"(audio, if any, becomes a sidecar .wav)")
             self.sink = CV2Sink(path, pipe_w, pipe_h, scene.fps)
+            self.sidecar_audio = self._write_sidecar_audio(path)
         return self.sink
+
+    def _write_sidecar_audio(self, video_path: Path) -> Optional[Path]:
+        """Without ffmpeg nothing muxes: write the first audio module's file
+        as '<output>.wav', its first runtime x samplerate samples as 16-bit
+        PCM. Modules without a file, or whose file is missing, are skipped
+        as in the reference; a failure to decode or write raises."""
+        for module in self.scene.modules:
+            audio_file = getattr(module, "file", None)
+            samplerate = getattr(module, "samplerate", None)
+            if audio_file is None or samplerate is None:
+                continue
+            samples = FFmpeg.get_audio_numpy(audio_file)
+            if samples is None:
+                continue
+            samples = samples[:int(self.scene.runtime * samplerate)]
+            target = video_path.with_suffix(video_path.suffix + ".wav")
+            with wave.open(str(target), "wb") as handle:
+                handle.setnchannels(samples.shape[1])
+                handle.setsampwidth(2)
+                handle.setframerate(int(samplerate))
+                handle.writeframes((np.clip(samples, -1, 1) * 32767).astype("<i2").tobytes())
+            logger.info(f"Wrote sidecar audio {target}")
+            return target
+        return None
 
     # -- frame transport -----------------------------------------------------
 

@@ -17,9 +17,11 @@ exact).
   escape_iterations_z0   the plane form with c given apart (Julia): planes or
                          0-d values read on the device through a pointer
 
-Not ported (TPU workarounds, ROADMAP "Not ported"): predicted rounds, the
-unroll between early-exit checks, f32 mask carries, the maskless monotone
-step — one thread per pixel exits on its own escape.
+K3's design (csrc/escape.cu's note): one thread a pixel, a warp on an 8 x 4
+tile of pixels, and an escape loop that keeps no count: it branches out
+every few steps and works out the first escaping step from where it left
+the unrolled loop. Not ported (TPU workarounds, ROADMAP "Not ported"):
+predicted rounds, f32 mask carries, the maskless monotone step.
 """
 
 from __future__ import annotations
@@ -35,10 +37,10 @@ ESCAPE_STEP_OPS = 9   # one escape step in csrc/escape.cu: 4 products, 4 sums, 1
 
 
 def _escape_cost(pixels: int, operand_bytes: float) -> flopcount.Cost:
-    """One pixel's share of a K3 launch (one thread per pixel) for the
-    cost walker: its operands read once and its count written once; the
-    escape loop reported per trip (ESCAPE_STEP_OPS), which the caller closes
-    with the measured counts."""
+    """One pixel's share of a K3 launch for the cost walker: its operands
+    read once and its count written once; the escape loop reported per
+    trip (ESCAPE_STEP_OPS), which the caller closes with the measured
+    counts."""
     return flopcount.Cost(kernel_bytes=4 + operand_bytes / pixels,
                           unknown_loops=[("K3 escape step", ESCAPE_STEP_OPS, 1.0)])
 
@@ -107,7 +109,7 @@ def _escape_library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
             ctypes.c_void_p]
     return library
 
@@ -218,7 +220,8 @@ def _escape_planes_cuda(zx0: torch.Tensor, zy0: torch.Tensor, cx, cy, c_kind: in
             pointer(cy) if c_kind != _C_IS_Z0 else None, c_stride, c_kind,
             interior.data_ptr() if interior_kind == _INTERIOR_PLANE else None,
             interior_kind, out.data_ptr(), int(out_dtype == torch.float32),
-            out.numel(), int(max_iter), trip, float(radius) * float(radius),
+            out.numel(), shape[-1] if shape else 1, int(max_iter), trip,
+            float(radius) * float(radius),
             torch.cuda.current_stream(device).cuda_stream)
     if status != 0:
         raise RuntimeError(f"escape_planes launch failed: cudaError {status}")

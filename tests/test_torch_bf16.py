@@ -36,7 +36,7 @@ from shaderflow_tpu_torch.ops import tailfuse, tailgen
 from test_torch_scene import _import_example
 from test_torch_tailfuse import _assert_u8_close, _specs
 from test_torch_visualizer import (HEIGHT, JAX_SCRIPT, WIDTH, _load_state, _read_rgb,
-                                   _u8_stats)
+                                   _u8_stats, oracle_psnr)
 
 REPO = Path(__file__).resolve().parent.parent
 BF16_ENV = {"SHADERFLOW_TAIL_BF16": "1"}
@@ -143,38 +143,8 @@ def test_visualizer_bf16_level1_psnr_against_oracle(monkeypatch, tmp_path):
     (tools/gl_oracle.py): >= 40 dB per frame, the bar
     tests/test_psnr_reference.py:153-206 holds the JAX package to in this
     mode, on a frame with live audio."""
-    sys.path.insert(0, str(REPO / "tools"))
-    try:
-        import gl_oracle
-    finally:
-        sys.path.remove(str(REPO / "tools"))
-    for key, value in dict(BF16_ENV, SHADERFLOW_VIZ_BLUR_LEVEL="1").items():
-        monkeypatch.setenv(key, value)
-    demo = _import_example("torch", "torch_demo")
-    width, height = 320, 180
-    scene = demo.Visualizer()
-    output = tmp_path / "visualizer.rgb"
-    scene.main(width=width, height=height, fps=10, time=0.3, ssaa=1, subsample=1,
-               output=str(output), device="cpu")
-    frames = np.fromfile(output, np.uint8).reshape(-1, height, width, 3)
-    engine = scene.engine
-    uniforms = [{**engine._statics, **snapshot} for snapshot in engine._frame_uniforms]
-    assert len(uniforms) == len(frames) == 3
-    assert any(float(np.asarray(u["iAudioVolume"])) > 0.1 for u in uniforms)
-    background = engine._static_tex["background"].numpy()[0, 0][::-1]
-    sequences = engine.bound_sequences()
-    spectrogram = sequences["iSpectrogram"].numpy()
-    waveform = sequences["iWaveform"].numpy()
-    for index, uniform in enumerate(uniforms):
-        uniform = {name: np.asarray(value) for name, value in uniform.items()}
-        k = int(uniform["iFrameIndex"])
-        textures = dict(background=background,
-                        spectrogram=spectrogram[min(k, len(spectrogram) - 1)][:, 0, :][::-1],
-                        waveform=waveform[min(k, len(waveform) - 1)][0])
-        oracle = gl_oracle.render_scene(
-            lambda u, w, h, a: gl_oracle.visualizer_fragment(u, w, h, a, textures),
-            uniform, *scene.render_resolution, width, height, 1, scene.aspect_ratio)
-        value = gl_oracle.psnr(frames[index], oracle)
+    values = oracle_psnr(monkeypatch, tmp_path, dict(BF16_ENV, SHADERFLOW_VIZ_BLUR_LEVEL="1"))
+    for index, value in enumerate(values):
         print(f"visualizer bf16 level 1 frame {index}: {value:.2f} dB against the oracle")
         assert value >= 40.0, f"frame {index}: PSNR {value:.1f} dB < 40"
 

@@ -3,7 +3,8 @@ against the JAX package: the plain loop behind kernel K3 must give the same
 counts as _escape_xla and as the Pallas lines kernel (interpret mode), and
 the plane forms (escape_iterations, escape_iterations_z0) the same counts as
 the JAX package's; then the two scenes of K3's plane form, Julia and
-Mandelbrot under a rotated camera, exported by both packages.
+Mandelbrot under a rotated camera, exported by both packages; then the
+Mandelbrot scene against the GL oracle and its golden frame.
 
 The JAX side runs in a child interpreter on XLA:CPU capped at the AVX ISA
 (--xla_cpu_max_isa=AVX, no FMA): XLA:CPU otherwise contracts a*b+c into
@@ -297,3 +298,56 @@ def test_rotated_mandelbrot_frames_match_jax(scenes):
         print(f"rotated Mandelbrot {kind}: max {max_diff} u8 steps on {share:.4%}, "
               f"PSNR {psnr:.2f} dB")
         assert max_diff <= 1 and share < 0.01, kind
+
+
+# --------------------------------------------------------------------------- #
+# The Mandelbrot scene against the GL oracle and the golden frame
+
+def _export_frames(tmp_path: Path, width: int, height: int, **options):
+    """The port's Mandelbrot exported on the CPU -> (scene, u8 frames)."""
+    from test_torch_scene import _import_example
+    scene = _import_example("torch", "torch_fractals").Mandelbrot()
+    output = tmp_path / "mandelbrot.rgb"
+    scene.main(width=width, height=height, fps=10, output=str(output), device="cpu", **options)
+    return scene, np.fromfile(output, np.uint8).reshape(-1, height, width, 3)
+
+
+def test_mandelbrot_psnr_against_oracle(tmp_path):
+    """tests/test_psnr_reference.py:61-79 for the port: Mandelbrot at
+    320x180, 2x SSAA (subsample 2), quality 5, two frames, against the
+    oracle's escape loop (tools/gl_oracle.py:168): >= 40 dB a frame. `-s`
+    prints each frame's dB."""
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import gl_oracle
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    width, height = 320, 180
+    scene, frames = _export_frames(tmp_path, width, height, time=0.2, ssaa=2, subsample=2,
+                                   quality=5)
+    engine = scene.engine
+    uniforms = [{**engine._statics, **snapshot} for snapshot in engine._frame_uniforms]
+    assert len(uniforms) == len(frames) == 2
+    for index, uniform in enumerate(uniforms):
+        uniform = {name: np.asarray(value) for name, value in uniform.items()}
+        uniform.setdefault("iQuality", uniform.get("iQualityS", 0.05))
+        oracle = gl_oracle.render_scene(gl_oracle.mandelbrot_fragment, uniform,
+                                        *scene.render_resolution, width, height, 2,
+                                        scene.aspect_ratio)
+        value = gl_oracle.psnr(frames[index], oracle)
+        print(f"Mandelbrot frame {index}: {value:.2f} dB against the oracle")
+        assert value >= 40.0, f"frame {index}: PSNR {value:.1f} dB < 40"
+
+
+def test_mandelbrot_matches_golden_frame(tmp_path):
+    """tests/test_golden.py:46-61 for the port: the last of three frames at
+    96x54 and 10 fps with the scene's defaults (ssaa 1, subsample 2,
+    quality 50) against tests/golden/mandelbrot.png: > 50 dB."""
+    from PIL import Image
+    golden = np.array(Image.open(REPO / "tests" / "golden" / "mandelbrot.png"))
+    _, frames = _export_frames(tmp_path, 96, 54, time=0.3)
+    assert frames.shape[0] == 3 and frames[-1].shape == golden.shape
+    mse = np.mean((frames[-1].astype(np.float64) - golden.astype(np.float64)) ** 2)
+    value = np.inf if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+    print(f"Mandelbrot against the golden frame: {value:.2f} dB")
+    assert value > 50.0, f"PSNR {value:.1f} dB vs golden"

@@ -1,7 +1,7 @@
 """The PyTorch port's offline export path against the JAX package: the
-Mandelbrot scene end to end (frames and captured uniforms), the import
-boundary (the port imports neither JAX nor the JAX package), and the
-explicit device."""
+Mandelbrot scene end to end (frames and captured uniforms), the sidecar
+WAV beside a video written without ffmpeg, the import boundary (the port
+imports neither JAX nor the JAX package), and the explicit device."""
 
 import importlib
 import inspect
@@ -198,6 +198,45 @@ def test_port_sources_never_import_the_jax_package():
     offenders = {str(path.relative_to(REPO)): match.group(0).strip()
                  for path in sources for match in [pattern.search(path.read_text())] if match}
     assert not offenders, offenders
+
+
+def test_sidecar_wav_matches_reference(tmp_path, monkeypatch):
+    """With no ffmpeg binary an .mp4 export encodes through CV2Sink and
+    writes the scene's audio beside it as <output>.wav: the port's
+    visualizer at 64x36 for 0.5 s, against the JAX package's writer
+    (shaderflow_tpu/exporting.py:228-255) on its own Visualizer with the
+    same asset and runtime: the same format and the same 16-bit samples."""
+    import wave
+
+    from shaderflow_tpu.exporting import ExportingHelper
+    from shaderflow_tpu.io.ffmpeg import FFmpeg as ReferenceFFmpeg
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+    for ffmpeg in (FFmpeg, ReferenceFFmpeg):
+        monkeypatch.setattr(ffmpeg, "binary", staticmethod(lambda: None))
+    port = _import_example("torch", "torch_demo").Visualizer()
+    output = tmp_path / "viz.mp4"
+    port.main(width=64, height=36, fps=10, time=0.5, ssaa=1, output=str(output), device="cpu")
+    assert output.stat().st_size > 0
+    assert port.runtime == 0.5
+
+    _fix_reference_texture(monkeypatch)
+    reference = _import_example("basic", "demo").Visualizer()
+    reference.initialize()
+    reference.set_duration(0.5)
+    helper = ExportingHelper(reference)
+    helper._write_sidecar_audio(tmp_path / "jax.mp4")
+    assert helper._sidecar_audio == tmp_path / "jax.mp4.wav"
+
+    def read(path):
+        with wave.open(str(path), "rb") as handle:
+            params = (handle.getnchannels(), handle.getsampwidth(), handle.getframerate())
+            return params, np.frombuffer(handle.readframes(handle.getnframes()), "<i2")
+
+    (params, got), (want_params, want) = read(tmp_path / "viz.mp4.wav"), read(
+        tmp_path / "jax.mp4.wav")
+    assert params == want_params == (2, 2, 44100)
+    assert got.size == want.size == 2 * int(0.5 * 44100) and np.abs(got).max() > 1000
+    np.testing.assert_array_equal(got, want)
 
 
 def test_cuda_without_card_raises():

@@ -8,7 +8,9 @@ against the JAX package's tools they replace:
   * T1, the bf16 op probe (tools/probe_bf16_ops.py): the port's plain ops
     against the reference's OPS on the same bf16 inputs;
   * T2, the f32-vs-bf16 chain (tools/bench_vpu_dtype.py): the port's plain
-    chain against make_kernel in interpret mode at a reduced size.
+    chain against make_kernel in interpret mode at a reduced size;
+  * the port's reader of ptxas reports and SASS (tools/sass.py), on
+    recorded text.
 
 The kernels themselves run on the card: tests/test_torch_cuda.py.
 """
@@ -215,6 +217,99 @@ def test_k1_counts_ops_once_at_their_rank():
     assert cost.kernel_bytes == (128 + 16 + 8) * 4 + 32 * 3
     planes = tailgen.kernel_cost(counts, inputs, (3, 8, 16), torch.bfloat16, 1, False)
     assert planes.alu == 128 * 4 + 16 * 2 + 8 * 1 + 1 and planes.sfu == 8
+
+
+# --------------------------------------------------------------------------- #
+# What the compiler made of a CUDA kernel (tools/sass.py), on recorded text
+
+SASS = """
+        Function : _Z13escape_kernelI6ApartCfEvT_PT0_iiiif
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;           /* 0x00000a00ff017b82 */
+                                                                    /* 0x000fe20000000800 */
+        /*0010*/                   LDG.E R2, desc[UR4][R2.64] ;
+        /*0020*/              @!P0 IADD3 R7, R7, 0x1, RZ ;
+        /*0030*/                   FADD R4, R2, R2 ;
+        /*0040*/                   FMUL R4, R4, R3 ;
+        /*0050*/                   FADD R3, R4, R9 ;
+        /*0060*/                   FADD R2, R5, -R6 ;
+        /*0070*/                   FADD R2, R2, R8 ;
+        /*0080*/                   FMUL R5, R2, R2 ;
+        /*0090*/                   FMUL R6, R3, R3 ;
+        /*00a0*/                   FADD R10, R5, R6 ;
+        /*00b0*/                   FSETP.GT.OR P0, PT, R10, R11, P0 ;
+        /*00c0*/              @!P0 IADD3 R7, R7, 0x1, RZ ;
+        /*00d0*/                   FADD R4, R2, R2 ;
+        /*00e0*/                   FMUL R4, R4, R3 ;
+        /*00f0*/                   FADD R3, R4, R9 ;
+        /*0100*/                   FADD R2, R5, -R6 ;
+        /*0110*/                   FADD R2, R2, R8 ;
+        /*0120*/                   FMUL R5, R2, R2 ;
+        /*0130*/                   FMUL R6, R3, R3 ;
+        /*0140*/                   FADD R10, R5, R6 ;
+        /*0150*/                   FSETP.GT.OR P0, PT, R10, R11, P0 ;
+        /*0160*/                   IADD3 R12, R12, -0x2, RZ ;
+        /*0170*/                   ISETP.GT.AND P1, PT, R12, 0x1, !P0 ;
+        /*0180*/               @P1 BRA 0x20 ;
+        /*0190*/                   FADD R4, R2, R2 ;
+        /*01a0*/                   FMUL R4, R4, R3 ;
+        /*01b0*/                   FADD R3, R4, R9 ;
+        /*01c0*/                   FADD R2, R5, -R6 ;
+        /*01d0*/                   FADD R2, R2, R8 ;
+        /*01e0*/                   FMUL R5, R2, R2 ;
+        /*01f0*/                   FMUL R6, R3, R3 ;
+        /*0200*/                   FADD R10, R5, R6 ;
+        /*0210*/                   FSETP.GT.AND P0, PT, R10, R11, PT ;
+        /*0220*/               @P2 BRA 0x190 ;
+        /*0230*/                   STG.E desc[UR4][R2.64], R7 ;
+        /*0240*/                   FADD R13, R1, R1 ;
+        /*0250*/              @!P3 BRA 0x230 ;
+        /*0260*/                   EXIT ;
+        /*0270*/                   BRA 0x270;
+        ..........
+
+        Function : _Z13escape_kernelI6ApartCiEvT_PT0_iiiif
+        /*0000*/                   EXIT ;
+"""
+
+PTXAS = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z13escape_kernelI6ApartCiEvT_PT0_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _Z13escape_kernelI6ApartCiEvT_PT0_iiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 18 registers, 424 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z13escape_kernelI6ApartCfEvT_PT0_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _Z13escape_kernelI6ApartCfEvT_PT0_iiiif
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 21 registers, 424 bytes cmem[0]
+"""
+
+
+def test_sass_hot_loop_instructions_per_step():
+    """The hot loop is the innermost backward branch that touches no memory
+    and holds the most float products and sums: the two-step body (23
+    instructions, 16 FADD/FMUL: 2 escape steps, 11.5 a step), not the
+    one-step remainder loop (9 instructions) nor the loop around a store;
+    the function is the one whose mangled name holds every part."""
+    from shaderflow_tpu_torch.tools import sass
+    figures = sass.step_figures(SASS, "escape_kernel", "6ApartCfE")
+    assert figures["function"] == "_Z13escape_kernelI6ApartCfEvT_PT0_iiiif"
+    assert (figures["loop_instructions"], figures["loop_steps"]) == (23, 2.0)
+    assert figures["instructions_per_step"] == 11.5
+    assert figures["ops"]["FSETP"] == 2 and figures["ops"]["BRA"] == 1
+    with pytest.raises(ValueError, match="2 functions match"):
+        sass.step_figures(SASS, "escape_kernel")
+    with pytest.raises(ValueError, match="no memory-free innermost loop"):
+        sass.step_figures(SASS, "6ApartCiE")
+
+
+def test_ptxas_registers_and_spills():
+    from shaderflow_tpu_torch.tools import sass
+    assert sass.ptxas_figures(PTXAS, "escape_kernel", "6ApartCfE") == {
+        "function": "_Z13escape_kernelI6ApartCfEvT_PT0_iiiif", "n_regs": 21,
+        "spill_stores": 4, "spill_loads": 8}
+    assert sass.ptxas_figures(PTXAS, "6ApartCiE")["n_regs"] == 18
+    with pytest.raises(ValueError, match="0 functions match"):
+        sass.ptxas_figures(PTXAS, "6LinesC")
 
 
 # --------------------------------------------------------------------------- #

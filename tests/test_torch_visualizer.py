@@ -172,6 +172,61 @@ def test_frames_with_reference_state_match_jax(runs):
     assert max_diff <= 1 and share < 0.02, (max_diff, share)
 
 
+def oracle_psnr(monkeypatch, tmp_path, env: dict) -> list[float]:
+    """The port's visualizer at 320x180 (ssaa=1, subsample=1, 3 frames at
+    10 fps) under `env`, each frame's PSNR against the pointwise GLSL
+    transcription (tools/gl_oracle.py:254), the JAX gate's configuration
+    (tests/test_psnr_reference.py:153-206), which needs a frame with live
+    audio."""
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import gl_oracle
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    demo = _import_example("torch", "torch_demo")
+    width, height = 320, 180
+    scene = demo.Visualizer()
+    output = tmp_path / "visualizer.rgb"
+    scene.main(width=width, height=height, fps=10, time=0.3, ssaa=1, subsample=1,
+               output=str(output), device="cpu")
+    frames = np.fromfile(output, np.uint8).reshape(-1, height, width, 3)
+    engine = scene.engine
+    uniforms = [{**engine._statics, **snapshot} for snapshot in engine._frame_uniforms]
+    assert len(uniforms) == len(frames) == 3
+    assert any(float(np.asarray(u["iAudioVolume"])) > 0.1 for u in uniforms)
+    background = engine._static_tex["background"].numpy()[0, 0][::-1]
+    sequences = engine.bound_sequences()
+    spectrogram = sequences["iSpectrogram"].numpy()
+    waveform = sequences["iWaveform"].numpy()
+    values = []
+    for uniform in uniforms:
+        uniform = {name: np.asarray(value) for name, value in uniform.items()}
+        k = int(uniform["iFrameIndex"])
+        textures = dict(background=background,
+                        spectrogram=spectrogram[min(k, len(spectrogram) - 1)][:, 0, :][::-1],
+                        waveform=waveform[min(k, len(waveform) - 1)][0])
+        oracle = gl_oracle.render_scene(
+            lambda u, w, h, a: gl_oracle.visualizer_fragment(u, w, h, a, textures),
+            uniform, *scene.render_resolution, width, height, 1, scene.aspect_ratio)
+        values.append(gl_oracle.psnr(frames[len(values)], oracle))
+    return values
+
+
+@pytest.mark.parametrize("level,bar", [(4, 40.0), (1, 50.0)])
+def test_f32_visualizer_psnr_against_oracle(monkeypatch, tmp_path, level, bar):
+    """The f32 visualizer (the default tail) at blur levels 4 and 1 against
+    the GL oracle, at the JAX gate's bars (test_visualizer_psnr[4-40.0-False]
+    and [1-50.0-False]): level 4 is the radial blur's pyramid
+    approximation, level 1 the GLSL-exact 80-tap loop up to the splat's
+    reconstruction. `-s` prints each frame's dB."""
+    values = oracle_psnr(monkeypatch, tmp_path, {"SHADERFLOW_VIZ_BLUR_LEVEL": str(level)})
+    for index, value in enumerate(values):
+        print(f"visualizer f32 level {level} frame {index}: {value:.2f} dB against the oracle")
+        assert value >= bar, f"frame {index}: PSNR {value:.1f} dB < {bar}"
+
+
 def test_independent_frames_match_jax(runs):
     """(d) Fully independent runs (the port's own audio precompute, bar
     field and static fields): PSNR >= 40 dB against the JAX frames, the
