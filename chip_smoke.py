@@ -68,6 +68,20 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      at most 1 on < 1 % of values; and each against the tail run eagerly
      on tensors (no tracer) within tailfuse.EAGER_BF16_BAR
  23. an output="null" export of the bf16 level-1 visualizer: frames/s
+  The offline example scenes (SCENE_PATHS: Basic 512x288@30 5 s; MusicBars
+  and Waveform 1280x720@30 2 s of the asset; RayMarch 1920x1080@60 2 s;
+  Tetration 1920x1080@60 2x SSAA 2 s; Dynamics, MultiShader, Multipass,
+  MotionBlur and Life 1920x1080@60 1 s)
+ 24. each scene through main(...) to a .rgb file: file size, non-constant
+     frames, launch counters (K1 (a) == frames for Tetration, every kernel
+     0 elsewhere: the plain final pass), one frame checked within 1 u8 step
+     (recomputed through the plain functions; MultiShader, Multipass,
+     MotionBlur and Life against the same scene run with device="cpu" up to
+     that frame); then an output="null" export: frames/s, and the device
+     ms, kernels and copies and host ms of one frame (engine.render_frame)
+     with the busy share they imply
+ 25. K1 (a) vs its plain version on Tetration's tail spec of frame 0 at
+     3840x2160 -> 1920x1080, s = 2: at most 1 u8 step, on < 1 % of values
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
 events, averaged over repeated calls; `call_ms` is the median of CUDA
@@ -138,6 +152,12 @@ def device_ms(fn, repeats: int = 20) -> float:
     rounded; a stray record rounds to none). A process's first profile can
     come back empty: a profile that records nothing is taken again, twice
     at most."""
+    return device_profile(fn, repeats)[0]
+
+
+def device_profile(fn, repeats: int = 20) -> tuple[float, int]:
+    """device_ms's measurement -> (device ms of one call, the kernels and
+    copies it launched: the records of each name over `repeats`, rounded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -155,7 +175,8 @@ def device_ms(fn, repeats: int = 20) -> float:
         total = sum(statistics.mean(times) * round(len(times) / repeats)
                     for times in durations.values())
         if total > 0:
-            return total / 1e3
+            return total / 1e3, sum(round(len(times) / repeats)
+                                    for times in durations.values())
     raise AssertionError(f"torch.profiler recorded no device time for {repeats} calls")
 
 
@@ -287,9 +308,144 @@ def fractal_plain_frame(scene, index: int, render_h: int, render_w: int):
     return frame, operands, quality
 
 
+# The offline example scenes (examples/torch/torch_demo.py, torch_fractals.py)
+# at the sizes of their configurations: class name, example module, width,
+# height, fps, seconds, ssaa. MultiShader, Multipass, MotionBlur and Life
+# (programs, layers and temporal rings: the engine's program loop) are
+# checked against the same scene run with device="cpu"; the others against
+# one frame recomputed through the plain functions.
+SCENE_PATHS = (
+    ("Basic", "torch_demo", 512, 288, 30, 5.0, 1),
+    ("MusicBars", "torch_demo", 1280, 720, 30, 2.0, 1),
+    ("Waveform", "torch_demo", 1280, 720, 30, 2.0, 1),
+    ("RayMarch", "torch_demo", 1920, 1080, 60, 2.0, 1),
+    ("Tetration", "torch_fractals", 1920, 1080, 60, 2.0, 2),
+    ("Dynamics", "torch_demo", 1920, 1080, 60, 1.0, 1),
+    ("MultiShader", "torch_demo", 1920, 1080, 60, 1.0, 1),
+    ("Multipass", "torch_demo", 1920, 1080, 60, 1.0, 1),
+    ("MotionBlur", "torch_demo", 1920, 1080, 60, 1.0, 1),
+    ("Life", "torch_demo", 1920, 1080, 60, 1.0, 1),
+)
+CPU_CHECKED = ("MultiShader", "Multipass", "MotionBlur", "Life")
+# The temporal scenes are compared on this frame (past MotionBlur's 10-deep
+# ring and Life's second simulation step), the CPU run rendering frames 0..it
+TEMPORAL_CHECK_FRAME = 12
+
+
+def plain_scene_frame(scene, index: int, height: int, width: int):
+    """Recompute frame `index` of a one-program scene's last batch with the
+    plain functions only: its fragment on the frame's uniforms and
+    textures, then the tail's plain version (tail_plain) or the plain final
+    pass."""
+    from shaderflow_tpu_torch.ops import tailfuse
+    from shaderflow_tpu_torch.ops.downsample import final_pass
+    out = scene.shader.fragment(frame_inputs(scene, index))
+    render_h, render_w = scene.engine._render_size
+    if isinstance(out, tailfuse.TailSpec):
+        return tailfuse.tail_plain(out, render_h, render_w, height, width, scene.subsample,
+                                   scene.aspect_ratio)
+    return final_pass(out, height, width, int(scene.subsample))
+
+
+def scene_path(cls, width: int, height: int, fps: int, seconds: float, ssaa: int,
+               counters, card: str) -> dict:
+    """One offline example scene through main(..., device="cuda"): a .rgb
+    export with its file size, non-constant frames and kernel launch
+    counters (K1 (a) once a frame for Tetration, no kernel elsewhere), its
+    one-frame check (plain functions, or device="cpu" for the scenes of
+    CPU_CHECKED), then a null export's fps, and the device ms, kernels and
+    copies a frame (device_profile of one engine.render_frame of that
+    export's last batch) and the busy share they imply."""
+    import numpy as np
+    import torch
+    zero_counters, read_counters = counters
+    name = cls.__name__
+    frames = round(seconds * fps)
+    options = dict(width=width, height=height, fps=fps, ssaa=ssaa, time=seconds)
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / f"{name}.rgb"
+        scene = cls()
+        zero_counters()
+        started = time.perf_counter()
+        scene.main(output=str(output), device="cuda", **options)
+        export_s = time.perf_counter() - started
+        launches = read_counters()
+        expected = {key: 0 for key in launches}
+        if name == "Tetration":
+            expected["k1"] = frames
+        if launches != expected:
+            raise AssertionError(f"{name} launch counters {launches}, expected {expected}")
+        check_export(output, frames, output.name, height, width, other=-1)
+        # the checked frame: the middle one of the last batch (whose
+        # captures the plain recompute reads), or TEMPORAL_CHECK_FRAME
+        temporal = any(getattr(module, "texture", None) is not None
+                       and module.texture.temporal > 1 for module in scene.modules)
+        batch = len(scene.engine.frame_indices())
+        check = TEMPORAL_CHECK_FRAME if temporal else frames - batch + batch // 2
+        exported = np.fromfile(output, np.uint8, count=height * width * 3,
+                               offset=check * height * width * 3).reshape(height, width, 3)
+        if name in CPU_CHECKED:
+            reference = Path(tmp) / "cpu.rgb"
+            # a stateless scene replays host state up to the frame (start=)
+            cls().main(output=str(reference), device="cpu",
+                       **{**options, "time": (check + 1) / fps,
+                          "start": 0.0 if temporal else check / fps})
+            want = np.fromfile(reference, np.uint8).reshape(-1, height, width, 3)[-1]
+            how = "device=cpu"
+        else:
+            want = plain_scene_frame(scene, check - (frames - batch), height,
+                                     width).cpu().numpy()
+            how = "plain functions"
+        frame_err, frame_share = u8_diff(exported, want)
+        if frame_err > 1:
+            raise AssertionError(f"{name} frame {check} vs {how}: max {frame_err} u8 steps "
+                                 f"on {frame_share:.4%}")
+        say(f"{name.lower()}_slice", size=f"{width}x{height}", fps=fps, ssaa=ssaa,
+            frames=frames, bytes=output.stat().st_size, seconds=f"{export_s:.3f}",
+            launches=launches,
+            frame_checked=check, checked_against=repr(how), max_u8_diff=frame_err,
+            differing_share=f"{frame_share:.3e}")
+        del exported, want
+
+    scene = cls()
+    started = time.perf_counter()
+    scene.main(output="null", device="cuda", **options)
+    null_s = time.perf_counter() - started
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    indices = engine.frame_indices()
+    last = len(indices) - 1
+    row = torch.from_numpy(packed[last]).to("cuda")
+    per_batch, invariant = engine._run_preludes(indices)
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device="cuda")
+
+    def render():
+        engine.render_frame(row, spec, last, indices[last], per_batch, invariant, out)
+
+    frame_ms, frame_launches = device_profile(render, 3)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(3):
+        render()
+    host_ms = (time.perf_counter() - started) / 3 * 1e3
+    torch.cuda.synchronize()
+    result = dict(frames=frames, seconds=null_s, fps=frames / null_s,
+                  device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                  host_ms_per_frame=host_ms, busy=frames * frame_ms / 1e3 / null_s,
+                  launches=launches, max_u8_diff=frame_err)
+    say(f"{name.lower()}_timing",
+        config=f"{name} {width}x{height} {fps}fps ssaa={ssaa} {seconds:g}s null",
+        frames=frames, seconds=f"{null_s:.4f}", fps=f"{result['fps']:.3f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        host_ms_per_frame=f"{host_ms:.4f}", busy=f"{result['busy']:.4f}", card=repr(card))
+    return result
+
+
 def check_export(output: Path, frames: int, name: str, height: int = HEIGHT,
-                 width: int = WIDTH):
-    """File size and two non-constant frames of a .rgb export."""
+                 width: int = WIDTH, other: int = 0):
+    """File size and two non-constant frames of a .rgb export: the middle
+    one and frame `other` (a scene whose first frame is silent takes the
+    last)."""
     import numpy as np
     frame_bytes = height * width * 3
     if output.stat().st_size != frames * frame_bytes:
@@ -298,7 +454,8 @@ def check_export(output: Path, frames: int, name: str, height: int = HEIGHT,
     check = frames // 2
     exported = np.fromfile(output, np.uint8, count=frame_bytes,
                            offset=check * frame_bytes).reshape(height, width, 3)
-    first = np.fromfile(output, np.uint8, count=frame_bytes).reshape(height, width, 3)
+    first = np.fromfile(output, np.uint8, count=frame_bytes,
+                        offset=(other % frames) * frame_bytes).reshape(height, width, 3)
     if exported.std() == 0 or first.std() == 0:
         raise AssertionError(f"{name}: constant exported frame")
     return check, exported
@@ -876,6 +1033,45 @@ def main() -> int:
         config="Visualizer 1920x1080 60fps 2xSSAA 2s null, bf16 tail, blur level 1",
         frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}", card=repr(card))
 
+    # 24. The offline example scenes (configs 1, 2 and 4, Tetration, and the
+    # engine's program loop), each its own path: counters zeroed before it
+    # runs and read after; back to the default f32 tail and blur level
+    for variable in ("SHADERFLOW_TAIL_BF16", "SHADERFLOW_VIZ_BLUR_LEVEL"):
+        os.environ.pop(variable, None)
+    import importlib
+    scenes = {}
+    for name, module, width, height, fps, seconds, ssaa in SCENE_PATHS:
+        cls = getattr(importlib.import_module(module), name)
+        scenes[name] = scene_path(cls, width, height, fps, seconds, ssaa,
+                                  (zero_counters, read_counters), card)
+        if name == "Tetration":
+            tetration = cls()
+            tetration.main(width=width, height=height, fps=fps, ssaa=ssaa, time=2 / fps,
+                           output="null", device="cuda")
+            tetration_spec = tetration.shader.fragment(frame_inputs(tetration, 0))
+
+    # 25. K1 (a) vs plain on Tetration's tail spec of frame 0 at 3840x2160 ->
+    # 1920x1080, s = 2 (its hue pick: remainder, floor, abs, where, atan2)
+    tetra_args = (tetration_spec, render_h, render_w, HEIGHT, WIDTH, SSAA, aspect)
+    frame = tailfuse.fused_tail_final(*tetra_args)
+    k1t_err, k1t_share = u8_diff(frame.cpu(), tailfuse.tail_plain(*tetra_args).cpu())
+    if k1t_err > 1 or k1t_share >= 0.01:
+        raise AssertionError(f"K1 (a) on Tetration's tail vs plain: max {k1t_err} u8 steps "
+                             f"on {k1t_share:.4%}")
+    launch = tailgen.prepare(*tetra_args, device)
+    k1t_ms = device_ms(lambda: launch(k1_out))
+    k1t_call_ms = median_ms(lambda: launch(k1_out), 20)
+    k1t_plain_ms = device_ms(lambda: tailfuse.tail_plain(*tetra_args), 5)
+    k1t_bound_ms, k1t_bound_by = walked_bound(lambda: launch(k1_out))
+    k1t_compiled = k1_figures(launch)
+    say("k1a_tetration", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+        frame=0, max_u8_diff=k1t_err, differing_share=f"{k1t_share:.3e}",
+        ms=f"{k1t_ms:.4f}", call_ms=f"{k1t_call_ms:.4f}", plain_ms=f"{k1t_plain_ms:.4f}",
+        bound_ms=f"{k1t_bound_ms:.4f}", bound_by=k1t_bound_by,
+        launches=scenes["Tetration"]["launches"]["k1"], **k1t_compiled)
+    del frame, tetration_spec
+    print(json.dumps({"scenes": scenes}))
+
     julia = plane_slices["julia"]
     kernels = [
         {"name": "K1 (a) fused tail + 2x2 pool + u8 quantize (Mandelbrot tail: planes, cols)",
@@ -885,7 +1081,11 @@ def main() -> int:
          "ms": k1_ms, "call_ms": k1_call_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": None, **k1_compiled,
          "bf16_ms": k1ha_ms, "bf16_call_ms": k1ha_call_ms, "bf16_bound_ms": k1ha_bound_ms,
-         "bf16_compiled": k1ha_compiled},
+         "bf16_compiled": k1ha_compiled,
+         "tetration": {"launches": scenes["Tetration"]["launches"]["k1"],
+                       "max_abs_err": k1t_err, "ms": k1t_ms, "call_ms": k1t_call_ms,
+                       "plain_ms": k1t_plain_ms, "bound_ms": k1t_bound_ms,
+                       "bound_by": k1t_bound_by, **k1t_compiled}},
         {"name": "K1 (b)+(c) fused tail with Indexed and ColSampled inputs (visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",

@@ -1,16 +1,25 @@
 """
-The music visualizer on the PyTorch port (shaderflow_tpu_torch).
+The demo scenes on the PyTorch port (shaderflow_tpu_torch).
 
-Port of examples/basic/demo.py's Visualizer (radial bars over a blurred,
-breathing background, waveform overlays, vignette and snare blink), its
-offline form: the audio file's spectrogram and waveform are precomputed
+Ports of examples/basic/demo.py: Basic (the built-in welcome program) and
+ShaderToy (config 1), Waveform and MusicBars (config 2, over the offline
+audio sequences), RayMarch (config 4: 100 masked march steps over a
+six-box SDF union from the camera's rays), Dynamics (a spring-smoothed
+zoom), MultiShader and Multipass (programs and layers sampling each
+other), MotionBlur and Life (temporal rings), each in plain PyTorch with
+the reference's operation order; and the Visualizer below.
+
+    python examples/torch/torch_demo.py [Scene] [width height fps seconds ssaa]
+                                      # default: Visualizer 1920 1080 60 2 2, to null
+
+The Visualizer is examples/basic/demo.py's music visualizer (radial bars
+over a blurred, breathing background, waveform overlays, vignette and
+snare blink) in its offline form: the audio file's spectrogram and waveform are precomputed
 as device sequences, the bar field of the whole batch is one table expand
 (kernel K2, ops/sampling.py) in a batch prelude, the frame-invariant
 per-pixel fields are a cached batch-invariant prelude, and everything per
 pixel after the background rows runs in the fused tail (kernel K1,
 ops/tailfuse.py) with the background and blur columns sampled inside it.
-
-    python examples/torch/torch_demo.py        # 1080p60 2xSSAA, 2 s, to null
 
 Two environment variables select what the reference grades, read where
 the reference reads them: SHADERFLOW_VIZ_BLUR_LEVEL (the pyramid level of
@@ -31,15 +40,20 @@ import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent.parent))
 
+from shaderflow_tpu_torch.dynamics import ShaderDynamics  # noqa: E402
 from shaderflow_tpu_torch.message import ShaderMessage  # noqa: E402
 from shaderflow_tpu_torch.ops import TAU, PI, tailfuse  # noqa: E402
+from shaderflow_tpu_torch.ops import stdlib as sl  # noqa: E402
 from shaderflow_tpu_torch.ops.stdlib import reciprocal  # noqa: E402
 from shaderflow_tpu_torch.scene import ShaderScene  # noqa: E402
+from shaderflow_tpu_torch.shader import ShaderProgram  # noqa: E402
 from shaderflow_tpu_torch.texture import ShaderTexture  # noqa: E402
+from shaderflow_tpu_torch.variable import Uniform  # noqa: E402
 
 ASSETS = Path(__file__).resolve().parent.parent / "assets"
 MUSIC = ASSETS / "music.wav"
@@ -328,8 +342,355 @@ class Visualizer(ShaderScene):
             self.back.from_image(message.first)
 
 
-SCENES = [Visualizer]
+# ---------------------------------------------------------------------------- #
+# Config 1: the built-in welcome program and the ShaderToy default
+
+class Basic(ShaderScene):
+    """Simplest ShaderScene (default neon-ring shader)"""
+
+
+def shadertoy_frag(sf):
+    """The ShaderToy default: cosine rainbow (shadertoy.frag)."""
+    uv = sf.stuv
+    phase = sf.iTime + torch.stack([uv[..., 0], uv[..., 1], uv[..., 0]], dim=-1)
+    # (0, 2, 4) filled on the device: no host copy in the frame loop
+    col = 0.5 + 0.5 * torch.cos(phase + torch.arange(3, dtype=torch.float32,
+                                                     device=sf.device) * 2.0)
+    return sl.vec4(col, 1.0)
+
+
+class ShaderToy(ShaderScene):
+    """ShaderToy Default Shader"""
+
+    def build(self):
+        self.shader.fragment = shadertoy_frag
+
+
+# ---------------------------------------------------------------------------- #
+# Programs and layers
+
+def child_frag(sf):
+    # Left screen green fading out; composited over a red ramp
+    return sl.vec4(0.0, 1.0 - sf.stuv[..., 0], 0.0, 1.0)
+
+
+def multishader_frag(sf):
+    color = sl.vec4(sf.stuv[..., 0], 0.0, 0.0, 1.0)
+    color = color + sl.with_alpha(sf.texture("child", sf.astuv), 0.0)
+    return sl.with_alpha(color, 1.0)
+
+
+class MultiShader(ShaderScene):
+    """Basic scene with two shaders acting together"""
+
+    def build(self):
+        self.child = ShaderProgram(scene=self, name="child")
+        self.child.fragment = child_frag
+        self.shader.fragment = multishader_frag
+
+
+_BLUR_KERNELS: dict = {}
+
+
+def _blur(sf, tex, radius: float, directions: int, steps: int):
+    """Walk in circles around the pixel and integrate weighted samples
+    (multipass.frag blur()): the constant tap pattern is one texture-space
+    kernel and a convolution (the sample coordinate is astuv itself, so no
+    resample is needed). The kernel depends on the texture's size only and
+    is built once per size and device."""
+    from shaderflow_tpu_torch.ops.sampling import convolve2d, splat_kernel
+    key = (radius, directions, steps, tex.width, tex.height, str(tex.data.device))
+    if key not in _BLUR_KERNELS:
+        taps, weights = [], []
+        for d in range(directions):
+            direction = TAU * d / directions
+            for s in range(1, steps):
+                walk = s / steps
+                offset_uv = (radius * walk / 2000.0)
+                taps.append((math.cos(direction) * offset_uv * tex.width,
+                             -math.sin(direction) * offset_uv * tex.height))
+                weights.append(1.0 - offset_uv / radius)
+        kernel = splat_kernel(torch.tensor(taps, dtype=torch.float32), size=13,
+                              weights=torch.tensor(weights, dtype=torch.float32))
+        _BLUR_KERNELS[key] = (kernel.to(tex.data.device), sum(weights))
+    kernel, total = _BLUR_KERNELS[key]
+    return convolve2d(tex.data, kernel) * reciprocal(total)
+
+
+def multipass_frag(sf):
+    if sf.iLayer == 0:
+        return sf.stexture("background", sf.stuv)
+    color = sf.texture(sf.tex("iScreen", 0, 0), sf.astuv)
+    inverted = sl.with_rgb(color, torch.stack(
+        [1.0 - color[..., 0], color[..., 1], color[..., 2]], dim=-1))
+    blurred = _blur(sf, sf.tex("iScreen", 0, 0), 5.0, 8, 8)
+    out = torch.where(sf.gluv[..., 0:1] < 0, inverted, blurred)
+    return sl.with_alpha(out, 1.0)
+
+
+class Multipass(ShaderScene):
+    """Multi layers done on a single shader"""
+
+    def build(self):
+        ShaderTexture(scene=self, name="background").from_image(BACKGROUND)
+        self.shader.texture.layers = 2
+        self.shader.fragment = multipass_frag
+
+
+MOTION_BLUR_TEMPORAL = 10
+
+
+def motionblur_frag(sf):
+    cam = sf.camera
+    uv = cam.stuv
+    if sf.iLayer == 0:
+        return sf.stexture("background", uv)
+    color = None
+    for i in range(MOTION_BLUR_TEMPORAL):
+        # smoothstep on python constants, kept out of the trace
+        t = 1.0 - i / MOTION_BLUR_TEMPORAL
+        factor = t * t * (3.0 - 2.0 * t)
+        term = sf.texture(sf.tex("iScreen", i, 0), sf.astuv) * factor
+        color = term if color is None else color + term   # 0 + x == x
+    return sl.with_alpha(sl.scaled_quotient(color, 2.0, MOTION_BLUR_TEMPORAL), 1.0)
+
+
+class MotionBlur(ShaderScene):
+    """Poor man's Motion Blur (temporal texture ring average)"""
+
+    def build(self):
+        ShaderTexture(scene=self, name="background").from_image(BACKGROUND)
+        self.shader.texture.temporal = MOTION_BLUR_TEMPORAL
+        self.shader.texture.layers = 2
+        self.shader.fragment = motionblur_frag
+
+
+def dynamics_frag(sf):
+    anchor = torch.full((2,), 0.5, dtype=torch.float32, device=sf.device)
+    return sf.stexture("background", sl.zoom(sf.stuv, 0.85 + 0.1 * sf.iShaderDynamics, anchor))
+
+
+class Dynamics(ShaderScene):
+    """Second order system springing a zoom on a square wave"""
+
+    def build(self):
+        ShaderTexture(scene=self, name="background").from_image(BACKGROUND)
+        self.dynamics = ShaderDynamics(scene=self, name="iShaderDynamics", frequency=4)
+        self.shader.fragment = dynamics_frag
+
+    def update(self):
+        # This is how square waves are born in the digital world
+        self.dynamics.target = 0.5 * (1 + np.sign(np.sin(2 * math.pi * self.time * 0.5)))
+
+
+# ---------------------------------------------------------------------------- #
+# Config 2: the waveform and the music bars
+
+def waveform_frag(sf):
+    """Oscilloscope bars (waveform.frag): the waveform sampled at v = 0
+    along x, three thresholds on |gluv.y|."""
+    from shaderflow_tpu_torch.ops.sampling import sample_separable
+    u_line, _ = sf.lines
+    row = sample_separable(sf.tex("iWaveform"), u_line,
+                           torch.zeros(1, device=sf.device))          # (1, W', C)
+    wave = row[0][None, :, 0:2]
+    ay = torch.abs(sf.gluv[..., 1])
+    r = torch.where(ay < wave[..., 0], 1.0, 0.2)
+    g = torch.where(ay < wave[..., 1], 1.0, 0.2)
+    b = torch.where(ay < (wave[..., 0] + wave[..., 1]) / 2, 1.0, 0.2)
+    return sl.vec4(r, g, b, 1.0)
+
+
+class Waveform(ShaderScene):
+    """Audio Waveform Oscilloscope demo"""
+    audio_file = None
+
+    def build(self):
+        from shaderflow_tpu_torch.audio import ShaderAudio
+        from shaderflow_tpu_torch.audio.waveform import ShaderWaveform
+        self.audio = ShaderAudio(scene=self, name="iAudio", file=self.audio_file or MUSIC)
+        self.waveform = ShaderWaveform(scene=self, audio=self.audio, smooth=False)
+        self.shader.fragment = waveform_frag
+
+
+def bars_frag(sf):
+    """Two-channel frequency bars (bars.frag). The swizzled sample at
+    astuv.yx hits a single-column texture (length=0), so the lookup is a 1D
+    line over x. The reference's .at[..., k].add updates on zeros are plain
+    sums in the same order."""
+    from shaderflow_tpu_torch.ops.sampling import sample_separable
+    u_line, _ = sf.lines
+    line = sample_separable(sf.tex("iSpectrogram"),
+                            torch.full((1,), 0.5, device=sf.device), u_line)  # (W', 1, C)
+    intensity = torch.sqrt(line[:, 0, 0:2])[None, :, :] * reciprocal(120.0)  # (1, W', 2)
+    ay = sf.astuv[..., 1]
+    zero = torch.zeros_like(ay)
+    r = zero + torch.where(ay < intensity[..., 0], 1.0, 0.0)
+    g = zero + torch.where(ay < intensity[..., 1], 1.0, 0.0)
+    b = zero + torch.where(ay < (intensity[..., 0] + intensity[..., 1]) / 2, 1.0, 0.0)
+    b = b + 0.4 * (intensity[..., 0] + intensity[..., 1]) * (1.0 - ay)
+    return sl.vec4(torch.stack([r, g, b], dim=-1), 1.0)
+
+
+class MusicBars(ShaderScene):
+    """Basic music bars"""
+    audio_file = None
+
+    def build(self):
+        from shaderflow_tpu_torch.audio import ShaderAudio
+        from shaderflow_tpu_torch.audio.spectrogram import ShaderSpectrogram
+        from shaderflow_tpu_torch.piano import PianoNote
+        self.audio = ShaderAudio(scene=self, name="iAudio", file=self.audio_file or MUSIC)
+        self.spectrogram = ShaderSpectrogram(scene=self, audio=self.audio, length=0)
+        self.spectrogram.from_notes(
+            start=PianoNote.from_frequency(20.0),
+            end=PianoNote.from_frequency(18000.0),
+            piano=True,
+        )
+        self.shader.fragment = bars_frag
+
+
+# ---------------------------------------------------------------------------- #
+# Config 4: the ray marcher
+
+RAYMARCH_STEPS, RAYMARCH_MAX_DIST, RAYMARCH_MIN_DIST = 100, 100.0, 0.001
+
+
+def raymarch_frag(sf):
+    """Stacked boxes ray marcher (raymarch.frag): RAYMARCH_STEPS fixed,
+    masked steps, no host sync and no early exit. The boxes are
+    sd_box(point, (0, 0, i), vec3(i - 1)) for i in 2..7, written on the
+    point's component planes (the box centers' x and y are 0, so |p - c|
+    is |p| there); the scene distance is their union with 2 * MAX_DIST.
+    GLSL break semantics: the breaking step's walk is added to `traveled`,
+    but the step is not counted (break skips the loop's increment)."""
+    cam = sf.camera
+    origin = cam.origin
+    forward = sl.normalize(cam.target - origin)
+    ox, oy, oz = origin[..., 0], origin[..., 1], origin[..., 2]
+    fx, fy, fz = forward[..., 0], forward[..., 1], forward[..., 2]
+
+    traveled = torch.zeros_like(ox)
+    steps = torch.zeros(ox.shape, dtype=torch.int32, device=ox.device)
+    done = torch.zeros(ox.shape, dtype=torch.bool, device=ox.device)
+    for _ in range(RAYMARCH_STEPS):
+        px, py, pz = ox + fx * traveled, oy + fy * traveled, oz + fz * traveled
+        ax, ay = torch.abs(px), torch.abs(py)
+        walk = torch.full_like(px, 2 * RAYMARCH_MAX_DIST)
+        for i in range(2, 8):
+            half = (i - 1) / 2.0
+            dx, dy, dz = ax - half, ay - half, torch.abs(pz - float(i)) - half
+            inner = torch.clamp(torch.maximum(torch.maximum(dx, dy), dz), max=0.0)
+            ex, ey, ez = (torch.clamp(d, min=0.0) for d in (dx, dy, dz))
+            walk = torch.minimum(walk, inner + torch.sqrt(ex * ex + ey * ey + ez * ez))
+        active = ~done
+        traveled = traveled + torch.where(active, walk, 0.0)
+        breaking = (walk < RAYMARCH_MIN_DIST) | (walk > RAYMARCH_MAX_DIST)
+        steps = steps + (active & ~breaking).to(torch.int32)
+        done = done | breaking
+
+    col = 1.0 - torch.sqrt(steps.to(torch.float32)) * 0.1
+    return sl.vec4(col, col, col, 1.0)
+
+
+class RayMarch(ShaderScene):
+    """Ray Marching demo"""
+
+    def build(self):
+        self.shader.fragment = raymarch_frag
+
+
+# ---------------------------------------------------------------------------- #
+# Conway's Life: a simulation program with a 10-deep temporal ring
+
+def life_simulation_frag(sf):
+    """Conway's Game of Life step (life/simulation.glsl): 3x3 neighborhood
+    from the previous frame (temporal slot 1), gated to every iLifePeriod
+    frames."""
+    size = sf.uniform("iLifeSize")
+    previous = sf.tex("iLife", 1, 0)
+    pixel = (sf.astuv * size).to(torch.int32)
+
+    near = torch.zeros(pixel.shape[:-1], dtype=torch.int32, device=pixel.device)
+    current = near
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            offset = torch.stack([pixel[..., 0] + dx, pixel[..., 1] + dy], dim=-1)
+            cell = (sf.texel_fetch(previous, offset)[..., 0] > 0.5).to(torch.int32)
+            if dx == 0 and dy == 0:
+                current = cell
+            else:
+                near = near + cell
+
+    # Survival: 2-3 neighbors; birth: exactly 3
+    alive = torch.where(current == 1, (near == 2) | (near == 3), near == 3)
+    stepped = alive.to(torch.float32)
+
+    hold = sf.texture(previous, sf.astuv)[..., 0]
+    out = torch.where(torch.remainder(sf.iFrame, sf.uniform("iLifePeriod")) != 0,
+                      hold, stepped)
+    return out[..., None]
+
+
+LIFE_COLORS = (sl.PALETTE_MAGMA_1, sl.PALETTE_MAGMA_2, sl.PALETTE_MAGMA_3,
+               sl.PALETTE_MAGMA_4)
+_LIFE_PALETTES: dict = {}
+
+
+def life_visuals_frag(sf):
+    """Temporal integration of the simulation states (life/visuals.glsl)."""
+    cam = sf.camera
+    uv = cam.stuv
+    if sf.device not in _LIFE_PALETTES:   # the stops uploaded once per device
+        _LIFE_PALETTES[sf.device] = [c.to(sf.device) for c in LIFE_COLORS]
+    colors = _LIFE_PALETTES[sf.device]
+
+    exponent = 1.3
+    area = 1 / (exponent + 1)
+    life = sf.stexture(sf.tex("iLife", 0, 0), uv)[..., 0]
+    for i, factor in enumerate((0.8, 0.6, 0.4, 0.2), start=1):
+        life = life + (sf.stexture(sf.tex("iLife", i, 0), uv)[..., 0]
+                       * (factor ** exponent))
+    life = life * reciprocal(5 * area)
+
+    rgb = sl.palette(life, *colors)
+    rgb = torch.where(cam.out_of_bounds[..., None], colors[0], rgb)
+    return sl.vec4(rgb, 1.0)
+
+
+class Life(ShaderScene):
+    """Conway's Game of Life"""
+
+    life_period: int = 6
+
+    def setup(self):
+        width, height = 192, 108
+        random = np.random.default_rng(0).integers(0, 2, (height, width)).astype(np.float32)
+        self.simulation.texture.size = (width, height)
+        self.simulation.texture.write(random, temporal=1)
+
+    def build(self):
+        self.simulation = ShaderProgram(scene=self, name="iLife")
+        self.simulation.texture.temporal = 10
+        self.simulation.texture.filter = "nearest"
+        self.simulation.texture.dtype = "f4"
+        self.simulation.texture.components = 1
+        self.simulation.texture.track = False
+        self.simulation.fragment = life_simulation_frag
+        self.shader.fragment = life_visuals_frag
+
+    def pipeline(self):
+        yield from ShaderScene.pipeline(self)
+        yield Uniform("int", "iLifePeriod", self.life_period)
+
+
+SCENES = [Basic, ShaderToy, MultiShader, Multipass, MotionBlur, Dynamics, Waveform,
+          MusicBars, Visualizer, RayMarch, Life]
 
 if __name__ == "__main__":
-    Visualizer().main(width=1920, height=1080, fps=60, ssaa=2, time=2,
-                      output="null")
+    scene = {cls.__name__: cls for cls in SCENES}[sys.argv[1] if len(sys.argv) > 1
+                                                   else "Visualizer"]
+    width, height, fps, seconds, ssaa = (
+        float(value) for value in (sys.argv[2:7] or (1920, 1080, 60, 2, 2)))
+    scene().main(width=int(width), height=int(height), fps=fps, ssaa=ssaa, time=seconds,
+                 output="null")

@@ -2,15 +2,16 @@
 Fractal scenes on the PyTorch port (shaderflow_tpu_torch).
 
 Port of examples/fractals/fractals.py: Mandelbrot, the escape-time loop
-bounded by the scene quality (a static uniform), magma palette; and Julia,
+bounded by the scene quality (a static uniform), magma palette; Julia,
 the same loop from z0 = pixel with a c that orbits with time, hue-wheel
-palette. With the default (trivial) 2D camera Mandelbrot's escape counts
+palette; and Tetration, z <- c^z for 67 steps in plain PyTorch, frozen at
+the first escape, its hue tail in kernel K1. With the default (trivial) 2D camera Mandelbrot's escape counts
 run on two coordinate lines (kernel K3's lines form, ops/fractal.py); a
 rotated camera (MandelbrotRotated) and Julia run K3's planes form on
 per-pixel planes. The palette, out-of-bounds mask, SSAA downsample and u8
 quantize run in the fused tail (kernel K1, ops/tailfuse.py).
 
-    python examples/torch/torch_fractals.py [Mandelbrot|MandelbrotRotated|Julia]
+    python examples/torch/torch_fractals.py [Mandelbrot|MandelbrotRotated|Julia|Tetration]
                                               # 1080p60 2xSSAA, 2 s, to null
 """
 
@@ -123,7 +124,10 @@ def julia_cap(quality: int) -> int:
 def julia_tail(quality: int):
     """hsv2rgb of the count on a hue wheel (s = 0.8), black out of bounds.
     The reference divides by constants: tailfuse.divide computes each
-    quotient as its compiled program does, in float32 and in bfloat16."""
+    quotient as its compiled program does, in float32 and in bfloat16.
+    (XLA computes 6 * (h / tau) as one product with a folded constant; at
+    count 32 the two products here floor to sector 3 where it floors to 2,
+    on the sectors' boundary, where both give the same color.)"""
     def tail(tp):
         it = tp.plane("iters")
         t = 1.0 - tailfuse.divide(it, quality)
@@ -183,7 +187,89 @@ class Julia(ShaderScene):
         self.shader.fragment = julia_frag
 
 
-SCENES = [Mandelbrot, MandelbrotRotated, Julia]
+TETRATION_STEPS = 67
+
+
+def tetration_escape(c: torch.Tensor) -> tuple:
+    """The tetration orbit z <- cpow(c, z) from z = c for TETRATION_STEPS
+    steps (tetration.frag), each pixel frozen at its first escaped value
+    (GLSL breaks after the update, so the breaking z colors the pixel);
+    escape is |z| > 100 or a non-finite |z| -> (zx, zy, k): k is 1 where
+    the orbit never escaped, else 0 (tetration.frag:48 `it / MAX_STEPS` is
+    integer division; the finite guard maps orbits that blow up to inf or
+    NaN to k = 0, as the reference does).
+
+    ops.complexmath.cpow on planes: its c-only terms (|c|, atan2(c), the
+    log of |c|) are computed once, as the reference's compiled loop hoists
+    them; every step then runs the same ops on the same values. Plain
+    PyTorch, no host sync and no early exit."""
+    from shaderflow_tpu_torch.ops import complexmath
+    cx, cy = c[..., 0], c[..., 1]
+    r = complexmath.cmag(c)
+    t = torch.arctan2(cy, cx)
+    log_r = torch.log(r)
+    zx, zy = cx, cy
+    escaped = torch.zeros(cx.shape, dtype=torch.bool, device=cx.device)
+    for _ in range(TETRATION_STEPS):
+        nr = torch.pow(r, zx) * torch.exp(-zy * t)
+        nt = zy * log_r + zx * t
+        active = ~escaped
+        zx = torch.where(active, nr * torch.cos(nt), zx)
+        zy = torch.where(active, nr * torch.sin(nt), zy)
+        magnitude = torch.sqrt(zx * zx + zy * zy)
+        escaped = escaped | (magnitude > 100.0) | ~torch.isfinite(magnitude)
+    return zx, zy, (~escaped).to(torch.float32)
+
+
+# h / (pi / 3) and 6 * (h / tau) for h = m / tau, folded as XLA folds them
+TETRATION_THIRDS = ops.folded(ops.reciprocal(TAU), ops.reciprocal(math.pi / 3.0))
+TETRATION_SECTOR = ops.folded(ops.reciprocal(TAU), ops.folded(6.0, ops.reciprocal(TAU)))
+
+
+def tetration_tail(tp):
+    """The hue of the escaped z on the wheel, value k (s = 1: c == v, m ==
+    0). The hue is the reference's (0, 2pi)-range atan2 in cycles fed to
+    the radians-domain hsv (the scene's existing look): tailfuse.atan2 has
+    the standard (-pi, pi] range, and mod folds it to (0, 2pi).
+
+    The constant products are the reference's compiled ones (its optimized
+    program, XLA:CPU): with m the hue angle in [0, 2pi), h = m / tau, and
+    XLA folds each chain of constant products into one f32 constant
+    (stdlib.folded): h / (pi / 3) is m * (1/tau * 1/(pi/3)), and 6 * (h /
+    tau) is m * (1/tau * (6 * 1/tau)). Written as two products each, the
+    hue moves by an ulp on about a tenth of the pixels."""
+    m = torch.remainder(tailfuse.atan2(tp.plane("zy"), tp.plane("zx")), TAU)
+    value = tp.plane("k")
+    x = value * (1.0 - torch.abs(torch.remainder(m * TETRATION_THIRDS, 2.0) - 1.0))
+    sector = torch.floor(m * TETRATION_SECTOR)
+    zero = torch.zeros_like(value)
+
+    def pick(options):
+        out = zero
+        for index, option in enumerate(options):
+            out = torch.where(sector == float(index), option, out)
+        return out
+
+    return (pick([value, x, zero, zero, x, value]),
+            pick([x, value, value, x, zero, zero]),
+            pick([zero, zero, x, value, value, x]))
+
+
+def tetration_frag(sf):
+    """Complex tetration fractal (tetration.frag): the orbit in plain
+    PyTorch, the hue tail in kernel K1."""
+    zx, zy, k = tetration_escape(sf.camera.gluv)
+    return sf.tail(tetration_tail, k=k, zx=zx, zy=zy)
+
+
+class Tetration(ShaderScene):
+    """Complex tetration fractal"""
+
+    def build(self):
+        self.shader.fragment = tetration_frag
+
+
+SCENES = [Mandelbrot, MandelbrotRotated, Julia, Tetration]
 
 if __name__ == "__main__":
     scene = {cls.__name__: cls for cls in SCENES}[sys.argv[1] if len(sys.argv) > 1

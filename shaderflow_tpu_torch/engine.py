@@ -26,11 +26,24 @@ prelude whose value has leading axis 1 is batch-invariant and cached
 across batches, keyed on (name, code), the sequence signature, the render
 size and the aspect.
 
-Ported: one main program (temporal 1, one layer) whose fragment returns a
-TailSpec or an (H, W, C) render, static and sequence textures, batch
-preludes, and the SSAA final pass. Not yet: temporal feedback carries,
-multipass programs, textures written every frame (streamed), frame/row
-sharding over devices.
+Programs (shaderflow_tpu/engine.py:275-331, :442-492): each frame renders
+every program in order (reverse module-addition order, the main program
+last) and each program's layers in order, iLayer a static. A program
+keeps one (T, L, H, W, C) float32 matrix; a layer's output goes into
+temporal slot 0, where later layers and later programs read it through
+sf.tex(name, temporal, layer). A program with temporal == 1 starts every
+frame from zeros; one with temporal > 1 is carried across frames and
+flushes (seeded from its host matrix at each build, so an initial
+texture.write(..., temporal=k) seeds the ring) and rolls by one slot after
+it renders: the roll moves the ring's origin, not its data (Ring). Only
+the last program, when it has temporal == 1 and one layer, fuses a TailSpec
+with the final pass; any other TailSpec is evaluated by the plain tail
+into the matrix, padded to the program's components. The final pass reads
+the main program's slot 1 when it is temporal (the newest box after its
+roll), else slot 0.
+
+Not yet: textures written every frame (streamed), frame/row sharding over
+devices.
 """
 
 from __future__ import annotations
@@ -127,6 +140,36 @@ PRELUDE_KEY = "\0prelude:"
 batch-invariant prelude fields (load_reference_state)."""
 
 
+class Ring:
+    """A program's (T, L, H, W, C) matrix as the frame loop sees it: a
+    temporal ring whose slot t is data[(origin + t) % T]. roll() is
+    np.roll(matrix, 1, axis=0) without moving data: slot t then holds what
+    slot t - 1 held, and slot 0 the oldest box, which the next render
+    overwrites."""
+
+    def __init__(self, data: torch.Tensor, origin: int = 0):
+        self.data = data
+        self.origin = origin
+
+    def slot(self, temporal: int) -> int:
+        return (self.origin + temporal) % self.data.shape[0]
+
+    def __getitem__(self, index):
+        temporal, rest = (index[0], index[1:]) if isinstance(index, tuple) else (index, ())
+        return self.data[(self.slot(temporal), *rest)]
+
+    def __setitem__(self, index, value) -> None:
+        temporal, rest = (index[0], index[1:]) if isinstance(index, tuple) else (index, ())
+        self.data[(self.slot(temporal), *rest)] = value
+
+    def roll(self) -> None:
+        self.origin = (self.origin - 1) % self.data.shape[0]
+
+    def ordered(self) -> torch.Tensor:
+        """The matrix in slot order (a copy), as the reference holds it."""
+        return torch.roll(self.data, -self.origin, dims=0)
+
+
 class PreludeCtx:
     """The context handed to scene.batch_preludes functions, once per flush.
 
@@ -203,8 +246,11 @@ class RenderEngine:
         self.stale = True
         self._statics: dict[str, Any] = {}
         self._uniform_kinds: dict[str, str] = {}
-        self._coords = None
+        self._coords = None                      # the main program's coordinates
+        self._program_coords: list = []          # each program's, in render order
         self._render_size: tuple[int, int] = (0, 0)
+        # Temporal rings carried across frames and flushes: name -> Ring
+        self._carry: dict[str, Ring] = {}
         # Device textures: static uploads (name -> (T, L, H, W, C), version)
         # and bound sequences (name -> (source, bound tensor, window))
         self._static_tex: dict[str, torch.Tensor] = {}
@@ -248,16 +294,6 @@ class RenderEngine:
     def build(self) -> None:
         scene = self.scene
         programs = self._programs()
-        if len(programs) != 1:
-            raise NotImplementedError(
-                f"{len(programs)} programs: multipass scenes (texture samplers "
-                "between programs) are not ported yet; one main program is")
-        texture = programs[0].texture
-        if texture.temporal != 1 or texture.layers != 1:
-            raise NotImplementedError(
-                f"Program {programs[0].name!r} temporal={texture.temporal} "
-                f"layers={texture.layers}: temporal feedback and multi-layer "
-                "programs are not ported yet")
         self._static_tex.clear()
         self._static_versions.clear()
         self._sequences.clear()
@@ -265,10 +301,26 @@ class RenderEngine:
 
         self._statics = {v.name: v.value for v in scene.full_pipeline()
                          if v.static and v.value is not None}
-        width, height = texture.resolution
+        # Coordinate flavors live for the build (one set per render size)
+        by_size: dict[tuple[int, int], Any] = {}
+        self._program_coords = []
+        for program in programs:
+            width, height = program.texture.resolution
+            if (height, width) not in by_size:
+                by_size[(height, width)] = make_coords(height, width, scene.aspect_ratio,
+                                                       self.device)
+            self._program_coords.append(by_size[(height, width)])
+        width, height = programs[-1].texture.resolution
         self._render_size = (height, width)
-        # Coordinate flavors live for the build (one size, one device)
-        self._coords = make_coords(height, width, scene.aspect_ratio, self.device)
+        self._coords = self._program_coords[-1]
+        # Temporal rings start from the programs' host matrices
+        self._carry = {}
+        for program in programs:
+            if program.texture.temporal > 1:
+                if program.texture.matrix is None:
+                    program.texture.make()
+                self._carry[program.name] = Ring(torch.from_numpy(
+                    program.texture.matrix).to(device=self.device, dtype=torch.float32))
         self.stale = False
         out_width, out_height = scene._final.texture.resolution
         logger.debug(f"Engine built: render {width}x{height} -> output "
@@ -464,20 +516,86 @@ class RenderEngine:
         frames = self._frame_uniforms[:count]
         return [int(frame["iFrameIndex"]) for frame in frames]
 
+    def texture_meta(self) -> dict:
+        """Sampler state by texture name: external and program textures."""
+        return {**self._external_textures(),
+                **{program.name: program.texture for program in self._programs()}}
+
     def frame_context(self, row: torch.Tensor, spec: tuple, step: int,
-                      frame_index: int, per_batch: dict, invariant: dict) -> Frag:
-        """The Frag of one frame: its packed uniform row on the device, its
-        textures (sequence rows at frame_index), and the batch's prelude
-        values (frame `step` of each per-batch stack, entry 0 of each
-        batch-invariant one)."""
-        uniforms = FrameUniforms(row, spec)
-        return Frag(coords=finish_coords(self._coords, uniforms["iResolution"]),
-                    uniforms=uniforms, statics={**self._statics, "iLayer": 0},
-                    textures=self._frame_textures(frame_index),
-                    texture_meta=self._external_textures(),
+                      frame_index: int, per_batch: dict, invariant: dict,
+                      coords=None, layer: int = 0, textures: Optional[dict] = None,
+                      uniforms: Optional[FrameUniforms] = None) -> Frag:
+        """The Frag of one frame and layer (the main program's coordinates
+        and the external textures unless given): its packed uniform row on
+        the device, its textures (sequence rows at frame_index), and the
+        batch's prelude values (frame `step` of each per-batch stack, entry
+        0 of each batch-invariant one)."""
+        uniforms = uniforms if uniforms is not None else FrameUniforms(row, spec)
+        coords = coords if coords is not None else self._coords
+        return Frag(coords=finish_coords(coords, uniforms["iResolution"]),
+                    uniforms=uniforms, statics={**self._statics, "iLayer": layer},
+                    layer=layer,
+                    textures=(textures if textures is not None
+                              else self._frame_textures(frame_index)),
+                    texture_meta=self.texture_meta(),
                     preludes={**{n: v[step] for n, v in per_batch.items()},
                               **{n: v[0] for n, v in invariant.items()}},
                     prelude_stacks={**per_batch, **invariant}, prelude_step=step)
+
+    def carried(self) -> dict[str, torch.Tensor]:
+        """The temporal rings as they stand, in slot order (copies)."""
+        return {name: ring.ordered() for name, ring in self._carry.items()}
+
+    def render_frame(self, row: torch.Tensor, spec: tuple, step: int, frame_index: int,
+                     per_batch: dict, invariant: dict, out: torch.Tensor) -> None:
+        """Render one frame into `out` (H, W, 3) u8: every program and
+        layer in order (the module docstring), then the final pass."""
+        scene = self.scene
+        programs = self._programs()
+        uniforms = FrameUniforms(row, spec)
+        textures = self._frame_textures(frame_index)
+        textures.update(self._carry)
+        out_width, out_height = scene._final.texture.resolution
+        subsample = int(scene.subsample)
+        aspect = scene.aspect_ratio
+        for program, coords in zip(programs, self._program_coords):
+            texture = program.texture
+            temporal, layers = texture.temporal, texture.layers
+            if temporal > 1:
+                matrix = self._carry[program.name]
+            else:
+                matrix = Ring(torch.zeros((1, layers, coords.height, coords.width,
+                                           texture.components),
+                                          dtype=torch.float32, device=self.device))
+                textures[program.name] = matrix
+            for layer in range(layers):
+                ctx = self.frame_context(row, spec, step, frame_index, per_batch, invariant,
+                                         coords=coords, layer=layer, textures=textures,
+                                         uniforms=uniforms)
+                result = program.render_layer(ctx)
+                if isinstance(result, tailfuse.TailSpec):
+                    if program is programs[-1] and temporal == 1 and layers == 1:
+                        # The main program's tail fuses with the final pass:
+                        # its texture is never materialized
+                        tailfuse.run_tail_final(result, coords.height, coords.width,
+                                                out_height, out_width, subsample, aspect,
+                                                out=out)
+                        return
+                    result = tailfuse.eval_reference(result, coords.height, coords.width,
+                                                     aspect)
+                    if result.shape[-1] < texture.components:
+                        pad = torch.ones(result.shape[:-1] + (texture.components
+                                                              - result.shape[-1],),
+                                         dtype=torch.float32, device=result.device)
+                        result = torch.cat([result, pad], dim=-1)
+                    result = result[..., :texture.components]
+                matrix[0, layer] = result
+            if temporal > 1:
+                matrix.roll()
+        # After its roll a temporal main program's newest box sits at slot 1
+        main = textures[scene.shader.name]
+        slot = 1 if scene.shader.texture.temporal > 1 else 0
+        out.copy_(final_pass(main[slot, -1], out_height, out_width, subsample))
 
     def flush(self, count: Optional[int] = None) -> Optional[torch.Tensor]:
         """Render the captured frames -> (F, H, W, 3) uint8 on the device.
@@ -500,22 +618,9 @@ class RenderEngine:
         out_width, out_height = scene._final.texture.resolution
         frames = torch.empty((count, out_height, out_width, 3), dtype=torch.uint8,
                              device=self.device)
-        program = self._programs()[0]
-        render_h, render_w = self._render_size
-        subsample = int(scene.subsample)
-        aspect = scene.aspect_ratio
         frame_indices = self.frame_indices(count)
         per_batch, invariant = self._run_preludes(frame_indices)
         for index in range(count):
-            ctx = self.frame_context(packed[index], spec, index, frame_indices[index],
-                                     per_batch, invariant)
-            out = program.render_layer(ctx)
-            if isinstance(out, tailfuse.TailSpec):
-                # The main program's tail fuses with the final pass: its
-                # texture is never materialized
-                tailfuse.run_tail_final(out, render_h, render_w, out_height,
-                                        out_width, subsample, aspect,
-                                        out=frames[index])
-            else:
-                frames[index].copy_(final_pass(out, out_height, out_width, subsample))
+            self.render_frame(packed[index], spec, index, frame_indices[index],
+                              per_batch, invariant, frames[index])
         return frames

@@ -1,11 +1,16 @@
 """
-Texture sampling: the functions the music visualizer slice calls.
+Texture sampling: the GL sampler and the separable forms the scenes call.
 
 Port of shaderflow_tpu/ops/sampling.py. Textures are (H, W, C) float32
 tensors sampled with GL semantics: texel centers at (i + 0.5)/N, GL_REPEAT
 wraps, CLAMP_TO_EDGE clamps, row 0 = the top of the image (v = 1).
 
-  Sampler2D, sample_separable         axis-aligned grid sampling
+  Sampler2D, sample                   GL texture(): bilinear or nearest,
+                                      repeat or clamp, v up
+  astexture, stexture, gtexture,      the coordinate-space accessors
+  gmtexture, agtexture
+  MipSampler                          mipmaps: not ported, raises
+  sample_separable                    axis-aligned grid sampling
   texel_fetch                         GLSL texelFetch (bottom-left origin)
   sample_rows_planes_blocked          banded row interpolation (the
                                       background and blur rows the tail
@@ -30,6 +35,7 @@ from typing import NamedTuple
 
 import torch
 
+from shaderflow_tpu_torch.ops import stdlib as sl
 from shaderflow_tpu_torch.tools import flopcount
 
 
@@ -59,6 +65,55 @@ def _wrap(i: torch.Tensor, n: int, repeat: bool) -> torch.Tensor:
     if repeat:
         return torch.remainder(i, n)
     return torch.clamp(i, 0, n - 1)
+
+
+class MipSampler:
+    """A texture bound with its mip pyramid (shaderflow_tpu/ops/sampling.py:
+    MipSampler). Mip pyramids and trilinear / anisotropic sampling are not
+    ported yet: building one raises NotImplementedError."""
+
+    def __init__(self, levels: tuple, aniso: int = 1):
+        raise NotImplementedError(
+            "Mipmapped textures (texture.mipmaps=True) are not ported yet: "
+            "sample the texture without mipmaps")
+
+
+def sample(tex: Sampler2D, uv: torch.Tensor) -> torch.Tensor:
+    """Sample at GL texture coordinates uv (..., 2), u right / v up in [0, 1]
+    -> (..., C): GLSL texture(sampler2D, uv), the workhorse behind the
+    astexture / stexture / gtexture family (shaderflow.glsl:162-208).
+    GL_NEAREST rounds to the nearest texel center; GL_LINEAR fetches the
+    four texels around the position and lerps per channel in the
+    reference's order (x on the top and bottom rows, then y)."""
+    if isinstance(tex, MipSampler):
+        raise NotImplementedError("mipmapped sampling is not ported yet")
+    h, w = tex.height, tex.width
+    u = uv[..., 0] * w - 0.5
+    # v up -> rows top-down: row = (1 - v) * H - 0.5
+    v = (1.0 - uv[..., 1]) * h - 0.5
+    # Texels are fetched by (row, column) index pairs: one gather for every
+    # channel and corner. (A flat row index into an (H * W, 4) view takes
+    # torch's vectorized row gather on the card, 30x slower here.)
+    data = tex.data.to(torch.float32)
+    if not tex.linear:
+        ix = _wrap(torch.floor(u + 0.5).to(torch.int64), w, tex.repeat_x)
+        iy = _wrap(torch.floor(v + 0.5).to(torch.int64), h, tex.repeat_y)
+        return data[iy, ix]
+    x0f = torch.floor(u)
+    y0f = torch.floor(v)
+    fx = u - x0f
+    fy = v - y0f
+    x0i, y0i = x0f.to(torch.int64), y0f.to(torch.int64)
+    x0 = _wrap(x0i, w, tex.repeat_x)
+    x1 = _wrap(x0i + 1, w, tex.repeat_x)
+    y0 = _wrap(y0i, h, tex.repeat_y)
+    y1 = _wrap(y0i + 1, h, tex.repeat_y)
+    texels = data[torch.stack([y0, y0, y1, y1]), torch.stack([x0, x1, x0, x1])]
+    if data.ndim == 3:       # channels on the last axis: the weights broadcast
+        fx, fy = fx[..., None], fy[..., None]
+    top = texels[0] + (texels[1] - texels[0]) * fx
+    bottom = texels[2] + (texels[3] - texels[2]) * fx
+    return top + (bottom - top) * fy
 
 
 def _interp_matrix(positions: torch.Tensor, n: int, repeat: bool) -> torch.Tensor:
@@ -107,8 +162,7 @@ def texel_fetch(tex: Sampler2D, xy: torch.Tensor) -> torch.Tensor:
     y = xy[..., 1].to(torch.int64)
     inside = (x >= 0) & (x < w) & (y >= 0) & (y < h)
     row = torch.clamp((h - 1) - y, 0, h - 1)
-    flat = tex.data.reshape(h * w, *tex.data.shape[2:])
-    texels = flat[row * w + torch.clamp(x, 0, w - 1)]
+    texels = tex.data[row, torch.clamp(x, 0, w - 1)]
     return torch.where(inside[..., None], texels, 0.0)
 
 
@@ -296,3 +350,35 @@ def lookup_nearest_1d_select_batched(
     flat16 = tables.reshape(batch, bins * channels).to(torch.bfloat16).contiguous()
     out = expand_tables(flat16, index, out_dtype or torch.float32)
     return out.reshape(batch, height, width)
+
+
+# --------------------------------------------------------------------------- #
+# GLSL-style coordinate-space texture accessors (shaderflow.glsl:165-208).
+# These take the scene aspect explicitly where the GLSL reads the
+# iAspectRatio uniform; the Frag context binds them.
+
+def astexture(tex: Sampler2D, astuv: torch.Tensor) -> torch.Tensor:
+    return sample(tex, astuv)
+
+
+def gtexture(tex: Sampler2D, gluv: torch.Tensor, mirror: bool = False) -> torch.Tensor:
+    if mirror:
+        return gmtexture(tex, gluv)
+    scale = sl.vec2(torch.full((), tex.height / tex.width, dtype=torch.float32,
+                               device=gluv.device), 1.0)
+    return sample(tex, sl.gluv2stuv(gluv * scale))
+
+
+def gmtexture(tex: Sampler2D, gluv: torch.Tensor, want_aspect: float = 1.0) -> torch.Tensor:
+    return gtexture(tex, sl.gluv_mirrored_repeat(gluv, want_aspect))
+
+
+def agtexture(tex: Sampler2D, agluv: torch.Tensor, aspect,
+              mirror: bool = False) -> torch.Tensor:
+    if mirror:
+        return agtexture(tex, sl.agluv_mirrored_repeat(agluv), aspect)
+    return gtexture(tex, sl.agluv2gluv(agluv, aspect))
+
+
+def stexture(tex: Sampler2D, stuv: torch.Tensor) -> torch.Tensor:
+    return gtexture(tex, sl.stuv2gluv(stuv))

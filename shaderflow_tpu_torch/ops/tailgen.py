@@ -93,7 +93,9 @@ division as div_rn and sqrt as sqrt_rn (IEEE-rounded, as torch's;
 Triton's default `/` and tl.sqrt are approximate on sm_90 and differ from
 torch on about a quarter of random f32 inputs), min/max
 propagating NaN (as torch.maximum/minimum), exp/log from libdevice (as
-torch's CUDA expf/logf): the kernel stays within one u8 step of the plain
+torch's CUDA expf/logf), and fmod kept off a dividend smaller than the
+divisor (Triton's libdevice flushes subnormals; the remainder of such a
+dividend is itself): the kernel stays within one u8 step of the plain
 path (differences come only from the order of the s x s sum).
 """
 
@@ -863,9 +865,13 @@ def generate(graph: Graph, outputs: list, subsample: int,
         elif op == "mod":
             # torch.remainder / jnp.mod on floats: fmod, then + b where the
             # remainder is nonzero and its sign differs from b's (fmod is
-            # exact; the sum rounds in bfloat16)
+            # exact; the sum rounds in bfloat16). Triton links libdevice
+            # flushing subnormals to zero, so its fmod reads a subnormal
+            # dividend as 0; where |a| < |b| fmod(a, b) is a exactly, and
+            # the kernel takes a there (a subnormal keeps its value and
+            # sign, as in torch's fmod)
             a, b = operand(args[0], compute), operand(args[1], compute)
-            r = f"libdevice.fmod({a}, {b})"
+            r = f"tl.where(tl.abs({a}) < tl.abs({b}), {a}, libdevice.fmod({a}, {b}))"
             plus = f"{r} + {b}" if compute != "h" else _ROUND.format(f"({r} + {b})")
             expr = f"tl.where(({r} != 0.0) & (({r} < 0.0) != ({b} < 0.0)), {plus}, {r})"
         elif op == "where":

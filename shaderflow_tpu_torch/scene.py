@@ -300,8 +300,9 @@ class ShaderScene(ShaderModule):
         `device` runs the render on "cuda" (the default; raises without a
         card) or "cpu" (every kernel's plain PyTorch version). `start`
         resumes at a content time in seconds: host state is replayed
-        without rendering (the ported scenes carry no device state between
-        frames), then [start, duration) is rendered."""
+        without rendering (a scene with a temporal ring renders the
+        replayed frames to rebuild it), then [start, duration) is
+        rendered."""
         final_width, final_height = self._setup_run(
             width=width, height=height, scale=scale, ratio=ratio, fps=fps,
             quality=quality, ssaa=ssaa, subsample=subsample, output=output,
@@ -375,13 +376,29 @@ class ShaderScene(ShaderModule):
         self._prewarm_modules()
 
         if start_frame:
-            logger.info(f"Resuming export at frame {start_frame} (host replay)")
-            self._capture_enabled = False
-            try:
-                for _ in range(min(start_frame, total)):
+            # Stateless scenes replay host updates only; a scene with a
+            # temporal ring renders the replayed frames (and drops them) to
+            # rebuild its history
+            feedback = any(isinstance(module, ShaderProgram) and module.texture.temporal > 1
+                           for module in self.modules)
+            logger.info(f"Resuming export at frame {start_frame} "
+                        f"({'render' if feedback else 'host'} replay)")
+            replayed = 0
+            while replayed < min(start_frame, total):
+                if feedback:
+                    count = min(size, start_frame - replayed)
+                    self.engine.begin_batch()
+                    for _ in range(count):
+                        self.next(dt=self.frametime)
+                    self.engine.flush(count)
+                    replayed += count
+                    continue
+                self._capture_enabled = False
+                try:
                     self.next(dt=self.frametime)
-            finally:
-                self._capture_enabled = True
+                finally:
+                    self._capture_enabled = True
+                replayed += 1
             total = total - start_frame
 
         in_flight: list = []

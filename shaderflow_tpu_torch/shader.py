@@ -4,13 +4,16 @@ ShaderProgram — pixel programs as Python functions on torch tensors.
 Port of shaderflow_tpu/shader.py. A fragment is `main(sf) -> rgba | TailSpec`
 operating on whole planes through the `Frag` context (coordinate flavors,
 uniforms by name, textures, batch preludes, the camera). The engine runs
-it once per frame in eager PyTorch. Ported: Frag (uniforms, statics,
-coordinates, `tex` samplers of external textures and device sequences,
-`prelude` / `prelude_indexed`, `tail`, `texel_fetch`, the trivial and the
-general camera), make_coords / finish_coords, and ShaderProgram with
-function fragments. Not yet:
-samplers of program textures (multipass), mipmaps, instancing, the GLSL
-front-end, hot reload and the built-in default/missing programs.
+it once per frame and layer in eager PyTorch. Ported: Frag (uniforms,
+statics, coordinates, `tex` samplers of external textures, device
+sequences and program textures (any temporal slot and layer), the GL
+sampler and its coordinate-space accessors, `texel_fetch`, `discard`,
+`prelude` / `prelude_indexed`, `tail`, the trivial and the general
+camera), make_coords / finish_coords, the built-in default (welcome) and
+missing-texture programs, and ShaderProgram with function fragments and
+instancing. Not yet: mipmaps, the GLSL front-end, hot reload, and the
+missing-texture fallback for a program that fails to build (there is no
+front-end to fail: a failing fragment raises).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
-from shaderflow_tpu_torch.ops import cameralib
+from shaderflow_tpu_torch.ops import cameralib, sampling
+from shaderflow_tpu_torch.ops import stdlib as sl
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
 from shaderflow_tpu_torch.ops.sampling import Sampler2D, texel_fetch
 from shaderflow_tpu_torch.texture import ShaderTexture
@@ -137,7 +141,7 @@ class Frag:
     preludes, and the camera."""
 
     def __init__(self, coords: Coords, uniforms: Mapping, statics: dict,
-                 layer: int = 0, textures: Optional[dict] = None,
+                 layer: int = 0, instance: int = 0, textures: Optional[dict] = None,
                  texture_meta: Optional[dict] = None,
                  preludes: Optional[dict] = None,
                  prelude_stacks: Optional[dict] = None,
@@ -146,12 +150,21 @@ class Frag:
         self._uniforms = uniforms
         self._statics = statics
         self.layer = layer
+        self.instance = instance
+        self._discard = None                     # (H, W) bool mask set by discard()
         self._textures = textures or {}          # name -> (T, L, H, W, C) tensor
         self._texture_meta = texture_meta or {}  # name -> ShaderTexture
         self._preludes = preludes or {}          # name -> this frame's value
         self._prelude_stacks = prelude_stacks or {}  # name -> (B or 1, ...) stack
         self._prelude_step = prelude_step        # this frame's position in the batch
         self._camera_cache: dict = {}
+
+    def discard(self, mask) -> None:
+        """GLSL `discard`: pixels where `mask` is true keep what lies below
+        this draw (the instances drawn before it; zeros, the clear color,
+        under instance 0) instead of its output. Calls OR together."""
+        mask = torch.as_tensor(mask, device=self.device)
+        self._discard = mask if self._discard is None else (self._discard | mask)
 
     # -- coordinates --------------------------------------------------------
 
@@ -216,19 +229,42 @@ class Frag:
     # -- textures -----------------------------------------------------------
 
     def tex(self, name: str, temporal: int = 0, layer: int = -1) -> Sampler2D:
-        """Sampler of one texture box (a static upload, or this frame's row
-        of a device sequence) with the texture's filter and wrap state."""
+        """Sampler of one texture box with the texture's filter and wrap
+        state: a static upload, this frame's row of a device sequence, or a
+        program's matrix (temporal slot 0 holds what its layers rendered
+        this frame; tex('iScreen') is the newest box, as in the
+        reference's <name><T>x<L> naming)."""
         if name not in self._textures:
             raise KeyError(f"Unknown texture {name!r}; known: {sorted(self._textures)}")
         meta = self._texture_meta[name]
+        if getattr(meta, "mipmaps", False):
+            raise NotImplementedError(f"Texture {name!r} asks for mipmaps: not ported yet")
         return Sampler2D(self._textures[name][temporal, layer], linear=meta.linear,
                          repeat_x=meta.repeat_x, repeat_y=meta.repeat_y)
 
+    def _sampler(self, tex) -> Sampler2D:
+        return self.tex(tex) if isinstance(tex, str) else tex
+
+    def texture(self, sampler, uv: torch.Tensor) -> torch.Tensor:
+        """GLSL texture() on a Sampler2D or a texture name (ops.sampling)."""
+        return sampling.sample(self._sampler(sampler), uv)
+
     def texel_fetch(self, sampler, xy: torch.Tensor) -> torch.Tensor:
         """GLSL texelFetch on a Sampler2D or a texture name (ops.sampling)."""
-        if isinstance(sampler, str):
-            sampler = self.tex(sampler)
-        return texel_fetch(sampler, xy)
+        return texel_fetch(self._sampler(sampler), xy)
+
+    def astexture(self, tex, astuv):
+        return sampling.astexture(self._sampler(tex), astuv)
+
+    def stexture(self, tex, stuv):
+        return sampling.stexture(self._sampler(tex), stuv)
+
+    def gtexture(self, tex, gluv, mirror: bool = False):
+        return sampling.gtexture(self._sampler(tex), gluv, mirror)
+
+    def agtexture(self, tex, agluv, mirror: bool = False):
+        return sampling.agtexture(self._sampler(tex), agluv,
+                                  self.uniform("iWantAspect"), mirror)
 
     # -- batch preludes -------------------------------------------------------
 
@@ -312,9 +348,50 @@ class Frag:
 
 
 # --------------------------------------------------------------------------- #
+# Built-in fragment programs
+
+def default_fragment(sf: Frag):
+    """The welcome shader: a neon hsv ring over a checkerboard with a
+    vignette (fragment/default.glsl; shaderflow_tpu/shader.py:311)."""
+    cam = sf.camera
+    uv = cam.gluv
+    angle = sl.atan2(uv)
+    color = 0.3 + sl.hsv2rgb(sl.vec3(angle + (2 * sl.TAU * sf.iTau) - (sl.PI / 4), 1.0, 1.0))
+    circle = 1.333 * sl.length(uv) - 1.0
+    width = 2.0 * torch.abs(1.0 / (circle * circle)) * 1e-4
+
+    grid = torch.where(
+        torch.remainder(torch.floor(uv[..., 0] * 4.0) + torch.floor(uv[..., 1] * 4.0),
+                        2.0) > 0.5, 0.22, 0.20)[..., None]
+    base = torch.where(circle[..., None] < 0.0, 0.18, grid)
+    rgb = base + width[..., None] * color
+
+    astuv = cam.astuv
+    away = astuv * (1.0 - astuv.flip(-1))
+    linear = 50.0 * (away[..., 0] * away[..., 1])
+    rgb = rgb * torch.clamp(torch.pow(torch.clamp(linear, min=0.0), 0.1), 0.0, 1.0)[..., None]
+
+    rgb = torch.where(cam.out_of_bounds[..., None], 0.15, rgb)
+    return sl.vec4(rgb, 1.0)
+
+
+def missing_fragment(sf: Frag):
+    """The magenta checkerboard the reference shows for a program that
+    fails to build (fragment/missing.glsl; shaderflow_tpu/shader.py:335).
+    Not wired in as a fallback: a failing fragment raises."""
+    uv = sf.stuv + sf.iTime / 64.0
+    block = torch.floor(8.0 * uv)
+    on = torch.remainder(block[..., 0] + block[..., 1], 2.0) == 0.0
+    magenta = torch.where(on, 100.0 / 25.0, 0.0)      # (1, 0, 1) * 100 / 25
+    return sl.vec4(magenta, 0.0, magenta, 0.2)
+
+
+# --------------------------------------------------------------------------- #
 
 class ShaderProgram(ShaderModule):
     """A pixel program + the texture matrix it renders into."""
+
+    instances: int = 1
 
     def __init__(self, scene=None, name: Optional[str] = None, **kwargs):
         self._fragment: Optional[PixelFunction] = None
@@ -323,6 +400,7 @@ class ShaderProgram(ShaderModule):
 
     def build(self) -> None:
         self.texture = ShaderTexture(scene=self.scene, name=self.name, track=1.0)
+        self._fragment = default_fragment
 
     @property
     def fragment(self) -> Optional[PixelFunction]:
@@ -343,20 +421,35 @@ class ShaderProgram(ShaderModule):
 
     def render_layer(self, ctx: Frag):
         """Run one layer of this program: a TailSpec (the engine fuses it
-        with the final pass) or an (H, W, C) float tensor in sample space,
-        padded with ones / cropped to the texture's components."""
-        from shaderflow_tpu_torch.ops.tailfuse import TailSpec
-        if self._fragment is None:
-            raise NotImplementedError(
-                f"Program {self.name!r} has no fragment: the built-in default "
-                "program is not ported; set program.fragment to a function")
-        out = self._fragment(ctx)
-        if isinstance(out, TailSpec):
-            return out
-        out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
-        components = self.texture.components
-        if out.shape[-1] < components:
-            pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
-                             dtype=torch.float32, device=out.device)
-            out = torch.cat([out, pad], dim=-1)
-        return out[..., :components]
+        with the final pass or evaluates it) or an (H, W, C) float tensor in
+        sample space, padded with ones / cropped to the texture's
+        components.
+
+        Instancing (shaderflow_tpu/shader.py:505-529): the fragment runs
+        `instances` times with ctx.instance = 0..N-1, drawn in order with
+        GL's no-blending rule (the last instance to write a pixel wins);
+        sf.discard(mask) leaves pixels to the instances below (zeros under
+        instance 0)."""
+        from shaderflow_tpu_torch.ops import tailfuse
+        result = None
+        for instance in range(self.instances):
+            ctx.instance = instance
+            ctx._discard = None
+            out = self._fragment(ctx)
+            if isinstance(out, tailfuse.TailSpec):
+                if self.instances == 1:
+                    return out
+                height, width = ctx._coords.height, ctx._coords.width
+                out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
+            out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
+            components = self.texture.components
+            if out.shape[-1] < components:
+                pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
+                                 dtype=torch.float32, device=out.device)
+                out = torch.cat([out, pad], dim=-1)
+            out = out[..., :components]
+            if ctx._discard is not None:
+                below = torch.zeros_like(out) if result is None else result
+                out = torch.where(ctx._discard[..., None], below, out)
+            result = out
+        return result

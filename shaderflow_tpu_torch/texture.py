@@ -137,6 +137,14 @@ class ShaderTexture(ShaderModule):
         return self.resolution[1]
 
     @property
+    def size(self) -> tuple[int, int]:
+        return self.resolution
+
+    @size.setter
+    def size(self, value: tuple[int, int]) -> None:
+        self.resolution = value
+
+    @property
     def components(self) -> int:
         return self._components
 
@@ -152,6 +160,9 @@ class ShaderTexture(ShaderModule):
 
     @dtype.setter
     def dtype(self, value) -> None:
+        # the reference's moderngl names: f1 / u1 bytes, f2 half, f4 float
+        value = {"f1": np.uint8, "u1": np.uint8, "f2": np.float16,
+                 "f4": np.float32}.get(value, value) if isinstance(value, str) else value
         value = np.dtype(value)
         if self._dtype != value:
             self._dtype = value

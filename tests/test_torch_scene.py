@@ -149,8 +149,9 @@ def test_start_replays_host_state(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """The port's import chain (the tools too) and tiny CPU exports of the
     ported scenes (Mandelbrot, the music visualizer, PianoRoll at ssaa=1,
-    Julia, and the visualizer in the bf16 tail mode at blur level 1) run
-    with jax and the JAX package blocked, and leave no module of either
+    Julia, the visualizer in the bf16 tail mode at blur level 1, and one
+    scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life)
+    run with jax and the JAX package blocked, and leave no module of either
     loaded."""
     script = f"""
 import sys
@@ -169,6 +170,12 @@ torch_piano_roll.PianoRoll().main(width=32, height=18, fps=10, time=0.4, ssaa=1,
                                   output={str(tmp_path / "piano.rgb")!r}, device="cpu")
 torch_fractals.Julia().main(width=32, height=18, fps=10, time=0.1, ssaa=2,
                             output={str(tmp_path / "julia.rgb")!r}, device="cpu")
+for scene, name in ((torch_demo.Basic, "basic"), (torch_demo.MusicBars, "bars"),
+                    (torch_demo.RayMarch, "raymarch"), (torch_fractals.Tetration, "tetration"),
+                    (torch_demo.Life, "life")):
+    scene().main(width=32, height=18, fps=10, time=0.2, output={str(tmp_path)!r} + f"/{{name}}.rgb",
+                 device="cpu")
+import shaderflow_tpu_torch.ops.complexmath, shaderflow_tpu_torch.ops.sampling
 import os
 import shaderflow_tpu_torch.tools.bench_dtype, shaderflow_tpu_torch.tools.probe_bf16_ops
 os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
@@ -178,13 +185,15 @@ loaded = [name for name, module in sys.modules.items() if module is not None
           and (name in ("jax", "shaderflow_tpu") or name.startswith(("jax.", "shaderflow_tpu.")))]
 assert not loaded, loaded
 print("frames", *(np.fromfile({str(tmp_path)!r} + "/" + name, np.uint8).size // (32 * 18 * 3)
-                  for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb", "viz_bf16.rgb")))
+                  for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb", "viz_bf16.rgb",
+                               "basic.rgb", "bars.rgb", "raymarch.rgb", "tetration.rgb",
+                               "life.rgb")))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2 3 4 1 3" in result.stdout
+    assert "frames 2 3 4 1 3 2 2 2 2 2" in result.stdout
 
 
 def test_port_sources_never_import_the_jax_package():
