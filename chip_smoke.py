@@ -82,6 +82,19 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      with the busy share they imply
  25. K1 (a) vs its plain version on Tetration's tail spec of frame 0 at
      3840x2160 -> 1920x1080, s = 2: at most 1 u8 step, on < 1 % of values
+  The GLSL front-end and the command line (examples/torch/torch_glsl_demo.py)
+ 26. Plasma (examples/glsl/shaders/plasma.frag) at 1920x1080@60, 2x SSAA,
+     2 s through cli.main to a .rgb file: file size, the GLSL interpreter
+     (not the missing-texture program), no kernel launched, the middle
+     frame against device="cpu" within 1 u8 step on < 1 %; the same command
+     as a `python -m shaderflow_tpu_torch` process (file size); a null
+     export through cli.main: fps, device ms, kernels, host ms a frame, busy
+ 27. the masked loop (Escape: a per-pixel break over 256 trips) at
+     1920x1080, 2x SSAA: a frame's wall ms, trips and host reads for each
+     read interval k, on two views; device ms, kernels and host ms a frame
+     at the k in use; the card against the CPU at 480x270
+ 28. Mandelbrot through cli.main at 1920x1080@60, 2x SSAA, 1 s: K3 and K1
+     (a) launch once a frame, nothing else
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
 events, averaged over repeated calls; `call_ms` is the median of CUDA
@@ -109,6 +122,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, FPS, SSAA, SECONDS = 1920, 1080, 60, 2, 2.0
+GLSL_DEMO = REPO / "examples" / "torch" / "torch_glsl_demo.py"
+# The GLSL masked loop's host-read intervals timed, and the view of its
+# second measurement, above the set, where every lane escapes within 30 trips
+SYNC_CHOICES = (1, 2, 4, 8, 16, 32)
+OUTSIDE_VIEW = ("astuv.x * 0.5 - 1.5, astuv.y * 0.2);",
+                "astuv.x * 0.5 - 0.5, astuv.y * 0.2 + 1.12);")
 # K3's float32-output kernel of each form (parts of its mangled name)
 K3_KERNELS = {"lines": ("escape_kernel", "6LinesCfE"),
               "rotated": ("escape_kernel", "5PairCfE"),
@@ -357,7 +376,6 @@ def scene_path(cls, width: int, height: int, fps: int, seconds: float, ssaa: int
     copies a frame (device_profile of one engine.render_frame of that
     export's last batch) and the busy share they imply."""
     import numpy as np
-    import torch
     zero_counters, read_counters = counters
     name = cls.__name__
     frames = round(seconds * fps)
@@ -411,24 +429,7 @@ def scene_path(cls, width: int, height: int, fps: int, seconds: float, ssaa: int
     started = time.perf_counter()
     scene.main(output="null", device="cuda", **options)
     null_s = time.perf_counter() - started
-    engine = scene.engine
-    packed, spec = engine.stack_captures()
-    indices = engine.frame_indices()
-    last = len(indices) - 1
-    row = torch.from_numpy(packed[last]).to("cuda")
-    per_batch, invariant = engine._run_preludes(indices)
-    out = torch.empty((height, width, 3), dtype=torch.uint8, device="cuda")
-
-    def render():
-        engine.render_frame(row, spec, last, indices[last], per_batch, invariant, out)
-
-    frame_ms, frame_launches = device_profile(render, 3)
-    torch.cuda.synchronize()
-    started = time.perf_counter()
-    for _ in range(3):
-        render()
-    host_ms = (time.perf_counter() - started) / 3 * 1e3
-    torch.cuda.synchronize()
+    frame_ms, frame_launches, host_ms = frame_profile(scene, height, width)
     result = dict(frames=frames, seconds=null_s, fps=frames / null_s,
                   device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
                   host_ms_per_frame=host_ms, busy=frames * frame_ms / 1e3 / null_s,
@@ -439,6 +440,228 @@ def scene_path(cls, width: int, height: int, fps: int, seconds: float, ssaa: int
         device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
         host_ms_per_frame=f"{host_ms:.4f}", busy=f"{result['busy']:.4f}", card=repr(card))
     return result
+
+
+def last_frame(scene, height: int, width: int):
+    """render() of the last frame of the scene's last batch into a (H, W, 3)
+    u8 tensor on the card (engine.render_frame)."""
+    import torch
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    indices = engine.frame_indices()
+    last = len(indices) - 1
+    row = torch.from_numpy(packed[last]).to("cuda")
+    per_batch, invariant = engine._run_preludes(indices)
+    out = torch.empty((height, width, 3), dtype=torch.uint8, device="cuda")
+
+    def render():
+        engine.render_frame(row, spec, last, indices[last], per_batch, invariant, out)
+    return render
+
+
+def frame_profile(scene, height: int, width: int) -> tuple[float, int, float]:
+    """One frame of the scene's last batch (engine.render_frame): its device
+    ms and kernels and copies (device_profile), and the host ms of its
+    enqueue."""
+    import torch
+    render = last_frame(scene, height, width)
+    frame_ms, frame_launches = device_profile(render, 3)
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(3):
+        render()
+    host_ms = (time.perf_counter() - started) / 3 * 1e3
+    torch.cuda.synchronize()
+    return frame_ms, frame_launches, host_ms
+
+
+def cli_export(argv: list):
+    """cli.main(argv) in this process, as `python -m shaderflow_tpu_torch`
+    runs it -> the scene it ran, for its counters and engine."""
+    import functools
+    from shaderflow_tpu_torch import cli
+    from shaderflow_tpu_torch.scene import ShaderScene
+    ran = []
+    original = ShaderScene.main
+
+    @functools.wraps(original)   # the CLI reads its flags from this signature
+    def recorded(self, **options):
+        ran.append(self)
+        return original(self, **options)
+
+    ShaderScene.main = recorded
+    try:
+        cli.main([str(arg) for arg in argv])
+    finally:
+        ShaderScene.main = original
+    if len(ran) != 1:
+        raise AssertionError(f"cli.main({argv}) ran {len(ran)} scenes")
+    return ran[0]
+
+
+def glsl_plasma_path(counters, card: str) -> dict:
+    """The GLSL Plasma scene (examples/glsl/shaders/plasma.frag) at
+    1920x1080@60, 2x SSAA, 2 s through cli.main to a .rgb file: file size,
+    the program is the GLSL interpreter, no kernel launched (the fragment's
+    result takes the plain final pass), the middle frame against the same
+    frame rendered with device="cpu"; the same command as a
+    `python -m shaderflow_tpu_torch` process (file size); then a null
+    export through cli.main: fps, and one frame's device ms, kernels, host
+    ms and the busy share."""
+    import numpy as np
+    import torch_glsl_demo
+    from shaderflow_tpu_torch.shader import missing_fragment
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    flags = ["-w", WIDTH, "-h", HEIGHT, "-f", FPS, "-s", SSAA, "-t", SECONDS]
+    command = [GLSL_DEMO, "Plasma", "main", *flags]
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "plasma.rgb"
+        zero_counters()
+        started = time.perf_counter()
+        scene = cli_export([*command, "--device", "cuda", "-o", output])
+        export_s = time.perf_counter() - started
+        launches = read_counters()
+        if any(launches.values()):
+            raise AssertionError(f"Plasma launched kernels {launches}: the GLSL path has none")
+        interpreter = getattr(scene.shader.fragment, "glsl_interpreter", None)
+        if scene.shader.fragment is missing_fragment or interpreter is None:
+            raise AssertionError("Plasma resolved to the missing-texture program")
+        check, exported = check_export(output, frames, output.name, HEIGHT, WIDTH)
+        reference = Path(tmp) / "cpu.rgb"
+        torch_glsl_demo.Plasma().main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA,
+                                      time=(check + 1) / FPS, start=check / FPS,
+                                      output=str(reference), device="cpu")
+        want = np.fromfile(reference, np.uint8).reshape(-1, HEIGHT, WIDTH, 3)[-1]
+        frame_err, frame_share = u8_diff(exported, want)
+        if frame_err > 1 or frame_share >= 0.01:
+            raise AssertionError(f"Plasma frame {check} vs device=cpu: max {frame_err} u8 "
+                                 f"steps on {frame_share:.4%}")
+        say("plasma_slice", size=f"{WIDTH}x{HEIGHT}", fps=FPS, ssaa=SSAA, frames=frames,
+            bytes=output.stat().st_size, seconds=f"{export_s:.3f}", launches=launches,
+            frame_checked=check, checked_against="'device=cpu'", max_u8_diff=frame_err,
+            differing_share=f"{frame_share:.3e}")
+        output.unlink()
+        process_output = Path(tmp) / "plasma_process.rgb"
+        started = time.perf_counter()
+        result = subprocess.run([sys.executable, "-m", "shaderflow_tpu_torch",
+                                 *(str(arg) for arg in command), "-o", str(process_output)],
+                                cwd=REPO, capture_output=True, text=True, timeout=600)
+        if result.returncode != 0:
+            raise AssertionError(f"python -m shaderflow_tpu_torch failed:\n{result.stderr[-4000:]}")
+        size = process_output.stat().st_size
+        if size != frames * HEIGHT * WIDTH * 3:
+            raise AssertionError(f"python -m shaderflow_tpu_torch wrote {size} bytes")
+        say("plasma_process", command="'python -m shaderflow_tpu_torch ... Plasma main'",
+            bytes=size, seconds=f"{time.perf_counter() - started:.3f}")
+
+    started = time.perf_counter()
+    scene = cli_export([*command, "--device", "cuda", "-o", "null"])
+    null_s = time.perf_counter() - started
+    frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+    result = dict(frames=frames, seconds=null_s, fps=frames / null_s,
+                  device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                  host_ms_per_frame=host_ms, busy=frames * frame_ms / 1e3 / null_s,
+                  launches=launches, max_u8_diff=frame_err)
+    say("plasma_timing", config=f"Plasma {WIDTH}x{HEIGHT} {FPS}fps ssaa={SSAA} {SECONDS:g}s "
+        "null, cli.main", frames=frames, seconds=f"{null_s:.4f}", fps=f"{result['fps']:.3f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        host_ms_per_frame=f"{host_ms:.4f}", busy=f"{result['busy']:.4f}", card=repr(card))
+    return result
+
+
+def glsl_loop_path(card: str) -> dict:
+    """The GLSL front-end's masked loop (torch_glsl_demo.Escape: a per-pixel
+    break over 256 trips) at 1920x1080, 2x SSAA: one frame's wall time
+    (enqueue and device, synchronized) for each host-read interval k of
+    SYNC_CHOICES, with its trips and host reads, on Escape's view (lanes
+    inside the set run all 256 trips) and on a view where every lane
+    escapes early (the trips a k runs past the last escape are masked);
+    then Escape on the card against the CPU at 480x270, 2x SSAA."""
+    import numpy as np
+    import torch
+    import torch_glsl_demo
+    from shaderflow_tpu_torch import glsl
+
+    class Outside(torch_glsl_demo.Escape):
+        def build(self):
+            self.shader.fragment = torch_glsl_demo.ESCAPE_FRAG.replace(*OUTSIDE_VIEW)
+
+    times = {}
+    for view, cls in (("escape", torch_glsl_demo.Escape), ("outside", Outside)):
+        scene = cls()
+        scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=1 / FPS,
+                   output="null", device="cuda")
+        interpreter = scene.shader.fragment.glsl_interpreter
+        render = last_frame(scene, HEIGHT, WIDTH)
+        times[view] = {}
+        for k in SYNC_CHOICES:
+            interpreter.sync_every = k
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                started = time.perf_counter()
+                render()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - started) * 1e3)
+            stats = dict(interpreter.stats)
+            times[view][k] = dict(ms=statistics.median(walls), trips=stats["trips"],
+                                  syncs=stats["syncs"])
+            if view == "outside" and stats["trips"] >= 256:
+                raise AssertionError("the view above the set ran to the trip cap")
+            say("glsl_loop", view=view, size=f"{WIDTH * SSAA}x{HEIGHT * SSAA}", k=k,
+                frame_ms=f"{times[view][k]['ms']:.4f}", trips=stats["trips"],
+                syncs=stats["syncs"], card=repr(card))
+        interpreter.sync_every = glsl.Interpreter.SYNC_EVERY
+        if view == "escape":
+            frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+            say("glsl_loop_profile", view=view, k=glsl.Interpreter.SYNC_EVERY,
+                device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+                host_ms_per_frame=f"{host_ms:.4f}", card=repr(card))
+    frames = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cpu"):
+            output = Path(tmp) / f"{device}.rgb"
+            torch_glsl_demo.Escape().main(width=480, height=270, fps=FPS, ssaa=SSAA,
+                                          time=1 / FPS, output=str(output), device=device)
+            frames[device] = np.fromfile(output, np.uint8).reshape(270, 480, 3)
+    err, share = u8_diff(frames["cuda"], frames["cpu"])
+    if frames["cuda"].std() == 0 or err > 1 or share >= 0.01:
+        raise AssertionError(f"Escape 480x270 on the card vs the CPU: max {err} u8 steps "
+                             f"on {share:.4%}")
+    best = {view: min(SYNC_CHOICES, key=lambda k: times[view][k]["ms"]) for view in times}
+    say("glsl_loop_check", size="480x270", ssaa=SSAA, max_u8_diff=err,
+        differing_share=f"{share:.3e}", k_in_use=glsl.Interpreter.SYNC_EVERY,
+        fastest_k=best)
+    return dict(times=times, k=glsl.Interpreter.SYNC_EVERY, fastest_k=best,
+                device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                host_ms_per_frame=host_ms, max_u8_diff=err)
+
+
+def cli_mandelbrot_path(counters) -> dict:
+    """Mandelbrot (torch_fractals.py) at 1920x1080@60, 2x SSAA, 1 s through
+    cli.main to a .rgb file: K3 (lines) and K1 (a) once a frame, nothing
+    else, and the file's size."""
+    zero_counters, read_counters = counters
+    frames = FPS
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "mandelbrot.rgb"
+        zero_counters()
+        started = time.perf_counter()
+        cli_export([REPO / "examples" / "torch" / "torch_fractals.py", "Mandelbrot", "main",
+                    "-w", WIDTH, "-h", HEIGHT, "-f", FPS, "-s", SSAA, "-t", 1,
+                    "--device", "cuda", "-o", output])
+        export_s = time.perf_counter() - started
+        launches = read_counters()
+        expected = {key: 0 for key in launches}
+        expected.update(k3=frames, k1=frames)
+        if launches != expected:
+            raise AssertionError(f"Mandelbrot through cli.main: launch counters {launches}, "
+                                 f"expected {expected}")
+        check_export(output, frames, output.name, HEIGHT, WIDTH)
+        say("mandelbrot_cli", frames=frames, bytes=output.stat().st_size,
+            seconds=f"{export_s:.3f}", launches=launches)
+    return dict(frames=frames, seconds=export_s, launches=launches)
 
 
 def check_export(output: Path, frames: int, name: str, height: int = HEIGHT,
@@ -485,6 +708,7 @@ def eager_check(name: str, frame, tail_args) -> tuple[int, float]:
 
 
 def main() -> int:
+    script_started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this checks the "
@@ -1070,7 +1294,15 @@ def main() -> int:
         bound_ms=f"{k1t_bound_ms:.4f}", bound_by=k1t_bound_by,
         launches=scenes["Tetration"]["launches"]["k1"], **k1t_compiled)
     del frame, tetration_spec
+
+    # 26. GLSL Plasma through the command line (no kernel: the plain final pass)
+    scenes["Plasma"] = glsl_plasma_path((zero_counters, read_counters), card)
+    # 27. The GLSL front-end's masked loop: host reads every k trips
+    scenes["Escape"] = glsl_loop_path(card)
+    # 28. Mandelbrot through the command line: K3 and K1 once a frame
+    scenes["Mandelbrot (cli.main)"] = cli_mandelbrot_path((zero_counters, read_counters))
     print(json.dumps({"scenes": scenes}))
+    say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
     kernels = [

@@ -7,6 +7,11 @@ by the tests in tests/test_torch_*.py. It imports torch, never jax, and
 nothing of the JAX package: the JAX-free pieces it needs (logger, message,
 variable, resolution, io/ffmpeg, io/sinks) are its own copies.
 
+Entry points: `Scene.main(...)`, and the command line (cli.py,
+`python -m shaderflow_tpu_torch <file.py> <Scene> main --flags`). Scene
+fragments are Python functions or GLSL (`.frag` files or text), run by the
+GLSL front-end (glsl.py) on the frame's tensors.
+
 Idiom: plain functions on tensors with an explicit `device` — no global
 device state. The device is chosen once per run (`Scene.main(device=...)`,
 "cuda" by default); asking for "cuda" without a card raises instead of
@@ -35,6 +40,25 @@ package: Path = Path(__file__).parent
 BUILD_DIR: Path = package.parent / "build" / "shaderflow_tpu_torch"
 """Kernel build outputs (nvcc shared libraries, generated Triton sources);
 listed in .gitignore, rebuilt when a source is newer."""
+
+
+class _Directories:
+    """User directories for logs, data and caches ($SHADERFLOW_HOME, else
+    ~/.shaderflow_tpu_torch); made on first use."""
+
+    def __init__(self) -> None:
+        base = Path(os.environ.get("SHADERFLOW_HOME", Path.home() / ".shaderflow_tpu_torch"))
+        self.user_data_path = base / "data"
+        self.user_log_path = base / "logs"
+        self.user_cache_path = base / "cache"
+
+    def ensure(self) -> "_Directories":
+        for path in (self.user_data_path, self.user_log_path, self.user_cache_path):
+            path.mkdir(parents=True, exist_ok=True)
+        return self
+
+
+directories = _Directories()
 
 
 # The reference's logger helper names (info/warn/error/debug), on the

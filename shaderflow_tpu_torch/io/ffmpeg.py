@@ -1,12 +1,15 @@
 """
-FFmpeg command builder, audio probes and PCM audio decoding — the part of
-shaderflow_tpu/io/ffmpeg.py the port's export path calls.
+FFmpeg command assembly, audio probes and PCM audio decoding.
 
-The builder assembles the encode command of FFmpegSink (a rawvideo pipe in,
-x264 + AAC out, an optional scale filter, audio inputs added by module
-ffhooks). The probes answer from ffprobe when it exists, else from the
-stdlib `wave` header. AudioReader decodes PCM WAV files with the stdlib;
-other formats need the reference's ffmpeg decode pipe, not ported yet.
+Port of shaderflow_tpu/io/ffmpeg.py. The FFmpeg class has the reference's whole
+surface: inputs and outputs (paths, rawvideo pipes), the video codecs
+(x264, x265, NVENC, QuickSync, AMF, SVT-AV1, rav1e, rawvideo, copy, none),
+the audio codecs (AAC, MP3, Opus, FLAC, PCM, copy, none, silent) and the
+filters (scale, vflip, custom); the CLI's chained codec grammar drives its
+methods (cli.py). The probes answer from ffprobe when it exists, else from
+the stdlib `wave` header. AudioReader decodes PCM WAV files with the
+stdlib; other formats need the reference's ffmpeg decode pipe, not ported
+yet, nor are the video probes.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import wave
 from dataclasses import dataclass, field
 from functools import lru_cache
 from pathlib import Path
+from subprocess import DEVNULL
 from typing import Any, Iterator, Optional, Union
 
 import numpy as np
@@ -25,14 +29,22 @@ from shaderflow_tpu_torch import logger
 
 
 # --------------------------------------------------------------------------- #
-# Inputs, outputs, codecs, filters
+# Inputs / outputs
 
 @dataclass
 class InputPath:
     path: Union[str, Path]
+    stream_loop: int = 0
+    options: dict[str, Any] = field(default_factory=dict)
 
-    def args(self) -> list[str]:
-        return ["-i", str(self.path)]
+    def args(self, ff: "FFmpeg") -> list[str]:
+        out: list[str] = []
+        if self.stream_loop:
+            out += ["-stream_loop", str(self.stream_loop)]
+        for key, value in self.options.items():
+            out += [f"-{key}", str(value)]
+        out += ["-i", str(self.path)]
+        return out
 
 
 @dataclass
@@ -43,36 +55,192 @@ class InputPipe:
     framerate: float = 60.0
     pixel_format: str = "rgb24"
 
-    def args(self) -> list[str]:
-        return ["-f", "rawvideo", "-pix_fmt", self.pixel_format,
-                "-s", f"{self.width}x{self.height}", "-r", f"{self.framerate}",
-                "-i", "-"]
+    def args(self, ff: "FFmpeg") -> list[str]:
+        return [
+            "-f", "rawvideo",
+            "-pix_fmt", self.pixel_format,
+            "-s", f"{self.width}x{self.height}",
+            "-r", f"{self.framerate}",
+            "-i", "-",
+        ]
 
 
 @dataclass
 class OutputPath:
     path: Union[str, Path]
     pixel_format: Optional[str] = "yuv420p"
+    options: dict[str, Any] = field(default_factory=dict)
 
-    def args(self) -> list[str]:
-        out = ["-pix_fmt", self.pixel_format] if self.pixel_format else []
-        return out + ["-y", str(self.path)]
+    def args(self, ff: "FFmpeg") -> list[str]:
+        out: list[str] = []
+        if self.pixel_format:
+            out += ["-pix_fmt", self.pixel_format]
+        for key, value in self.options.items():
+            out += [f"-{key}", str(value)]
+        out += ["-y", str(self.path)]
+        return out
 
 
 @dataclass
-class Codec:
-    """`-c:v` / `-c:a` with its options (None values are left out)."""
-    flag: str
-    codec: str
+class OutputPipe:
+    format: str = "matroska"
+    pixel_format: Optional[str] = None
+
+    def args(self, ff: "FFmpeg") -> list[str]:
+        out: list[str] = []
+        if self.pixel_format:
+            out += ["-pix_fmt", self.pixel_format]
+        if self.format:
+            out += ["-f", self.format]
+        return out + ["-"]
+
+
+# --------------------------------------------------------------------------- #
+# Video codecs
+
+@dataclass
+class VideoCodec:
+    codec: str = "libx264"
     extra: dict[str, Any] = field(default_factory=dict)
 
-    def args(self) -> list[str]:
-        out = [self.flag, self.codec]
+    def args(self, ff: "FFmpeg") -> list[str]:
+        out = ["-c:v", self.codec]
         for key, value in self.extra.items():
             if value is not None:
                 out += [f"-{key}", str(value)]
         return out
 
+
+def H264(preset: str = "slow", tune: Optional[str] = None, crf: int = 20,
+         profile: Optional[str] = None, **extra) -> VideoCodec:
+    return VideoCodec("libx264", dict(preset=preset, tune=tune, crf=crf, profile=profile, **extra))
+
+def H264_NVENC(preset: str = "p5", tune: str = "hq", cq: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("h264_nvenc", dict(preset=preset, tune=tune, cq=cq, **extra))
+
+def H265(preset: str = "slow", crf: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("libx265", dict(preset=preset, crf=crf, **extra))
+
+def H265_NVENC(preset: str = "p5", tune: str = "hq", cq: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("hevc_nvenc", dict(preset=preset, tune=tune, cq=cq, **extra))
+
+def AV1_SVT(preset: int = 7, crf: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("libsvtav1", dict(preset=preset, crf=crf, **extra))
+
+def AV1_RAV1E(speed: int = 7, qp: int = 80, **extra) -> VideoCodec:
+    return VideoCodec("librav1e", dict(speed=speed, qp=qp, **extra))
+
+def AV1_NVENC(preset: str = "p5", cq: int = 30, **extra) -> VideoCodec:
+    return VideoCodec("av1_nvenc", dict(preset=preset, cq=cq, **extra))
+
+def H264_QSV(preset: str = "slow", crf: int = 25, **extra) -> VideoCodec:
+    """Intel QuickSync: command assembly only (selection fails at run time
+    without the hardware)."""
+    return VideoCodec("h264_qsv", dict(preset=preset, global_quality=crf, **extra))
+
+def H265_QSV(preset: str = "slow", crf: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("hevc_qsv", dict(preset=preset, global_quality=crf, **extra))
+
+def H264_AMF(preset: str = "quality", crf: int = 25, **extra) -> VideoCodec:
+    """AMD AMF: command assembly only."""
+    return VideoCodec("h264_amf", dict(quality=preset, qp_i=crf, qp_p=crf, **extra))
+
+def H265_AMF(preset: str = "quality", crf: int = 25, **extra) -> VideoCodec:
+    return VideoCodec("hevc_amf", dict(quality=preset, qp_i=crf, qp_p=crf, **extra))
+
+def Rawvideo() -> VideoCodec:
+    return VideoCodec("rawvideo")
+
+def CopyVideo() -> VideoCodec:
+    return VideoCodec("copy")
+
+@dataclass
+class NoVideo:
+    def args(self, ff: "FFmpeg") -> list[str]:
+        return ["-vn"]
+
+
+# --------------------------------------------------------------------------- #
+# Audio codecs
+
+@dataclass
+class AudioCodec:
+    codec: str = "aac"
+    extra: dict[str, Any] = field(default_factory=dict)
+
+    def args(self, ff: "FFmpeg") -> list[str]:
+        out = ["-c:a", self.codec]
+        for key, value in self.extra.items():
+            if value is not None:
+                out += [f"-{key}", str(value)]
+        return out
+
+
+def AAC(bitrate: str = "192k") -> AudioCodec:
+    return AudioCodec("aac", {"b:a": bitrate})
+
+def MP3(bitrate: str = "192k") -> AudioCodec:
+    return AudioCodec("libmp3lame", {"b:a": bitrate})
+
+def Opus(bitrate: str = "96k") -> AudioCodec:
+    return AudioCodec("libopus", {"b:a": bitrate})
+
+def FLAC() -> AudioCodec:
+    return AudioCodec("flac")
+
+def CopyAudio() -> AudioCodec:
+    return AudioCodec("copy")
+
+@dataclass
+class NoAudio:
+    def args(self, ff: "FFmpeg") -> list[str]:
+        return ["-an"]
+
+@dataclass
+class EmptyAudio:
+    """Silent anullsrc track (keeps duration when no audio input exists)."""
+    samplerate: int = 44100
+
+    def args(self, ff: "FFmpeg") -> list[str]:
+        return ["-f", "lavfi", "-t", str(ff.time or 60), "-i",
+                f"anullsrc=channel_layout=stereo:sample_rate={self.samplerate}"]
+
+
+# PCM formats: name -> (bytes/sample, numpy dtype)
+PCM_FORMATS: dict[str, tuple[int, np.dtype]] = {
+    "pcm_f64le": (8, np.dtype("<f8")), "pcm_f64be": (8, np.dtype(">f8")),
+    "pcm_f32le": (4, np.dtype("<f4")), "pcm_f32be": (4, np.dtype(">f4")),
+    "pcm_s32le": (4, np.dtype("<i4")), "pcm_s32be": (4, np.dtype(">i4")),
+    "pcm_s24le": (3, None), "pcm_s24be": (3, None),
+    "pcm_s16le": (2, np.dtype("<i2")), "pcm_s16be": (2, np.dtype(">i2")),
+    "pcm_u32le": (4, np.dtype("<u4")), "pcm_u32be": (4, np.dtype(">u4")),
+    "pcm_u24le": (3, None), "pcm_u24be": (3, None),
+    "pcm_u16le": (2, np.dtype("<u2")), "pcm_u16be": (2, np.dtype(">u2")),
+    "pcm_s8": (1, np.dtype("i1")), "pcm_u8": (1, np.dtype("u1")),
+}
+
+
+@dataclass
+class PCM:
+    format: str = "pcm_f32le"
+
+    def args(self, ff: "FFmpeg") -> list[str]:
+        return ["-c:a", self.format, "-f", self.format.replace("pcm_", "")]
+
+    @property
+    def size(self) -> int:
+        return PCM_FORMATS[self.format][0]
+
+    @property
+    def dtype(self) -> np.dtype:
+        dtype = PCM_FORMATS[self.format][1]
+        if dtype is None:
+            raise ValueError(f"24-bit PCM has no numpy dtype ({self.format})")
+        return dtype
+
+
+# --------------------------------------------------------------------------- #
+# Filters
 
 @dataclass
 class FilterScale:
@@ -83,19 +251,41 @@ class FilterScale:
     def __str__(self) -> str:
         return f"scale={self.width or -1}:{self.height or -1}:flags={self.resample}"
 
+@dataclass
+class FilterVerticalFlip:
+    def __str__(self) -> str:
+        return "vflip"
+
+@dataclass
+class FilterCustom:
+    content: str = ""
+
+    def __str__(self) -> str:
+        return self.content
+
+
+# --------------------------------------------------------------------------- #
 
 class FFmpeg:
-    """Aggregate command builder with a fluent interface."""
+    """The ffmpeg command, assembled through a fluent interface."""
 
-    def __init__(self):
+    def __init__(self, **options):
         self.inputs: list[Any] = []
         self.outputs: list[Any] = []
         self.filters: list[Any] = []
-        self.vcodec: Optional[Codec] = None
-        self.acodec: Optional[Codec] = None
+        self.vcodec: Optional[Any] = None
+        self.acodec: Optional[Any] = None
         self.time: Optional[float] = None
         self.shortest: bool = False
+        self.stream_loop: int = 0
         self.loglevel: str = "info"
+        self.hide_banner: bool = True
+        self.hwaccel: Optional[str] = None
+        self.vsync: Optional[str] = None
+        for key, value in options.items():
+            setattr(self, key, value)
+
+    # -- management ---------------------------------------------------------
 
     @staticmethod
     @lru_cache
@@ -111,22 +301,22 @@ class FFmpeg:
     def available(cls) -> bool:
         return cls.binary() is not None
 
-    def clear(self, inputs=True, outputs=True, filters=True, video_codec=True,
-              audio_codec=True) -> "FFmpeg":
-        if inputs:
-            self.inputs.clear()
-        if outputs:
-            self.outputs.clear()
-        if filters:
-            self.filters.clear()
-        if video_codec:
-            self.vcodec = None
-        if audio_codec:
-            self.acodec = None
+    def quiet(self) -> "FFmpeg":
+        self.loglevel = "error"
         return self
 
-    def input(self, path) -> "FFmpeg":
-        self.inputs.append(InputPath(path=path))
+    def clear(self, inputs=True, outputs=True, filters=True, video_codec=True, audio_codec=True) -> "FFmpeg":
+        if inputs: self.inputs.clear()
+        if outputs: self.outputs.clear()
+        if filters: self.filters.clear()
+        if video_codec: self.vcodec = None
+        if audio_codec: self.acodec = None
+        return self
+
+    # -- inputs / outputs ---------------------------------------------------
+
+    def input(self, path, **options) -> "FFmpeg":
+        self.inputs.append(InputPath(path=path, options=options))
         return self
 
     def pipe_input(self, **options) -> "FFmpeg":
@@ -134,20 +324,57 @@ class FFmpeg:
         return self
 
     def output(self, path, **options) -> "FFmpeg":
-        self.outputs.append(OutputPath(path=path, **options))
+        if str(path) == "-":
+            self.outputs.append(OutputPipe(format=options.pop("format", None)))
+        else:
+            self.outputs.append(OutputPath(path=path, **options))
         return self
 
-    def h264(self, preset: str = "slow", crf: int = 20) -> "FFmpeg":
-        self.vcodec = Codec("-c:v", "libx264", dict(preset=preset, crf=crf))
+    def pipe_output(self, **options) -> "FFmpeg":
+        self.outputs.append(OutputPipe(**options))
         return self
 
-    def aac(self, bitrate: str = "192k") -> "FFmpeg":
-        self.acodec = Codec("-c:a", "aac", {"b:a": bitrate})
-        return self
+    # -- codecs (fluent) ----------------------------------------------------
+
+    def h264(self, **kw) -> "FFmpeg": self.vcodec = H264(**kw); return self
+    def h264_nvenc(self, **kw) -> "FFmpeg": self.vcodec = H264_NVENC(**kw); return self
+    def h264_qsv(self, **kw) -> "FFmpeg": self.vcodec = H264_QSV(**kw); return self
+    def h264_amf(self, **kw) -> "FFmpeg": self.vcodec = H264_AMF(**kw); return self
+    def h265(self, **kw) -> "FFmpeg": self.vcodec = H265(**kw); return self
+    def h265_nvenc(self, **kw) -> "FFmpeg": self.vcodec = H265_NVENC(**kw); return self
+    def h265_qsv(self, **kw) -> "FFmpeg": self.vcodec = H265_QSV(**kw); return self
+    def h265_amf(self, **kw) -> "FFmpeg": self.vcodec = H265_AMF(**kw); return self
+    def av1_svt(self, **kw) -> "FFmpeg": self.vcodec = AV1_SVT(**kw); return self
+    def av1_rav1e(self, **kw) -> "FFmpeg": self.vcodec = AV1_RAV1E(**kw); return self
+    def av1_nvenc(self, **kw) -> "FFmpeg": self.vcodec = AV1_NVENC(**kw); return self
+    def rawvideo(self) -> "FFmpeg": self.vcodec = Rawvideo(); return self
+    def copy_video(self) -> "FFmpeg": self.vcodec = CopyVideo(); return self
+    def no_video(self) -> "FFmpeg": self.vcodec = NoVideo(); return self
+
+    def aac(self, **kw) -> "FFmpeg": self.acodec = AAC(**kw); return self
+    def mp3(self, **kw) -> "FFmpeg": self.acodec = MP3(**kw); return self
+    def opus(self, **kw) -> "FFmpeg": self.acodec = Opus(**kw); return self
+    def flac(self) -> "FFmpeg": self.acodec = FLAC(); return self
+    def pcm(self, format: str = "pcm_f32le") -> "FFmpeg": self.acodec = PCM(format); return self
+    def copy_audio(self) -> "FFmpeg": self.acodec = CopyAudio(); return self
+    def no_audio(self) -> "FFmpeg": self.acodec = NoAudio(); return self
+    def empty_audio(self, **kw) -> "FFmpeg": self.acodec = EmptyAudio(**kw); return self
+
+    # -- filters ------------------------------------------------------------
 
     def scale(self, width=None, height=None, resample="lanczos") -> "FFmpeg":
         self.filters.append(FilterScale(width, height, resample))
         return self
+
+    def vflip(self) -> "FFmpeg":
+        self.filters.append(FilterVerticalFlip())
+        return self
+
+    def filter(self, content: str) -> "FFmpeg":
+        self.filters.append(FilterCustom(content))
+        return self
+
+    # -- command assembly ---------------------------------------------------
 
     @property
     def command(self) -> list[str]:
@@ -155,22 +382,38 @@ class FFmpeg:
             raise ValueError("FFmpeg requires at least one input")
         if not self.outputs:
             raise ValueError("FFmpeg requires at least one output")
-        cmd: list[str] = [self.binary() or "ffmpeg", "-hide_banner", "-loglevel", self.loglevel]
+
+        cmd: list[str] = [self.binary() or "ffmpeg"]
+        if self.hide_banner:
+            cmd.append("-hide_banner")
+        cmd += ["-loglevel", self.loglevel]
+        if self.hwaccel:
+            cmd += ["-hwaccel", self.hwaccel]
+        if self.vsync:
+            cmd += ["-vsync", self.vsync]
+        if self.stream_loop:
+            cmd += ["-stream_loop", str(self.stream_loop)]
         for item in self.inputs:
-            cmd += item.args()
+            cmd += item.args(self)
         if self.time is not None:
             cmd += ["-t", str(self.time)]
         if self.shortest:
             cmd.append("-shortest")
         for output in self.outputs:
             if self.acodec is not None:
-                cmd += self.acodec.args()
+                cmd += self.acodec.args(self)
             if self.vcodec is not None:
-                cmd += self.vcodec.args()
+                cmd += self.vcodec.args(self)
             if self.filters:
                 cmd += ["-vf", ",".join(map(str, self.filters))]
-            cmd += output.args()
+            cmd += output.args(self)
         return cmd
+
+    def run(self, **options) -> subprocess.CompletedProcess:
+        # Never inherit stdin: ffmpeg reads it for interactive commands and
+        # a probe/convert run must not steal or block on the caller's input
+        options.setdefault("stdin", DEVNULL)
+        return subprocess.run(self.command, **options)
 
     def popen(self, **options) -> subprocess.Popen:
         logger.debug(f"FFmpeg: {' '.join(self.command)}")

@@ -6,8 +6,9 @@ registers itself into its scene on construction, exposes build / setup /
 update / prewarm / pipeline / handle / ffhook / duration / destroy /
 load_state hooks, can relay()
 messages to every module, and full_pipeline() concatenates every module's
-uniforms. The scene itself is the first module. The realtime HUD hooks and
-CLI commands are not ported yet.
+uniforms, and register CLI commands (`commands` / `register_command`,
+dispatched by cli.py as `<Scene> <command>`). The scene itself is the
+first module. The realtime HUD hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class ShaderModule:
             setattr(self, key, value)
 
         self.scene.modules.append(self)
+        self.commands()
 
         if not isinstance(self, ShaderScene):
             self.build()
@@ -81,6 +83,16 @@ class ShaderModule:
 
     def ffhook(self, ffmpeg: "FFmpeg") -> None:
         """Mutate the export FFmpeg command (e.g. add an audio input)."""
+
+    def commands(self) -> None:
+        """Register CLI commands on the scene launcher: override and call
+        self.register_command(fn)."""
+
+    def register_command(self, fn, name: Optional[str] = None) -> None:
+        """Expose `fn` as `<Scene> <command>` on the CLI (cli.py dispatches
+        commands other than 'main' here); keyword parameters become flags."""
+        command = (name or fn.__name__).replace("_", "-")
+        self.scene._commands[command] = fn
 
     def destroy(self) -> None:
         """Release resources; called when the scene is destroyed."""

@@ -157,6 +157,17 @@ class ShaderPiano(ShaderModule):
     def setup(self) -> None:
         self._frame_index = 0
 
+    def commands(self) -> None:
+        self.register_command(self.midi_stats, "midi-stats")
+
+    def midi_stats(self) -> None:
+        """Print note/tempo statistics of the loaded MIDI file."""
+        notes = list(self.notes)
+        print(f"notes: {len(notes)}")
+        print(f"note range: {self.global_minimum_note}-{self.global_maximum_note}")
+        print(f"duration: {self.duration:.2f}s")
+        print(f"tempo changes: {len(self.tempo)}")
+
     def load_midi(self, path) -> None:
         path = Path(path)
         if not path.exists():

@@ -118,6 +118,8 @@ class ShaderScene(ShaderModule):
         self.ffmpeg = FFmpeg()
         self.engine: Optional[RenderEngine] = None
         self.batch_preludes: dict = {}
+        # Module-registered CLI commands (module.register_command)
+        self._commands: dict = {}
 
         self.frametimer: Optional[ShaderFrametimer] = None
         self.keyboard: Optional[ShaderKeyboard] = None

@@ -10,20 +10,26 @@ sequences and program textures (any temporal slot and layer), the GL
 sampler and its coordinate-space accessors, `texel_fetch`, `discard`,
 `prelude` / `prelude_indexed`, `tail`, the trivial and the general
 camera), make_coords / finish_coords, the built-in default (welcome) and
-missing-texture programs, and ShaderProgram with function fragments and
-instancing. Not yet: mipmaps, the GLSL front-end, hot reload, and the
-missing-texture fallback for a program that fails to build (there is no
-front-end to fail: a failing fragment raises).
+missing-texture programs, and ShaderProgram with instancing and its
+fragment sources: a Python function, GLSL or Python source text, or a path
+to a file of either (GLSL runs through glsl.py). A source that fails to
+build resolves to the missing-texture program after a report is written
+to the user log directory, as in the reference. Not yet: mipmaps and hot
+reload (the realtime loop polls it).
 """
 
 from __future__ import annotations
 
 import copy
+import traceback
 from collections.abc import Mapping
-from typing import Any, Callable, Optional
+from pathlib import Path
+from typing import Any, Callable, Optional, Union
 
 import torch
 
+import shaderflow_tpu_torch
+from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib, sampling
@@ -377,8 +383,7 @@ def default_fragment(sf: Frag):
 
 def missing_fragment(sf: Frag):
     """The magenta checkerboard the reference shows for a program that
-    fails to build (fragment/missing.glsl; shaderflow_tpu/shader.py:335).
-    Not wired in as a fallback: a failing fragment raises."""
+    fails to build (fragment/missing.glsl; shaderflow_tpu/shader.py:335)."""
     uv = sf.stuv + sf.iTime / 64.0
     block = torch.floor(8.0 * uv)
     on = torch.remainder(block[..., 0] + block[..., 1], 2.0) == 0.0
@@ -388,36 +393,111 @@ def missing_fragment(sf: Frag):
 
 # --------------------------------------------------------------------------- #
 
+def _is_pathlike(value) -> bool:
+    if isinstance(value, Path):
+        return True
+    if isinstance(value, str) and "\n" not in value and len(value) < 4096:
+        try:
+            return Path(value).exists()
+        except OSError:
+            return False
+    return False
+
+
 class ShaderProgram(ShaderModule):
     """A pixel program + the texture matrix it renders into."""
 
     instances: int = 1
 
     def __init__(self, scene=None, name: Optional[str] = None, **kwargs):
-        self._fragment: Optional[PixelFunction] = None
+        self._fragment: Union[PixelFunction, str, Path, None] = None
+        self._resolved: Optional[PixelFunction] = None
+        self._compiled_src: Optional[tuple] = None   # (origin, source) of _resolved
         self.texture: Optional[ShaderTexture] = None
         super().__init__(scene=scene, name=name, **kwargs)
 
     def build(self) -> None:
         self.texture = ShaderTexture(scene=self.scene, name=self.name, track=1.0)
         self._fragment = default_fragment
+        self._resolved = default_fragment
+
+    # -- fragment source handling -------------------------------------------
 
     @property
     def fragment(self) -> Optional[PixelFunction]:
-        return self._fragment
+        return self._resolved
 
     @fragment.setter
-    def fragment(self, value: PixelFunction) -> None:
-        if not callable(value):
-            raise NotImplementedError(
-                f"Fragment source {type(value).__name__}: GLSL / file sources "
-                "need the GLSL front-end, not ported yet; pass a Python function")
+    def fragment(self, value: Union[PixelFunction, str, Path]) -> None:
         self._fragment = value
+        self.compile()
+
+    @staticmethod
+    def _load_source(source: str, origin: str) -> PixelFunction:
+        """Source text -> pixel function: GLSL (`void main()`, the
+        reference's `.frag` format) through the GLSL front-end, Python
+        (`def main(sf)`) by exec."""
+        from shaderflow_tpu_torch import glsl
+        if glsl.looks_like_glsl(source):
+            return glsl.compile_fragment(source, origin)
+        namespace: dict[str, Any] = {}
+        exec(compile(source, origin, "exec"), namespace)
+        main = namespace.get("main")
+        if not callable(main):
+            raise ValueError(f"Shader source {origin!r} does not define main(sf)")
+        return main
+
+    def compile(self) -> "ShaderProgram":
+        """Resolve the fragment into a callable; on a build error write a
+        report and resolve to the missing-texture program, as the reference
+        does (a run never crashes on a shader)."""
+        value = self._fragment
+        try:
+            if value is None:
+                self._resolved = default_fragment
+                self._compiled_src = None
+            elif callable(value):
+                self._resolved = value
+                self._compiled_src = None
+            elif _is_pathlike(value):
+                path = Path(value)
+                source = path.read_text()
+                # Unchanged source keeps the resolved callable: the compile
+                # relay fires on every run's set-up, and re-parsing would
+                # walk the whole source again for every export
+                if self._compiled_src == (str(path), source):
+                    return self
+                self._resolved = self._load_source(source, str(path))
+                self._compiled_src = (str(path), source)
+            elif isinstance(value, str):
+                if self._compiled_src == (self.name, value):
+                    return self
+                self._resolved = self._load_source(value, f"<{self.name}-fragment>")
+                self._compiled_src = (self.name, value)
+            else:
+                raise TypeError(f"Unsupported fragment source: {type(value)}")
+        except Exception as error:
+            self.dump_error(error)
+            self._resolved = missing_fragment
+            self._compiled_src = None
         self.scene.invalidate_engine()
+        return self
+
+    def dump_error(self, error: Exception) -> None:
+        """Write the faulty source and its traceback to the user log
+        directory and log loudly (the reference's ShaderDumper)."""
+        directory = shaderflow_tpu_torch.directories.ensure().user_log_path
+        report = directory / f"{self.uuid}-error.md"
+        source = self._fragment if isinstance(self._fragment, str) else str(self._fragment)
+        report.write_text(
+            f"# Shader build error (module {self.uuid}, {self.name})\n\n"
+            f"```\n{traceback.format_exc()}\n```\n\n## Source\n\n```\n{source}\n```\n")
+        logger.error(f"Error building shader {self.name}: {error}; "
+                     f"falling back to missing-texture shader (report: {report})")
 
     def handle(self, message) -> None:
         if isinstance(message, ShaderMessage.Shader.Compile):
-            self.scene.invalidate_engine()
+            self.compile()
 
     def render_layer(self, ctx: Frag):
         """Run one layer of this program: a TailSpec (the engine fuses it
@@ -435,7 +515,7 @@ class ShaderProgram(ShaderModule):
         for instance in range(self.instances):
             ctx.instance = instance
             ctx._discard = None
-            out = self._fragment(ctx)
+            out = self._resolved(ctx)
             if isinstance(out, tailfuse.TailSpec):
                 if self.instances == 1:
                     return out

@@ -151,8 +151,9 @@ def test_port_imports_no_jax(tmp_path):
     ported scenes (Mandelbrot, the music visualizer, PianoRoll at ssaa=1,
     Julia, the visualizer in the bf16 tail mode at blur level 1, and one
     scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life)
-    run with jax and the JAX package blocked, and leave no module of either
-    loaded."""
+    and the GLSL Plasma scene through the command line (cli.main) run with
+    jax and the JAX package blocked, and leave no module of either loaded;
+    the GLSL front-end and the command line's sources import neither."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -181,19 +182,28 @@ import shaderflow_tpu_torch.tools.bench_dtype, shaderflow_tpu_torch.tools.probe_
 os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
 torch_demo.Visualizer().main(width=32, height=18, fps=10, time=0.3, ssaa=2,
                              output={str(tmp_path / "viz_bf16.rgb")!r}, device="cpu")
+from shaderflow_tpu_torch import cli
+cli.main([{str(REPO / "examples" / "torch" / "torch_glsl_demo.py")!r}, "Plasma", "main",
+          "-w", "32", "-h", "18", "-f", "10", "-t", "0.3", "-s", "2", "--device", "cpu",
+          "-o", {str(tmp_path / "plasma.rgb")!r}])
 loaded = [name for name, module in sys.modules.items() if module is not None
           and (name in ("jax", "shaderflow_tpu") or name.startswith(("jax.", "shaderflow_tpu.")))]
 assert not loaded, loaded
 print("frames", *(np.fromfile({str(tmp_path)!r} + "/" + name, np.uint8).size // (32 * 18 * 3)
                   for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb", "viz_bf16.rgb",
                                "basic.rgb", "bars.rgb", "raymarch.rgb", "tetration.rgb",
-                               "life.rgb")))
+                               "life.rgb", "plasma.rgb")))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2 3 4 1 3 2 2 2 2 2" in result.stdout
+    assert "frames 2 3 4 1 3 2 2 2 2 2 3" in result.stdout
+    pattern = re.compile(r"^\s*(from\s+(shaderflow_tpu|jax)(\.|\s)|import\s+(shaderflow_tpu|jax)\b)",
+                         re.MULTILINE)
+    for name in ("glsl.py", "cli.py", "__main__.py"):
+        source = (REPO / "shaderflow_tpu_torch" / name).read_text()
+        assert "import" in source and not pattern.search(source), name
 
 
 def test_port_sources_never_import_the_jax_package():
