@@ -95,6 +95,26 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      at the k in use; the card against the CPU at 480x270
  28. Mandelbrot through cli.main at 1920x1080@60, 2x SSAA, 1 s: K3 and K1
      (a) launch once a frame, nothing else
+  The realtime preview (Scene.main without an output, 1920x1080, 2x SSAA)
+ 29. the visualizer, headless, at 60 fps for REALTIME_FRAMES frames: K1 ==
+     K2 == frames rendered, K3 == 0; the achieved fps, the frames whose dt
+     exceeded 1.5 periods, the host ms a frame (capture, flush enqueue,
+     the wait on frame k-1), one frame's device ms and kernels
+     (device_profile), the micro-batch size it ended at, the staging
+     upload against a fresh pin_memory(); the unpaced ceiling (fps=1000,
+     frameskip off, CEILING_FRAMES frames: frames per wall second; run
+     first, so the paced run starts with its kernels built); frame
+     2 at dt = 1/60 against its plain recomputation (plain K2 gather,
+     plain tail: at most 1 u8 step on < 1 %) and against device="cpu" (at
+     most 1 step on < 2 %); the realtime tail's K1 and K2 at batch 1 timed
+     against their plain versions and bounds
+ 30. Mandelbrot, the same way: K3 == K1 == frames; the achieved fps and
+     the ceiling
+ 31. the display pump on the visualizer with a recording stub window
+     (show / poll): frames offered, shown and dropped, the median D2H ms;
+     the last shown frame equal to a copy of the engine's frame at that
+     index, taken on the render stream when it was flushed (no torn frame)
+Then a {"realtime": ...} line with phases 29-31's figures.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
 events, averaged over repeated calls; `call_ms` is the median of CUDA
@@ -122,6 +142,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 WIDTH, HEIGHT, FPS, SSAA, SECONDS = 1920, 1080, 60, 2, 2.0
+# The realtime phases: frames at the 60 fps target, frames of the unpaced
+# run, frames of the display pump's run
+REALTIME_FRAMES, CEILING_FRAMES, PUMP_FRAMES = 180, 300, 120
 GLSL_DEMO = REPO / "examples" / "torch" / "torch_glsl_demo.py"
 # The GLSL masked loop's host-read intervals timed, and the view of its
 # second measurement, above the set, where every lane escapes within 30 trips
@@ -705,6 +728,333 @@ def eager_check(name: str, frame, tail_args) -> tuple[int, float]:
         raise AssertionError(f"{name} vs the eager tail: max {diff.max()} u8 steps, "
                              f"{psnr:.2f} dB (bar {steps} steps, {psnr_bar} dB)")
     return int(diff.max()), psnr
+
+
+# --------------------------------------------------------------------------- #
+# The realtime preview (phases 29-31)
+
+class StubWindow:
+    """A window that records what it is shown (the display pump's phase)."""
+
+    def __init__(self):
+        self.shown = 0
+        self.last = None
+        self.size = (WIDTH, HEIGHT)
+
+    def show(self, frame) -> None:
+        self.shown += 1
+        self.last = frame.copy()
+
+    def poll(self) -> list:
+        return []
+
+    def set_exclusive(self, state) -> None:
+        pass
+
+    def set_fullscreen(self, state) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
+                 backend=None, window=None, keep=0) -> dict:
+    """cls().main(...) with no output, headless (or with `window`) until
+    `frames` frames: its counters, wall fps, the dt of every tick, the host
+    time of each frame's capture (scene.next) and flush enqueue; `keep` > 0
+    also keeps copies of the last `keep` flushed frames by frame index,
+    taken on the render stream right after each flush."""
+    import torch
+    from shaderflow_tpu_torch.scene import WindowBackend
+    zero_counters, read_counters = counters
+    scene = cls(backend=backend or WindowBackend.Headless)
+    scene.frame_limit = frames
+    if window is not None:
+        scene.open_window = lambda: window
+    scene.initialize()
+    ticks, stamps, tick_s, capture_s, flush_s, copies, pumps = [], [], [], [], [], {}, []
+    tick, step, flush = scene._realtime_frame, scene.next, scene.engine.flush
+
+    def timed_tick(dt=0.0):
+        started = time.perf_counter()
+        stamps.append(started)
+        tick(dt=dt)
+        ticks.append((dt, scene._rt_batch_active))
+        tick_s.append(time.perf_counter() - started)
+
+    def timed_next(dt=0.0):
+        started = time.perf_counter()
+        step(dt=dt)
+        capture_s.append(time.perf_counter() - started)
+
+    def timed_flush(count=None):
+        started = time.perf_counter()
+        out = flush(count)
+        flush_s.append(time.perf_counter() - started)
+        if keep:
+            copies[scene._frame_counter - 1] = out[-1].clone()
+            for index in sorted(copies)[:-keep]:
+                del copies[index]
+        return out
+
+    display = scene._async_display_frame
+
+    def tracked_display(dispatched):
+        display(dispatched)
+        pumps[:] = [scene._display_pump]
+
+    scene._realtime_frame, scene.next, scene.engine.flush = timed_tick, timed_next, timed_flush
+    scene._async_display_frame = tracked_display
+    zero_counters()
+    started = time.perf_counter()
+    scene.main(width=WIDTH, height=HEIGHT, fps=fps, ssaa=SSAA, frameskip=frameskip,
+               device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    scene._realtime_frame, scene.next, scene.engine.flush = tick, step, flush
+    rendered = scene._frame_counter
+    period = 1.0 / fps
+    # late: a tick whose dt exceeded 1.5 of the periods its frames cover
+    # (the first tick's dt is the scheduler's start-up, the last tick only
+    # ends the loop)
+    late = sum(1 for dt, n in ticks[1:-1] if dt > 1.5 * n * period)
+    # frames a second between the first and the last frame's tick (the
+    # steady loop), and over the whole main() call (set-up included)
+    steady = (rendered - 1) / (stamps[-2] - stamps[0])
+    return dict(scene=scene, launches=read_counters(), frames=rendered, wall=wall,
+                fps=steady, wall_fps=rendered / wall, late=late, ticks=len(ticks),
+                first_ticks_ms=[round(1e3 * t, 2) for t in tick_s[:12]],
+                first_captures_ms=[round(1e3 * t, 2) for t in capture_s[:12]],
+                first_flushes_ms=[round(1e3 * t, 2) for t in flush_s[:12]],
+                capture_ms=1e3 * statistics.mean(capture_s),
+                flush_ms=1e3 * statistics.mean(flush_s),
+                batch=scene._rt_batch_n, copies=copies, pump=pumps[0] if pumps else None)
+
+
+def realtime_frames(cls, device: str, count: int):
+    """cls() driven as the realtime loop drives it, at a fixed dt = 1/60:
+    `count` frames of one flush each -> (scene, the last frame)."""
+    from shaderflow_tpu_torch.scene import WindowBackend
+    scene = cls(backend=WindowBackend.Headless)
+    scene._setup_run(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, device=device)
+    for _ in range(count):
+        scene.engine.begin_batch()
+        scene.next(dt=1.0 / FPS)
+        frame = scene.engine.flush(1)[0]
+    return scene, frame
+
+
+def realtime_visualizer_spec(scene, plain: bool = True):
+    """The tail spec of the visualizer's last flushed realtime frame, its
+    bar field through the plain K2 gather (plain=True) -> (spec, lookup
+    inputs (flat16 (1, n) bf16 table, index field))."""
+    import torch
+    import torch_demo
+    from shaderflow_tpu_torch.ops import sampling
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    indices = engine.frame_indices()
+    row = torch.from_numpy(packed[-1]).to(scene.device)
+    frag = engine.frame_context(row, spec, len(indices) - 1, indices[-1], {}, {})
+    original = sampling.expand_tables
+    if plain:
+        sampling.expand_tables = lambda flat16, index, out_dtype=torch.float32: (
+            sampling.expand_plain(flat16, index, out_dtype))
+    try:
+        tail = torch_demo.visualizer_frag(frag)
+    finally:
+        sampling.expand_tables = original
+    gx, gy = frag.camera.line("gluv")
+    table = frag.tex("iSpectrogram").data[:, 0, :]
+    bins, channels = table.shape
+    index = sampling.lookup_index(torch_demo._angle_field(gx, gy), bins, channels,
+                                  gx[None, :] < 0)
+    return tail, (table.reshape(1, -1).to(torch.bfloat16).contiguous(), index)
+
+
+def realtime_paths(counters, card: str) -> dict:
+    """Phases 29-31: the realtime preview of the visualizer and Mandelbrot
+    at 1920x1080, 2x SSAA, through Scene.main without an output; the
+    figures of the {"realtime": ...} line and the realtime entries of the
+    K1 (b)+(c) and K2 rows."""
+    import numpy as np
+    import torch
+    import torch_demo
+    import torch_fractals
+    from shaderflow_tpu_torch.ops import sampling, tailfuse, tailgen
+    from shaderflow_tpu_torch.scene import WindowBackend
+    os.environ["SHADERFLOW_AUDIO_BACKEND"] = "none"
+    os.environ.pop("SHADERFLOW_RT_BATCH", None)
+    device = torch.device("cuda")
+    render_h, render_w = HEIGHT * SSAA, WIDTH * SSAA
+    result = {}
+
+    # 29. The visualizer, headless: a few frames to build its kernels (a
+    # build would read as one long frame: with frameskip, most of a paced
+    # run's time), unpaced, then at the 60 fps target
+    realtime_run(torch_demo.Visualizer, counters, FPS, 3, frameskip=False)
+    ceiling = realtime_run(torch_demo.Visualizer, counters, 1000.0, CEILING_FRAMES,
+                           frameskip=False)
+    run = realtime_run(torch_demo.Visualizer, counters, FPS, REALTIME_FRAMES)
+    frames = run["frames"]
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k1=frames, k2=frames)
+    if run["launches"] != expected or frames < REALTIME_FRAMES // 4:
+        raise AssertionError(f"realtime visualizer: launch counters {run['launches']} for "
+                             f"{frames} frames, expected K1 == K2 == frames, nothing else")
+    scene = run["scene"]
+    frame_ms, frame_launches, render_host_ms = frame_profile(scene, HEIGHT, WIDTH)
+    packed, _ = scene.engine.stack_captures()
+    streams = scene.engine.stack_streams()
+    arrays = [packed, *streams.values()]
+    started = time.perf_counter()
+    for _ in range(50):
+        scene.engine.upload(packed, streams)
+    staging_ms = (time.perf_counter() - started) / 50 * 1e3
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    for _ in range(50):
+        [torch.from_numpy(array).pin_memory().to(device, non_blocking=True)
+         for array in arrays]
+    pin_ms = (time.perf_counter() - started) / 50 * 1e3
+    torch.cuda.synchronize()
+    viz = dict(target_fps=FPS, frames=frames, fps=run["fps"], wall_fps=run["wall_fps"],
+               late_frames=run["late"],
+               ticks=run["ticks"], capture_ms=run["capture_ms"], flush_ms=run["flush_ms"],
+               host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+               device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+               busy=frames * frame_ms / 1e3 / run["wall"], batch=run["batch"],
+               staging_upload_ms=staging_ms, fresh_pin_ms=pin_ms,
+               ceiling_fps=ceiling["fps"], ceiling_frames=ceiling["frames"],
+               ceiling_host_ms_per_frame=ceiling["capture_ms"] + ceiling["flush_ms"],
+               launches=run["launches"])
+    say("realtime_visualizer", size=f"{WIDTH}x{HEIGHT}", ssaa=SSAA, target_fps=FPS,
+        frames=frames, fps=f"{run['fps']:.3f}", wall_fps=f"{run['wall_fps']:.3f}",
+        late_frames=run["late"], capture_ms=f"{run['capture_ms']:.4f}", flush_ms=f"{run['flush_ms']:.4f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        render_enqueue_host_ms=f"{render_host_ms:.4f}", busy=f"{viz['busy']:.4f}",
+        batch=run["batch"], staging_upload_ms=f"{staging_ms:.4f}",
+        fresh_pin_ms=f"{pin_ms:.4f}", ceiling_fps=f"{ceiling['fps']:.3f}",
+        ceiling_frames=ceiling["frames"], launches=run["launches"], card=repr(card))
+    del run, ceiling, scene
+
+    # One frame at a fixed dt: against its plain recomputation on the card
+    # and against the same frames on the CPU
+    scene, frame = realtime_frames(torch_demo.Visualizer, "cuda", 3)
+    frame = frame.cpu().numpy()
+    spec, (flat16, index) = realtime_visualizer_spec(scene)
+    tail_args = (spec, render_h, render_w, HEIGHT, WIDTH, SSAA, scene.aspect_ratio)
+    plain_err, plain_share = u8_diff(frame, tailfuse.tail_plain(*tail_args).cpu())
+    if plain_err > 1 or plain_share >= 0.01:
+        raise AssertionError(f"realtime visualizer frame 2 vs plain: max {plain_err} u8 "
+                             f"steps on {plain_share:.4%}")
+    _, cpu_frame = realtime_frames(torch_demo.Visualizer, "cpu", 3)
+    cpu_err, cpu_share = u8_diff(frame, cpu_frame.numpy())
+    if cpu_err > 1 or cpu_share >= 0.02:
+        raise AssertionError(f"realtime visualizer frame 2 vs device=cpu: max {cpu_err} "
+                             f"u8 steps on {cpu_share:.4%}")
+    # The realtime tail's K1 and K2 at batch 1, against their plain versions
+    k1 = tailfuse.fused_tail_final(*tail_args).cpu()
+    k1_err, k1_share = u8_diff(k1, tailfuse.tail_plain(*tail_args).cpu())
+    if k1_err > 1 or k1_share >= 0.01:
+        raise AssertionError(f"K1 on the realtime tail vs plain: max {k1_err} on "
+                             f"{k1_share:.4%}")
+    launch = tailgen.prepare(*tail_args, device)
+    out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device=device)
+    k1_bound_ms, k1_bound_by = walked_bound(lambda: launch(out))
+    k1_row = dict(launches=viz["launches"]["k1"], max_abs_err=k1_err,
+                  ms=device_ms(lambda: launch(out)), call_ms=median_ms(lambda: launch(out), 20),
+                  plain_ms=device_ms(lambda: tailfuse.tail_plain(*tail_args), 5),
+                  bound_ms=k1_bound_ms, bound_by=k1_bound_by, **k1_figures(launch))
+    got = sampling.expand_tables(flat16, index, torch.bfloat16)
+    want = sampling.expand_plain(flat16, index, torch.bfloat16)
+    if not (torch.equal(got, want) and torch.equal(flat16.index_select(1, index), want)):
+        raise AssertionError("K2 at batch 1 differs from the plain gather")
+    k2_bound_ms, k2_bound_by = walked_bound(
+        lambda: sampling.expand_tables(flat16, index, torch.bfloat16))
+    k2_row = dict(launches=viz["launches"]["k2"], max_abs_err=0.0,
+                  ms=device_ms(lambda: sampling.expand_tables(flat16, index, torch.bfloat16)),
+                  call_ms=median_ms(lambda: sampling.expand_tables(flat16, index,
+                                                                   torch.bfloat16), 20),
+                  plain_ms=device_ms(lambda: sampling.expand_plain(flat16, index,
+                                                                   torch.bfloat16), 10),
+                  library_ms=device_ms(lambda: flat16.index_select(1, index), 10),
+                  bound_ms=k2_bound_ms, bound_by=k2_bound_by,
+                  table=list(flat16.shape), field=[render_h, render_w])
+    viz.update(frame_checked=2, max_u8_diff_vs_plain=plain_err,
+               differing_share_vs_plain=plain_share, max_u8_diff_vs_cpu=cpu_err,
+               differing_share_vs_cpu=cpu_share)
+    say("realtime_visualizer_check", frame=2, dt="1/60", max_u8_diff_vs_plain=plain_err,
+        differing_share_vs_plain=f"{plain_share:.3e}", max_u8_diff_vs_cpu=cpu_err,
+        differing_share_vs_cpu=f"{cpu_share:.3e}")
+    say("k1_realtime", render=f"{render_h}x{render_w}", out=f"{HEIGHT}x{WIDTH}", s=SSAA,
+        **{key: (f"{value:.4f}" if isinstance(value, float) else value)
+           for key, value in k1_row.items()})
+    say("k2_realtime", **{key: (f"{value:.4f}" if isinstance(value, float) else value)
+                          for key, value in k2_row.items()})
+    result["Visualizer"] = viz
+    del scene, frame, spec, got, want, k1
+
+    # 30. Mandelbrot, the same way
+    realtime_run(torch_fractals.Mandelbrot, counters, FPS, 3, frameskip=False)
+    ceiling = realtime_run(torch_fractals.Mandelbrot, counters, 1000.0, CEILING_FRAMES,
+                           frameskip=False)
+    run = realtime_run(torch_fractals.Mandelbrot, counters, FPS, REALTIME_FRAMES)
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k3=run["frames"], k1=run["frames"])
+    if run["launches"] != expected:
+        raise AssertionError(f"realtime Mandelbrot: launch counters {run['launches']} for "
+                             f"{run['frames']} frames, expected K3 == K1 == frames")
+    frame_ms, frame_launches, _ = frame_profile(run["scene"], HEIGHT, WIDTH)
+    result["Mandelbrot"] = dict(
+        target_fps=FPS, frames=run["frames"], fps=run["fps"], wall_fps=run["wall_fps"],
+        late_frames=run["late"], host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+        device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+        batch=run["batch"], ceiling_fps=ceiling["fps"], ceiling_frames=ceiling["frames"],
+        ceiling_host_ms_per_frame=ceiling["capture_ms"] + ceiling["flush_ms"],
+        launches=run["launches"])
+    say("realtime_mandelbrot", size=f"{WIDTH}x{HEIGHT}", ssaa=SSAA, target_fps=FPS,
+        frames=run["frames"], fps=f"{run['fps']:.3f}", late_frames=run["late"],
+        host_ms_per_frame=f"{run['capture_ms'] + run['flush_ms']:.4f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        ceiling_fps=f"{ceiling['fps']:.3f}", launches=run["launches"], card=repr(card))
+    del run, ceiling
+
+    # 31. The display pump on the visualizer, a recording stub window
+    window = StubWindow()
+    run = realtime_run(torch_demo.Visualizer, counters, FPS, PUMP_FRAMES,
+                       backend=WindowBackend.Preview, window=window, keep=16)
+    pump = run["pump"]
+    if pump is None or window.last is None:
+        raise AssertionError("the windowed realtime loop showed no frame through the pump")
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k1=run["frames"], k2=run["frames"])
+    if run["launches"] != expected:
+        raise AssertionError(f"pump run: launch counters {run['launches']}, expected "
+                             f"K1 == K2 == {run['frames']} frames")
+    if pump.shown_tag not in run["copies"]:
+        raise AssertionError(f"the last shown frame {pump.shown_tag} is older than the "
+                             f"copies kept ({sorted(run['copies'])})")
+    torn_err, torn_share = u8_diff(window.last, run["copies"][pump.shown_tag].cpu().numpy())
+    if torn_err:
+        raise AssertionError(f"the last shown frame ({pump.shown_tag}) differs from the "
+                             f"engine's frame: max {torn_err} on {torn_share:.4%} (torn)")
+    d2h_ms = 1e3 * statistics.median(pump.transfer_times)
+    result["Visualizer (display pump)"] = dict(
+        target_fps=FPS, frames=run["frames"], fps=run["fps"], late_frames=run["late"],
+        offered=pump.offered, transferred=pump.transferred, shown=window.shown,
+        dropped=pump.dropped, d2h_ms_median=d2h_ms, decimate=pump.decimate,
+        batch=run["batch"], last_shown_frame=pump.shown_tag, last_shown_equal=True,
+        host_ms_per_frame=run["capture_ms"] + run["flush_ms"], launches=run["launches"])
+    say("realtime_pump", frames=run["frames"], fps=f"{run['fps']:.3f}",
+        offered=pump.offered, transferred=pump.transferred, shown=window.shown,
+        dropped=pump.dropped, d2h_ms_median=f"{d2h_ms:.4f}", decimate=pump.decimate,
+        batch=run["batch"], last_shown_frame=pump.shown_tag, last_shown_equal=True,
+        first_ticks_ms=run["first_ticks_ms"], first_captures_ms=run["first_captures_ms"],
+        first_flushes_ms=run["first_flushes_ms"], capture_ms=f"{run['capture_ms']:.4f}",
+        flush_ms=f"{run['flush_ms']:.4f}", card=repr(card))
+    return dict(paths=result, k1=k1_row, k2=k2_row)
 
 
 def main() -> int:
@@ -1302,6 +1652,9 @@ def main() -> int:
     # 28. Mandelbrot through the command line: K3 and K1 once a frame
     scenes["Mandelbrot (cli.main)"] = cli_mandelbrot_path((zero_counters, read_counters))
     print(json.dumps({"scenes": scenes}))
+    # 29.-31. The realtime preview
+    realtime = realtime_paths((zero_counters, read_counters), card)
+    print(json.dumps({"realtime": realtime["paths"], "card": card}))
     say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
@@ -1324,13 +1677,13 @@ def main() -> int:
          "launches": visualizer_launches["k1"], "max_abs_err": k1v_err,
          "ms": k1v_ms, "call_ms": k1v_call_ms, "plain_ms": k1v_plain_ms,
          "bound_ms": k1v_bound_ms, "bound_by": k1v_bound_by, "library_ms": None,
-         **k1v_compiled},
+         **k1v_compiled, "realtime": realtime["k1"]},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-         "bound_by": k2_bound_by, "library_ms": k2_library_ms},
+         "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"]},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",

@@ -30,9 +30,13 @@ ops/tailfuse.py) when the tail is traced.
 
     SHADERFLOW_TAIL_BF16=1 SHADERFLOW_VIZ_BLUR_LEVEL=1 python examples/torch/torch_demo.py
 
-The per-frame fallback the reference keeps for its realtime preview (no
-sequences, camera-dependent geometry in the tail) is not ported yet: the
-scene raises NotImplementedError without its offline preludes.
+In the realtime preview (Scene.main without an output) there are no
+sequences and no preludes: the spectrogram and waveform are textures the
+host writes every frame, the bar field is one frame's table expanded over
+the angle field (lookup_nearest_1d_select: kernel K2 at batch 1), and the
+tail derives the camera-dependent geometry itself (the angle falloff, the
+radii, the blink and vignette powers, with atan2, sqrt and powf inside
+K1) from the camera's column and row lines.
 """
 
 import math
@@ -165,8 +169,11 @@ def _sstep01(x):  # smoothstep(0, 1, x)
     return t * t * (3.0 - 2.0 * t)
 
 
-def visualizer_tail(color_inv: float):
-    """Everything per pixel after the samples (plane dialect, ops/tailfuse.py)."""
+def visualizer_tail(color_inv: float, has_static: bool = True):
+    """Everything per pixel after the samples (plane dialect, ops/tailfuse.py).
+    has_static: the frame-invariant fields come from the offline preludes
+    (planes fscale, rad0, blinkp, lvig); without them (realtime) the tail
+    derives them from the camera lines camx, camy and the coordinates."""
     space_rgb = (1.0 / 255.0, 11.0 / 255.0, 26.0 / 255.0)
 
     def tail(tp):
@@ -175,17 +182,33 @@ def visualizer_tail(color_inv: float):
         rgb = [(base + blur) * color_inv
                for base, blur in zip(tp.vec("base"), tp.vec("blur"))]
 
-        # Blink on snare/kick: the radial power is a static prelude field
-        blink = tp.f(1.0 + 5.0 * std * tp.plane("blinkp"))
+        # Blink on snare/kick (screen agluv radius): the radial power is a
+        # static prelude field offline
+        if has_static:
+            blink = tp.f(1.0 + 5.0 * std * tp.plane("blinkp"))
+        else:
+            alen = torch.sqrt(tp.agluv_x * tp.agluv_x + tp.agluv_y * tp.agluv_y)
+            t6 = torch.clamp(alen - 0.3, 0.0, 1.0)
+            t6 = t6 * t6
+            blink = tp.f(1.0 + 5.0 * std * (t6 * t6 * t6))
         rgb = [c * blink for c in rgb]
 
-        # Music bars: the angle falloff and unit radius are frame-invariant
-        # fields; only the scale multiply is per frame
+        # Music bars: music_uv = rotate2d(-pi/2) * cam.gluv * scale = (-y, x)
+        # * scale. Offline the angle falloff and unit radius are
+        # frame-invariant fields and only the scale multiply is per frame
         scale = 1.0 - 0.4 * torch.sqrt(torch.abs(vol))
         radius = 0.17
-        fscale = tp.plane("fscale", dtype=torch.float32)
-        rad0 = tp.plane("rad0", dtype=torch.float32)
-        r = rad0 * scale
+        if has_static:
+            fscale = tp.plane("fscale", dtype=torch.float32)
+            rad0 = tp.plane("rad0", dtype=torch.float32)
+            r = rad0 * scale
+        else:
+            ux, uy = tp.col("camx"), tp.row("camy")
+            mx, my = -uy * scale, ux * scale
+            circle = torch.abs(tailfuse.atan2(my, mx) * reciprocal(PI))
+            fscale = 0.05 + 3.0 * _sstep01(circle * 0.5)
+            rad0 = torch.sqrt(ux * ux + uy * uy)
+            r = torch.sqrt(mx * mx + my * my)
         bar = torch.sqrt(tailfuse.divide(tp.plane("bar", dtype=torch.float32), 1000.0)) * fscale
         ring = radius + 0.5 * bar
         inside = r < radius
@@ -200,8 +223,14 @@ def visualizer_tail(color_inv: float):
         dmix = tp.f(_sstep01(tailfuse.divide(rad0, 20.0)))
         rgb = [c + (s - c) * dmix for c, s in zip(rgb, space_rgb)]
 
-        # Vignette: only exp(p * lvig) is per frame
-        vpow = tp.f(torch.exp((0.1 + 0.15 * vol) * tp.plane("lvig", dtype=torch.float32)))
+        # Vignette (screen astuv): offline the log of the field is a static
+        # prelude and only exp(p * lvig) is per frame
+        if has_static:
+            vpow = tp.f(torch.exp((0.1 + 0.15 * vol) * tp.plane("lvig", dtype=torch.float32)))
+        else:
+            sx, sy = tp.astuv_x, tp.astuv_y
+            vig = sx * (1.0 - sy) * sy * (1.0 - sx)
+            vpow = tp.f(tailfuse.powf(torch.clamp(vig * 20.0, min=1e-6), 0.1 + 0.15 * vol))
         rgb = [c * vpow for c in rgb]
 
         # Waveform overlay top and bottom (screen gluv y)
@@ -219,24 +248,23 @@ def visualizer_tail(color_inv: float):
 
 
 def visualizer_frag(sf):
-    """Radial bars music visualizer (visualizer.frag), offline form: the
-    background's uv map is an axis-aligned scale + translate (default 2D
-    camera), so its bilinear sample is a row interpolation here and a column
-    interpolation inside the tail; the 80-tap radial blur is one small
-    convolution of the texture (sampling is linear, so blur and sample
-    commute) on a pyramid level (blur_level), sampled the same way."""
+    """Radial bars music visualizer (visualizer.frag): the background's uv
+    map is an axis-aligned scale + translate (default 2D camera), so its
+    bilinear sample is a row interpolation here and a column interpolation
+    inside the tail; the 80-tap radial blur is one small convolution of the
+    texture (sampling is linear, so blur and sample commute) on a pyramid
+    level (blur_level), sampled the same way. Offline the bar field and the
+    static fields come from the batch preludes; in realtime (no preludes)
+    the bar field is this frame's lookup and the tail derives the rest."""
     from shaderflow_tpu_torch.ops.downsample import box_downsample
     from shaderflow_tpu_torch.ops.sampling import (
-        Sampler2D, convolve2d, sample_rows_planes_blocked, sample_separable,
-        splat_kernel)
+        Sampler2D, convolve2d, lookup_nearest_1d_select, sample_rows_planes_blocked,
+        sample_separable, splat_kernel)
 
     bar_stack = sf.prelude_indexed("iBarField")
     stacks = {name: sf.prelude_indexed(name)
               for name in ("iVizFscale", "iVizRad", "iVizBlink", "iVizLvig")}
-    if bar_stack is None or None in stacks.values():
-        raise NotImplementedError(
-            "Visualizer without its offline preludes (the realtime preview's "
-            "per-frame fallback) is not ported yet: export with an audio file")
+    has_static = None not in stacks.values()
 
     cam = sf.camera
     gx, gy = cam.line("gluv")     # axis lines of the camera-projected uv
@@ -299,17 +327,28 @@ def visualizer_frag(sf):
     def indexed(pair):
         return tailfuse.Indexed(pair[0], pair[1])
 
-    return sf.tail(
-        visualizer_tail(color_inv),
+    if bar_stack is not None:
+        bar = indexed(bar_stack)
+    else:
+        # Per frame (realtime): the nearest bin of this frame's spectrogram
+        # indexed by the radial angle, the channel by the bar's half-plane
+        bar = lookup_nearest_1d_select(sf.tex("iSpectrogram"), _angle_field(gx, gy),
+                                       channel_where=gx[None, :] < 0,
+                                       out_dtype=torch.bfloat16)
+    inputs = dict(
         base=tailfuse.ColSampled(base_rows, u_line, texels_per_px=base_tpp),
         blur=tailfuse.ColSampled(blur_rows, u_line, texels_per_px=blur_tpp),
-        bar=indexed(bar_stack),
+        bar=bar,
         oob=tailfuse.Col(cam.out_of_bounds_x.to(torch.float32)),
         wave0=tailfuse.Col(wave[:, 0].contiguous()),
         wave1=tailfuse.Col(wave[:, 1].contiguous()),
-        vol=sf.iAudioVolume, std=sf.iAudioSTD,
-        fscale=indexed(stacks["iVizFscale"]), rad0=indexed(stacks["iVizRad"]),
-        blinkp=indexed(stacks["iVizBlink"]), lvig=indexed(stacks["iVizLvig"]))
+        vol=sf.iAudioVolume, std=sf.iAudioSTD)
+    if has_static:
+        inputs.update(fscale=indexed(stacks["iVizFscale"]), rad0=indexed(stacks["iVizRad"]),
+                      blinkp=indexed(stacks["iVizBlink"]), lvig=indexed(stacks["iVizLvig"]))
+    else:
+        inputs.update(camx=tailfuse.Col(gx.contiguous()), camy=tailfuse.Row(gy.contiguous()))
+    return sf.tail(visualizer_tail(color_inv, has_static), **inputs)
 
 
 class Visualizer(ShaderScene):

@@ -1,5 +1,5 @@
 """
-Spectrogram: natural-scale banded STFT feeding a shader texture, offline.
+Spectrogram: natural-scale banded STFT feeding a shader texture.
 
 Port of shaderflow_tpu/audio/spectrogram.py. A windowed rFFT over the last
 2^n samples, pluggable magnitude / window / interpolation strategies,
@@ -8,8 +8,10 @@ matrix mapping FFT bins to spectrogram bins, and second-order smoothing.
 In offline exports the whole trajectory is computed once, before the first
 frame, on the scene's device: a batched rFFT, one band matrix product and
 the dynamics scan; each frame then reads its row of the device sequence
-(texture.set_sequence). The realtime per-frame path (host FFT and texture
-writes) is not ported yet.
+(texture.set_sequence). In realtime each frame runs the reference's host
+path in numpy: an rFFT of the rolling buffer's last 2^n samples
+(next_columns), one dynamics step, and a host write of the column into
+the texture at the scrolling offset, which the engine streams.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from shaderflow_tpu_torch.audio import BrokenAudio
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import dynamics as dyn
 from shaderflow_tpu_torch.ops import spectral
+from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
 from shaderflow_tpu_torch.piano.notes import PianoNote
 from shaderflow_tpu_torch.texture import ShaderTexture
 from shaderflow_tpu_torch.variable import Uniform
@@ -56,7 +59,7 @@ class SpectrogramWindow:
 
 
 class BrokenSpectrogram:
-    """Core math: FFT sizing and the band matrix."""
+    """Core math: FFT sizing, the band matrix, the per-frame host FFT."""
 
     def __init__(self, audio: Optional[BrokenAudio] = None, *, fft_n: int = 12,
                  sample_rateio: int = 1):
@@ -84,6 +87,19 @@ class BrokenSpectrogram:
     @property
     def fft_frequencies(self) -> np.ndarray:
         return np.fft.rfftfreq(self.fft_size, 1 / (self.audio.samplerate * self.sample_rateio))
+
+    def fft(self) -> np.ndarray:
+        """Per-frame host path: the windowed rFFT magnitude of the rolling
+        buffer's last 2^n samples (upsampled by sample_rateio)."""
+        data = self.audio.get_last_n_samples(int(2 ** self.fft_n))
+        if self.sample_rateio != 1:
+            data = spectral.sinc_upsample(np.asarray(data, np.float32), self.sample_rateio)
+        window = self.window(self.fft_size)
+        return np.asarray(self.magnitude(np.fft.rfft(window * data))).astype(np.float32)
+
+    def next_columns(self) -> np.ndarray:
+        """One frame's (channels, bins) spectrogram (host path)."""
+        return self.spectrogram_matrix().dot(self.fft().T).T
 
     @property
     def spectrogram_frequencies(self) -> np.ndarray:
@@ -133,6 +149,7 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
         self.smooth = smooth
         self.scrolling = scrolling
         self.offset = 0
+        self.dynamics = DynamicNumber(frequency=4, zeta=1, response=0, dtype=np.float32)
         self.texture: Optional[ShaderTexture] = None
         self._precomputed: Optional[torch.Tensor] = None  # (F, bins, 1, C) smoothed
         self._precompute_key = None
@@ -149,6 +166,20 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
         self.offset = 0
         self._precomputed = None
         self.texture.set_sequence(None)
+        self.dynamics.set(np.zeros((self.audio.channels, self.spectrogram_bins), np.float32))
+
+    def load_state(self, state: dict) -> None:
+        """Carry a reference run's realtime state (engine.load_reference_state):
+        "value", "derivative", "previous" and "target" of the dynamics,
+        (channels, bins) each, and "offset", the scrolling column."""
+        unknown = set(state) - {"value", "derivative", "previous", "target", "offset"}
+        if unknown:
+            raise KeyError(f"ShaderSpectrogram carries no state named {sorted(unknown)}")
+        for name in ("value", "derivative", "previous", "target"):
+            if name in state:
+                setattr(self.dynamics, name, np.array(state[name], np.float32))
+        if "offset" in state:
+            self.offset = int(state["offset"])
 
     # -- offline batched precompute -------------------------------------------
 
@@ -218,10 +249,21 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
                 self._precomputed = columns
 
         self.offset = (self.offset + 1) % self.length_samples
-        if self.texture.sequence is None:
-            raise NotImplementedError(
-                "The realtime spectrogram (per-frame host FFT and texture "
-                "writes) is not ported yet: export offline with a file")
+        if self.texture.sequence is not None:
+            return   # the frame reads its row of the device sequence
+
+        # Realtime: one host column a frame, written at the scrolling offset.
+        # The dynamics run in the (channels, bins) layout (the reference's
+        # C-order reshape interleaves bins across channels; its evident
+        # intent is kept)
+        row_shape = (self.audio.channels, self.spectrogram_bins)
+        if self.dynamics.value.shape != row_shape:
+            self.dynamics.set(np.zeros(row_shape, np.float32))
+        self.dynamics.next(target=self.next_columns(), dt=abs(self.scene.dt))
+        column = np.asarray(self.dynamics.value).T          # (bins, C)
+        self.texture.write(
+            data=column.reshape(self.spectrogram_bins, 1, self.audio.channels),
+            viewport=(self.offset, 0, 1, self.spectrogram_bins))
 
     def pipeline(self):
         yield Uniform("int", f"{self.name}Length", self.length_samples)

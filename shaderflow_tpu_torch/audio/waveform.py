@@ -1,12 +1,13 @@
 """
-Waveform oscilloscope bars, offline.
+Waveform oscilloscope bars.
 
 Port of shaderflow_tpu/audio/waveform.py: the last `length` seconds of
 audio reduced into `length * samplerate` bars (Average / RMS / STD chunk
 reducers), a (1, points, channels) texture per frame. Offline exports
 compute every frame's bars once on the scene's device
-(ops/spectral.waveform_batch) and bind them as a device sequence. The
-realtime per-frame path is not ported yet.
+(ops/spectral.waveform_batch) and bind them as a device sequence; in
+realtime each frame reduces the rolling buffer on the host and writes the
+bars, which the engine streams.
 """
 
 from __future__ import annotations
@@ -78,6 +79,10 @@ class ShaderWaveform(ShaderModule):
     def chunk_size(self) -> int:
         return max(1, int(self.length * self.audio.samplerate / self._points))
 
+    @property
+    def _offset(self) -> int:
+        return self.audio.tell % self.chunk_size
+
     def setup(self) -> None:
         self._precomputed = None
         self.texture.set_sequence(None)
@@ -121,10 +126,16 @@ class ShaderWaveform(ShaderModule):
             if bars is not None:
                 self.texture.set_sequence(bars)
                 self._precomputed = bars
-        if self.texture.sequence is None:
-            raise NotImplementedError(
-                "The realtime waveform (per-frame host reduction and texture "
-                "writes) is not ported yet: export offline with a file")
+        if self.texture.sequence is not None:
+            return
+
+        # Realtime: reduce the rolling buffer's chunk-aligned tail on the host
+        start = -int(self.chunk_size * self._points + self._offset + 1)
+        end = -int(self._offset + 1)
+        chunks = self.audio.data[:, start:end]
+        chunks = chunks.reshape(self.audio.channels, -1, self.chunk_size)
+        bars = np.ascontiguousarray(np.asarray(self.reducer.fn(chunks)).T)
+        self.texture.write(bars.reshape(1, self._points, self.audio.channels))
 
     def pipeline(self):
         yield Uniform("int", f"{self.name}Length", self.length_samples)

@@ -15,12 +15,19 @@ taken from the captured uniforms, so the loop never waits on the device
 (no .item(), float() or bool() of device values); statics
 (program-specializing uniforms) are host values.
 
-Textures not owned by a program come in two kinds:
+Textures not owned by a program come in three kinds:
   static    host-written (images): uploaded once, again when their version
             changes between batches
   sequence  per-frame device content (offline audio): row
             clip(iFrameIndex, 0, F - 1) each frame, or the ring of the last
             L columns for a windowed sequence
+  streamed  host-written during the frame loop (the realtime spectrogram
+            and waveform, video frames): capture_frame snapshots each
+            frame's content into the batch (a texture promoted mid-batch
+            backfills the frames before with its first snapshot); the u8
+            wire twin ships as bytes and is normalized on the device
+The batch's packed uniforms and stream snapshots go up in one host->device
+copy per flush, from a reused page-locked staging buffer (StagingPool).
 Batch preludes (scene.batch_preludes, PreludeCtx) run once per flush; a
 prelude whose value has leading axis 1 is batch-invariant and cached
 across batches, keyed on (name, code), the sequence signature, the render
@@ -42,8 +49,7 @@ into the matrix, padded to the program's components. The final pass reads
 the main program's slot 1 when it is temporal (the newest box after its
 roll), else slot 0.
 
-Not yet: textures written every frame (streamed), frame/row sharding over
-devices.
+Not yet: frame/row sharding over devices.
 """
 
 from __future__ import annotations
@@ -55,8 +61,9 @@ import numpy as np
 import torch
 
 from shaderflow_tpu_torch import logger
-from shaderflow_tpu_torch.ops import tailfuse
+from shaderflow_tpu_torch.ops import tailfuse, tailgen
 from shaderflow_tpu_torch.ops.downsample import final_pass
+from shaderflow_tpu_torch.ops.stdlib import reciprocal
 from shaderflow_tpu_torch.shader import Frag, ShaderProgram, finish_coords, make_coords
 from shaderflow_tpu_torch.texture import ShaderTexture
 
@@ -102,6 +109,65 @@ def to_wire(frames: torch.Tensor, host: bool = True) -> WireBatch:
 def fetch_frame(frame: torch.Tensor) -> np.ndarray:
     """One (H, W, 3) frame on the host (screenshots, previews)."""
     return frame.cpu().numpy()
+
+
+class StagingPool:
+    """Page-locked host buffers for the per-flush host->device copy. A
+    buffer is handed out again only once the event recorded behind its last
+    copy has completed; a pageable copy, or a fresh pin_memory() per
+    flush, would wait for the stream or pay a page-locked allocation every
+    frame of the realtime loop. At most LIMIT buffers: past it the oldest
+    copy is waited for."""
+
+    ALIGN = 64
+    LIMIT = 4
+
+    def __init__(self):
+        self._entries: list[list] = []   # [pinned uint8 tensor, event or None]
+
+    def _take(self, nbytes: int) -> list:
+        for entry in self._entries:
+            if entry[0].numel() >= nbytes and (entry[1] is None or entry[1].query()):
+                return entry
+        if len(self._entries) >= self.LIMIT:
+            oldest = self._entries.pop(0)
+            oldest[1].synchronize()
+            if oldest[0].numel() >= nbytes:
+                self._entries.append(oldest)
+                return oldest
+        size = max(1 << 16, 1 << (max(1, nbytes) - 1).bit_length())
+        entry = [torch.empty(size, dtype=torch.uint8, pin_memory=True), None]
+        self._entries.append(entry)
+        return entry
+
+    def upload(self, arrays: list, device: torch.device) -> list:
+        """Host arrays (float32 or uint8) -> device tensors of the same
+        shapes and dtypes, through one non-blocking copy on the current
+        stream."""
+        offsets, total = [], 0
+        for array in arrays:
+            offsets.append(total)
+            total += -(-array.nbytes // self.ALIGN) * self.ALIGN
+        entry = self._take(total)
+        host = entry[0].numpy()
+        for array, offset in zip(arrays, offsets):
+            host[offset:offset + array.nbytes] = np.ascontiguousarray(array).reshape(-1).view(np.uint8)
+        staged = torch.empty(total, dtype=torch.uint8, device=device)
+        staged.copy_(entry[0][:total], non_blocking=True)
+        entry[1] = torch.cuda.Event()
+        entry[1].record(torch.cuda.current_stream(device))
+        return [staged[offset:offset + array.nbytes].view(_TORCH_DTYPES[array.dtype])
+                .reshape(array.shape) for array, offset in zip(arrays, offsets)]
+
+
+_TORCH_DTYPES = {np.dtype(np.float32): torch.float32, np.dtype(np.uint8): torch.uint8}
+
+
+def normalize_u8(stack: torch.Tensor) -> torch.Tensor:
+    """A u8 wire stream in sample space: value / 255 as the reference's
+    compiled program computes it (the division folded into a product with
+    the float32 reciprocal)."""
+    return stack.to(torch.float32) * reciprocal(255.0)
 
 
 class FrameUniforms(Mapping):
@@ -211,15 +277,20 @@ def _tensor(array) -> torch.Tensor:
 
 def load_reference_state(scene: "ShaderScene", sequences: Optional[dict] = None,
                          textures: Optional[dict] = None,
-                         modules: Optional[dict] = None) -> None:
+                         modules: Optional[dict] = None,
+                         streams: Optional[dict] = None) -> None:
     """Carry a reference engine's state into this scene: `sequences`
     (name -> bound (F_pad, H, W, C) arrays, ring sequences already
     front-padded) replace the module-bound sequences of the same name, and
     `textures` (name -> (T, L, H, W, C) arrays) replace static uploads;
     entries named PRELUDE_KEY + name replace that batch-invariant prelude.
-    `modules` (module name -> {field: numpy array}) hands host state to
-    the module of that name (ShaderModule.load_state): the piano's
-    note-range replay and sequences, the camera's rotation. This system
+    `streams` (name -> (T, L, H, W, C) float32 arrays) is a streamed
+    texture's content as the reference snapshot it last: it becomes the
+    texture's host matrix, so the next per-frame write overlays the same
+    state. `modules` (module name -> {field: numpy array}) hands host
+    state to the module of that name (ShaderModule.load_state): the
+    piano's note-range replay and sequences, the camera's rotation, the
+    spectrogram's dynamics. This system
     has no weights: precomputed sequences, textures and host module state
     are its state, so with them the render path can be held to a tight bar
     independently of FFT or host-math differences."""
@@ -231,7 +302,16 @@ def load_reference_state(scene: "ShaderScene", sequences: Optional[dict] = None,
     engine.pinned_preludes = {name[len(PRELUDE_KEY):]: _tensor(v)
                               for name, v in (textures or {}).items()
                               if name.startswith(PRELUDE_KEY)}
-    by_name = {module.name: module for module in scene.modules if module.name}
+    # A module and its texture may share a name (the spectrogram's): module
+    # state goes to the module
+    by_name = {module.name: module for module in scene.modules
+               if module.name and not isinstance(module, ShaderTexture)}
+    externals = engine._external_textures()
+    for name, value in (streams or {}).items():
+        if name not in externals:
+            raise KeyError(f"No external texture named {name!r} in the scene")
+        externals[name].matrix = np.array(value, dtype=np.float32)
+        externals[name].wire_u8 = None
     for name, state in (modules or {}).items():
         if name not in by_name:
             raise KeyError(f"No module named {name!r} in the scene")
@@ -263,6 +343,14 @@ class RenderEngine:
         self.pinned_sequences: dict[str, torch.Tensor] = {}
         self.pinned_textures: dict[str, torch.Tensor] = {}
         self.pinned_preludes: dict[str, torch.Tensor] = {}
+        # Streamed textures: their names (kept across builds), the names
+        # that fell back to float32 snapshots, and the batch's snapshots
+        self._streamed_names: set[str] = set()
+        self._stream_f32: set[str] = set()
+        self._frame_streams: dict[str, list[np.ndarray]] = {}
+        self._stream_tex: dict[str, torch.Tensor] = {}   # name -> (F, T, L, H, W, C) on device
+        self.staging = StagingPool()
+        self.last_flush_retraced = False   # the last flush built a new K1 (a compile)
         # Per-batch capture state
         self._frame_uniforms: list[dict[str, np.ndarray]] = []
 
@@ -336,6 +424,7 @@ class RenderEngine:
         else:
             self._refresh_textures()
         self._frame_uniforms = []
+        self._frame_streams = {name: [] for name in self._streamed_names}
 
     # ------------------------------------------------------------------ #
     # Textures and sequences
@@ -349,6 +438,7 @@ class RenderEngine:
         for name, tex in self._external_textures().items():
             if tex.sequence is not None:
                 self._static_tex.pop(name, None)
+                self._streamed_names.discard(name)
                 window = tex.sequence_window or 0
                 bound = self._sequences.get(name)
                 if bound is None or bound[0] is not tex.sequence or bound[2] != window:
@@ -363,6 +453,8 @@ class RenderEngine:
                 tex.dirty = False
                 continue
             self._sequences.pop(name, None)
+            if name in self._streamed_names:
+                continue
             if name in self._static_tex and tex.version == self._static_versions.get(name):
                 continue
             if name in self.pinned_textures:
@@ -379,11 +471,14 @@ class RenderEngine:
         """name -> the device sequence each frame indexes (ring-padded)."""
         return {name: bound[1] for name, bound in self._sequences.items()}
 
-    def _frame_textures(self, frame_index: int) -> dict[str, torch.Tensor]:
+    def _frame_textures(self, frame_index: int, step: int = 0) -> dict[str, torch.Tensor]:
         """Every texture one frame reads, (T, L, H, W, C) views: the static
-        uploads and the frame's box of each sequence (row
-        clip(frame_index), or the ring of the last L columns)."""
+        uploads, the frame's box of each sequence (row clip(frame_index),
+        or the ring of the last L columns) and snapshot `step` of each
+        streamed texture."""
         textures = dict(self._static_tex)
+        for name, stack in self._stream_tex.items():
+            textures[name] = stack[step]
         for name, (_, seq, window) in self._sequences.items():
             if window > 1:
                 # The slice at k spans columns k-L+1..k (oldest first);
@@ -466,12 +561,43 @@ class RenderEngine:
             # A static changed mid-run: the next flush rebuilds around it
             self.invalidate()
         self._frame_uniforms.append(uniforms)
+
+        frame_index = len(self._frame_uniforms) - 1
         for name, tex in self._external_textures().items():
-            if tex.sequence is None and tex.dirty:
-                raise NotImplementedError(
-                    f"Texture {name!r} was written during the frame loop: "
-                    "streamed textures (per-frame host writes) are not "
-                    "ported yet; static uploads and device sequences are")
+            if tex.sequence is not None:
+                tex.dirty = False   # bound at the flush (_refresh_textures)
+                continue
+            streamed = name in self._streamed_names
+            if tex.dirty and not streamed:
+                # Written during the frame loop: streamed from now on. The
+                # frames of this batch before it read its first snapshot
+                self._streamed_names.add(name)
+                self._static_tex.pop(name, None)
+                self._frame_streams[name] = [self._stream_snapshot(name, tex)] * frame_index
+                streamed = True
+                if frame_index:
+                    logger.debug(f"Texture {name} became streamed mid-batch at frame "
+                                 f"{frame_index}")
+            if streamed:
+                self._frame_streams[name].append(self._stream_snapshot(name, tex))
+                tex.dirty = False
+
+    def _stream_snapshot(self, name: str, tex) -> np.ndarray:
+        """A streamed texture's content this frame: its u8 wire twin (the
+        bytes of the write, normalized on the device) while every write of
+        it kept one, else a float32 copy of the matrix. A name that once
+        falls back stays float32, and its earlier u8 snapshots of the batch
+        are converted (a stack never mixes the two)."""
+        wire = tex.wire_u8
+        if wire is not None and name not in self._stream_f32:
+            return wire   # a fresh array per write, never mutated
+        if name not in self._stream_f32:
+            self._stream_f32.add(name)
+            snapshots = self._frame_streams.get(name) or []
+            for index, snapshot in enumerate(snapshots):
+                if snapshot.dtype == np.uint8:
+                    snapshots[index] = snapshot.astype(np.float32) / 255.0
+        return tex.matrix.copy()
 
     # ------------------------------------------------------------------ #
     # Flush: render the captured frames
@@ -480,7 +606,8 @@ class RenderEngine:
         """Pack the captured per-frame uniforms into one (F, K) float32
         matrix (one host->device copy per batch) plus a static unpack spec.
         A uniform missing from some frames fills from the nearest earlier
-        frame that has it (else the first one that does)."""
+        frame that has it (else the first one that does). The streamed
+        snapshots stack separately (stack_streams)."""
         count = count if count is not None else len(self._frame_uniforms)
         frames = self._frame_uniforms[:count]
         names = sorted(set().union(*(frame.keys() for frame in frames)))
@@ -511,6 +638,26 @@ class RenderEngine:
                 position += value.size
         return packed, tuple(spec)
 
+    def stack_streams(self, count: Optional[int] = None) -> dict[str, np.ndarray]:
+        """name -> (F, T, L, H, W, C) stack of the batch's snapshots of each
+        streamed texture (uint8 on the wire, else float32)."""
+        count = count if count is not None else len(self._frame_uniforms)
+        return {name: np.stack(snapshots[:count])
+                for name, snapshots in self._frame_streams.items() if snapshots}
+
+    def upload(self, packed: np.ndarray, streams: dict) -> tuple:
+        """The batch's packed uniforms and stream stacks on the device: one
+        staged copy on the card (StagingPool), views of the host arrays on
+        the CPU. u8 streams are normalized here, once per batch."""
+        names = list(streams)
+        if self.device.type == "cuda":
+            tensors = self.staging.upload([packed, *(streams[n] for n in names)], self.device)
+        else:
+            tensors = [torch.from_numpy(a) for a in (packed, *(streams[n] for n in names))]
+        stacks = {name: (normalize_u8(stack) if stack.dtype == torch.uint8 else stack)
+                  for name, stack in zip(names, tensors[1:])}
+        return tensors[0], stacks
+
     def frame_indices(self, count: Optional[int] = None) -> list[int]:
         """iFrameIndex of each captured frame, host ints (sequence rows)."""
         frames = self._frame_uniforms[:count]
@@ -527,16 +674,16 @@ class RenderEngine:
                       uniforms: Optional[FrameUniforms] = None) -> Frag:
         """The Frag of one frame and layer (the main program's coordinates
         and the external textures unless given): its packed uniform row on
-        the device, its textures (sequence rows at frame_index), and the
-        batch's prelude values (frame `step` of each per-batch stack, entry
-        0 of each batch-invariant one)."""
+        the device, its textures (sequence rows at frame_index, streamed
+        snapshot `step`), and the batch's prelude values (frame `step` of
+        each per-batch stack, entry 0 of each batch-invariant one)."""
         uniforms = uniforms if uniforms is not None else FrameUniforms(row, spec)
         coords = coords if coords is not None else self._coords
         return Frag(coords=finish_coords(coords, uniforms["iResolution"]),
                     uniforms=uniforms, statics={**self._statics, "iLayer": layer},
                     layer=layer,
                     textures=(textures if textures is not None
-                              else self._frame_textures(frame_index)),
+                              else self._frame_textures(frame_index, step)),
                     texture_meta=self.texture_meta(),
                     preludes={**{n: v[step] for n, v in per_batch.items()},
                               **{n: v[0] for n, v in invariant.items()}},
@@ -553,7 +700,7 @@ class RenderEngine:
         scene = self.scene
         programs = self._programs()
         uniforms = FrameUniforms(row, spec)
-        textures = self._frame_textures(frame_index)
+        textures = self._frame_textures(frame_index, step)
         textures.update(self._carry)
         out_width, out_height = scene._final.texture.resolution
         subsample = int(scene.subsample)
@@ -609,10 +756,9 @@ class RenderEngine:
         else:
             # Modules bind their sequences on their first update
             self._refresh_textures()
+        builds = tailgen.compiled.builds
         packed, spec = self.stack_captures(count)
-        packed = torch.from_numpy(packed)
-        if self.device.type == "cuda":
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
+        packed, self._stream_tex = self.upload(packed, self.stack_streams(count))
 
         scene = self.scene
         out_width, out_height = scene._final.texture.resolution
@@ -623,4 +769,13 @@ class RenderEngine:
         for index in range(count):
             self.render_frame(packed[index], spec, index, frame_indices[index],
                               per_batch, invariant, frames[index])
+        self.last_flush_retraced = tailgen.compiled.builds != builds
         return frames
+
+    def reset_carry(self) -> None:
+        """Re-seed the temporal rings from their programs' host matrices
+        (the scene's reset key)."""
+        for program in self._programs():
+            if program.name in self._carry and program.texture.matrix is not None:
+                self._carry[program.name] = Ring(torch.from_numpy(
+                    program.texture.matrix).to(device=self.device, dtype=torch.float32))

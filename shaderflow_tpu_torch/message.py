@@ -27,6 +27,22 @@ class ShaderMessage:
             dv: float = 0.0
 
         @dataclass
+        class Press:
+            button: int = 0
+            x: int = 0
+            y: int = 0
+            u: float = 0.0
+            v: float = 0.0
+
+        @dataclass
+        class Release:
+            button: int = 0
+            x: int = 0
+            y: int = 0
+            u: float = 0.0
+            v: float = 0.0
+
+        @dataclass
         class Drag:
             x: int = 0
             y: int = 0
@@ -44,7 +60,24 @@ class ShaderMessage:
             du: float = 0.0
             dv: float = 0.0
 
+        @dataclass
+        class Enter:
+            state: bool = True
+
     class Window:
+
+        @dataclass
+        class Resize:
+            width: Optional[int] = None
+            height: Optional[int] = None
+
+            @property
+            def size(self) -> tuple[Optional[int], Optional[int]]:
+                return (self.width, self.height)
+
+        @dataclass
+        class Iconify:
+            state: Optional[bool] = None
 
         @dataclass
         class FileDrop:
@@ -86,3 +119,7 @@ class ShaderMessage:
         class KeyUp:
             key: Optional[int] = None
             modifiers: Optional[int] = None
+
+        @dataclass
+        class Unicode:
+            char: Optional[str] = None

@@ -19,6 +19,8 @@ wraps, CLAMP_TO_EDGE clamps, row 0 = the top of the image (v = 1).
   lookup_nearest_1d_select_batched    kernel K2 (csrc/lookup.cu): per-frame
                                       tables expanded over a static index
                                       field; the exact gather on CPU tensors
+  lookup_nearest_1d_select            one frame's table over an index field
+                                      (the realtime bar field): K2 at B = 1
 
 Linear filtering is a product with a hat-weight matrix (two nonzeros per
 row), in float32 (no TF32: shaderflow_tpu_torch.resolve_device), with
@@ -350,6 +352,24 @@ def lookup_nearest_1d_select_batched(
     flat16 = tables.reshape(batch, bins * channels).to(torch.bfloat16).contiguous()
     out = expand_tables(flat16, index, out_dtype or torch.float32)
     return out.reshape(batch, height, width)
+
+
+def lookup_nearest_1d_select(tex: Sampler2D, v_field: torch.Tensor,
+                             channel_where=None, channel: int = 0,
+                             out_dtype=None) -> torch.Tensor:
+    """One (H, W) plane of NEAREST table lookups from a (bins, 1, C)
+    texture (shaderflow_tpu/ops/sampling.py:795): row = floor((1 - v) *
+    tex.height), clamped (mod tex.height when the texture repeats in y),
+    channel 0 where channel_where else 1 (or `channel`), and the table's
+    value rounded to bfloat16 selected exactly. What
+    lookup_nearest_1d_select_batched computes for a batch of one: kernel K2
+    at B = 1 on the card, the plain gather on CPU tensors."""
+    table = tex.data[:, 0, :]                                 # (bins, C)
+    bins, channels = table.shape
+    index = lookup_index(v_field, bins, channels, channel_where, channel, tex.repeat_y)
+    flat16 = table.reshape(1, bins * channels).to(torch.bfloat16).contiguous()
+    out = expand_tables(flat16, index, out_dtype or torch.float32)
+    return out.reshape(v_field.shape)
 
 
 # --------------------------------------------------------------------------- #

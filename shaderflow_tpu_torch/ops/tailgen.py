@@ -1070,12 +1070,15 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
              aspect: float, quantize: bool, device: torch.device) -> Compiled:
     """The traced, generated and compiled K1 for this spec, kept per
     _tail_key. The key holds the color dtype: a float32 trace must not
-    serve a tail traced after SHADERFLOW_TAIL_BF16 flipped."""
+    serve a tail traced after SHADERFLOW_TAIL_BF16 flipped.
+    `compiled.builds` counts cache misses (each a Triton compile at its
+    first launch)."""
     from shaderflow_tpu_torch.build import triton_module
     key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
                     bool(quantize), str(device), str(tail_dtype()))
     if key is not None and key in _PREPARED:
         return _PREPARED[key]
+    compiled.builds += 1
     graph, outputs = trace(spec, render_height, render_width, aspect)
     bf16 = frozenset(name for name, cs in spec.colsampled.items()
                      if cs.planes[0].dtype == torch.bfloat16)
@@ -1087,6 +1090,9 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
             _PREPARED.clear()
         _PREPARED[key] = entry
     return entry
+
+
+compiled.builds = 0
 
 
 def registers(compiled_kernel) -> tuple[int, int]:

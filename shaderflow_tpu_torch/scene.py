@@ -1,25 +1,41 @@
 """
-ShaderScene — the root module, time model, and batched offline export.
+ShaderScene — the root module, time model, batched export and realtime loop.
 
-Port of shaderflow_tpu/scene.py, offline path: the scene is its own first
-module, owns the frametimer, keyboard and camera modules, the main
-"iScreen" program and the SSAA final program, the virtual time model, the
-resolution model with fractional SSAA, and `main()`. main() advances module
-state per frame on the host, captures uniforms, and renders B frames per
-flush through the engine; the device renders batch k while the host
-captures batch k+1 and the sink drains batch k-1.
+Port of shaderflow_tpu/scene.py: the scene is its own first module, owns
+the frametimer, keyboard and camera modules, the main "iScreen" program and
+the SSAA final program, the virtual time model, the resolution model with
+fractional SSAA, and `main()`.
+
+With an output, main() exports: it advances module state per frame on the
+host, captures uniforms, and renders B frames per flush through the
+engine; the device renders batch k while the host captures batch k+1 and
+the sink drains batch k-1. Before the first frame, modules prewarm (the
+audio precomputes); the runtime follows the longest module duration (the
+audio file) unless `time` is given; module ffhooks mux their inputs (the
+audio) into FFmpeg outputs; the scene's batch_preludes run in the engine
+once per batch.
+
+Without one, main() runs the realtime preview: the scheduler paces one
+task at the scene's fps (frameskip stretches dt when a frame is late);
+each tick polls the shaders' files, runs the once tasks, steps and
+captures a frame (or a micro-batch, _rt_batch_size) and flushes it. With a
+window (WindowBackend.Preview: io/sdlwindow.py) the frames reach it
+through the display pump (io/displaypump.py) and its events come back as
+message relays; headless, the loop waits on frame k-1 while frame k
+renders. `frame_limit` ends a run after that many frames.
 
 The device is an argument: main(..., device="cuda") by default, and
-device="cpu" runs every kernel's plain PyTorch version. Before the first
-frame, modules prewarm (the audio precomputes); the runtime follows the
-longest module duration (the audio file) unless `time` is given; module
-ffhooks mux their inputs (the audio) into FFmpeg outputs; the scene's
-batch_preludes run in the engine once per batch. Not ported yet: the
-realtime loop, window, HUD and input devices, multi-device sharding.
+device="cpu" runs every kernel's plain PyTorch version. Not ported yet:
+the cv2 preview and its X11 key poller, the HUD, multi-device sharding.
 """
 
 from __future__ import annotations
 
+import math
+import os
+import sys
+import time
+from enum import Enum
 from pathlib import Path
 from typing import Iterable, Optional, Union
 
@@ -27,7 +43,7 @@ import numpy as np
 import torch
 
 from shaderflow_tpu_torch import logger, resolve_device
-from shaderflow_tpu_torch.engine import RenderEngine, to_wire
+from shaderflow_tpu_torch.engine import RenderEngine, fetch_frame, to_wire
 from shaderflow_tpu_torch.exporting import ExportingHelper
 from shaderflow_tpu_torch.frametimer import ShaderFrametimer
 from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
@@ -35,6 +51,7 @@ from shaderflow_tpu_torch.keyboard import ShaderKeyboard
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.resolution import Resolution
+from shaderflow_tpu_torch.scheduler import Scheduler
 from shaderflow_tpu_torch.shader import ShaderProgram
 from shaderflow_tpu_torch.variable import ShaderVariable, StaticUniform
 
@@ -73,6 +90,23 @@ def _parse_duration(value: str) -> Optional[float]:
     return float(text)
 
 
+class WindowBackend(Enum):
+    Headless = "headless"
+    Preview = "preview"   # a window on a display (io/sdlwindow.py)
+
+    @classmethod
+    def infer(cls) -> "WindowBackend":
+        """WINDOW_BACKEND when set; headless for a command-line export
+        (`main ... -o`); a window where a display exists."""
+        if (option := os.getenv("WINDOW_BACKEND")):
+            return cls(option)
+        if ("main" in sys.argv) and any(x in sys.argv for x in ("--output", "-o")):
+            return cls.Headless
+        if os.getenv("DISPLAY"):
+            return cls.Preview
+        return cls.Headless
+
+
 class ShaderScene(ShaderModule):
 
     PIPELINE_DEPTH = 2
@@ -80,10 +114,16 @@ class ShaderScene(ShaderModule):
     always has a queued batch when one finishes, and the sink's host work
     overlaps the next batch's compute."""
 
-    def __init__(self, **kwargs):
+    frame_limit: Optional[int] = None
+    """Stop the realtime loop after N frames (tests, timed demos)."""
+
+    _RT_BATCH_MAX = 8
+
+    def __init__(self, backend: Optional[WindowBackend] = None, **kwargs):
         # The scene is its own first module; the registry must exist before
         # ShaderModule.__init__ appends self to it.
         self.modules: list[ShaderModule] = []
+        self.backend = WindowBackend(backend) if backend else WindowBackend.infer()
 
         # Temporal model
         self.time: float = 0.0
@@ -108,12 +148,27 @@ class ShaderScene(ShaderModule):
         self.exporting: bool = False
         self.freewheel: bool = False
         self.quit: bool = False
+        self.title: str = "ShaderFlow"
+        self.fullscreen: bool = False
 
-        # Interaction state (uniforms; no input devices in the offline path)
+        # Interaction state
         self.mouse_gluv: tuple[float, float] = (0.0, 0.0)
         self.mouse_inside: bool = False
         self.mouse_buttons: dict[int, bool] = {k: False for k in range(1, 6)}
         self.exclusive: bool = False
+
+        # Realtime loop: the pacing scheduler and its frame task, the
+        # window, the display pump, the micro-batch controller's state
+        self.scheduler = Scheduler()
+        self.vsync = None
+        self._window = None
+        self._display_pump = None
+        self._inflight_rt: list = []
+        self._pending_preview: list = []
+        self._rt_batch_n = 1
+        self._rt_batch_active = 1
+        self._rt_cost_ema: Optional[float] = None
+        self._rt_streak = 0
 
         self.ffmpeg = FFmpeg()
         self.engine: Optional[RenderEngine] = None
@@ -260,17 +315,38 @@ class ShaderScene(ShaderModule):
     # Frame stepping
 
     def next(self, dt: float = 0.0) -> None:
-        """Advance one frame of host state: every module's update(), the
-        engine's capture, then time (frame zero renders at t=0)."""
+        """Advance one frame of host state: every module's update(), in
+        realtime the shaders' file watch and the once tasks (a hot reload
+        recompiles here), the engine's capture, then time (frame zero
+        renders at t=0)."""
         for module in self.modules:
             if not isinstance(module, ShaderProgram):
                 module.update()
+        if self.realtime:
+            for module in self.modules:
+                if isinstance(module, ShaderProgram):
+                    module.poll_hot_reload()
+            self.scheduler.all_once()
         if self.engine is not None and self._capture_enabled:
             self.engine.capture_frame()
+        if self.vsync is not None:
+            # One launch covers _rt_batch_active frame periods: the frame
+            # task paces at fps / N (and follows live fps edits)
+            self.vsync.fps = self.fps / max(1, self._rt_batch_active)
         self.dt = dt * self.speed
         self.rdt = dt
         self.time += self.dt
         self._frame_counter += 1
+
+    def screenshot(self) -> np.ndarray:
+        """Render the current frame once -> (H, W, 3) uint8 on the host; the
+        scene's time and frame counter are left as they were."""
+        self.engine.begin_batch()
+        saved = (self.time, self.dt, self.rdt, self._frame_counter)
+        self.next(dt=0.0)
+        self.time, self.dt, self.rdt, self._frame_counter = saved
+        frames = self.engine.flush(1)
+        return fetch_frame(frames[0])
 
     # ------------------------------------------------------------------ #
     # Main entry point
@@ -283,6 +359,8 @@ class ShaderScene(ShaderModule):
         scale: float = 1.0,
         ratio: Optional[Union[float, str]] = None,
         fps: float = 60.0,
+        frameskip: bool = True,
+        fullscreen: bool = False,
         quality: float = 50.0,
         ssaa: float = 1.0,
         subsample: int = 2,
@@ -297,30 +375,32 @@ class ShaderScene(ShaderModule):
         start: float = 0.0,
         device: Union[str, torch.device] = "cuda",
     ) -> Optional[Path]:
-        """Export the scene to `output` ("null" renders and discards).
+        """Export the scene to `output` ("null" renders and discards), or
+        without one (and without freewheel) run the realtime preview until
+        the window closes, a quit, or `frame_limit` frames.
 
         `device` runs the render on "cuda" (the default; raises without a
         card) or "cpu" (every kernel's plain PyTorch version). `start`
-        resumes at a content time in seconds: host state is replayed
-        without rendering (a scene with a temporal ring renders the
-        replayed frames to rebuild it), then [start, duration) is
-        rendered."""
+        resumes an export at a content time in seconds: host state is
+        replayed without rendering (a scene with a temporal ring renders
+        the replayed frames to rebuild it), then [start, duration) is
+        rendered. `frameskip` (realtime): a late frame steps the real time
+        it took, else at most one period."""
         final_width, final_height = self._setup_run(
             width=width, height=height, scale=scale, ratio=ratio, fps=fps,
-            quality=quality, ssaa=ssaa, subsample=subsample, output=output,
-            time=time, speed=speed, freewheel=freewheel, raw=raw, device=device)
+            fullscreen=fullscreen, quality=quality, ssaa=ssaa, subsample=subsample,
+            output=output, time=time, speed=speed, freewheel=freewheel, raw=raw,
+            device=device)
         if self.realtime:
-            raise NotImplementedError(
-                "The realtime preview is not ported yet: pass output= "
-                "(or freewheel=True) to export")
+            return self._realtime_loop(frameskip)
         export = ExportingHelper(self)
         export.make_sink(output, width=final_width, height=final_height,
                          turbo=turbo, buffers=buffers)
         return self._export_loop(export, batch, start_frame=round(start * self.fps))
 
     def _setup_run(self, *, width=1920, height=1080, scale=1.0, ratio=None,
-                   fps=60.0, quality=50.0, ssaa=1.0, subsample=2, output=None,
-                   time=None, speed=1.0, freewheel=False, raw=False,
+                   fps=60.0, fullscreen=False, quality=50.0, ssaa=1.0, subsample=2,
+                   output=None, time=None, speed=1.0, freewheel=False, raw=False,
                    device="cuda") -> tuple[int, int]:
         """Everything main() does before the loop: device, flags, compile
         relay, resize, module setup, duration, SSAA/raw resolution policy."""
@@ -332,6 +412,9 @@ class ShaderScene(ShaderModule):
         self.exporting = bool(output)
         self.freewheel = (self.exporting or freewheel)
         self.realtime = not self.freewheel
+        self.quit = False
+        self.title = f"ShaderFlow • {self.name}"
+        self.fullscreen = fullscreen
         self.subsample = int(subsample)
         self.quality = float(quality)
         self.speed = float(speed)
@@ -341,6 +424,7 @@ class ShaderScene(ShaderModule):
         self.rdt = 0.0
         self._frame_counter = 0
         self.relay(ShaderMessage.Shader.Compile)
+        self.scheduler.clear()
 
         final_width, final_height = self.resize(
             width=width, height=height, ratio=ratio, scale=scale)
@@ -423,12 +507,311 @@ class ShaderScene(ShaderModule):
         export.log_stats(output=result)
         return result
 
+
+    # ------------------------------------------------------------------ #
+    # Realtime loop
+
+    def open_window(self):
+        """The preview's window (WindowBackend.Preview): an SDL window
+        (io/sdlwindow.py). The cv2 preview the reference falls back to is
+        not ported yet: asking for it (SHADERFLOW_PREVIEW=cv2), or an SDL
+        window that cannot open, raises instead of running headless."""
+        if os.environ.get("SHADERFLOW_PREVIEW", "").lower() == "cv2":
+            raise NotImplementedError("SHADERFLOW_PREVIEW=cv2: the cv2 preview window "
+                                      "is not ported yet; the SDL window is")
+        try:
+            from shaderflow_tpu_torch.io.sdlwindow import SDLWindow
+            return SDLWindow(self.title, *self.resolution)
+        except Exception as error:
+            raise NotImplementedError(
+                f"The SDL preview window could not open ({error}), and the cv2 "
+                "preview fallback is not ported yet; run headless "
+                "(WINDOW_BACKEND=headless) or export with an output") from error
+
+    def _realtime_loop(self, frameskip: bool) -> None:
+        self._window = self.open_window() if self.backend == WindowBackend.Preview else None
+        # A forced micro-batch (SHADERFLOW_RT_BATCH=N) covers N frame periods
+        # a launch, so the frame task paces at fps / N; auto mode starts at
+        # one frame and _rt_batch_feedback retunes the frequency
+        setting = os.environ.get("SHADERFLOW_RT_BATCH", "auto")
+        forced = int(setting) if setting.isdigit() else 0
+        self._rt_batch_n = 1
+        self._rt_batch_active = 1
+        self._rt_cost_ema = None
+        self._rt_streak = 0
+        self.vsync = self.scheduler.new(
+            task=self._realtime_frame, frequency=self.fps / max(1, forced),
+            frameskip=frameskip, precise=True)
+        self._pending_preview = []
+        self._inflight_rt = []
+        try:
+            while self.scheduler.next() is not None:
+                if self.quit:
+                    break
+        finally:
+            if self._display_pump is not None:
+                self._display_pump.close()
+                self._display_pump = None
+            for _, done in self._pending_preview + self._inflight_rt:
+                if done is not None:
+                    done.synchronize()
+            self._pending_preview = []
+            self._inflight_rt = []
+            if self._window is not None:
+                self._window.close()
+                self._window = None
+
+    def _rendered(self) -> Optional[torch.cuda.Event]:
+        """An event behind the frames just flushed (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def _realtime_frame(self, dt: float = 0.0) -> None:
+        if self.frame_limit is not None and self.frame >= self.frame_limit:
+            self.quit = True
+            return
+        async_display = (self._window is not None
+                         and os.environ.get("SHADERFLOW_SYNC_DISPLAY") != "1")
+        n = self._rt_batch_size(auto_ok=async_display)
+        if self.frame_limit is not None:
+            n = max(1, min(n, self.frame_limit - self.frame))
+        self._rt_batch_active = n
+        started = time.perf_counter()
+        self.engine.begin_batch()
+        for _ in range(n):
+            self.next(dt=dt / n)
+        dispatched = self.engine.flush(n)
+        if async_display:
+            # Until the display pump has moved its first frame (its stream
+            # and page-locked buffers are made then), and on a tick that
+            # compiled a kernel, the tick measures set-up, not the loop: the
+            # controller must not size batches from it
+            warm = self._display_pump is not None and self._display_pump.transferred > 0
+            self._async_display_frame(dispatched)
+            if warm and not self.engine.last_flush_retraced:
+                self._rt_batch_feedback(time.perf_counter() - started, n)
+            return
+        # Synchronous display (SHADERFLOW_SYNC_DISPLAY=1, and headless): show
+        # frame k - depth while the device renders frame k; every frame is
+        # shown, paced by the transfer. Depth 1 is the GL swapchain's
+        # double buffer; SHADERFLOW_PREVIEW_DEPTH raises it
+        depth = max(1, int(os.environ.get("SHADERFLOW_PREVIEW_DEPTH", "1")))
+        self._pending_preview.append((dispatched, self._rendered()))
+        if len(self._pending_preview) <= depth:
+            return
+        frames, done = self._pending_preview.pop(0)
+        if self._window is not None:
+            self._window.show(fetch_frame(frames[-1]))
+            self._dispatch_window_events(self._window.poll())
+        elif done is not None:
+            done.synchronize()   # headless: wait for frame k - depth, for honest pacing
+
+    # Realtime micro-batching: where one launch's dispatch costs more than
+    # a frame period (a remote-attached device), N frames a launch amortize
+    # it, at the cost of sampling input once per launch. "auto" starts at 1
+    # and grows only while the measured loop cost misses the budget.
+
+    def _rt_batch_size(self, auto_ok: bool) -> int:
+        setting = os.environ.get("SHADERFLOW_RT_BATCH", "auto")
+        if setting.isdigit():
+            return max(1, int(setting))
+        if not auto_ok:
+            return 1
+        return max(1, self._rt_batch_n)
+
+    def _rt_batch_feedback(self, call_seconds: float, n: int) -> None:
+        """Adapt the auto micro-batch size from the measured loop cost
+        (dispatch and display offer; transfers never block the loop). Three
+        consecutive ticks over budget jump N to the predicted size; three
+        under 35 % of it halve N."""
+        if os.environ.get("SHADERFLOW_RT_BATCH", "auto") != "auto":
+            return
+        per_frame = call_seconds / max(1, n)
+        period = 1.0 / max(1e-6, self.fps)
+        ema = per_frame if self._rt_cost_ema is None else self._rt_cost_ema
+        ema += 0.25 * (per_frame - ema)
+        self._rt_cost_ema = ema
+        streak = self._rt_streak
+        if ema > 1.05 * period:
+            streak = max(1, streak + 1)
+        elif ema < 0.35 * period:
+            streak = min(-1, streak - 1)
+        else:
+            streak = 0
+        self._rt_streak = streak
+        current = max(1, self._rt_batch_n)
+        new = current
+        if streak >= 3 and current < self._RT_BATCH_MAX:
+            # One step to the predicted size: the needed size scales with
+            # the miss ratio (next power of two)
+            factor = 2 ** max(1, math.ceil(math.log2(ema / period)))
+            new = min(self._RT_BATCH_MAX, current * int(factor))
+        elif streak <= -3 and current > 1:
+            new = current // 2
+        if new != current:
+            self._rt_batch_n = new
+            self._rt_streak = 0
+            if self.vsync is not None:
+                self.vsync.frequency = self.fps / new
+            logger.info(f"Realtime micro-batch -> {new} frames/launch "
+                        f"(loop {ema * 1e3:.1f} ms/frame vs {period * 1e3:.1f} ms budget)")
+
+    def _async_display_frame(self, dispatched: torch.Tensor) -> None:
+        """The windowed display path: never block the loop on the
+        device->host frame transfer (io/displaypump.py, latest frame
+        wins). Input is polled every tick. At most three undrained launches
+        before the loop waits for the oldest (a swapchain's depth)."""
+        if self._display_pump is None:
+            from shaderflow_tpu_torch.io.displaypump import DisplayPump
+            self._display_pump = DisplayPump()
+            self._display_pump.reserve(dispatched[-1])
+            self._inflight_rt = []
+        self._inflight_rt.append((dispatched, self._rendered()))
+        while len(self._inflight_rt) > 3:
+            _, done = self._inflight_rt.pop(0)
+            if done is not None:
+                done.synchronize()
+        self._display_pump.offer(dispatched, tag=self._frame_counter - 1)
+        frame = self._display_pump.take()
+        if frame is not None:
+            # the pump may stride a frame on slow links: the window blits it scaled
+            self._window.show(frame)
+        self._dispatch_window_events(self._window.poll())
+
+    def _dispatch_window_events(self, events: list) -> None:
+        """Window events -> message relays (the reference's glfw callback
+        surface: key press and release, unicode, mouse move / press /
+        release / wheel with the Ctrl, Alt and exclusive drag intercepts,
+        resize, file drop, enter, iconify, close)."""
+        Mouse = ShaderMessage.Mouse
+        Keyboard = ShaderMessage.Keyboard
+        for event in events:
+            kind = event[0]
+            if kind == "keydown":
+                key = event[1]
+                if key == ShaderKeyboard.Keys.ESCAPE:
+                    self.quit = True
+                self.relay(Keyboard.KeyDown(key=key))
+            elif kind == "keyup":
+                self.relay(Keyboard.KeyUp(key=event[1]))
+            elif kind == "unicode":
+                self.relay(Keyboard.Unicode(char=event[1]))
+            elif kind == "mousemove":
+                _, x, y, dx, dy, held = event
+                u, v = self._pixel_to_gluv(x, y)
+                du = u - self.mouse_gluv[0]
+                dv = v - self.mouse_gluv[1]
+                self.mouse_inside = True
+                if 1 in held or 2 in held:
+                    self._handle_drag(x=x, y=y, dx=dx, dy=dy, u=u, v=v, du=du, dv=dv)
+                else:
+                    self.relay(Mouse.Position(x=x, y=y, dx=dx, dy=dy,
+                                              u=u, v=v, du=du, dv=dv))
+            elif kind in ("mousedown", "mouseup"):
+                _, button, x, y = event
+                state = kind == "mousedown"
+                self.mouse_buttons[button] = state
+                u, v = self._pixel_to_gluv(x, y)
+                cls = Mouse.Press if state else Mouse.Release
+                self.relay(cls(button=button, x=x, y=y, u=u, v=v))
+            elif kind == "wheel":
+                step = float(event[1])
+                self.relay(Mouse.Scroll(dy=int(step), dv=step / 10))
+            elif kind == "resize":
+                _, width, height = event
+                self.resize(width=width, height=height)
+                self.relay(ShaderMessage.Window.Resize(width=width, height=height))
+            elif kind == "drop":
+                self.relay(ShaderMessage.Window.FileDrop(files=[event[1]]))
+            elif kind == "enter":
+                self.mouse_inside = bool(event[1])
+                self.relay(Mouse.Enter(state=bool(event[1])))
+            elif kind == "iconify":
+                self.relay(ShaderMessage.Window.Iconify(state=bool(event[1])))
+            elif kind == "close":
+                self.relay(ShaderMessage.Window.Close())
+
+    _mouse_drag_time_factor: float = 4.0
+    """Seconds scrubbed when an Alt+drag travels the full window height."""
+
+    def _handle_drag(self, *, x: int, y: int, dx: int, dy: int,
+                     u: float, v: float, du: float, dv: float) -> None:
+        """Mouse drags with the reference's modifier intercepts: Ctrl+drag
+        rolls the camera around its forward axis, exclusive mode free-looks
+        (zoom and roll), Alt+drag scrubs time; otherwise the Drag message
+        relays to every module."""
+        width, height = self.resolution
+        if self.keyboard(ShaderKeyboard.Keys.LEFT_CTRL):
+            cx, cy = (x - width / 2), (y - height / 2)
+            angle = math.atan2(cy + dy, cx + dx) - math.atan2(cy, cx)
+            if abs(angle) > math.pi:
+                angle -= 2 * math.pi
+            self.camera.rotate(self.camera.forward, degrees=math.degrees(angle))
+            return
+        if self.exclusive:
+            self.camera.apply_zoom(dy / 500)
+            self.camera.rotate(self.camera.forward, degrees=-dx / 10)
+            return
+        if self.keyboard(ShaderKeyboard.Keys.LEFT_ALT):
+            self.time -= self._mouse_drag_time_factor * (dy / max(1, height))
+            return
+        self.relay(ShaderMessage.Mouse.Drag(x=x, y=y, dx=dx, dy=dy,
+                                            u=u, v=v, du=du, dv=dv))
+
+    def _pixel_to_gluv(self, x: int, y: int) -> tuple[float, float]:
+        """Window pixel -> gluv: x in [-aspect, aspect], y in [-1, 1], v up."""
+        width, height = self.resolution
+        u = (2.0 * ((x + 0.5) / max(1, width)) - 1.0) * self.aspect_ratio
+        v = 1.0 - 2.0 * ((y + 0.5) / max(1, height))
+        return (u, v)
+
     # ------------------------------------------------------------------ #
     # Module protocol
 
     def handle(self, message) -> None:
         if isinstance(message, ShaderMessage.Window.Close):
             self.quit = True
+
+        elif isinstance(message, ShaderMessage.Keyboard.KeyDown):
+            keys = ShaderKeyboard.Keys
+            if message.key == keys.O:
+                logger.info("(O  ) Resetting the scene")
+                for module in self.modules:
+                    module.setup()
+                self.time = 0
+                if self.engine is not None:
+                    self.engine.reset_carry()
+            elif message.key == keys.R:
+                logger.info("(R  ) Reloading shaders")
+                self.relay(ShaderMessage.Shader.Compile)
+            elif message.key == keys.F1:
+                logger.info("(F1 ) Toggling exclusive mode")
+                self.exclusive = not self.exclusive
+                if self._window is not None:
+                    self._window.set_exclusive(self.exclusive)
+            elif message.key == keys.F2:
+                from datetime import datetime
+
+                from PIL import Image
+
+                import shaderflow_tpu_torch
+                stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+                path = (shaderflow_tpu_torch.directories.ensure().user_data_path
+                        / "screenshots" / f"({stamp}) {self.name}.png")
+                path.parent.mkdir(parents=True, exist_ok=True)
+                logger.info(f"(F2 ) Saving screenshot to ({path})")
+                Image.fromarray(self.screenshot()).save(path)
+            elif message.key == keys.F11:
+                logger.info("(F11) Toggling fullscreen")
+                self.fullscreen = not self.fullscreen
+                if self._window is not None:
+                    self._window.set_fullscreen(self.fullscreen)
+
+        elif isinstance(message, (ShaderMessage.Mouse.Drag, ShaderMessage.Mouse.Position)):
+            self.mouse_gluv = (message.u, message.v)
 
     def pipeline(self) -> Iterable[ShaderVariable]:
         """Global uniforms every shader sees (the reference's set)."""

@@ -413,6 +413,8 @@ class ShaderProgram(ShaderModule):
         self._fragment: Union[PixelFunction, str, Path, None] = None
         self._resolved: Optional[PixelFunction] = None
         self._compiled_src: Optional[tuple] = None   # (origin, source) of _resolved
+        self._watch_path: Optional[Path] = None       # a file fragment, watched in realtime
+        self._watch_mtime: float = 0.0
         self.texture: Optional[ShaderTexture] = None
         super().__init__(scene=scene, name=name, **kwargs)
 
@@ -430,6 +432,10 @@ class ShaderProgram(ShaderModule):
     @fragment.setter
     def fragment(self, value: Union[PixelFunction, str, Path]) -> None:
         self._fragment = value
+        self._watch_path = None
+        if _is_pathlike(value):
+            self._watch_path = Path(value)
+            self._watch_mtime = self._watch_path.stat().st_mtime
         self.compile()
 
     @staticmethod
@@ -494,6 +500,23 @@ class ShaderProgram(ShaderModule):
             f"```\n{traceback.format_exc()}\n```\n\n## Source\n\n```\n{source}\n```\n")
         logger.error(f"Error building shader {self.name}: {error}; "
                      f"falling back to missing-texture shader (report: {report})")
+
+    def poll_hot_reload(self) -> bool:
+        """The realtime loop's file watch: when a file fragment's mtime
+        changed, queue its recompile as a 'once' task of the scene's
+        scheduler (the frame runs it before capturing). Exports never
+        reload."""
+        if self._watch_path is None:
+            return False
+        try:
+            mtime = self._watch_path.stat().st_mtime
+        except OSError:
+            return False
+        if mtime != self._watch_mtime:
+            self._watch_mtime = mtime
+            self.scene.scheduler.once(self.compile)
+            return True
+        return False
 
     def handle(self, message) -> None:
         if isinstance(message, ShaderMessage.Shader.Compile):

@@ -7,8 +7,11 @@ Port of shaderflow_tpu/texture.py, the part the ported slices touch: the
 filter and repeat sampling state, host writes and image uploads, device
 sequences (per-frame content the engine indexes by frame, optionally as a
 ring of the last L columns), and the pipeline uniforms. The engine uploads
-a host-written texture once per version; textures rewritten every frame
-(streamed textures, the u8 wire twin) are not ported yet.
+a host-written texture once per version; a texture written during the
+frame loop becomes streamed (engine.capture_frame snapshots it every
+frame). A full-box uint8 write of a one-box texture keeps its bytes as the
+u8 wire twin (wire_u8): the engine streams those bytes and normalizes on
+the device, and the float32 matrix is only materialized when read.
 
 Differences from the reference at the time of the port, each a repair:
   * the constructor ends by registering the module (ShaderModule.__init__);
@@ -66,9 +69,16 @@ class ShaderTexture(ShaderModule):
         self.repeat_y = bool(repeat_y)
         self._track = float(track)
         self.final = bool(final)
-        self.matrix: Optional[np.ndarray] = None  # (T, L, H, W, C) float32, row 0 = top
+        self._matrix: Optional[np.ndarray] = None  # (T, L, H, W, C) float32, row 0 = top
+        self._matrix_stale: bool = False  # wire_u8 is newer than _matrix
+        self.wire_u8: Optional[np.ndarray] = None
+        """(1, 1, H, W, C) uint8 twin of the matrix, storage row order, when
+        the last write was a full-box uint8 upload of a one-box texture
+        (video frames): the engine streams these bytes (a quarter of the
+        float32 ones) and normalizes on the device. Any other write drops
+        it."""
         self.version: int = 0     # bumped on every (re)allocation and write
-        self.dirty: bool = False  # written since the engine last uploaded it
+        self.dirty: bool = False  # written since the engine last uploaded or snapshot it
         self.sequence = None
         """Per-frame device content (F, H, W, C) (offline audio paths): the
         engine indexes it by frame instead of uploading host writes."""
@@ -77,6 +87,20 @@ class ShaderTexture(ShaderModule):
 
     def build(self) -> None:
         self.make()
+
+    @property
+    def matrix(self) -> Optional[np.ndarray]:
+        """The (T, L, H, W, C) float32 content; a pending u8 wire write is
+        normalized into it on the first read."""
+        if self._matrix_stale:
+            self._matrix[0, 0] = self.wire_u8[0, 0].astype(np.float32) / 255.0
+            self._matrix_stale = False
+        return self._matrix
+
+    @matrix.setter
+    def matrix(self, value: Optional[np.ndarray]) -> None:
+        self._matrix = value
+        self._matrix_stale = False
 
     # -- sampling state -----------------------------------------------------
 
@@ -195,8 +219,9 @@ class ShaderTexture(ShaderModule):
         pages are only touched when written)."""
         width, height = self.resolution
         shape = (self._temporal, self._layers, height, width, self._components)
-        if self.matrix is None or self.matrix.shape != shape:
+        if self._matrix is None or self._matrix.shape != shape:
             self.matrix = np.zeros(shape, dtype=np.float32)
+            self.wire_u8 = None
         self.version += 1
         return self
 
@@ -232,10 +257,10 @@ class ShaderTexture(ShaderModule):
         viewport=(x, y, w, h) uses GL conventions: x from the left, y from
         the BOTTOM. data is (h, w, c), (h, w) or anything reshapeable; row 0
         of data is the bottom row of the region (GL write order)."""
-        if self.matrix is None:
+        if self._matrix is None:
             self.make()
         temporal, layer = self._box(temporal, layer)
-        height, width = self.matrix.shape[2], self.matrix.shape[3]
+        height, width = self._matrix.shape[2], self._matrix.shape[3]
         if viewport is None:
             x, y, w, h = 0, 0, width, height
         else:
@@ -244,9 +269,21 @@ class ShaderTexture(ShaderModule):
                 raise ValueError(
                     f"Texture {self.name!r}: viewport {viewport} outside its "
                     f"{width}x{height} box")
-        data = self._normalize(data).reshape(h, w, self._components)
-        # GL region rows are bottom-up: flip into the top-down storage
-        self.matrix[temporal, layer, height - y - h:height - y, x:x + w] = data[::-1]
+        raw = np.asarray(data)
+        if viewport is None and raw.dtype == np.uint8 and self._temporal == self._layers == 1:
+            # The single box is the whole matrix: keep the bytes (storage
+            # row order) for the u8 stream and defer the normalize
+            self.wire_u8 = np.ascontiguousarray(
+                raw.reshape(h, w, self._components)[::-1])[None, None]
+            self._matrix_stale = True
+        else:
+            # A partial write overlays the current content (materialized
+            # first when a u8 write is pending)
+            target = self.matrix
+            self.wire_u8 = None
+            data = self._normalize(raw).reshape(h, w, self._components)
+            # GL region rows are bottom-up: flip into the top-down storage
+            target[temporal, layer, height - y - h:height - y, x:x + w] = data[::-1]
         self.version += 1
         self.dirty = True
         return self

@@ -150,10 +150,12 @@ def test_port_imports_no_jax(tmp_path):
     """The port's import chain (the tools too) and tiny CPU exports of the
     ported scenes (Mandelbrot, the music visualizer, PianoRoll at ssaa=1,
     Julia, the visualizer in the bf16 tail mode at blur level 1, and one
-    scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life)
-    and the GLSL Plasma scene through the command line (cli.main) run with
-    jax and the JAX package blocked, and leave no module of either loaded;
-    the GLSL front-end and the command line's sources import neither."""
+    scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life),
+    a realtime run of the visualizer (main without an output, headless,
+    to frame_limit) and the GLSL Plasma scene through the command line
+    (cli.main) run with jax and the JAX package blocked, and leave no
+    module of either loaded; the GLSL front-end and the command line's
+    sources import neither."""
     script = f"""
 import sys
 sys.modules["jax"] = None
@@ -177,6 +179,13 @@ for scene, name in ((torch_demo.Basic, "basic"), (torch_demo.MusicBars, "bars"),
     scene().main(width=32, height=18, fps=10, time=0.2, output={str(tmp_path)!r} + f"/{{name}}.rgb",
                  device="cpu")
 import shaderflow_tpu_torch.ops.complexmath, shaderflow_tpu_torch.ops.sampling
+import os
+os.environ.update(SHADERFLOW_AUDIO_BACKEND="none", WINDOW_BACKEND="headless")
+import shaderflow_tpu_torch.io.displaypump, shaderflow_tpu_torch.io.sdlwindow
+realtime = torch_demo.Visualizer()
+realtime.frame_limit = 2
+realtime.main(width=32, height=18, fps=10, ssaa=2, frameskip=False, device="cpu")
+assert realtime._frame_counter >= 2 and realtime.engine._streamed_names
 import os
 import shaderflow_tpu_torch.tools.bench_dtype, shaderflow_tpu_torch.tools.probe_bf16_ops
 os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
