@@ -115,6 +115,28 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      the last shown frame equal to a copy of the engine's frame at that
      index, taken on the render stream when it was flushed (no torn frame)
 Then a {"realtime": ...} line with phases 29-31's figures.
+  Any supersampling factor (the general final pass: the tail through its
+  plain path, no K1), mipmaps and video
+ 32. (a) the visualizer at 1920x1080@60, ssaa 1.5 (render 2880x1620), a 1 s
+     null export: K2 == batches, K1 == K3 == 0; (b) Mandelbrot at -s 4
+     through cli.main (render 7680x4320), a 1 s null export: K3 == frames,
+     K1 == 0; fps, device ms, kernels and host ms a frame; the last frame
+     against device="cpu" (a), against the plain path on the card (b), at
+     most 1 u8 step on < 2 % / < 1 %; K2 and K3 at these shapes against
+     their plain versions, timed, with their bounds (the any_ssaa entries)
+ 33. a realtime Mandelbrot at 1080p, ssaa 0.5 (render 960x540, upsampled):
+     warm-up, REALTIME_FRAMES at 60 fps: K3 == frames, K1 == 0, fps, late
+     ticks, host and device ms; frame 2 against device="cpu"
+ 34. a mipmapped background (mip_background_scene: background.png at about
+     4 texels a pixel through stexture) at 1080p, isotropic and with
+     anisotropy=4: no kernel, one pyramid build a run, fps, device ms;
+     frame 0 against device="cpu"
+ 35. the Video scene at 3840x2160@60, ssaa 1, 2 s from a 3840x2160 60 fps
+     source through the port's ffmpeg pipe (a stub ffmpeg and ffprobe on
+     PATH replay pre-made rgb24 frames): no kernel, the texture streamed
+     as u8 through the staging buffer; fps beside the stub pipe's own rate;
+     frame 1 against device="cpu"
+Then an {"any_ssaa": ...} line (32-34) and a {"video": ...} line (35).
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
 events, averaged over repeated calls; `call_ms` is the median of CUDA
@@ -193,13 +215,16 @@ def device_ms(fn, repeats: int = 20) -> float:
     mean duration times its launches a call (its records over `repeats`,
     rounded; a stray record rounds to none). A process's first profile can
     come back empty: a profile that records nothing is taken again, twice
-    at most."""
+    at most; after a third empty one the call is timed with CUDA events
+    around it (median_ms, the host's launch included), and a [profiler]
+    line says so."""
     return device_profile(fn, repeats)[0]
 
 
 def device_profile(fn, repeats: int = 20) -> tuple[float, int]:
     """device_ms's measurement -> (device ms of one call, the kernels and
-    copies it launched: the records of each name over `repeats`, rounded)."""
+    copies it launched: the records of each name over `repeats`, rounded;
+    None when the profiler recorded nothing and CUDA events timed it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -219,7 +244,10 @@ def device_profile(fn, repeats: int = 20) -> tuple[float, int]:
         if total > 0:
             return total / 1e3, sum(round(len(times) / repeats)
                                     for times in durations.values())
-    raise AssertionError(f"torch.profiler recorded no device time for {repeats} calls")
+    ms = median_ms(fn, repeats)
+    say("profiler", recorded="nothing in three profiles", timed_with="cuda events",
+        ms=f"{ms:.4f}")
+    return ms, None
 
 
 def k1_figures(launch) -> dict:
@@ -262,24 +290,33 @@ def frame_inputs(scene, index: int):
     return engine.frame_context(row, spec, index, engine.frame_indices()[index], {}, {})
 
 
-def plain_mandelbrot_frame(scene, index: int):
-    """Recompute Mandelbrot frame `index` with the plain PyTorch functions
-    only: camera lines, escape_lines_plain, the tail on full tensors, final
-    pass."""
+def mandelbrot_k3_args(scene, index: int):
+    """Frame `index`'s K3 (lines form) operands and its Frag: (cx, cy,
+    quality, bailout, cap, dtype), ctx."""
     import torch
     import torch_fractals
-    from shaderflow_tpu_torch.ops import fractal, tailfuse
     ctx = frame_inputs(scene, index)
     quality = max(1, int(1000.0 * ctx.uniform("iQualityS")))
     gluv_x, gluv_y = ctx.camera.line("gluv")
-    iters = fractal.escape_lines_plain(gluv_x - 0.5, gluv_y, quality, 3.0,
-                                       torch_fractals.mandelbrot_cap(quality),
-                                       torch.float32)
+    return ((gluv_x - 0.5).contiguous(), gluv_y.contiguous(), quality, 3.0,
+            torch_fractals.mandelbrot_cap(quality), torch.float32), ctx
+
+
+def plain_mandelbrot_frame(scene, index: int, height: int = HEIGHT, width: int = WIDTH,
+                           subsample: int = SSAA):
+    """Recompute Mandelbrot frame `index` with the plain PyTorch functions
+    only: camera lines, escape_lines_plain, the tail on full tensors, final
+    pass (any regime: tail_plain)."""
+    import torch
+    import torch_fractals
+    from shaderflow_tpu_torch.ops import fractal, tailfuse
+    k3_args, ctx = mandelbrot_k3_args(scene, index)
+    iters = fractal.escape_lines_plain(*k3_args)
     render_h, render_w = scene.engine._render_size
     spec = tailfuse.make_spec(
-        torch_fractals.mandelbrot_tail(quality, True), render_h, render_w,
+        torch_fractals.mandelbrot_tail(k3_args[2], True), render_h, render_w,
         iters=iters, oob=tailfuse.Col(ctx.camera.out_of_bounds_x.to(torch.float32)))
-    return tailfuse.tail_plain(spec, render_h, render_w, HEIGHT, WIDTH, SSAA,
+    return tailfuse.tail_plain(spec, render_h, render_w, height, width, subsample,
                                scene.aspect_ratio)
 
 
@@ -759,7 +796,7 @@ class StubWindow:
 
 
 def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
-                 backend=None, window=None, keep=0) -> dict:
+                 backend=None, window=None, keep=0, ssaa: float = SSAA) -> dict:
     """cls().main(...) with no output, headless (or with `window`) until
     `frames` frames: its counters, wall fps, the dt of every tick, the host
     time of each frame's capture (scene.next) and flush enqueue; `keep` > 0
@@ -808,7 +845,7 @@ def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
     scene._async_display_frame = tracked_display
     zero_counters()
     started = time.perf_counter()
-    scene.main(width=WIDTH, height=HEIGHT, fps=fps, ssaa=SSAA, frameskip=frameskip,
+    scene.main(width=WIDTH, height=HEIGHT, fps=fps, ssaa=ssaa, frameskip=frameskip,
                device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - started
@@ -832,12 +869,12 @@ def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
                 batch=scene._rt_batch_n, copies=copies, pump=pumps[0] if pumps else None)
 
 
-def realtime_frames(cls, device: str, count: int):
+def realtime_frames(cls, device: str, count: int, ssaa: float = SSAA):
     """cls() driven as the realtime loop drives it, at a fixed dt = 1/60:
     `count` frames of one flush each -> (scene, the last frame)."""
     from shaderflow_tpu_torch.scene import WindowBackend
     scene = cls(backend=WindowBackend.Headless)
-    scene._setup_run(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, device=device)
+    scene._setup_run(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=ssaa, device=device)
     for _ in range(count):
         scene.engine.begin_batch()
         scene.next(dt=1.0 / FPS)
@@ -1055,6 +1092,452 @@ def realtime_paths(counters, card: str) -> dict:
         first_flushes_ms=run["first_flushes_ms"], capture_ms=f"{run['capture_ms']:.4f}",
         flush_ms=f"{run['flush_ms']:.4f}", card=repr(card))
     return dict(paths=result, k1=k1_row, k2=k2_row)
+
+
+# --------------------------------------------------------------------------- #
+# Any supersampling factor, mipmaps, video (phases 32-35)
+
+MIP_ZOOM = 2.0        # stuv zoomed by MIP_ZOOM^2: the view spans 4 texture widths
+VIDEO_W, VIDEO_H, VIDEO_FPS, VIDEO_SECONDS, VIDEO_PREMADE = 3840, 2160, 60, 2.0, 8
+
+STUB_FFMPEG = r'''#!{python}
+import json, re, sys
+from pathlib import Path
+here = Path(__file__).parent
+meta = json.loads((here / "meta.json").read_text())
+frames = (here / "frames.rgb").read_bytes()
+size = meta["width"] * meta["height"] * 3
+args = sys.argv[1:]
+vf = args[args.index("-vf") + 1] if "-vf" in args else ""
+skip = int(re.search(r"gte\(n\\?,(\d+)\)", vf).group(1)) if "gte(n" in vf else 0
+out = sys.stdout.buffer
+view = memoryview(frames)
+try:
+    for k in range(skip, meta["total"]):
+        index = k % meta["count"]
+        out.write(view[index * size:(index + 1) * size])
+    out.flush()
+except BrokenPipeError:
+    pass
+'''
+
+STUB_FFPROBE = r'''#!{python}
+import json, sys
+from pathlib import Path
+meta = json.loads((Path(__file__).parent / "meta.json").read_text())
+entries = sys.argv[sys.argv.index("-show_entries") + 1]
+answers = {{"stream=width,height": f"{{meta['width']}},{{meta['height']}}",
+           "stream=r_frame_rate": f"{{meta['fps']}}/1",
+           "format=duration": str(meta["total"] / meta["fps"])}}
+if entries in answers:
+    print(answers[entries])
+'''
+
+
+def make_stub_decoder(directory: Path, frames, fps: int, total: int) -> Path:
+    """A stub `ffmpeg` and `ffprobe` in `directory` (the card machine has no
+    ffmpeg binary): the probes answer the frames' size, `fps` and total /
+    fps seconds; a decode replays `total` pre-made rgb24 frames, cycling
+    through `frames` (N, H, W, 3) u8, from the select filter's first frame
+    on. The port's decode path is its real ffmpeg pipe."""
+    import numpy as np
+    directory.mkdir(parents=True, exist_ok=True)
+    count, height, width, _ = frames.shape
+    (directory / "frames.rgb").write_bytes(np.ascontiguousarray(frames, np.uint8).tobytes())
+    (directory / "meta.json").write_text(json.dumps(dict(width=width, height=height, fps=fps,
+                                                         total=total, count=count)))
+    for name, source in (("ffmpeg", STUB_FFMPEG), ("ffprobe", STUB_FFPROBE)):
+        path = directory / name
+        path.write_text(source.format(python=sys.executable))
+        path.chmod(0o755)
+    return directory
+
+
+def mip_background_scene(anisotropy=None):
+    """The background image (examples/assets/background.png, 1920x1080)
+    with mipmaps=True, through stexture zoomed so the view spans four
+    texture widths: about 4 texels a pixel at 1080p (also in
+    tests/test_torch_mipmaps.py)."""
+    from shaderflow_tpu_torch import ops
+    from shaderflow_tpu_torch.scene import ShaderScene
+    from shaderflow_tpu_torch.texture import ShaderTexture
+    background = REPO / "examples" / "assets" / "background.png"
+
+    def frag(sf):
+        anchor = ops.vec2(0.5, 0.5).to(sf.device)
+        return sf.stexture("background", ops.zoom(sf.stuv, MIP_ZOOM, anchor))
+
+    class MipBackground(ShaderScene):
+        def build(self):
+            ShaderTexture(scene=self, name="background", mipmaps=True,
+                          anisotropy=anisotropy).from_image(background)
+            self.shader.fragment = frag
+
+    return MipBackground
+
+
+def null_export(scene, options: dict) -> tuple:
+    """scene.main(output="null", device="cuda", **options) -> (frames, wall
+    seconds, fps)."""
+    import torch
+    started = time.perf_counter()
+    scene.main(output="null", device="cuda", **options)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    frames = round(options["time"] * options["fps"])
+    return frames, wall, frames / wall
+
+
+def cpu_frame(cls, index: int, options: dict, setup=None):
+    """Frame `index` of cls() exported with device="cpu": the host state
+    replayed up to it (start=), only that frame rendered -> (H, W, 3) u8."""
+    import numpy as np
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "cpu.rgb"
+        scene = cls()
+        if setup is not None:
+            setup(scene)
+        fps = options["fps"]
+        scene.main(output=str(output), device="cpu",
+                   **{**options, "time": (index + 1) / fps, "start": index / fps})
+        width, height = scene.resolution
+        frame = np.fromfile(output, np.uint8).reshape(-1, height, width, 3)[-1]
+        scene.destroy()
+        return frame
+
+
+def any_ssaa_paths(counters, card: str) -> dict:
+    """Phases 32-34: the general final pass (the visualizer at ssaa 1.5,
+    Mandelbrot at -s 4 through the command line, a realtime Mandelbrot at
+    ssaa 0.5) and the mipmapped background; the {"any_ssaa": ...} figures
+    and the any_ssaa entries of the K2 and K3 rows."""
+    import numpy as np
+    import torch
+    import torch_demo
+    import torch_fractals
+    from shaderflow_tpu_torch.engine import PreludeCtx
+    from shaderflow_tpu_torch.ops import fractal, sampling
+    zero_counters, read_counters = counters
+    result = {}
+
+    # 32a. The visualizer at 1080p60, ssaa 1.5 (render 2880x1620): K2 once
+    # a batch at render size, the tail through the plain path (no K1)
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=1.5, time=1.0)
+    scene = torch_demo.Visualizer()
+    zero_counters()
+    frames, wall, fps = null_export(scene, options)
+    launches = read_counters()
+    flushes = -(-frames // scene.default_batch_size())
+    expected = {key: 0 for key in launches}
+    expected["k2"] = flushes
+    if launches != expected:
+        raise AssertionError(f"visualizer ssaa 1.5: launch counters {launches}, expected "
+                             f"K2 == {flushes} batches and nothing else (K1 == 0)")
+    render_h, render_w = scene.engine._render_size
+    if (render_w, render_h) != (2880, 1620):
+        raise AssertionError(f"visualizer ssaa 1.5 rendered {render_w}x{render_h}")
+    frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+    # the last batch's last frame, rendered again, against the CPU's
+    out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device="cuda")
+    check = frames - 1
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    indices = engine.frame_indices()
+    per_batch, invariant = engine._run_preludes(indices)
+    engine.render_frame(torch.from_numpy(packed[-1]).to("cuda"), spec, len(indices) - 1,
+                        indices[-1], per_batch, invariant, out)
+    want = cpu_frame(torch_demo.Visualizer, check, options)
+    err, share = u8_diff(out.cpu().numpy(), want)
+    if err > 1 or share >= 0.02:
+        raise AssertionError(f"visualizer ssaa 1.5 frame {check} vs device=cpu: max {err} "
+                             f"u8 steps on {share:.4%}")
+    # K2 at this path's shapes: the last batch's tables over the render-size field
+    ctx = PreludeCtx(torch.tensor(indices, device="cuda"), engine.bound_sequences(),
+                     engine._render_size, scene.aspect_ratio)
+    tables, circle, left = torch_demo.bar_field_inputs(ctx)
+    batch, bins, channels = tables.shape
+    index_field = sampling.lookup_index(circle, bins, channels, left)
+    flat16 = tables.reshape(batch, -1).to(torch.bfloat16).contiguous()
+    got = sampling.expand_tables(flat16, index_field, torch.bfloat16)
+    if not torch.equal(got, sampling.expand_plain(flat16, index_field, torch.bfloat16)):
+        raise AssertionError("K2 at ssaa 1.5 differs from the plain gather")
+    k2_bound_ms, k2_bound_by = walked_bound(
+        lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16))
+    k2_entry = dict(
+        launches=launches["k2"], max_abs_err=0.0,
+        ms=device_ms(lambda: sampling.expand_tables(flat16, index_field, torch.bfloat16)),
+        plain_ms=device_ms(lambda: sampling.expand_plain(flat16, index_field,
+                                                         torch.bfloat16), 5),
+        library_ms=device_ms(lambda: flat16.index_select(1, index_field), 5),
+        bound_ms=k2_bound_ms, bound_by=k2_bound_by, table=list(flat16.shape),
+        field=[render_h, render_w])
+    del got, flat16, index_field, tables, circle
+    result["Visualizer ssaa 1.5"] = dict(
+        frames=frames, seconds=wall, fps=fps, device_ms_per_frame=frame_ms,
+        launches_per_frame=frame_launches, host_ms_per_frame=host_ms,
+        busy=frames * frame_ms / 1e3 / wall, launches=launches, frame_checked=check,
+        max_u8_diff_vs_cpu=err, differing_share_vs_cpu=share)
+    say("any_ssaa_visualizer", config="Visualizer 1920x1080 60fps ssaa=1.5 s=2 1s null",
+        render=f"{render_w}x{render_h}", frames=frames, seconds=f"{wall:.4f}",
+        fps=f"{fps:.3f}", device_ms_per_frame=f"{frame_ms:.4f}",
+        launches_per_frame=frame_launches, host_ms_per_frame=f"{host_ms:.4f}",
+        launches=launches, frame_checked=check, max_u8_diff_vs_cpu=err,
+        differing_share_vs_cpu=f"{share:.3e}",
+        k2_ms=f"{k2_entry['ms']:.4f}", k2_bound_ms=f"{k2_bound_ms:.4f}", card=repr(card))
+    del scene
+
+    # 32b. Mandelbrot at -s 4 through the command line (render 7680x4320,
+    # 33.2 M pixels a frame): K3 once a frame, the plain tail and the
+    # general final pass (no K1); the last frame against the plain path
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    started = time.perf_counter()
+    scene = cli_export([REPO / "examples" / "torch" / "torch_fractals.py", "Mandelbrot",
+                        "main", "-w", WIDTH, "-h", HEIGHT, "-f", FPS, "-s", 4, "-t", 1,
+                        "--device", "cuda", "-o", "null"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - started
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9   # the export's own peak
+    frames = FPS
+    launches = read_counters()
+    expected = {key: 0 for key in launches}
+    expected["k3"] = frames
+    if launches != expected:
+        raise AssertionError(f"Mandelbrot -s 4: launch counters {launches}, expected "
+                             f"K3 == {frames} frames and nothing else (K1 == 0)")
+    render_h, render_w = scene.engine._render_size
+    if (render_w, render_h) != (7680, 4320):
+        raise AssertionError(f"Mandelbrot -s 4 rendered {render_w}x{render_h}")
+    frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+    index = len(scene.engine.frame_indices()) - 1
+    out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device="cuda")
+    engine = scene.engine
+    packed, spec = engine.stack_captures()
+    indices = engine.frame_indices()
+    engine.render_frame(torch.from_numpy(packed[index]).to("cuda"), spec, index,
+                        indices[index], {}, {}, out)
+    plain = plain_mandelbrot_frame(scene, index, HEIGHT, WIDTH, int(scene.subsample))
+    err, share = u8_diff(out.cpu().numpy(), plain.cpu().numpy())
+    if err > 1 or share >= 0.01:
+        raise AssertionError(f"Mandelbrot -s 4 frame {index} vs the plain path: max {err} "
+                             f"u8 steps on {share:.4%}")
+    k3_args, _ = mandelbrot_k3_args(scene, index)
+    counts = fractal.escape_iterations_sep(*k3_args)
+    if not torch.equal(counts, fractal.escape_lines_plain(*k3_args)):
+        raise AssertionError("K3 at -s 4 differs from the plain loop")
+    grid_x, grid_y = torch.broadcast_tensors(k3_args[0][None, :], k3_args[1][:, None])
+    steps = escape_steps(counts, fractal._interior_mask(grid_x, grid_y))
+    k3_bound_ms, k3_bound_by = walked_bound(lambda: fractal.escape_iterations_sep(*k3_args),
+                                            steps / counts.numel())
+    k3_entry = dict(
+        launches=launches["k3"], max_abs_err=0.0,
+        ms=device_ms(lambda: fractal.escape_iterations_sep(*k3_args), 10),
+        plain_ms=device_ms(lambda: fractal.escape_lines_plain(*k3_args), 3),
+        bound_ms=k3_bound_ms, bound_by=k3_bound_by, pixels=int(counts.numel()),
+        steps=int(steps))
+    del counts, grid_x, grid_y, plain
+    result["Mandelbrot -s 4 (cli.main)"] = dict(
+        frames=frames, seconds=wall, fps=frames / wall, device_ms_per_frame=frame_ms,
+        launches_per_frame=frame_launches, host_ms_per_frame=host_ms,
+        busy=frames * frame_ms / 1e3 / wall, launches=launches, frame_checked=index,
+        max_u8_diff_vs_plain=err, differing_share_vs_plain=share,
+        peak_memory_gb=peak_gb)
+    say("any_ssaa_mandelbrot", config="Mandelbrot 1920x1080 60fps -s 4 1s null (cli.main)",
+        render=f"{render_w}x{render_h}", frames=frames, seconds=f"{wall:.4f}",
+        fps=f"{frames / wall:.3f}", device_ms_per_frame=f"{frame_ms:.4f}",
+        launches_per_frame=frame_launches, host_ms_per_frame=f"{host_ms:.4f}",
+        launches=launches, frame_checked=index, max_u8_diff_vs_plain=err,
+        differing_share_vs_plain=f"{share:.3e}", k3_ms=f"{k3_entry['ms']:.4f}",
+        k3_bound_ms=f"{k3_bound_ms:.4f}", k3_steps=int(steps),
+        peak_memory_gb=f"{peak_gb:.3f}",
+        card=repr(card))
+    del scene, out
+    torch.cuda.empty_cache()
+
+    # 33. Realtime Mandelbrot at 1080p, ssaa 0.5 (render 960x540, upsampled
+    # by the general resampler): warm-up, then 180 frames at 60 fps
+    realtime_run(torch_fractals.Mandelbrot, counters, FPS, 3, frameskip=False, ssaa=0.5)
+    run = realtime_run(torch_fractals.Mandelbrot, counters, FPS, REALTIME_FRAMES, ssaa=0.5)
+    expected = {key: 0 for key in run["launches"]}
+    expected["k3"] = run["frames"]
+    if run["launches"] != expected:
+        raise AssertionError(f"realtime Mandelbrot ssaa 0.5: launch counters "
+                             f"{run['launches']}, expected K3 == {run['frames']} frames, "
+                             "K1 == 0")
+    if run["scene"].engine._render_size != (540, 960):
+        raise AssertionError(f"realtime ssaa 0.5 rendered {run['scene'].engine._render_size}")
+    frame_ms, frame_launches, _ = frame_profile(run["scene"], HEIGHT, WIDTH)
+    _, card_frame = realtime_frames(torch_fractals.Mandelbrot, "cuda", 3, ssaa=0.5)
+    _, cpu = realtime_frames(torch_fractals.Mandelbrot, "cpu", 3, ssaa=0.5)
+    err, share = u8_diff(card_frame.cpu().numpy(), cpu.numpy())
+    if err > 1 or share >= 0.01:
+        raise AssertionError(f"realtime Mandelbrot ssaa 0.5 frame 2 vs device=cpu: max "
+                             f"{err} u8 steps on {share:.4%}")
+    result["Realtime Mandelbrot ssaa 0.5"] = dict(
+        target_fps=FPS, frames=run["frames"], fps=run["fps"], wall_fps=run["wall_fps"],
+        late_frames=run["late"], host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+        device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+        batch=run["batch"], launches=run["launches"], frame_checked=2,
+        max_u8_diff_vs_cpu=err, differing_share_vs_cpu=share)
+    say("any_ssaa_realtime", size=f"{WIDTH}x{HEIGHT}", ssaa=0.5, render="960x540",
+        target_fps=FPS, frames=run["frames"], fps=f"{run['fps']:.3f}",
+        late_frames=run["late"],
+        host_ms_per_frame=f"{run['capture_ms'] + run['flush_ms']:.4f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        launches=run["launches"], max_u8_diff_vs_cpu=err,
+        differing_share_vs_cpu=f"{share:.3e}", card=repr(card))
+    del run, card_frame, cpu
+
+    # 34. The mipmapped background at 1080p, isotropic and anisotropy=4
+    for anisotropy in (None, 4):
+        cls = mip_background_scene(anisotropy)
+        builds = []
+        original = sampling.mip_pyramid
+
+        def counted(*args, **kwargs):
+            builds.append(kwargs.get("anisotropy"))
+            return original(*args, **kwargs)
+
+        options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=1, time=1.0)
+        scene = cls()
+        zero_counters()
+        sampling.mip_pyramid = counted
+        try:
+            frames, wall, fps = null_export(scene, options)
+        finally:
+            sampling.mip_pyramid = original
+        launches = read_counters()
+        if any(launches.values()) or builds != [anisotropy or 1]:
+            raise AssertionError(f"mipmapped background: counters {launches}, pyramid "
+                                 f"builds {builds} (expected none, one build)")
+        frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+        out = torch.empty((HEIGHT, WIDTH, 3), dtype=torch.uint8, device="cuda")
+        engine = scene.engine
+        packed, spec = engine.stack_captures()
+        indices = engine.frame_indices()
+        engine.render_frame(torch.from_numpy(packed[0]).to("cuda"), spec, 0, indices[0],
+                            {}, {}, out)
+        want = cpu_frame(cls, indices[0], options)
+        err, share = u8_diff(out.cpu().numpy(), want)
+        if err > 1 or share >= 0.01:
+            raise AssertionError(f"mipmapped background (anisotropy {anisotropy}) vs "
+                                 f"device=cpu: max {err} u8 steps on {share:.4%}")
+        name = f"Mipmapped background, anisotropy {anisotropy or 'off'}"
+        result[name] = dict(
+            frames=frames, seconds=wall, fps=fps, device_ms_per_frame=frame_ms,
+            launches_per_frame=frame_launches, host_ms_per_frame=host_ms,
+            busy=frames * frame_ms / 1e3 / wall, pyramid_builds=len(builds),
+            levels=len(original(sampling.Sampler2D(torch.zeros(1080, 1920, 3))).levels),
+            max_u8_diff_vs_cpu=err, differing_share_vs_cpu=share)
+        say("mipmaps", config=f"MipBackground 1920x1080 60fps ssaa=1 1s null, zoom "
+            f"{MIP_ZOOM ** 2:g}x, anisotropy={anisotropy}", frames=frames,
+            seconds=f"{wall:.4f}", fps=f"{fps:.3f}", device_ms_per_frame=f"{frame_ms:.4f}",
+            launches_per_frame=frame_launches, host_ms_per_frame=f"{host_ms:.4f}",
+            pyramid_builds=len(builds), max_u8_diff_vs_cpu=err,
+            differing_share_vs_cpu=f"{share:.3e}", card=repr(card))
+        del scene, out
+    return dict(paths=result, k2=k2_entry, k3=k3_entry)
+
+
+def video_path(counters, card: str) -> dict:
+    """Phase 35: the Video scene at 3840x2160, 60 fps, ssaa 1, from a
+    3840x2160 60 fps source decoded through the port's ffmpeg pipe (a stub
+    ffmpeg and ffprobe on PATH replay pre-made rgb24 frames): 24.9 MB of
+    u8 a frame up through the staging buffer, for VIDEO_SECONDS; the stub
+    pipe's own rate; frame 1 against device="cpu" (bit-equal targeted)."""
+    import numpy as np
+    import torch
+    import torch_demo
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+    zero_counters, read_counters = counters
+    total = round(VIDEO_SECONDS * VIDEO_FPS)
+    y, x = np.mgrid[0:VIDEO_H, 0:VIDEO_W].astype(np.float32)
+    premade = np.stack([np.stack([128 + 127 * np.sin(x / (37 + k) + k),
+                                  128 + 127 * np.sin(y / (23 + k) - k),
+                                  128 + 127 * np.sin((x + y) / 71 + 2 * k)], axis=-1)
+                        for k in range(VIDEO_PREMADE)]).astype(np.uint8)
+    del x, y
+    saved_path = os.environ["PATH"]
+    with tempfile.TemporaryDirectory() as tmp:
+        stub = make_stub_decoder(Path(tmp) / "bin", premade, VIDEO_FPS, total)
+        source = Path(tmp) / "source.mp4"
+        source.write_bytes(b"stub source: the decoder replays pre-made frames")
+        os.environ["PATH"] = f"{stub}{os.pathsep}{saved_path}"
+        caches = ("binary", "ffprobe", "get_video_resolution", "get_video_framerate",
+                  "get_video_duration", "get_video_total_frames")
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+        try:
+            if FFmpeg.binary() != str(stub / "ffmpeg"):
+                raise AssertionError(f"the stub ffmpeg is not the one found: {FFmpeg.binary()}")
+            # The stub pipe alone: frames a second as the port's reader sees them
+            started = time.perf_counter()
+            decoded = sum(1 for _ in FFmpeg.iter_video_frames(source))
+            pipe_fps = decoded / (time.perf_counter() - started)
+            if decoded != total:
+                raise AssertionError(f"the stub pipe gave {decoded} frames, not {total}")
+            options = dict(width=VIDEO_W, height=VIDEO_H, fps=VIDEO_FPS, ssaa=1,
+                           time=VIDEO_SECONDS)
+
+            def set_source(scene):
+                scene.path = source
+
+            scene = torch_demo.Video()
+            set_source(scene)
+            zero_counters()
+            frames, wall, fps = null_export(scene, options)
+            launches = read_counters()
+            if any(launches.values()) or scene.video._frames < total - 2:
+                raise AssertionError(f"Video: counters {launches}, {scene.video._frames} "
+                                     f"video frames written of {total}")
+            if scene.engine._streamed_names != {"iVideo"} or scene.engine._stream_f32:
+                raise AssertionError("Video: the texture did not stream as u8")
+            frame_ms, frame_launches, host_ms = frame_profile(scene, VIDEO_H, VIDEO_W)
+            packed, _ = scene.engine.stack_captures()
+            streams = scene.engine.stack_streams()
+            upload_bytes = sum(array.nbytes for array in streams.values()) / len(packed)
+            started = time.perf_counter()
+            for _ in range(5):
+                scene.engine.upload(packed, streams)
+            torch.cuda.synchronize()
+            upload_ms = (time.perf_counter() - started) / 5 * 1e3 / len(packed)
+            scene.destroy()
+            # Frame 1 of a 2-frame export on the card and on the CPU
+            with tempfile.TemporaryDirectory() as out_dir:
+                frames_out = {}
+                for device in ("cuda", "cpu"):
+                    output = Path(out_dir) / f"{device}.rgb"
+                    check = torch_demo.Video()
+                    set_source(check)
+                    check.main(output=str(output), device=device,
+                               **{**options, "time": 2 / VIDEO_FPS})
+                    check.destroy()
+                    frames_out[device] = np.fromfile(output, np.uint8).reshape(
+                        -1, VIDEO_H, VIDEO_W, 3)[1]
+            err, share = u8_diff(frames_out["cuda"], frames_out["cpu"])
+            if err > 1 or share >= 0.01 or frames_out["cuda"].std() < 10:
+                raise AssertionError(f"Video frame 1 vs device=cpu: max {err} u8 steps on "
+                                     f"{share:.4%} (std {frames_out['cuda'].std():.2f})")
+        finally:
+            os.environ["PATH"] = saved_path
+            for name in caches:
+                getattr(FFmpeg, name).cache_clear()
+    figures = dict(frames=frames, seconds=wall, fps=fps, stub_pipe_fps=pipe_fps,
+                   device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                   host_ms_per_frame=host_ms, busy=frames * frame_ms / 1e3 / wall,
+                   upload_mb_per_frame=upload_bytes / 1e6,
+                   staged_upload_ms_per_frame=upload_ms, launches=launches,
+                   frame_checked=1, max_u8_diff_vs_cpu=err, differing_share_vs_cpu=share)
+    say("video", config=f"Video {VIDEO_W}x{VIDEO_H} {VIDEO_FPS}fps ssaa=1 "
+        f"{VIDEO_SECONDS:g}s null, stub ffmpeg source {VIDEO_W}x{VIDEO_H}@{VIDEO_FPS}",
+        frames=frames, seconds=f"{wall:.4f}", fps=f"{fps:.3f}",
+        stub_pipe_fps=f"{pipe_fps:.3f}", device_ms_per_frame=f"{frame_ms:.4f}",
+        launches_per_frame=frame_launches, host_ms_per_frame=f"{host_ms:.4f}",
+        upload_mb_per_frame=f"{upload_bytes / 1e6:.3f}",
+        staged_upload_ms_per_frame=f"{upload_ms:.4f}", launches=launches,
+        max_u8_diff_vs_cpu=err, differing_share_vs_cpu=f"{share:.3e}", card=repr(card))
+    return figures
 
 
 def main() -> int:
@@ -1655,6 +2138,12 @@ def main() -> int:
     # 29.-31. The realtime preview
     realtime = realtime_paths((zero_counters, read_counters), card)
     print(json.dumps({"realtime": realtime["paths"], "card": card}))
+    # 32.-34. Any supersampling factor (the general final pass) and mipmaps
+    any_ssaa = any_ssaa_paths((zero_counters, read_counters), card)
+    print(json.dumps({"any_ssaa": any_ssaa["paths"], "card": card}))
+    # 35. Video through the port's ffmpeg pipe into a streamed u8 texture
+    print(json.dumps({"video": video_path((zero_counters, read_counters), card),
+                      "card": card}))
     say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
@@ -1683,7 +2172,8 @@ def main() -> int:
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
-         "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"]},
+         "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"],
+         "any_ssaa": any_ssaa["k2"]},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
@@ -1696,7 +2186,8 @@ def main() -> int:
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
-         "bound_by": k3_bound_by, "library_ms": None, **k3_compiled["lines"]},
+         "bound_by": k3_bound_by, "library_ms": None, **k3_compiled["lines"],
+         "any_ssaa": any_ssaa["k3"]},
         {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",

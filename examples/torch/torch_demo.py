@@ -5,7 +5,8 @@ Ports of examples/basic/demo.py: Basic (the built-in welcome program) and
 ShaderToy (config 1), Waveform and MusicBars (config 2, over the offline
 audio sequences), RayMarch (config 4: 100 masked march steps over a
 six-box SDF union from the camera's rays), Dynamics (a spring-smoothed
-zoom), MultiShader and Multipass (programs and layers sampling each
+zoom), Video (a clip streamed into a u8 texture, shaderflow_tpu_torch/
+video.py), MultiShader and Multipass (programs and layers sampling each
 other), MotionBlur and Life (temporal rings), each in plain PyTorch with
 the reference's operation order; and the Visualizer below.
 
@@ -522,6 +523,28 @@ class Dynamics(ShaderScene):
         self.dynamics.target = 0.5 * (1 + np.sign(np.sin(2 * math.pi * self.time * 0.5)))
 
 
+def video_frag(sf):
+    return sl.with_alpha(sf.stexture("iVideo", sf.camera.stuv), 1.0)
+
+
+class Video(ShaderScene):
+    """Video as a texture demo (the generated clip when no path is set)"""
+    path = None
+
+    def build(self):
+        from shaderflow_tpu_torch.video import ShaderVideo
+        path = self.path
+        if path is None:
+            sys.path.insert(0, str(ASSETS.parent))
+            try:
+                import assets
+            finally:
+                sys.path.remove(str(ASSETS.parent))
+            path = assets.video_file()
+        self.video = ShaderVideo(scene=self, path=path)
+        self.shader.fragment = video_frag
+
+
 # ---------------------------------------------------------------------------- #
 # Config 2: the waveform and the music bars
 
@@ -723,7 +746,7 @@ class Life(ShaderScene):
         yield Uniform("int", "iLifePeriod", self.life_period)
 
 
-SCENES = [Basic, ShaderToy, MultiShader, Multipass, MotionBlur, Dynamics, Waveform,
+SCENES = [Basic, ShaderToy, MultiShader, Multipass, MotionBlur, Dynamics, Video, Waveform,
           MusicBars, Visualizer, RayMarch, Life]
 
 if __name__ == "__main__":

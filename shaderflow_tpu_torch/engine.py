@@ -339,6 +339,9 @@ class RenderEngine:
         # Batch-invariant prelude values and the state they were computed for
         self._prelude_cache: dict[str, torch.Tensor] = {}
         self._prelude_state = None
+        # Mip pyramids of static textures (shader.Frag.tex): one build per
+        # upload, held with the tensor they were built from
+        self._mip_cache: dict = {}
         # Reference state carried in by load_reference_state (host tensors)
         self.pinned_sequences: dict[str, torch.Tensor] = {}
         self.pinned_textures: dict[str, torch.Tensor] = {}
@@ -384,6 +387,7 @@ class RenderEngine:
         programs = self._programs()
         self._static_tex.clear()
         self._static_versions.clear()
+        self._mip_cache.clear()
         self._sequences.clear()
         self._refresh_textures()
 
@@ -687,7 +691,8 @@ class RenderEngine:
                     texture_meta=self.texture_meta(),
                     preludes={**{n: v[step] for n, v in per_batch.items()},
                               **{n: v[0] for n, v in invariant.items()}},
-                    prelude_stacks={**per_batch, **invariant}, prelude_step=step)
+                    prelude_stacks={**per_batch, **invariant}, prelude_step=step,
+                    mip_cache=self._mip_cache)
 
     def carried(self) -> dict[str, torch.Tensor]:
         """The temporal rings as they stand, in slot order (copies)."""

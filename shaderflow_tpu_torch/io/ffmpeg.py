@@ -7,20 +7,22 @@ surface: inputs and outputs (paths, rawvideo pipes), the video codecs
 the audio codecs (AAC, MP3, Opus, FLAC, PCM, copy, none, silent) and the
 filters (scale, vflip, custom); the CLI's chained codec grammar drives its
 methods (cli.py). The probes answer from ffprobe when it exists, else from
-the stdlib `wave` header. AudioReader decodes PCM WAV files with the
-stdlib; other formats need the reference's ffmpeg decode pipe, not ported
-yet, nor are the video probes.
+the stdlib `wave` header (audio) or OpenCV (video). iter_video_frames
+decodes a video through ffmpeg's rawvideo rgb24 pipe, else OpenCV.
+AudioReader decodes PCM WAV files with the stdlib; other audio formats
+need the reference's ffmpeg decode pipe, not ported yet.
 """
 
 from __future__ import annotations
 
+import re
 import shutil
 import subprocess
 import wave
 from dataclasses import dataclass, field
 from functools import lru_cache
 from pathlib import Path
-from subprocess import DEVNULL
+from subprocess import DEVNULL, PIPE
 from typing import Any, Iterator, Optional, Union
 
 import numpy as np
@@ -484,6 +486,134 @@ class FFmpeg:
         if not chunks:
             return None
         return np.concatenate(chunks)
+
+    # -- video probes (ffprobe, else OpenCV) and the rawvideo decode pipe ------
+
+    @staticmethod
+    @lru_cache
+    def get_video_resolution(path) -> Optional[tuple[int, int]]:
+        path = Path(path)
+        if not path.exists():
+            return None
+        value = FFmpeg._probe(path, "stream=width,height")
+        if value:
+            width, height = value.split(",")[:2]
+            return (int(width), int(height))
+        try:
+            import cv2
+            cap = cv2.VideoCapture(str(path))
+            if cap.isOpened():
+                size = (int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+                        int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)))
+                cap.release()
+                return size
+        except ImportError:
+            pass
+        return None
+
+    @staticmethod
+    @lru_cache
+    def get_video_framerate(path) -> Optional[float]:
+        path = Path(path)
+        if not path.exists():
+            return None
+        value = FFmpeg._probe(path, "stream=r_frame_rate")
+        if value:
+            num, _, den = value.partition("/")
+            return float(num) / float(den or 1)
+        try:
+            import cv2
+            cap = cv2.VideoCapture(str(path))
+            if cap.isOpened():
+                fps = cap.get(cv2.CAP_PROP_FPS)
+                cap.release()
+                return float(fps) or None
+        except ImportError:
+            pass
+        return None
+
+    @staticmethod
+    @lru_cache
+    def get_video_duration(path) -> Optional[float]:
+        path = Path(path)
+        if not path.exists():
+            return None
+        value = FFmpeg._probe(path, "format=duration")
+        if value:
+            return float(value)
+        frames = FFmpeg.get_video_total_frames(path)
+        rate = FFmpeg.get_video_framerate(path)
+        if frames and rate:
+            return frames / rate
+        return None
+
+    @staticmethod
+    @lru_cache
+    def get_video_total_frames(path) -> Optional[int]:
+        path = Path(path)
+        if not path.exists():
+            return None
+        try:
+            import cv2
+            cap = cv2.VideoCapture(str(path))
+            if cap.isOpened():
+                count = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+                cap.release()
+                if count > 0:
+                    return count
+        except ImportError:
+            pass
+        if FFmpeg.available():
+            result = (FFmpeg(vsync="cfr").quiet().input(path).pipe_output(format="null")
+                      ).run(stderr=PIPE, stdout=DEVNULL)
+            found = re.findall(rb"frame=\s*(\d+)", result.stderr)
+            if found:
+                return int(found[-1])
+        return None
+
+    @staticmethod
+    def iter_video_frames(path, skip: int = 0) -> Optional[Iterator[np.ndarray]]:
+        """Decoded (H, W, 3) uint8 RGB frames from frame `skip` on: the
+        ffmpeg rawvideo rgb24 pipe (a select filter skips), else OpenCV."""
+        path = Path(path)
+        if not path.exists():
+            return None
+        size = FFmpeg.get_video_resolution(path)
+        if size is None:
+            return None
+        width, height = size
+
+        if FFmpeg.available():
+            def ffmpeg_frames() -> Iterator[np.ndarray]:
+                proc = (FFmpeg(vsync="cfr").quiet()
+                        .input(path)
+                        .filter(f"select='gte(n\\,{skip})'")
+                        .rawvideo().no_audio()
+                        .pipe_output(format="rawvideo", pixel_format="rgb24")
+                        ).popen(stdout=PIPE, stderr=DEVNULL, stdin=DEVNULL)
+                stride = width * height * 3
+                try:
+                    while (raw := proc.stdout.read(stride)) and len(raw) == stride:
+                        yield np.frombuffer(raw, np.uint8).reshape(height, width, 3)
+                finally:
+                    proc.kill()
+                    proc.wait()
+            return ffmpeg_frames()
+
+        def cv2_frames() -> Iterator[np.ndarray]:
+            import cv2
+            cap = cv2.VideoCapture(str(path))
+            for _ in range(skip):
+                cap.read()
+            try:
+                while True:
+                    ok, frame = cap.read()
+                    if not ok:
+                        return
+                    yield cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            finally:
+                cap.release()
+        return cv2_frames()
 
 
 # --------------------------------------------------------------------------- #

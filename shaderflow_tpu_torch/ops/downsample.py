@@ -2,14 +2,19 @@
 SSAA downsample + uint8 quantization — the "final pass", plain PyTorch.
 
 Same math as shaderflow_tpu/ops/downsample.py (the reference's final.glsl
-box of subsample x subsample bilinear taps). This is the plain version
-that kernel K1 (ops/tailfuse.py) is held against; the export path runs it
-on CPU tensors.
+box of subsample x subsample bilinear taps), by regime: equal resolution
+(a separable 3-tap stencil), exact pooling (render = output x subsample)
+and the general path for any other pair of sizes (ssaa 1.5, 3, 4 with
+subsample 2, realtime ssaa < 1: a banded separable resample). It is the
+plain version that kernel K1 (ops/tailfuse.py) is held against, and the
+final pass of every regime K1 does not take, on the CPU and on the card.
 """
 
 from __future__ import annotations
 
 import torch
+
+from shaderflow_tpu_torch.ops.sampling import apply_resample, resample_plan
 
 
 def box_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -59,10 +64,42 @@ def ssaa_downsample(
     if rh == out_height * subsample and rw == out_width * subsample and subsample > 1:
         return box_downsample(render, subsample)
 
-    raise NotImplementedError(
-        f"ssaa_downsample {rw}x{rh} -> {out_width}x{out_height} subsample "
-        f"{subsample}: the general bilinear-tap path needs "
-        "resample_separable_blocked (ops/sampling.py), not ported yet")
+    # General path: subsample^2 bilinear taps an output pixel
+    # (final.glsl:21-29). The tap grid is axis-aligned, so by linearity the
+    # s^2-tap average factors into one separable resample whose per-axis
+    # weights are the tap-averaged hat bands (summation order aside, the
+    # same math), contracted block by block (resample_separable_blocked).
+    # The weights depend on the sizes only: made once, on the host
+    plan = _general_plan(rh, rw, out_height, out_width, int(subsample), render.device)
+    return apply_resample(render, plan)[..., :components]
+
+
+_PLANS: dict = {}
+
+
+def _general_plan(render_height: int, render_width: int, out_height: int,
+                  out_width: int, subsample: int, device: torch.device):
+    """The general path's resample plan for these sizes on `device`, made
+    once (a few per process: the sizes a run renders at). Its taps sit at
+    the output pixel centers moved by each tap's offset, as texel
+    positions (sampling.sample_separable's conventions)."""
+    key = (render_height, render_width, out_height, out_width, subsample, str(device))
+    if key not in _PLANS:
+        if len(_PLANS) >= 8:
+            _PLANS.pop(next(iter(_PLANS)))
+        u_centers = (torch.arange(out_width, dtype=torch.float32) + 0.5) / out_width
+        v_centers = 1.0 - (torch.arange(out_height, dtype=torch.float32) + 0.5) / out_height
+        pixel_u, pixel_v = 1.0 / out_width, 1.0 / out_height
+        pos_rows, pos_cols = [], []
+        for k in range(subsample):
+            du = -pixel_u / 2.0 + (pixel_u / subsample) * (0.5 + k)
+            dv = -pixel_v / 2.0 + (pixel_v / subsample) * (0.5 + k)
+            pos_cols.append((u_centers + du) * render_width - 0.5)
+            pos_rows.append((1.0 - (v_centers + dv)) * render_height - 0.5)
+        _PLANS[key] = resample_plan(torch.stack(pos_rows), torch.stack(pos_cols),
+                                    render_height, render_width, render_height / out_height,
+                                    render_width / out_width, device)
+    return _PLANS[key]
 
 
 def final_pass(render: torch.Tensor, out_height: int, out_width: int,

@@ -9,8 +9,19 @@ wraps, CLAMP_TO_EDGE clamps, row 0 = the top of the image (v = 1).
                                       repeat or clamp, v up
   astexture, stexture, gtexture,      the coordinate-space accessors
   gmtexture, agtexture
-  MipSampler                          mipmaps: not ported, raises
-  sample_separable                    axis-aligned grid sampling
+  MipSampler, mip_pyramid, auto_lod,  mipmaps: the 2x2 box pyramid (GL's
+  sample_mip, sample_mip_aniso        NPOT floor), trilinear sampling with
+                                      a level from the uv field's
+                                      derivatives, anisotropic taps along
+                                      the footprint's major axis
+  sample_separable                    axis-aligned grid sampling (mip-aware)
+  sample_separable_planes(_blocked)   the same, one (H', W') plane per
+                                      channel; banded: each block of output
+                                      rows/columns contracts a window
+  resample_separable_blocked          the banded separable resample of a
+                                      channel-last render with tap-averaged
+                                      weights: the general final pass
+                                      (ops/downsample.py)
   texel_fetch                         GLSL texelFetch (bottom-left origin)
   sample_rows_planes_blocked          banded row interpolation (the
                                       background and blur rows the tail
@@ -33,7 +44,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -69,26 +80,17 @@ def _wrap(i: torch.Tensor, n: int, repeat: bool) -> torch.Tensor:
     return torch.clamp(i, 0, n - 1)
 
 
-class MipSampler:
-    """A texture bound with its mip pyramid (shaderflow_tpu/ops/sampling.py:
-    MipSampler). Mip pyramids and trilinear / anisotropic sampling are not
-    ported yet: building one raises NotImplementedError."""
-
-    def __init__(self, levels: tuple, aniso: int = 1):
-        raise NotImplementedError(
-            "Mipmapped textures (texture.mipmaps=True) are not ported yet: "
-            "sample the texture without mipmaps")
-
-
 def sample(tex: Sampler2D, uv: torch.Tensor) -> torch.Tensor:
     """Sample at GL texture coordinates uv (..., 2), u right / v up in [0, 1]
     -> (..., C): GLSL texture(sampler2D, uv), the workhorse behind the
     astexture / stexture / gtexture family (shaderflow.glsl:162-208).
     GL_NEAREST rounds to the nearest texel center; GL_LINEAR fetches the
     four texels around the position and lerps per channel in the
-    reference's order (x on the top and bottom rows, then y)."""
+    reference's order (x on the top and bottom rows, then y). A
+    MipSampler samples trilinearly with a level from the uv field
+    (sample_mip), so every coordinate-space accessor honours mipmaps."""
     if isinstance(tex, MipSampler):
-        raise NotImplementedError("mipmapped sampling is not ported yet")
+        return sample_mip(tex, uv)
     h, w = tex.height, tex.width
     u = uv[..., 0] * w - 0.5
     # v up -> rows top-down: row = (1 - v) * H - 0.5
@@ -118,18 +120,222 @@ def sample(tex: Sampler2D, uv: torch.Tensor) -> torch.Tensor:
     return top + (bottom - top) * fy
 
 
+# --------------------------------------------------------------------------- #
+# Mipmaps: minification anti-aliasing. The pyramid is 2x2 mean pooling per
+# level; the level comes from the uv field's finite differences, the
+# per-pixel analogue of GL's quad derivatives (samplers see whole
+# coordinate fields). A static texture keeps its pyramid between frames
+# (shader.Frag.tex with the engine's cache).
+
+
+class MipSampler:
+    """A texture bound with its mip pyramid: `levels[0]` is the
+    full-resolution Sampler2D, each next level halves (floor) both sides.
+    Calling it samples with a level from the uv field; `lod=` takes a
+    Python scalar, a tensor scalar or a per-pixel field. `aniso` > 1 takes
+    that many trilinear taps along the footprint's major axis, the level
+    from the minor axis (sample_mip_aniso). Level 0's data and sampler
+    state stand for the texture's own (texel_fetch, sizes)."""
+
+    def __init__(self, levels: tuple, aniso: int = 1):
+        self.levels = tuple(levels)
+        self.aniso = int(aniso)
+
+    @property
+    def base(self) -> Sampler2D:
+        return self.levels[0]
+
+    @property
+    def data(self) -> torch.Tensor:
+        return self.levels[0].data
+
+    @property
+    def height(self) -> int:
+        return self.levels[0].height
+
+    @property
+    def width(self) -> int:
+        return self.levels[0].width
+
+    @property
+    def components(self) -> int:
+        return self.levels[0].components
+
+    @property
+    def linear(self) -> bool:
+        return self.levels[0].linear
+
+    @property
+    def repeat_x(self) -> bool:
+        return self.levels[0].repeat_x
+
+    @property
+    def repeat_y(self) -> bool:
+        return self.levels[0].repeat_y
+
+    def __call__(self, uv: torch.Tensor, lod=None) -> torch.Tensor:
+        return sample_mip(self, uv, lod)
+
+
+def mip_pyramid(tex: Sampler2D, max_levels: int = None,
+                anisotropy: int = 1) -> MipSampler:
+    """The 2x2 box pyramid down to 1x1 (or max_levels). An odd side drops
+    its last row or column at each level (GL's NPOT floor convention)."""
+    levels = [tex]
+    data = tex.data.to(torch.float32)
+    total = 1 + int(math.floor(math.log2(max(tex.height, tex.width, 1))))
+    if max_levels is not None:
+        total = min(total, int(max_levels))
+    for _ in range(1, total):
+        h, w, c = data.shape
+        nh, nw = max(h // 2, 1), max(w // 2, 1)
+        trimmed = data[: nh * 2 if h > 1 else 1, : nw * 2 if w > 1 else 1]
+        if h > 1:
+            trimmed = trimmed.reshape(nh, 2, -1, c).mean(dim=1)
+        if w > 1:
+            trimmed = trimmed.reshape(nh, nw, 2, c).mean(dim=2)
+        data = trimmed
+        levels.append(Sampler2D(data, tex.linear, tex.repeat_x, tex.repeat_y))
+    return MipSampler(tuple(levels), max(1, int(anisotropy)))
+
+
+def _screen_diff(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """Forward difference along a screen axis, the last pixel reusing its
+    neighbour's (GL quads behave the same way)."""
+    diff = torch.diff(a, dim=dim)
+    return torch.cat([diff, diff.narrow(dim, diff.shape[dim] - 1, 1)], dim=dim)
+
+
+def auto_lod(uv: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Per-pixel mip level from the uv field's screen-space derivatives:
+    log2 of the largest texel footprint, clamped at 0 (magnification).
+    uv is an image-shaped (..., H, W, 2) field."""
+    tx = uv[..., 0] * width
+    ty = uv[..., 1] * height
+    footprint = torch.maximum(
+        torch.maximum(torch.abs(_screen_diff(tx, -1)), torch.abs(_screen_diff(ty, -1))),
+        torch.maximum(torch.abs(_screen_diff(tx, -2)), torch.abs(_screen_diff(ty, -2))))
+    return torch.clamp(torch.log2(torch.clamp(footprint, min=1e-12)), min=0.0)
+
+
+def _level_weight(lod: torch.Tensor, k: int) -> torch.Tensor:
+    """Level k's hat weight at `lod`: clip(1 - |lod - k|, 0, 1)."""
+    return torch.clamp(1.0 - torch.abs(lod - k), 0.0, 1.0)
+
+
+def sample_mip(mip: MipSampler, uv: torch.Tensor, lod=None) -> torch.Tensor:
+    """Trilinear mipmap sampling (GL LINEAR_MIPMAP_LINEAR). lod=None takes
+    the per-pixel level from the uv field (auto_lod; anisotropic taps when
+    the sampler asks for them); a Python scalar samples exactly two
+    levels; a tensor (a scalar or per pixel) blends every level with hat
+    weights."""
+    levels = mip.levels
+    n = len(levels)
+    if n == 1:
+        return sample(levels[0], uv)
+    if lod is None:
+        if mip.aniso > 1 and uv.ndim >= 3:
+            return sample_mip_aniso(mip, uv)
+        lod = auto_lod(uv, levels[0].height, levels[0].width)
+    if not hasattr(lod, "shape") and not hasattr(lod, "dtype"):
+        # A Python scalar: exactly two levels
+        lod = float(min(max(lod, 0.0), n - 1))
+        k = int(math.floor(lod))
+        if k >= n - 1:
+            return sample(levels[-1], uv)
+        frac = lod - k
+        lo = sample(levels[k], uv)
+        if frac == 0.0:
+            return lo
+        hi = sample(levels[k + 1], uv)
+        return lo + (hi - lo) * frac
+    lod = torch.clamp(torch.as_tensor(lod, dtype=torch.float32, device=uv.device),
+                      0.0, float(n - 1))
+    out = None
+    for k, level in enumerate(levels):
+        term = sample(level, uv) * _level_weight(lod, k)[..., None]
+        out = term if out is None else out + term
+    return out
+
+
+def sample_mip_aniso(mip: MipSampler, uv: torch.Tensor, taps: int = None) -> torch.Tensor:
+    """Anisotropic trilinear sampling (GL EXT_texture_filter_anisotropic):
+    `taps` samples spread along the screen footprint's major axis, each
+    blending every level at the level of the footprint divided by the
+    (clamped) anisotropy ratio: sharp along the compressed direction,
+    filtered along the long one. uv is an image-shaped (..., H, W, 2)
+    field; the cost is taps x levels bilinear samples a pixel."""
+    taps = int(taps or mip.aniso)
+    levels = mip.levels
+    n = len(levels)
+    h0, w0 = levels[0].height, levels[0].width
+    tx = uv[..., 0] * w0
+    ty = uv[..., 1] * h0
+    dtx_dx, dty_dx = _screen_diff(tx, -1), _screen_diff(ty, -1)
+    dtx_dy, dty_dy = _screen_diff(tx, -2), _screen_diff(ty, -2)
+    len_x = torch.sqrt(dtx_dx * dtx_dx + dty_dx * dty_dx)
+    len_y = torch.sqrt(dtx_dy * dtx_dy + dty_dy * dty_dy)
+    major_is_x = len_x >= len_y
+    major = torch.maximum(len_x, len_y)
+    minor = torch.minimum(len_x, len_y)
+    ratio = torch.clamp(major / torch.clamp(minor, min=1e-12), 1.0, float(taps))
+    # GL: log2(Pmax / N), clamped at 0 so magnification stays bilinear
+    lod = torch.clamp(torch.clamp(torch.log2(torch.clamp(major / ratio, min=1e-12)),
+                                  min=0.0), 0.0, float(n - 1))
+    # The major axis in uv units; the taps cover the footprint less one
+    # sample's own width (ratio 1: no spread), none at magnification
+    vx = torch.where(major_is_x, dtx_dx, dtx_dy) / w0
+    vy = torch.where(major_is_x, dty_dx, dty_dy) / h0
+    spread = torch.where(major > 1.0, 1.0 - 1.0 / ratio, 0.0)
+    level_w = [_level_weight(lod, k)[..., None] for k in range(n)]
+    axis = torch.stack([vx, vy], dim=-1)
+    acc = None
+    for k in range(taps):
+        frac = (k + 0.5) / taps - 0.5
+        tap_uv = uv + axis * (spread * frac)[..., None]
+        tap = None
+        for j, level in enumerate(levels):
+            term = sample(level, tap_uv) * level_w[j]
+            tap = term if tap is None else tap + term
+        acc = tap if acc is None else acc + tap
+    return acc / taps
+
+
+def _separable_lod(mip: MipSampler, u_line: torch.Tensor,
+                   v_line: torch.Tensor) -> torch.Tensor:
+    """One level for axis-aligned grid sampling, a 0-d tensor: log2 of the
+    largest line spacing in texels (uniform up to animation), in place of
+    auto_lod's per-pixel field."""
+    zero = torch.zeros((), dtype=torch.float32, device=u_line.device)
+    fu = torch.abs(torch.diff(u_line)).max() * mip.width if u_line.shape[0] > 1 else zero
+    fv = torch.abs(torch.diff(v_line)).max() * mip.height if v_line.shape[0] > 1 else zero
+    foot = torch.clamp(torch.maximum(fu, fv), min=1e-12)
+    return torch.clamp(torch.log2(foot), min=0.0)
+
+
+def _reject_mip(tex, who: str) -> None:
+    if isinstance(tex, MipSampler):
+        raise TypeError(
+            f"{who} is a single-level fast path: a mipmapped texture would "
+            "lose its minification filtering. Pass sampler.base to sample "
+            "level 0, or use sample() / sample_separable(), which select "
+            "mip levels.")
+
+
 def _interp_matrix(positions: torch.Tensor, n: int, repeat: bool) -> torch.Tensor:
     """(M, n) linear-interpolation weights: row m holds the hat weights of
     continuous texel position positions[m] (two nonzeros; REPEAT folds the
-    weights across the wrap seam, CLAMP clamps the position to [0, n-1])."""
+    weights across the wrap seam, CLAMP clamps the position to [0, n-1]).
+    (T, M) positions give the mean of their T rows of hat weights: the
+    factored tap sum of the SSAA box (ops/downsample.py)."""
     texels = torch.arange(n, dtype=torch.float32, device=positions.device)
     if repeat:
-        delta = positions[:, None] - texels[None, :]
+        delta = positions[..., None] - texels
         delta = torch.remainder(delta + n / 2.0, float(n)) - n / 2.0
-        return torch.clamp(1.0 - torch.abs(delta), min=0.0)
-    positions = torch.clamp(positions, 0.0, float(n - 1))
-    delta = positions[:, None] - texels[None, :]
-    return torch.clamp(1.0 - torch.abs(delta), min=0.0)
+    else:
+        delta = torch.clamp(positions, 0.0, float(n - 1))[..., None] - texels
+    weights = torch.clamp(1.0 - torch.abs(delta), min=0.0)
+    return weights.mean(dim=0) if positions.ndim == 2 else weights
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -137,11 +343,22 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
-def sample_separable(tex: Sampler2D, u_line: torch.Tensor,
-                     v_line: torch.Tensor) -> torch.Tensor:
+def sample_separable(tex: Sampler2D, u_line: torch.Tensor, v_line: torch.Tensor,
+                     precision: str = "float32") -> torch.Tensor:
     """Axis-aligned grid sampling: u varies along columns only, v along rows
     only -> (len(v), len(u), C), as two 1D interpolations (two products
-    with hat-weight matrices; nearest filtering gathers rows and columns)."""
+    with hat-weight matrices; nearest filtering gathers rows and columns).
+    precision="bfloat16" rounds the weights, the texels and the row pass
+    to bf16 (sums in f32). A MipSampler blends the levels' separable
+    samples with hat weights around one level from the line spacing
+    (_separable_lod)."""
+    if isinstance(tex, MipSampler):
+        lod = torch.clamp(_separable_lod(tex, u_line, v_line), 0.0, float(len(tex.levels) - 1))
+        out = None
+        for k, level in enumerate(tex.levels):
+            term = sample_separable(level, u_line, v_line, precision) * _level_weight(lod, k)
+            out = term if out is None else out + term
+        return out
     h, w = tex.height, tex.width
     u = u_line * w - 0.5
     v = (1.0 - v_line) * h - 0.5
@@ -151,8 +368,39 @@ def sample_separable(tex: Sampler2D, u_line: torch.Tensor,
         return tex.data[iy][:, ix]
     w_rows = _interp_matrix(v, h, tex.repeat_y)               # (H', H)
     w_cols = _interp_matrix(u, w, tex.repeat_x)               # (W', W)
-    rows = torch.einsum("oh,hwc->owc", w_rows, tex.data.to(torch.float32))
+    data = tex.data.to(torch.float32)
+    if precision == "bfloat16":
+        w_rows, w_cols, data = _bf16(w_rows), _bf16(w_cols), _bf16(data)
+    rows = torch.einsum("oh,hwc->owc", w_rows, data)
+    if precision == "bfloat16":
+        rows = _bf16(rows)
     return torch.einsum("pw,owc->opc", w_cols, rows)          # (H', W', C)
+
+
+def sample_separable_planes(tex: Sampler2D, u_line: torch.Tensor, v_line: torch.Tensor,
+                            precision: str = "float32", out_dtype=None) -> tuple:
+    """sample_separable as one (len(v), len(u)) plane per channel (out_dtype,
+    float32 by default): per channel, the row product then the column
+    product."""
+    _reject_mip(tex, "sample_separable_planes")
+    h, w = tex.height, tex.width
+    u = u_line * w - 0.5
+    v = (1.0 - v_line) * h - 0.5
+    out_dtype = out_dtype or torch.float32
+    if not tex.linear:
+        iy = _wrap(torch.floor(v + 0.5).to(torch.int64), h, tex.repeat_y)
+        ix = _wrap(torch.floor(u + 0.5).to(torch.int64), w, tex.repeat_x)
+        data = tex.data[iy][:, ix]
+        return tuple(data[..., c] for c in range(data.shape[-1]))
+    w_rows = _interp_matrix(v, h, tex.repeat_y)               # (H', H)
+    w_cols = _interp_matrix(u, w, tex.repeat_x)               # (W', W)
+    planes = tex.data.to(torch.float32).permute(2, 0, 1)      # (C, H, W)
+    if precision == "bfloat16":
+        w_rows, w_cols, planes = _bf16(w_rows), _bf16(w_cols), _bf16(planes)
+    rows = torch.matmul(w_rows, planes)                       # (C, H', W)
+    if precision == "bfloat16":
+        rows = _bf16(rows)
+    return tuple(plane.to(out_dtype) for plane in torch.matmul(rows, w_cols.T))
 
 
 def texel_fetch(tex: Sampler2D, xy: torch.Tensor) -> torch.Tensor:
@@ -171,19 +419,31 @@ def texel_fetch(tex: Sampler2D, xy: torch.Tensor) -> torch.Tensor:
 def _blocked_axis(pos: torch.Tensor, out_len: int, n: int, block: int,
                   in_block: int) -> tuple:
     """Per-block window offsets and block-local hat-weight matrices for 1D
-    linear filtering of monotone (out_len,) positions -> (offs (nb,) int64,
-    weights (nb, block, in_block) f32, nb): block b of the output
-    interpolates texels [offs[b], offs[b] + in_block). Positions clip to
-    [0, n-1]."""
+    linear filtering of monotone positions -> (offs (nb,) int64, weights
+    (nb, block, in_block) f32, nb): block b of the output interpolates
+    texels [offs[b], offs[b] + in_block) with weights[b]. `pos` is
+    (out_len,), or (T, out_len) for T tap positions an output pixel whose
+    hat weights are averaged (the factored SSAA box, ops/downsample.py).
+    Positions clip to [0, n-1] (CLAMP semantics)."""
+    if pos.ndim == 1:
+        pos = pos[None, :]
+    taps = pos.shape[0]
     nb = -(-out_len // block)
     pad = nb * block - out_len
     if pad:
-        pos = torch.cat([pos, pos[-1:].expand(pad)])
-    blocks = torch.clamp(pos, 0.0, float(n - 1)).reshape(nb, block)
-    offs = torch.clamp(torch.floor(blocks.amin(dim=1)).to(torch.int64) - 1, 0, n - in_block)
+        pos = torch.cat([pos, pos[:, -1:].expand(taps, pad)], dim=1)
+    blocks = torch.clamp(pos, 0.0, float(n - 1)).reshape(taps, nb, block)
+    offs = torch.clamp(torch.floor(blocks.amin(dim=(0, 2))).to(torch.int64) - 1, 0, n - in_block)
     texels = torch.arange(in_block, dtype=torch.float32, device=pos.device)
-    delta = blocks[:, :, None] - offs[:, None, None].to(torch.float32) - texels
-    return offs, torch.clamp(1.0 - torch.abs(delta), min=0.0), nb
+    delta = blocks[:, :, :, None] - offs[None, :, None, None].to(torch.float32) - texels
+    return offs, torch.clamp(1.0 - torch.abs(delta), min=0.0).mean(dim=0), nb
+
+
+def _window(span: float, n: int) -> int:
+    """The texels of a block's window for outputs spanning `span` texels:
+    rounded up to a multiple of 64, at least 64, at most n."""
+    need = int(math.ceil(span)) + 3
+    return min(n, max(64, -(-need // 64) * 64))
 
 
 def sample_rows_planes_blocked(
@@ -197,11 +457,11 @@ def sample_rows_planes_blocked(
     rows per output row): positions must be monotone and stay inside
     [0, H-1] (CLAMP semantics; no REPEAT seam). precision="bfloat16" rounds
     the weights and texels to bf16 (products are exact in f32, sums f32)."""
+    _reject_mip(tex, "sample_rows_planes_blocked")
     h, w = tex.height, tex.width
     v = (1.0 - v_line) * h - 0.5
     out_h = v.shape[0]
-    need = int(math.ceil(block * texels_per_px)) + 3
-    in_rows = min(h, max(64, -(-need // 64) * 64))
+    in_rows = _window(block * texels_per_px, h)
     out_dtype = out_dtype or torch.float32
     data = tex.data.to(torch.float32).permute(2, 0, 1)        # (C, H, W)
     if precision == "bfloat16":
@@ -213,17 +473,134 @@ def sample_rows_planes_blocked(
             w_rows = _bf16(w_rows)
         planes = torch.matmul(w_rows, data)                   # (C, H', W)
         return tuple(plane.to(out_dtype) for plane in planes)
+    planes = _gathered_rows(data, v, h, block, in_rows, precision)
+    return tuple(plane.to(out_dtype) for plane in planes)
 
-    offs, weights, nb = _blocked_axis(v, out_h, h, block, in_rows)
+
+def _gathered_rows(planes: torch.Tensor, pos: torch.Tensor, n: int, block: int,
+                   in_rows: int, precision: str) -> torch.Tensor:
+    """(C, n, W) planes interpolated at the (out,) row positions `pos`,
+    block by block -> (C, out, W). Every block's window of in_rows rows is
+    gathered at once (the offsets stay on the device: no host sync), then
+    one batched product per channel."""
+    offs, weights, nb = _blocked_axis(pos, pos.shape[0], n, block, in_rows)
     if precision == "bfloat16":
         weights = _bf16(weights)
-    # Every block's texel-row window gathered at once (offsets stay on the
-    # device: no host sync), then one batched product per channel
     rows = offs[:, None] + torch.arange(in_rows, device=offs.device)[None, :]
-    windows = data[:, rows]                                   # (C, nb, in_rows, W)
-    planes = torch.matmul(weights, windows)                   # (C, nb, block, W)
-    planes = planes.reshape(data.shape[0], nb * block, w)[:, :out_h]
-    return tuple(plane.to(out_dtype) for plane in planes)
+    windows = planes[:, rows]                                 # (C, nb, in_rows, W)
+    out = torch.matmul(weights, windows)                      # (C, nb, block, W)
+    return out.reshape(planes.shape[0], nb * block, planes.shape[2])[:, :pos.shape[0]]
+
+
+def sample_separable_planes_blocked(
+        tex: Sampler2D, u_line: torch.Tensor, v_line: torch.Tensor,
+        texels_per_px: tuple, precision: str = "float32",
+        out_dtype=None, block: int = 240) -> tuple:
+    """sample_separable_planes on the band structure of its weights: each
+    `block` of output rows (then columns) contracts only a window of the
+    texture sized from texels_per_px = (du, dv), upper bounds on texels
+    per output pixel along u (columns) and v (rows). Positions must be
+    monotone and stay inside [0, n-1] (CLAMP semantics; no REPEAT seam).
+    The dense products when the windows would cover the texture."""
+    _reject_mip(tex, "sample_separable_planes_blocked")
+    h, w = tex.height, tex.width
+    du, dv = texels_per_px
+    in_rows = _window(block * dv, h)
+    in_cols = _window(block * du, w)
+    if in_rows >= h and in_cols >= w:
+        return sample_separable_planes(tex, u_line, v_line, precision=precision,
+                                       out_dtype=out_dtype)
+    u = u_line * w - 0.5
+    v = (1.0 - v_line) * h - 0.5
+    out_dtype = out_dtype or torch.float32
+    planes = tex.data.to(torch.float32).permute(2, 0, 1)      # (C, H, W)
+    if precision == "bfloat16":
+        planes = _bf16(planes)
+    rows = _gathered_rows(planes, v, h, block, in_rows, precision)   # (C, H', W)
+    if precision == "bfloat16":
+        rows = _bf16(rows)
+    # The columns as rows of the transposed intermediate
+    out = _gathered_rows(rows.transpose(1, 2), u, w, block, in_cols, precision)
+    return tuple(plane.T.to(out_dtype) for plane in out)
+
+
+class ResamplePlan(NamedTuple):
+    """The weights of a banded separable resample, made once per
+    configuration on the host (resample_plan): per axis the windows'
+    offsets as host ints and their (nb, block, window) weights on the
+    device, or, where the windows would cover the texture, the dense
+    (out, n) weights (offsets None)."""
+
+    out_height: int
+    out_width: int
+    row_offsets: Optional[tuple]
+    row_weights: torch.Tensor
+    col_offsets: Optional[tuple]
+    col_weights: torch.Tensor
+
+
+def resample_plan(pos_rows, pos_cols, height: int, width: int, rows_per_px: float,
+                  cols_per_px: float, device, block: int = 240) -> ResamplePlan:
+    """The plan of resample_separable_blocked for (T, Ho) / (T, Wo) host
+    positions over an (height, width) texture, its weights on `device`.
+    The windows' offsets come from the positions on the host, so applying
+    the plan never reads the device."""
+    pos_rows = torch.as_tensor(pos_rows, dtype=torch.float32, device="cpu")
+    pos_cols = torch.as_tensor(pos_cols, dtype=torch.float32, device="cpu")
+    pos_rows = pos_rows if pos_rows.ndim == 2 else pos_rows[None]
+    pos_cols = pos_cols if pos_cols.ndim == 2 else pos_cols[None]
+    # Each window also spans the tap spread: one output pixel more
+    in_rows = _window(block * rows_per_px + rows_per_px, height)
+    in_cols = _window(block * cols_per_px + cols_per_px, width)
+    out_h, out_w = pos_rows.shape[1], pos_cols.shape[1]
+    if in_rows >= height and in_cols >= width:
+        return ResamplePlan(out_h, out_w, None,
+                            _interp_matrix(pos_rows, height, False).to(device), None,
+                            _interp_matrix(pos_cols, width, False).to(device))
+    roffs, rweights, _ = _blocked_axis(pos_rows, out_h, height, block, in_rows)
+    coffs, cweights, _ = _blocked_axis(pos_cols, out_w, width, block, in_cols)
+    return ResamplePlan(out_h, out_w, tuple(roffs.tolist()), rweights.to(device),
+                        tuple(coffs.tolist()), cweights.to(device))
+
+
+def apply_resample(data: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
+    """A channel-last (H, W, C) texture resampled by `plan` ->
+    (Ho, Wo, C) float32: rows, then the columns of the row-filtered
+    intermediate, each block of outputs contracting its window (a narrow()
+    view at a host offset) with one product for every channel."""
+    planes = data.to(torch.float32).permute(2, 0, 1)            # (C, H, W)
+    if plan.row_offsets is None:
+        rows = torch.matmul(plan.row_weights, planes)            # (C, Ho, W)
+        out = torch.matmul(rows, plan.col_weights.T)             # (C, Ho, Wo)
+        return out.permute(1, 2, 0)
+    in_rows = plan.row_weights.shape[2]
+    rows = torch.cat([torch.matmul(weights, planes.narrow(1, offset, in_rows))
+                      for offset, weights in zip(plan.row_offsets, plan.row_weights)],
+                     dim=1)[:, :plan.out_height]                 # (C, Ho, W)
+    in_cols = plan.col_weights.shape[2]
+    out = torch.cat([torch.matmul(rows.narrow(2, offset, in_cols), weights.T)
+                     for offset, weights in zip(plan.col_offsets, plan.col_weights)],
+                    dim=2)[:, :, :plan.out_width]                # (C, Ho, Wo)
+    return out.permute(1, 2, 0)
+
+
+def resample_separable_blocked(data: torch.Tensor, pos_rows, pos_cols,
+                               rows_per_px: float, cols_per_px: float,
+                               block: int = 240) -> torch.Tensor:
+    """Banded separable resample of channel-last (H, W, C) data: the
+    general path of the SSAA final pass -> (Ho, Wo, C) float32.
+
+    pos_rows (T, Ho) / pos_cols (T, Wo): continuous texel positions an
+    output pixel, on the host (T >= 1 taps, their hat weights averaged:
+    the factored SSAA box filter). rows_per_px / cols_per_px: upper bounds
+    on |d position / d output pixel|, the tap spread included. Each
+    `block` of output rows / columns contracts only a window of about
+    block * bound texels instead of the dense (Ho, H) x (H, W) product;
+    CLAMP semantics; the dense products where the windows would span the
+    texture. Equal to the dense band product up to summation order."""
+    plan = resample_plan(pos_rows, pos_cols, data.shape[0], data.shape[1], rows_per_px,
+                         cols_per_px, data.device, block)
+    return apply_resample(data, plan)
 
 
 def splat_kernel(offsets: torch.Tensor, size: int, weights=None) -> torch.Tensor:

@@ -589,8 +589,11 @@ def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
     """The final pass of a tail, by regime: the exact-pooling regime runs
     K1 (u8); the equal-resolution regime (render == out, s > 1) runs K1's
     quantize=False form into a reused set of bf16 planes, then
-    final_equal_resolution; any other regime takes the plain path on CPU
-    (on CUDA it needs the general resampler, not ported yet, and raises)."""
+    final_equal_resolution; any other regime (the general path: ssaa 1.5,
+    3, 4, realtime ssaa < 1) evaluates the tail with eval_reference and
+    runs the plain final pass (downsample.final_pass: the banded general
+    resample), on the card as on the CPU, as the reference does on every
+    backend."""
     if supports_fusion(render_height, render_width, out_height, out_width, subsample):
         return fused_tail_final(spec, render_height, render_width, out_height,
                                 out_width, subsample, aspect, out=out)
@@ -600,12 +603,6 @@ def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
                                   out_width, 1, aspect, quantize=False,
                                   out=_frame_planes(out_height, out_width, device))
         return final_equal_resolution(planes, subsample, out=out)
-    if device.type != "cpu":
-        raise NotImplementedError(
-            f"Tail regime render {render_width}x{render_height} -> out "
-            f"{out_width}x{out_height} subsample {subsample}: the general "
-            "resampler is not ported yet; the exact-pooling and "
-            "equal-resolution regimes are")
     frame = tail_plain(spec, render_height, render_width, out_height,
                        out_width, subsample, aspect)
     if out is None:

@@ -151,7 +151,8 @@ class Frag:
                  texture_meta: Optional[dict] = None,
                  preludes: Optional[dict] = None,
                  prelude_stacks: Optional[dict] = None,
-                 prelude_step: Optional[int] = None):
+                 prelude_step: Optional[int] = None,
+                 mip_cache: Optional[dict] = None):
         self._coords = coords
         self._uniforms = uniforms
         self._statics = statics
@@ -163,6 +164,7 @@ class Frag:
         self._preludes = preludes or {}          # name -> this frame's value
         self._prelude_stacks = prelude_stacks or {}  # name -> (B or 1, ...) stack
         self._prelude_step = prelude_step        # this frame's position in the batch
+        self._mip_cache = mip_cache              # the engine's pyramids of static textures
         self._camera_cache: dict = {}
 
     def discard(self, mask) -> None:
@@ -239,14 +241,31 @@ class Frag:
         state: a static upload, this frame's row of a device sequence, or a
         program's matrix (temporal slot 0 holds what its layers rendered
         this frame; tex('iScreen') is the newest box, as in the
-        reference's <name><T>x<L> naming)."""
+        reference's <name><T>x<L> naming). A texture with mipmaps=True
+        gives its pyramid (a MipSampler)."""
         if name not in self._textures:
             raise KeyError(f"Unknown texture {name!r}; known: {sorted(self._textures)}")
         meta = self._texture_meta[name]
-        if getattr(meta, "mipmaps", False):
-            raise NotImplementedError(f"Texture {name!r} asks for mipmaps: not ported yet")
-        return Sampler2D(self._textures[name][temporal, layer], linear=meta.linear,
-                         repeat_x=meta.repeat_x, repeat_y=meta.repeat_y)
+        array = self._textures[name]
+        sampler = Sampler2D(array[temporal, layer], linear=meta.linear,
+                            repeat_x=meta.repeat_x, repeat_y=meta.repeat_y)
+        if not getattr(meta, "mipmaps", False):
+            return sampler
+        # texture(mipmaps=True): the pyramid, sampled trilinearly by every
+        # accessor; anisotropic only when the texture asked for it
+        aniso = meta.anisotropy if getattr(meta, "_aniso_explicit", False) else 1
+        if self._mip_cache is None or not isinstance(array, torch.Tensor):
+            return sampling.mip_pyramid(sampler, anisotropy=aniso)
+        # A static upload is the same tensor every frame until it changes:
+        # its pyramid is built once (the reference's compiler hoists it out
+        # of the frame loop). The entry holds the tensor, so a match by
+        # identity is never a freed tensor's address reused.
+        key = (name, temporal, layer, aniso)
+        cached = self._mip_cache.get(key)
+        if cached is None or cached[0] is not array:
+            cached = self._mip_cache[key] = (array, sampling.mip_pyramid(sampler,
+                                                                        anisotropy=aniso))
+        return cached[1]
 
     def _sampler(self, tex) -> Sampler2D:
         return self.tex(tex) if isinstance(tex, str) else tex

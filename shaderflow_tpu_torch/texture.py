@@ -4,7 +4,8 @@ ShaderTexture — a temporal x layers matrix of images.
 Port of shaderflow_tpu/texture.py, the part the ported slices touch: the
 (T, L, H, W, C) float32 host matrix, resolution tracking (track factor;
 `final` tracks the post-SSAA output), components/dtype/temporal/layers,
-filter and repeat sampling state, host writes and image uploads, device
+filter, repeat, mipmaps and anisotropy sampling state, host writes and
+image uploads, a host roll of the temporal ring (video), device
 sequences (per-frame content the engine indexes by frame, optionally as a
 ring of the last L columns), and the pipeline uniforms. The engine uploads
 a host-written texture once per version; a texture written during the
@@ -54,6 +55,8 @@ class ShaderTexture(ShaderModule):
         filter: str = "linear",
         repeat_x: bool = True,
         repeat_y: bool = True,
+        mipmaps: bool = False,
+        anisotropy: Optional[int] = None,
         track: Union[bool, float] = 0.0,
         final: bool = False,
         **kwargs,
@@ -67,6 +70,22 @@ class ShaderTexture(ShaderModule):
         self.filter = filter
         self.repeat_x = bool(repeat_x)
         self.repeat_y = bool(repeat_y)
+        # mipmaps=True: Frag.tex hands out the 2x2 box pyramid and every
+        # accessor samples trilinearly with a level from the uv field
+        # (ops/sampling.py MipSampler), where GL's driver builds the pyramid
+        self.mipmaps = bool(mipmaps)
+        # Anisotropy reads x16 by default, as GL's sampler state; filtering
+        # engages only when asked for (_aniso_explicit): here it costs taps
+        # x levels real samples a pixel. Without mipmaps there is no
+        # pyramid to filter against: an explicit request warns
+        self.anisotropy = int(anisotropy) if anisotropy is not None else 16
+        self._aniso_explicit = anisotropy is not None
+        if anisotropy is not None and self.anisotropy > 1 and not self.mipmaps:
+            from shaderflow_tpu_torch import logger
+            logger.warn(
+                f"Texture {name!r}: anisotropy=x{self.anisotropy} requested "
+                "without mipmaps=True — anisotropic filtering needs the mip "
+                "pyramid and is ignored on a single-level texture")
         self._track = float(track)
         self.final = bool(final)
         self._matrix: Optional[np.ndarray] = None  # (T, L, H, W, C) float32, row 0 = top
@@ -345,6 +364,16 @@ class ShaderTexture(ShaderModule):
             if not self._track:
                 self._width = self.sequence_window or int(array.shape[2])
                 self._height = int(array.shape[1])
+        self.version += 1
+        return self
+
+    def roll(self, n: int = 1) -> "ShaderTexture":
+        """Rotate the temporal ring on the host (a host-written texture with
+        temporal > 1, e.g. a video's history; program textures roll on the
+        device, engine.Ring). A one-slot ring rolls onto itself: nothing
+        moves, and a pending u8 write is not normalized for it."""
+        if self._temporal > 1:
+            self.matrix = np.roll(self.matrix, n, axis=0)
         self.version += 1
         return self
 

@@ -259,8 +259,14 @@ def test_final_pass_matches_jax(shape, subsample):
 
 
 def test_ssaa_general_path_not_ported():
-    with pytest.raises(NotImplementedError, match="resample_separable_blocked"):
-        downsample.ssaa_downsample(torch.zeros(30, 50, 3), 24, 40, 2)
+    """The general path, once missing here, against the JAX function: a
+    50x30 render to 40x24 at subsample 2 (ssaa 1.25), float32 within 3e-6
+    (the JAX package's bar against the dense band product)."""
+    render = np.random.default_rng(13).random((30, 50, 3), np.float32)
+    got = downsample.ssaa_downsample(torch.from_numpy(render), 24, 40, 2).numpy()
+    want = np.asarray(jax_downsample.ssaa_downsample(jnp.asarray(render), 24, 40, 2))
+    assert got.shape == want.shape == (24, 40, 3)
+    np.testing.assert_allclose(got, want, rtol=0, atol=3e-6)
 
 
 def test_atan2_powf_match_jax():

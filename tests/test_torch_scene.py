@@ -150,7 +150,8 @@ def test_port_imports_no_jax(tmp_path):
     """The port's import chain (the tools too) and tiny CPU exports of the
     ported scenes (Mandelbrot, the music visualizer, PianoRoll at ssaa=1,
     Julia, the visualizer in the bf16 tail mode at blur level 1, and one
-    scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life),
+    scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life,
+    Mandelbrot at ssaa 1.5 (the general final pass) and Video),
     a realtime run of the visualizer (main without an output, headless,
     to frame_limit) and the GLSL Plasma scene through the command line
     (cli.main) run with jax and the JAX package blocked, and leave no
@@ -173,6 +174,12 @@ torch_piano_roll.PianoRoll().main(width=32, height=18, fps=10, time=0.4, ssaa=1,
                                   output={str(tmp_path / "piano.rgb")!r}, device="cpu")
 torch_fractals.Julia().main(width=32, height=18, fps=10, time=0.1, ssaa=2,
                             output={str(tmp_path / "julia.rgb")!r}, device="cpu")
+torch_fractals.Mandelbrot().main(width=32, height=18, fps=10, time=0.2, ssaa=1.5,
+                                 output={str(tmp_path / "ssaa15.rgb")!r}, device="cpu")
+video = torch_demo.Video()
+video.main(width=32, height=18, fps=10, time=0.3, output={str(tmp_path / "video.rgb")!r},
+           device="cpu")
+video.destroy()
 for scene, name in ((torch_demo.Basic, "basic"), (torch_demo.MusicBars, "bars"),
                     (torch_demo.RayMarch, "raymarch"), (torch_fractals.Tetration, "tetration"),
                     (torch_demo.Life, "life")):
@@ -201,13 +208,13 @@ assert not loaded, loaded
 print("frames", *(np.fromfile({str(tmp_path)!r} + "/" + name, np.uint8).size // (32 * 18 * 3)
                   for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb", "viz_bf16.rgb",
                                "basic.rgb", "bars.rgb", "raymarch.rgb", "tetration.rgb",
-                               "life.rgb", "plasma.rgb")))
+                               "life.rgb", "plasma.rgb", "ssaa15.rgb", "video.rgb")))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2 3 4 1 3 2 2 2 2 2 3" in result.stdout
+    assert "frames 2 3 4 1 3 2 2 2 2 2 3 2 3" in result.stdout
     pattern = re.compile(r"^\s*(from\s+(shaderflow_tpu|jax)(\.|\s)|import\s+(shaderflow_tpu|jax)\b)",
                          re.MULTILINE)
     for name in ("glsl.py", "cli.py", "__main__.py"):

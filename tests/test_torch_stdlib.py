@@ -364,7 +364,13 @@ def test_every_public_name_is_ported(module):
 
 
 def test_mipmaps_raise():
-    """Mip pyramids are not ported: a MipSampler cannot be built, and a
-    texture that asks for mipmaps raises when a program samples it."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        sampling.MipSampler((), 1)
+    """Mip pyramids, once refused here, are ported: a MipSampler is built
+    from its levels, and the stdlib's accessors sample one (the level from
+    the uv field) to what sample() gives it, within float32 rounding."""
+    data = torch.from_numpy(np.random.default_rng(3).random((32, 32, 3), np.float32))
+    mip = sampling.mip_pyramid(sampling.Sampler2D(data))
+    assert len(sampling.MipSampler(mip.levels, 1).levels) == 6
+    stuv = torch.stack(torch.meshgrid(torch.linspace(0, 1, 8), torch.linspace(0, 1, 8),
+                                      indexing="xy"), dim=-1)
+    np.testing.assert_allclose(sampling.astexture(mip, stuv).numpy(),
+                               sampling.sample_mip(mip, stuv).numpy(), atol=1e-6)
