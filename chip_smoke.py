@@ -137,6 +137,24 @@ Then a {"realtime": ...} line with phases 29-31's figures.
      as u8 through the staging buffer; fps beside the stub pipe's own rate;
      frame 1 against device="cpu"
 Then an {"any_ssaa": ...} line (32-34) and a {"video": ...} line (35).
+  The audio and export surface
+ 36. the visualizer at 1920x1080@60, 2x SSAA, SECONDS, its audio decoded
+     from music.flac through the port's ffmpeg pipe (a stub ffmpeg and
+     ffprobe on PATH replay music.wav's samples as f32le) to a .rgb file:
+     bit-equal to the export of music.wav read by the stdlib; counters K2
+     == batches, K1 == frames, nothing else; the progress relay over every
+     frame; the decode's time; a null export's fps, device and host ms a
+     frame; then output "pipe" and "tcp://127.0.0.1:<port>" without ffmpeg
+     (PipeSink; TCPSink into a listener thread here): the .rgb bytes; and
+     "pipe" with the stub as encoder: its stdout, F x H x W x 3 bytes fed
+ 37. the Audio scene (a recorder's volume as brightness) in the realtime
+     loop, headless, 1920x1080@60, ssaa 1, REALTIME_FRAMES frames after a
+     warm-up, its recorder a stub backend feeding a sine: no kernel of
+     K1-K3 (counters 0), fps, late ticks, host ms a frame, device ms and
+     kernels a frame; frame 29 at dt = 1/60 equal to device="cpu"'s; where
+     pygame imports, a run on SDL's dummy driver
+Then an {"audio": ...} line (36-37). Phase 17 also times an empty kernel
+(csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
 events, averaged over repeated calls; `call_ms` is the median of CUDA
@@ -1540,6 +1558,363 @@ def video_path(counters, card: str) -> dict:
     return figures
 
 
+# --------------------------------------------------------------------------- #
+# The audio and export surface (phases 36-37)
+
+AUDIO_AMPLITUDE, AUDIO_TONE, AUDIO_CHECK_FRAMES = 0.25, 440.0, 30
+
+STUB_AUDIO_FFMPEG = r"""#!{python}
+import json, sys
+from pathlib import Path
+here = Path(__file__).parent
+args = sys.argv[1:]
+with open(here / "calls.jsonl", "a") as log:
+    log.write(json.dumps(args) + "\n")
+if "f32le" in args:
+    pcm = memoryview((here / "pcm.f32").read_bytes())
+    out = sys.stdout.buffer
+    try:
+        for start in range(0, len(pcm), 1 << 20):
+            out.write(pcm[start:start + (1 << 20)])
+        out.flush()
+    except BrokenPipeError:
+        pass
+    sys.exit(0)
+count = 0
+while chunk := sys.stdin.buffer.read(1 << 22):
+    count += len(chunk)
+if args[-1] == "-":
+    sys.stdout.buffer.write(b"STUB" + count.to_bytes(8, "little"))
+"""
+
+STUB_AUDIO_FFPROBE = r"""#!{python}
+import json, sys
+from pathlib import Path
+meta = json.loads((Path(__file__).parent / "meta.json").read_text())
+entries = sys.argv[sys.argv.index("-show_entries") + 1]
+answers = {{"stream=sample_rate": str(meta["rate"]), "stream=channels": str(meta["channels"]),
+           "format=duration": str(meta["frames"] / meta["rate"])}}
+if entries in answers:
+    print(answers[entries])
+"""
+
+
+def make_stub_audio(directory: Path, samples, rate: int) -> Path:
+    """A stub `ffmpeg` and `ffprobe` in `directory` (no ffmpeg binary is
+    needed): a decode to f32le replays `samples` (frames, channels)
+    float32; the probes answer their rate, channels and duration; an encode
+    drains its stdin and, for output "-", writes b"STUB" + the byte count.
+    Every call's arguments go to calls.jsonl. The port's decode and encode
+    paths are its real ffmpeg pipes."""
+    import numpy as np
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "pcm.f32").write_bytes(np.ascontiguousarray(samples, "<f4").tobytes())
+    (directory / "meta.json").write_text(json.dumps(
+        dict(rate=rate, channels=int(samples.shape[1]), frames=int(samples.shape[0]))))
+    for name, source in (("ffmpeg", STUB_AUDIO_FFMPEG), ("ffprobe", STUB_AUDIO_FFPROBE)):
+        path = directory / name
+        path.write_text(source.format(python=sys.executable))
+        path.chmod(0o755)
+    return directory
+
+
+def digest(data) -> str:
+    """sha256 of bytes, or of a file's bytes read in 64 MB pieces."""
+    import hashlib
+    hasher = hashlib.sha256()
+    if isinstance(data, (bytes, bytearray)):
+        hasher.update(data)
+        return hasher.hexdigest()
+    with open(data, "rb") as handle:
+        while piece := handle.read(1 << 26):
+            hasher.update(piece)
+    return hasher.hexdigest()
+
+
+class TCPListener:
+    """A TCP server on 127.0.0.1 in a thread: reads one connection to its
+    EOF, hashing and counting the bytes."""
+
+    def __init__(self):
+        import hashlib
+        import socket
+        import threading
+        self.server = socket.create_server(("127.0.0.1", 0))
+        self.url = f"tcp://127.0.0.1:{self.server.getsockname()[1]}"
+        self.hasher, self.count = hashlib.sha256(), 0
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        connection, _ = self.server.accept()
+        with connection:
+            while chunk := connection.recv(1 << 20):
+                self.hasher.update(chunk)
+                self.count += len(chunk)
+
+    def result(self) -> tuple[str, int]:
+        self.thread.join(timeout=120)
+        self.server.close()
+        if self.thread.is_alive():
+            raise AssertionError("the TCP listener did not see its connection end")
+        return self.hasher.hexdigest(), self.count
+
+
+def audio_export_path(counters, card: str) -> dict:
+    """Phase 36: the visualizer at 1920x1080, 60 fps, 2x SSAA, SECONDS, its
+    audio decoded from music.flac through the port's ffmpeg pipe (a stub
+    ffmpeg and ffprobe on PATH replay the f32le samples of music.wav): its
+    .rgb frames bit-equal to the export of music.wav read by the stdlib,
+    K2 once a batch and K1 (b)+(c) once a frame, the progress relay over
+    every frame, the decode's time in the export's set-up; a null export's
+    fps, device and host ms a frame; then output "pipe" and
+    "tcp://127.0.0.1:<port>" without ffmpeg (PipeSink, TCPSink into a
+    listener here: the .rgb bytes), and "pipe" with the stub encoder (its
+    stdout, counting F x H x W x 3 bytes fed)."""
+    import wave
+    import numpy as np
+    import torch_demo
+    from shaderflow_tpu_torch import exporting
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    frame_bytes = WIDTH * HEIGHT * 3
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
+    with wave.open(str(torch_demo.MUSIC), "rb") as handle:
+        rate, channels = handle.getframerate(), handle.getnchannels()
+        pcm = np.frombuffer(handle.readframes(handle.getnframes()), "<i2")
+    pcm = (pcm.astype(np.float32) / 32768.0).reshape(-1, channels)
+    saved_path = os.environ["PATH"]
+    caches = ("binary", "ffprobe", "get_audio_samplerate", "get_audio_channels")
+    helpers, relays, decodes = [], [], []
+    open_bar, get_audio_numpy = exporting.ExportingHelper.open_bar, FFmpeg.get_audio_numpy
+    decode_method = FFmpeg.__dict__["get_audio_numpy"]
+
+    def recorded_open_bar(helper):
+        helper.relay = lambda frame, total: relays.append((frame, total))
+        helpers.append(helper)
+        open_bar(helper)
+
+    def timed_decode(path):
+        started = time.perf_counter()
+        samples = get_audio_numpy(path)
+        decodes.append(time.perf_counter() - started)
+        return samples
+
+    def decoder(on: bool, stub: Path) -> None:
+        os.environ["PATH"] = f"{stub}{os.pathsep}{saved_path}" if on else saved_path
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+        if (FFmpeg.binary() == str(stub / "ffmpeg")) != on:
+            raise AssertionError(f"ffmpeg on PATH is {FFmpeg.binary()}, stub wanted: {on}")
+
+    def visualizer(audio_file=None):
+        scene = torch_demo.Visualizer()
+        scene.audio_file = audio_file
+        return scene
+
+    exporting.ExportingHelper.open_bar = recorded_open_bar
+    FFmpeg.get_audio_numpy = staticmethod(timed_decode)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            stub = make_stub_audio(tmp / "bin", pcm, rate)
+            flac = tmp / "music.flac"
+            flac.write_bytes(b"fLaC stub: the decoder replays music.wav's samples")
+            # The WAV export, no decoder on PATH: the stdlib reads the file
+            decoder(False, stub)
+            visualizer().main(output=str(tmp / "wav.rgb"), device="cuda", **options)
+            wav_digest = digest(tmp / "wav.rgb")
+            wav_decode_s = decodes[-1]
+            (tmp / "wav.rgb").unlink()
+            # The same export from music.flac through the decode pipe
+            decoder(True, stub)
+            relays.clear()
+            zero_counters()
+            started = time.perf_counter()
+            visualizer(flac).main(output=str(tmp / "flac.rgb"), device="cuda", **options)
+            export_s = time.perf_counter() - started
+            launches = read_counters()
+            flac_decode_s = decodes[-1]
+            batches = -(-frames // helpers[-1].scene.default_batch_size())
+            expected = {key: 0 for key in launches}
+            expected.update(k2=batches, k1=frames)
+            if launches != expected:
+                raise AssertionError(f"visualizer from flac: counters {launches}, expected "
+                                     f"K2 == {batches} batches, K1 == {frames} frames")
+            flac_digest, size = digest(tmp / "flac.rgb"), (tmp / "flac.rgb").stat().st_size
+            if flac_digest != wav_digest or size != frames * frame_bytes:
+                raise AssertionError(f"the flac export's {size} bytes differ from the wav "
+                                     "export's frames")
+            (tmp / "flac.rgb").unlink()
+            decoded = [call for call in map(json.loads, (stub / "calls.jsonl").read_text()
+                                            .splitlines()) if str(flac) in call]
+            if not decoded or "f32le" not in decoded[0]:
+                raise AssertionError("music.flac did not go through the ffmpeg decode pipe")
+            helper = helpers[-1]
+            steps = [frame for frame, total in relays]
+            if (helper.frame != frames or {total for _, total in relays} != {frames}
+                    or steps != sorted(steps) or steps[0] != 0 or len(steps) != batches):
+                raise AssertionError(f"progress: relay {relays}, helper at {helper.frame} "
+                                     f"of {frames} frames")
+            bar = ("none: no tqdm" if helper.bar is None
+                   else "tqdm, off: the relay reports" if helper.bar.disable
+                   else f"tqdm at {helper.bar.n}")
+            relay_calls = len(relays)
+            # Throughput: a null export from flac, and one frame's profile
+            scene = visualizer(flac)
+            null_frames, wall, fps = null_export(scene, options)
+            frame_ms, frame_launches, host_ms = frame_profile(scene, HEIGHT, WIDTH)
+            scene.destroy()
+            # Pipe and TCP outputs without an encoder: raw rgb24
+            decoder(False, stub)
+            piped = visualizer().main(output="pipe", device="cuda", **options)
+            pipe_ok = isinstance(piped, bytes) and digest(piped) == wav_digest
+            del piped
+            listener = TCPListener()
+            returned = visualizer().main(output=listener.url, device="cuda", **options)
+            tcp_digest, tcp_bytes = listener.result()
+            if not pipe_ok or tcp_digest != wav_digest or returned != listener.url:
+                raise AssertionError(f"pipe equal {pipe_ok}, tcp {tcp_bytes} bytes equal "
+                                     f"{tcp_digest == wav_digest}, returned {returned!r}")
+            # Pipe with an encoder: the encoder's stdout
+            decoder(True, stub)
+            encoded = visualizer(flac).main(output="pipe", device="cuda", **options)
+            if encoded != b"STUB" + (frames * frame_bytes).to_bytes(8, "little"):
+                raise AssertionError(f"the stub encoder's stdout: {encoded[:12]!r}")
+            command = [call for call in map(json.loads, (stub / "calls.jsonl").read_text()
+                                            .splitlines()) if "rawvideo" in call][-1]
+            if command[-3:] != ["-f", "matroska", "-"] or str(flac) not in command:
+                raise AssertionError(f"encoder command {command}")
+    finally:
+        exporting.ExportingHelper.open_bar = open_bar
+        FFmpeg.get_audio_numpy = decode_method
+        os.environ["PATH"] = saved_path
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+    figures = dict(frames=frames, export_s=export_s, flac_decode_s=flac_decode_s,
+                   wav_decode_s=wav_decode_s, seconds=wall, fps=fps,
+                   device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                   host_ms_per_frame=host_ms, busy=null_frames * frame_ms / 1e3 / wall,
+                   launches=launches, relay_calls=relay_calls, bar=bar,
+                   rgb_equal_to_wav=True, pipe_equal=True, tcp_bytes=tcp_bytes,
+                   encoder_bytes=frames * frame_bytes)
+    say("audio_export", config=f"Visualizer {WIDTH}x{HEIGHT} {FPS}fps {SSAA}xSSAA "
+        f"{SECONDS:g}s from music.flac (stub decoder)", frames=frames,
+        export_s=f"{export_s:.4f}", flac_decode_s=f"{flac_decode_s:.4f}",
+        wav_decode_s=f"{wav_decode_s:.4f}", fps=f"{fps:.3f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        host_ms_per_frame=f"{host_ms:.4f}", busy=f"{figures['busy']:.4f}",
+        launches=launches, relay_calls=relay_calls, bar=repr(bar), flac_equals_wav=True,
+        pipe_equals_rgb=True, tcp_equals_rgb=True, tcp_bytes=tcp_bytes,
+        encoder_bytes=frames * frame_bytes, card=repr(card))
+    return figures
+
+
+def stub_audio_backend(amplitude: float = AUDIO_AMPLITUDE):
+    """A realtime audio backend module with one recorder: each record(n)
+    returns the next n frames (one 60 fps frame's worth, 735, for None) of
+    a stereo sine of `amplitude` at AUDIO_TONE Hz."""
+    import types
+    import numpy as np
+
+    class Recorder:
+        _samplerate = 44100.0
+
+        def __init__(self):
+            self.position = 0
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+        def record(self, numframes=None):
+            count = numframes or 735
+            t = (self.position + np.arange(count)) / 44100.0
+            self.position += count
+            tone = (amplitude * np.sin(2 * np.pi * AUDIO_TONE * t)).astype(np.float32)
+            return np.stack([tone, tone], axis=1)
+
+    class Device:
+        name, channels, isloopback = "stub sine", 2, False
+
+        def recorder(self, samplerate=44100, channels=None, blocksize=512):
+            return Recorder()
+
+    module = types.ModuleType("stub_audio_backend")
+    module.all_microphones = lambda include_loopback=False: [Device()]
+    module.all_speakers = lambda: []
+    module.default_microphone = module.default_speaker = Device
+    return module
+
+
+def audio_scene_path(counters, card: str) -> dict:
+    """Phase 37: the Audio scene (the recorder's volume as brightness) in
+    the realtime loop, headless, at 1920x1080, 60 fps, ssaa 1, for
+    REALTIME_FRAMES frames after a warm-up, its recorder a stub backend
+    feeding a sine of AUDIO_AMPLITUDE: counters, fps, late ticks, host ms
+    a frame, one frame's device ms and kernels; frame AUDIO_CHECK_FRAMES
+    at dt = 1/60 equal to the same frames run with device="cpu"; where
+    pygame imports, a run on SDL's dummy driver too."""
+    import importlib.util
+    import torch_demo
+    from shaderflow_tpu_torch.audio import BrokenAudio
+    backend = BrokenAudio.__dict__["_backend"]
+    BrokenAudio._backend = staticmethod(lambda: stub_audio_backend())
+    try:
+        realtime_run(torch_demo.Audio, counters, FPS, 3, frameskip=False, ssaa=1)
+        run = realtime_run(torch_demo.Audio, counters, FPS, REALTIME_FRAMES, ssaa=1)
+        frames, scene = run["frames"], run["scene"]
+        if type(scene.audio.recorder).__name__ != "Recorder" or frames < REALTIME_FRAMES // 4:
+            raise AssertionError(f"Audio: recorder {scene.audio.recorder}, {frames} frames")
+        if any(run["launches"].values()):
+            raise AssertionError(f"Audio: counters {run['launches']}: its frame is a "
+                                 "plain fragment, no kernel of K1-K3 expected")
+        frame_ms, frame_launches, render_host_ms = frame_profile(scene, HEIGHT, WIDTH)
+        scene.destroy()
+        checked = {}
+        for device in ("cuda", "cpu"):
+            check, frame = realtime_frames(torch_demo.Audio, device, AUDIO_CHECK_FRAMES, ssaa=1)
+            checked[device] = (frame.cpu().numpy(), float(check.audio.volume.value))
+            check.destroy()
+        (card_frame, card_volume), (cpu_frame, cpu_volume) = checked["cuda"], checked["cpu"]
+        err, share = u8_diff(card_frame, cpu_frame)
+        level = int(card_frame[0, 0, 0])
+        if err or card_volume != cpu_volume or level == 0 or (card_frame != level).any():
+            raise AssertionError(f"Audio frame {AUDIO_CHECK_FRAMES - 1}: card vs cpu max {err} "
+                                 f"u8 steps, volume {card_volume} vs {cpu_volume}, level {level}")
+    finally:
+        BrokenAudio._backend = backend
+    sdl = "pygame absent"
+    if importlib.util.find_spec("pygame") is not None:
+        os.environ.update(SHADERFLOW_AUDIO_BACKEND="sdl", SHADERFLOW_SDL_AUDIODRIVER="dummy")
+        try:
+            dummy = realtime_run(torch_demo.Audio, counters, FPS, 60, ssaa=1)
+            sdl = (f"{dummy['frames']} frames at {dummy['fps']:.3f} fps, recorder "
+                   f"{type(dummy['scene'].audio.recorder).__name__}")
+            dummy["scene"].destroy()
+        finally:
+            os.environ["SHADERFLOW_AUDIO_BACKEND"] = "none"
+    figures = dict(target_fps=FPS, frames=frames, fps=run["fps"], wall_fps=run["wall_fps"],
+                   late_frames=run["late"], capture_ms=run["capture_ms"],
+                   flush_ms=run["flush_ms"], host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+                   device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+                   busy=frames * frame_ms / 1e3 / run["wall"], launches=run["launches"],
+                   checked_frame=AUDIO_CHECK_FRAMES - 1, level=level, volume=card_volume,
+                   max_u8_diff_vs_cpu=err, sdl_dummy=sdl)
+    say("audio_scene", size=f"{WIDTH}x{HEIGHT}", ssaa=1, target_fps=FPS, frames=frames,
+        fps=f"{run['fps']:.3f}", wall_fps=f"{run['wall_fps']:.3f}", late_frames=run["late"],
+        capture_ms=f"{run['capture_ms']:.4f}", flush_ms=f"{run['flush_ms']:.4f}",
+        device_ms_per_frame=f"{frame_ms:.4f}", launches_per_frame=frame_launches,
+        render_enqueue_host_ms=f"{render_host_ms:.4f}", busy=f"{figures['busy']:.4f}",
+        launches=run["launches"], checked_frame=AUDIO_CHECK_FRAMES - 1, level=level,
+        volume=f"{card_volume:.6f}", max_u8_diff_vs_cpu=err, sdl_dummy=repr(sdl),
+        card=repr(card))
+    return figures
+
+
 def main() -> int:
     script_started = time.perf_counter()
     import torch
@@ -1956,11 +2331,16 @@ def main() -> int:
         raise AssertionError("T3's library call differs from x * 2 + 1")
     t3_library_ms = device_ms(lambda: torch.addcmul(one, x, two))
     t3_bound_ms, t3_bound_by = flopcount.roofline(walker.cost)
+    # The floor of a launch: an empty kernel's device time, beside which the
+    # bounds of T1's and T3's single tiny launches are read
+    empty_ms = device_ms(lambda: flopcount.empty_launch(device))
+    empty_call_ms = median_ms(lambda: flopcount.empty_launch(device), 20)
     say("t3", shape="128x128", blocks=4, equal=True, walker_alu=int(walker.cost.alu),
         walker_bytes=int(walker.cost.kernel_bytes), hand=hand, launches=t3_launches,
         ms=f"{t3_ms:.4f}", call_ms=f"{t3_call_ms:.4f}", plain_ms=f"{t3_plain_ms:.4f}",
         bound_ms=f"{t3_bound_ms:.6f}",
         bound_by=t3_bound_by, library_ms=f"{t3_library_ms:.4f}")
+    say("empty_launch", ms=f"{empty_ms:.4f}", call_ms=f"{empty_call_ms:.4f}", card=repr(card))
 
     # 18. T1: the bf16 op probe through K1's compiler (its own path)
     probe_bf16_ops.run_op.launches = 0
@@ -2144,6 +2524,11 @@ def main() -> int:
     # 35. Video through the port's ffmpeg pipe into a streamed u8 texture
     print(json.dumps({"video": video_path((zero_counters, read_counters), card),
                       "card": card}))
+    # 36. The visualizer from a non-WAV file, and the pipe and TCP outputs
+    audio_export = audio_export_path((zero_counters, read_counters), card)
+    # 37. The Audio scene in the realtime loop, from a stub recorder
+    audio_scene = audio_scene_path((zero_counters, read_counters), card)
+    print(json.dumps({"audio": {"export": audio_export, "scene": audio_scene}, "card": card}))
     say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
@@ -2166,14 +2551,15 @@ def main() -> int:
          "launches": visualizer_launches["k1"], "max_abs_err": k1v_err,
          "ms": k1v_ms, "call_ms": k1v_call_ms, "plain_ms": k1v_plain_ms,
          "bound_ms": k1v_bound_ms, "bound_by": k1v_bound_by, "library_ms": None,
-         **k1v_compiled, "realtime": realtime["k1"]},
+         **k1v_compiled, "realtime": realtime["k1"],
+         "audio_export": {"launches": audio_export["launches"]["k1"]}},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"],
-         "any_ssaa": any_ssaa["k2"]},
+         "any_ssaa": any_ssaa["k2"], "audio_export": {"launches": audio_export["launches"]["k2"]}},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
@@ -2209,7 +2595,7 @@ def main() -> int:
          "launches": t1_launches, "max_abs_err": t1_err,
          "ms": t1_ms, "call_ms": t1_call_ms, "plain_ms": t1_plain_ms, "bound_ms": t1_bound_ms,
          "bound_by": t1_bound_by, "library_ms": t1_plain_ms,
-         "table": table},
+         "empty_launch_ms": empty_ms, "table": table},
         {"name": "T2 bench_dtype chain (timed: bf16; f32 beside it)",
          "route": "triton", "source": "shaderflow_tpu_torch/tools/bench_dtype.py",
          "replaces": "tools/bench_vpu_dtype.py:35",
@@ -2222,7 +2608,7 @@ def main() -> int:
          "replaces": "tests/test_flopcount.py:64",
          "launches": t3_launches, "max_abs_err": t3_err,
          "ms": t3_ms, "call_ms": t3_call_ms, "plain_ms": t3_plain_ms, "bound_ms": t3_bound_ms,
-         "bound_by": t3_bound_by, "library_ms": t3_library_ms},
+         "bound_by": t3_bound_by, "library_ms": t3_library_ms, "empty_launch_ms": empty_ms},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -6,7 +6,8 @@ ShaderToy (config 1), Waveform and MusicBars (config 2, over the offline
 audio sequences), RayMarch (config 4: 100 masked march steps over a
 six-box SDF union from the camera's rays), Dynamics (a spring-smoothed
 zoom), Video (a clip streamed into a u8 texture, shaderflow_tpu_torch/
-video.py), MultiShader and Multipass (programs and layers sampling each
+video.py), Audio (a recorder's volume as brightness, shaderflow_tpu_torch/
+audio/), MultiShader and Multipass (programs and layers sampling each
 other), MotionBlur and Life (temporal rings), each in plain PyTorch with
 the reference's operation order; and the Visualizer below.
 
@@ -543,6 +544,24 @@ class Video(ShaderScene):
             path = assets.video_file()
         self.video = ShaderVideo(scene=self, path=path)
         self.shader.fragment = video_frag
+
+
+def audio_frag(sf):
+    """The recorder's volume as brightness: iAudioVolume over the frame
+    (its size from the axis lines, no coordinate grid built)."""
+    u_line, v_line = sf.lines
+    volume = torch.broadcast_to(sf.iAudioVolume, (v_line.shape[0], u_line.shape[0]))
+    return sl.vec4(sl.vec3(volume), 1.0)
+
+
+class Audio(ShaderScene):
+    """Basic audio processing (microphone volume as brightness)"""
+
+    def build(self):
+        from shaderflow_tpu_torch.audio import ShaderAudio
+        self.audio = ShaderAudio(scene=self, name="iAudio")
+        self.audio.open_recorder()
+        self.shader.fragment = audio_frag
 
 
 # ---------------------------------------------------------------------------- #

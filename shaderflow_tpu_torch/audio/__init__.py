@@ -10,10 +10,11 @@ the file duration as the scene runtime and muxes the file into FFmpeg
 outputs.
 
 Realtime devices go through a backend module (_backend): the `soundcard`
-package when it is installed, none with SHADERFLOW_AUDIO_BACKEND=none. A
-missing backend or device warns and the scene carries on without sound,
-as the reference does. The reference's SDL backend (audio/sdlaudio.py) is
-not ported yet: SHADERFLOW_AUDIO_BACKEND=sdl raises.
+package when it is installed, else SDL2 through pygame (audio/sdlaudio.py,
+on SDL's dummy driver where no sound server answers), else none;
+SHADERFLOW_AUDIO_BACKEND=soundcard|sdl|none chooses. A missing backend or
+device warns and the scene carries on without sound, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -44,15 +45,14 @@ class AudioMode(Enum):
 class BrokenAudio:
     """Rolling audio buffer and its sources: a file, a recorder."""
 
-    BUFFER_SECONDS = 30.0
-    """Seconds of audio the rolling buffer keeps."""
-
     def __init__(self, *, file=None, mode: AudioMode = AudioMode.Realtime,
-                 samplerate: float = 44100, channels: int = 2):
+                 samplerate: float = 44100, channels: int = 2,
+                 buffer_seconds: float = 30.0):
         self.mode = AudioMode(mode)
         self.dtype = np.dtype(np.float32)
         self._samplerate = samplerate
         self._channels = channels
+        self._buffer_seconds = buffer_seconds
         self.tell: int = 0            # samples consumed (file cursor, offline)
         self._file: Optional[Path] = None
         self._file_reader: Optional[AudioReader] = None
@@ -77,8 +77,23 @@ class BrokenAudio:
         return self._channels or 2
 
     @property
+    def buffer_seconds(self) -> float:
+        """Seconds of audio the rolling buffer keeps (setting it rebuilds
+        the buffer, empty)."""
+        return self._buffer_seconds
+
+    @buffer_seconds.setter
+    def buffer_seconds(self, value: float) -> None:
+        self._buffer_seconds = value
+        self.create_buffer()
+
+    @property
     def buffer_size(self) -> int:
-        return int(self.samplerate * self.BUFFER_SECONDS)
+        return int(self.samplerate * self.buffer_seconds)
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.channels, self.buffer_size)
 
     def create_buffer(self) -> None:
         """A doubled backing store with a write cursor: appending copies
@@ -113,6 +128,12 @@ class BrokenAudio:
             self._cursor += length
         self.tell += length
         return data
+
+    def get_data_between_samples(self, start: int, end: int) -> np.ndarray:
+        return self.data[:, int(start):int(end)]
+
+    def get_data_between_seconds(self, start: float, end: float) -> np.ndarray:
+        return self.get_data_between_samples(start * self.samplerate, end * self.samplerate)
 
     def get_last_n_samples(self, n: int, *, offset: int = 0) -> np.ndarray:
         """The last n samples before the cursor (the trailing sample left
@@ -165,25 +186,26 @@ class BrokenAudio:
 
     @staticmethod
     def _backend():
-        """The realtime audio backend module, or None. SHADERFLOW_AUDIO_BACKEND
-        = soundcard | none (sdl: the reference's SDL backend, not ported
-        yet, raises)."""
+        """The realtime audio backend module, or None: soundcard, else SDL
+        (probed: pygame and an SDL audio driver must start), else None.
+        SHADERFLOW_AUDIO_BACKEND=soundcard|sdl|none chooses one."""
         choice = (os.environ.get("SHADERFLOW_AUDIO_BACKEND") or "").lower()
         if choice == "none":
             return None
-        if choice == "sdl":
-            raise NotImplementedError(
-                "SHADERFLOW_AUDIO_BACKEND=sdl: the SDL audio backend "
-                "(audio/sdlaudio.py) is not ported yet; use soundcard or none")
+        if choice != "sdl":
+            try:
+                import soundcard
+                return soundcard
+            except Exception as error:
+                if choice == "soundcard":
+                    logger.warn(f"soundcard backend requested but unavailable ({error})")
+                    return None
         try:
-            import soundcard
-            return soundcard
+            from shaderflow_tpu_torch.audio import sdlaudio
+            sdlaudio._init_sdl_audio()
+            return sdlaudio
         except Exception as error:
-            if choice == "soundcard":
-                logger.warn(f"soundcard backend requested but unavailable ({error})")
-            else:
-                logger.debug(f"No realtime audio backend: soundcard unavailable ({error}); "
-                             "the SDL backend is not ported yet")
+            logger.debug(f"SDL audio backend unavailable: {error}")
             return None
 
     @staticmethod
@@ -202,7 +224,8 @@ class BrokenAudio:
                       channels=None, blocksize: int = 512) -> "BrokenAudio":
         backend = self._backend()
         if backend is None:
-            logger.warn("no realtime audio backend; recorder not opened")
+            logger.warn("no realtime audio backend (neither 'soundcard' nor "
+                        "pygame/SDL importable); recorder not opened")
             return self
         self.close_recorder()
         try:
@@ -242,7 +265,8 @@ class BrokenAudio:
     def open_speaker(self, name: Optional[str] = None, *, samplerate=None) -> "BrokenAudio":
         backend = self._backend()
         if backend is None:
-            logger.warn("no realtime audio backend; speaker not opened")
+            logger.warn("no realtime audio backend (neither 'soundcard' nor "
+                        "pygame/SDL importable); speaker not opened")
             return self
         self.close_speaker()
         try:
@@ -279,6 +303,14 @@ class BrokenAudio:
                 pass
 
     @property
+    def stereo(self) -> bool:
+        return self.channels == 2
+
+    @property
+    def mono(self) -> bool:
+        return self.channels == 1
+
+    @property
     def duration(self) -> float:
         if self.mode == AudioMode.File and self._file is not None:
             return FFmpeg.get_audio_duration(self._file) or 0.0
@@ -301,6 +333,26 @@ class ShaderAudio(BrokenAudio, ShaderModule):
         self.std = ShaderDynamics(
             scene=self.scene, name=f"{self.name}STD",
             frequency=10, zeta=1, response=0, value=0)
+
+    def commands(self) -> None:
+        self.register_command(self.print_recorders)
+        self.register_command(self.print_speakers)
+
+    def print_recorders(self) -> None:
+        """List available audio capture devices."""
+        try:
+            for device in self.recorders():
+                print(f"recorder: {device.name}")
+        except Exception as error:
+            print(f"no audio backend available ({error})")
+
+    def print_speakers(self) -> None:
+        """List available audio playback devices."""
+        try:
+            for device in self.speakers():
+                print(f"speaker: {device.name}")
+        except Exception as error:
+            print(f"no audio backend available ({error})")
 
     @property
     def duration(self) -> float:

@@ -7,7 +7,8 @@ zoom, isometric, focal length, orbital, dolly); three modes govern
 interaction and three projections the device-side ray math
 (ops/cameralib.py). The `iCameraTrivial` static marks the untouched
 orientation with perspective projection, where the ray math is separable.
-The HUD panel hooks are not ported.
+The HUD panel is not ported; target_setter, the setter its fields edit
+a smoothed parameter through, is.
 """
 
 from __future__ import annotations
@@ -25,6 +26,14 @@ from shaderflow_tpu_torch.keyboard import ShaderKeyboard
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import quaternion as qt
 from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
+
+
+def target_setter(dynamics: ShaderDynamics):
+    """set(value): moves `dynamics`' target to value (the HUD's edit hook of
+    the zoom, isometric and dolly fields)."""
+    def set(value):
+        dynamics.target = value
+    return set
 
 
 class GlobalBasis:

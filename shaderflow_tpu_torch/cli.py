@@ -306,7 +306,9 @@ def _run_module_command(scene_class: type, command: str,
 def bundled_scenes(keep_paths: Optional[list] = None) -> list[type]:
     """ShaderScene subclasses of the port's example scene files
     (examples/torch/torch_*.py): the scene collection when no file argument
-    is given.
+    is given. A source tree has them beside the package; an installed
+    wheel bundles examples/ at shaderflow_tpu/resources/examples (setup.py),
+    found here by its path, importing nothing of that package.
 
     `keep_paths`: when given, example dirs that yielded scenes stay on
     sys.path (appended to the list for the caller to remove after launch),
@@ -314,7 +316,10 @@ def bundled_scenes(keep_paths: Optional[list] = None) -> list[type]:
     resolves the same way it did at discovery time. Without it (standalone
     calls), sys.path is restored immediately."""
     import shaderflow_tpu_torch
-    examples = Path(shaderflow_tpu_torch.__file__).resolve().parent.parent / "examples" / "torch"
+    site = Path(shaderflow_tpu_torch.__file__).resolve().parent.parent
+    examples = site / "examples" / "torch"
+    if not examples.is_dir():
+        examples = site / "shaderflow_tpu" / "resources" / "examples" / "torch"
     if not examples.is_dir():
         return []
     scenes: list[type] = []

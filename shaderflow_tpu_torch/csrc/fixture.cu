@@ -35,6 +35,9 @@ __global__ void fixture_kernel(const float4* __restrict__ x, float4* __restrict_
     }
 }
 
+// The floor every launch sits at: one thread that does nothing.
+__global__ void empty_kernel() {}
+
 }  // namespace
 
 // x, out: contiguous float32 (32 * blocks, 128), 16-byte aligned. Launches
@@ -45,5 +48,12 @@ extern "C" int fixture_launch(const void* x, void* out, int blocks, void* stream
     }
     fixture_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(x), static_cast<float4*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One launch of the empty kernel on `stream`: what a launch costs the card
+// with no work in it. Returns cudaGetLastError() (0 on success).
+extern "C" int empty_launch(void* stream) {
+    empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }

@@ -9,8 +9,9 @@ filters (scale, vflip, custom); the CLI's chained codec grammar drives its
 methods (cli.py). The probes answer from ffprobe when it exists, else from
 the stdlib `wave` header (audio) or OpenCV (video). iter_video_frames
 decodes a video through ffmpeg's rawvideo rgb24 pipe, else OpenCV.
-AudioReader decodes PCM WAV files with the stdlib; other audio formats
-need the reference's ffmpeg decode pipe, not ported yet.
+AudioReader decodes any audio file through ffmpeg's PCM pipe when the
+binary exists (WAV files too, as the reference), else PCM WAV files with
+the stdlib `wave` module.
 """
 
 from __future__ import annotations
@@ -615,27 +616,62 @@ class FFmpeg:
                 cap.release()
         return cv2_frames()
 
+    @staticmethod
+    def is_valid_video(path) -> bool:
+        return FFmpeg.get_video_resolution(path) is not None
+
+    @staticmethod
+    def loop_video(path, *, times: int = 1, output=None) -> Optional[Path]:
+        """Loop a video `times` times without re-encoding, into `output`
+        (the input by default): None when the input is missing."""
+        path = Path(path)
+        if not path.exists() or times <= 1:
+            return path if path.exists() else None
+        output = Path(output or path)
+        looped = output.with_stem(f"{output.stem}-{times}-loops")
+        (FFmpeg(stream_loop=(times - 1)).quiet().copy_audio().copy_video()
+         .input(path).output(looped, pixel_format=None).run(check=True))
+        return looped.replace(output) or output
+
+    @staticmethod
+    def concat_segments(segments, output) -> Path:
+        """Join export segments losslessly (ffmpeg's concat demuxer over a
+        listing file, streams copied): the resume workflow's last step."""
+        output = Path(output)
+        listing = output.with_suffix(".concat.txt")
+        listing.write_text("".join(f"file '{Path(s).absolute()}'\n" for s in segments))
+        try:
+            subprocess.run(
+                (FFmpeg.binary() or "ffmpeg", "-hide_banner", "-loglevel", "error",
+                 "-f", "concat", "-safe", "0", "-i", str(listing),
+                 "-c", "copy", "-y", str(output)), check=True)
+        finally:
+            listing.unlink(missing_ok=True)
+        return output
+
 
 # --------------------------------------------------------------------------- #
 
 class AudioReader:
-    """Stream float32 (samples, channels) chunks of a PCM WAV file,
-    time-accurate: each chunk's length is computed against the target time,
-    so sample-domain rounding never accumulates (the reference's
-    AudioReader, stdlib `wave` path)."""
+    """Stream float32 (samples, channels) chunks of an audio file,
+    time-accurate: each chunk's length is computed against the target
+    time, so sample-domain rounding never accumulates. Decodes through an
+    ffmpeg PCM pipe when the binary exists (any format, WAV included),
+    else PCM WAV files through the stdlib `wave` module."""
 
-    SAMPLE_BYTES = 4   # chunk lengths are reckoned in f32 PCM, as the reference's
-
-    def __init__(self, path, chunk: float = 0.1):
+    def __init__(self, path, chunk: float = 0.1, format: str = "pcm_f32le"):
         self.path = Path(path)
         self.chunk = float(chunk)
+        self.format = PCM(format)
         self.channels: Optional[int] = None
         self.samplerate: Optional[int] = None
         self.read = 0
+        self._proc: Optional[subprocess.Popen] = None
+        self._wave = None
 
     @property
     def block_size(self) -> int:
-        return self.SAMPLE_BYTES * (self.channels or 1)
+        return self.format.size * (self.channels or 1)
 
     @property
     def bytes_per_second(self) -> int:
@@ -645,41 +681,75 @@ class AudioReader:
     def time(self) -> float:
         return self.read / self.bytes_per_second
 
+    def _open_stream(self):
+        """A read(nbytes) callable producing interleaved PCM bytes."""
+        if FFmpeg.available():
+            # stdin=DEVNULL: ffmpeg polls stdin for interactive commands, and
+            # a decoder left reading an inherited pipe outlives the export
+            self._proc = (FFmpeg().quiet().input(self.path).pcm(self.format.format)
+                          .no_video().output("-")).popen(stdout=PIPE, stderr=DEVNULL,
+                                                         stdin=DEVNULL)
+            return self._proc.stdout.read
+
+        handle = self._wave = wave.open(str(self.path), "rb")
+        params = handle.getparams()
+        width = params.sampwidth
+
+        def read(nbytes: int) -> bytes:
+            frames = handle.readframes(max(1, nbytes // (self.format.size * params.nchannels)))
+            if not frames:
+                return b""
+            if width == 2:
+                data = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
+            elif width == 4:
+                data = np.frombuffer(frames, np.int32).astype(np.float32) / 2147483648.0
+            elif width == 1:
+                data = (np.frombuffer(frames, np.uint8).astype(np.float32) - 128.0) / 128.0
+            else:
+                raise ValueError(f"Unsupported WAV sample width {width}")
+            return data.astype("<f4").tobytes()
+        return read
+
     @property
     def stream(self) -> Iterator[np.ndarray]:
         """Yield (samples, channels) float32 chunks; `chunk` may change
-        between iterations."""
+        between iterations (the audio module sets it to the frame's dt)."""
         self.channels = FFmpeg.get_audio_channels(self.path) or 2
         self.samplerate = FFmpeg.get_audio_samplerate(self.path) or 44100
         self.read = 0
+        self._proc = None
+        reader = self._open_stream()
         try:
-            handle = wave.open(str(self.path), "rb")
-        except wave.Error as error:
-            raise NotImplementedError(
-                f"{self.path.name}: only PCM WAV audio decodes in the port "
-                f"(the ffmpeg decode pipe is not ported yet): {error}") from None
-        with handle:
-            width = handle.getsampwidth()
-            channels = handle.getnchannels()
             target = 0.0
             while True:
                 target += self.chunk
                 length = (target - self.time) * self.bytes_per_second
                 length = int(self.block_size * round(length / self.block_size))
                 length = max(length, self.block_size)
-                frames = handle.readframes(max(1, length // (self.SAMPLE_BYTES * channels)))
-                if not frames:
+                data = reader(length)
+                if not data:
                     break
-                if width == 2:
-                    data = np.frombuffer(frames, np.int16).astype(np.float32) / 32768.0
-                elif width == 4:
-                    data = np.frombuffer(frames, np.int32).astype(np.float32) / 2147483648.0
-                elif width == 1:
-                    data = (np.frombuffer(frames, np.uint8).astype(np.float32) - 128.0) / 128.0
-                else:
-                    raise ValueError(f"Unsupported WAV sample width {width}")
-                usable = data.size - data.size % self.channels
+                # A dying decoder can hand back a partial sample block: drop
+                # the trailing bytes (the count below keeps them, as the
+                # reference's does)
+                frame_bytes = self.format.size * self.channels
+                usable = len(data) - (len(data) % frame_bytes)
                 if usable == 0:
                     break
-                yield data[:usable].reshape(-1, self.channels)
-                self.read += usable * self.SAMPLE_BYTES
+                array = np.frombuffer(data[:usable], dtype=self.format.dtype)
+                yield array.reshape(-1, self.channels).astype(np.float32, copy=False)
+                self.read += len(data)
+        finally:
+            # Reap the decoder on any exit: the end of the stream, a
+            # consumer's break, an error
+            if self._proc is not None:
+                self._proc.kill()
+                self._proc.wait()
+                self._proc = None
+            if self._wave is not None:
+                self._wave.close()
+                self._wave = None
+
+
+# The reference's name for the reader
+BrokenAudioReader = AudioReader

@@ -3,9 +3,12 @@ Video sinks: where rendered uint8 frame batches go (the offline sinks of
 shaderflow_tpu/io/sinks.py).
 
   FFmpegSink  - rawvideo frames written to an FFmpeg subprocess's stdin
+                (its encoded stdout returned in memory with pipe_output)
   CV2Sink     - OpenCV VideoWriter (mp4 without an ffmpeg binary)
   ImageSink   - numbered PNG frames
   RawSink     - headerless .rgb dump + sidecar metadata
+  PipeSink    - raw rgb24 bytes returned in memory (output="pipe")
+  TCPSink     - raw rgb24 bytes streamed to a TCP endpoint (tcp://host:port)
   NullSink    - swallow frames (render throughput)
 
 FFmpegSink writes each batch to the encoder's stdin from the export loop's
@@ -18,7 +21,7 @@ import json
 from pathlib import Path
 from subprocess import PIPE
 from tempfile import TemporaryFile
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 
@@ -32,8 +35,8 @@ class VideoSink:
     def write_batch(self, frames: np.ndarray) -> None:
         raise NotImplementedError
 
-    def finish(self) -> Optional[Path]:
-        """Flush and close; returns the output path."""
+    def finish(self) -> Optional[Union[Path, bytes, str]]:
+        """Flush and close; returns the output path, URL or bytes."""
         return None
 
 
@@ -53,12 +56,15 @@ class NullSink(VideoSink):
 
 class FFmpegSink(VideoSink):
     """Rawvideo frames piped to an FFmpeg subprocess; process death is
-    detected per batch and its captured stderr is replayed in the error."""
+    detected per batch and its captured stderr is replayed in the error.
+    pipe_output=True collects the encoder's stdout, which finish returns."""
 
-    def __init__(self, ffmpeg: FFmpeg):
+    def __init__(self, ffmpeg: FFmpeg, pipe_output: bool = False):
         self.ffmpeg = ffmpeg
+        self.pipe_output = pipe_output
+        self.stdout = TemporaryFile(mode="w+b") if pipe_output else None
         self.stderr = TemporaryFile(mode="w+b")
-        self.process = ffmpeg.popen(stdin=PIPE, stderr=self.stderr)
+        self.process = ffmpeg.popen(stdin=PIPE, stdout=self.stdout, stderr=self.stderr)
 
     def _check_alive(self) -> None:
         if self.process.poll() is not None:
@@ -71,12 +77,19 @@ class FFmpegSink(VideoSink):
         self._check_alive()
         self.process.stdin.write(np.ascontiguousarray(frames).data)
 
-    def finish(self) -> Optional[Path]:
+    def finish(self) -> Optional[Union[Path, bytes]]:
         self.process.stdin.close()
         self.process.wait()
         self.stderr.close()
+        if self.pipe_output:
+            self.stdout.seek(0)
+            encoded = self.stdout.read()
+            self.stdout.close()
+            return encoded
         for output in self.ffmpeg.outputs:
-            return Path(output.path)
+            path = getattr(output, "path", None)
+            if path is not None:
+                return Path(path)
         return None
 
 
@@ -144,3 +157,44 @@ class RawSink(VideoSink):
         self.handle.close()
         self.path.with_suffix(self.path.suffix + ".json").write_text(json.dumps(self.meta))
         return self.path
+
+
+class PipeSink(VideoSink):
+    """Raw rgb24 frames collected in memory (output "pipe", "-" or bytes
+    without an ffmpeg binary); finish returns them."""
+
+    def __init__(self):
+        self.chunks: list[bytes] = []
+
+    def write_batch(self, frames: np.ndarray) -> None:
+        self.chunks.append(np.ascontiguousarray(frames).tobytes())
+
+    def finish(self) -> bytes:
+        return b"".join(self.chunks)
+
+
+class TCPSink(VideoSink):
+    """Raw rgb24 frames streamed to a TCP endpoint (output "tcp://host:port"
+    without an ffmpeg binary; with one, the encoder connects to the URL
+    itself); finish half-closes the socket, so the peer reads an EOF, and
+    returns the URL."""
+
+    def __init__(self, url: str):
+        import socket
+        from urllib.parse import urlparse
+        parsed = urlparse(url)
+        self.url = url
+        self.sock = socket.create_connection((parsed.hostname, parsed.port), timeout=10.0)
+        self.frames = 0
+
+    def write_batch(self, frames: np.ndarray) -> None:
+        self.sock.sendall(np.ascontiguousarray(frames).data)
+        self.frames += int(frames.shape[0])
+
+    def finish(self) -> str:
+        try:
+            self.sock.shutdown(1)   # SHUT_WR: the peer reads an EOF
+        except OSError:
+            pass
+        self.sock.close()
+        return self.url

@@ -1,8 +1,9 @@
 """
 Keyboard state module — port of shaderflow_tpu/keyboard.py: a pressed-state
 dict fed by relayed keyboard messages, with callable sugar
-`scene.keyboard(Keys.W)`. The key table is the reference's own. The
-per-key uniforms (`export_keys`, off by default there) are not ported.
+`scene.keyboard(Keys.W)`. The key table is the reference's own;
+set_keymap swaps it. With export_keys=True (off by default, as in the
+reference) every key of the table is a bool uniform, iKey<Name>.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Union
 
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.variable import Uniform
 
 
 class _Keys:
@@ -45,9 +47,25 @@ class _Keys:
 class ShaderKeyboard(ShaderModule):
     Keys = _Keys
 
-    def __init__(self, scene=None, **kwargs):
+    def __init__(self, scene=None, export_keys: bool = False, **kwargs):
         self._pressed: dict[int, bool] = {}
+        self.export_keys = bool(export_keys)
         super().__init__(scene=scene, **kwargs)
+
+    def pipeline(self):
+        if not self.export_keys:
+            return
+        for name, code in vars(type(self).Keys).items():
+            if (name.startswith("_") or not isinstance(code, int)
+                    or name in ("ACTION_PRESS", "ACTION_RELEASE")):
+                continue
+            yield Uniform("bool", f"iKey{name.title().replace('_', '')}",
+                          self._pressed.get(code, False))
+
+    @staticmethod
+    def set_keymap(keymap) -> None:
+        """Swap the key table (a window library's, say)."""
+        ShaderKeyboard.Keys = keymap
 
     def pressed(self, key: Union[int, None] = None) -> bool:
         return self._pressed.setdefault(key, False)

@@ -8,10 +8,13 @@ texture re-makes, interaction) and never touch the device.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 
 class ShaderMessage:
+
+    class Custom:
+        data: Any
 
     class Mouse:
 
@@ -83,9 +86,20 @@ class ShaderMessage:
         class FileDrop:
             files: list[str] = field(default_factory=list)
 
+            def get(self, index: int) -> Optional[str]:
+                return self.files[index] if index < len(self.files) else None
+
             @property
             def first(self) -> Optional[str]:
-                return self.files[0] if self.files else None
+                return self.get(0)
+
+            @property
+            def second(self) -> Optional[str]:
+                return self.get(1)
+
+            @property
+            def third(self) -> Optional[str]:
+                return self.get(2)
 
         @dataclass
         class Close:
@@ -101,6 +115,10 @@ class ShaderMessage:
         @dataclass
         class Compile:
             """(Re)build the pixel programs."""
+
+        @dataclass
+        class Render:
+            pass
 
     class Keyboard:
 

@@ -14,9 +14,11 @@ first module. The realtime HUD hooks are not ported yet.
 from __future__ import annotations
 
 import itertools
+import logging
 import weakref
 from typing import TYPE_CHECKING, Any, Iterable, Optional
 
+from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.variable import ShaderVariable, Uniform
 
 if TYPE_CHECKING:
@@ -134,3 +136,35 @@ class ShaderModule:
             module.handle(message)
         return self
 
+    def find(self, kind: type) -> Iterable["ShaderModule"]:
+        """The scene's modules of type `kind`, in registration order."""
+        for module in self.scene.modules:
+            if isinstance(module, kind):
+                yield module
+
+    # -- logging ------------------------------------------------------------
+
+    @property
+    def who(self) -> str:
+        return f"(Module {self.uuid:>2} • {type(self).__name__[:14]:<14})"
+
+    def _log(self, level: int, args) -> str:
+        """One log line, `who` then the arguments joined by spaces; returns it."""
+        message = " ".join(str(x) for x in (self.who, *args))
+        logger.log(level, message)
+        return message
+
+    def log_info(self, *args) -> str:
+        return self._log(logging.INFO, args)
+
+    def log_warn(self, *args) -> str:
+        return self._log(logging.WARNING, args)
+
+    def log_error(self, *args) -> str:
+        return self._log(logging.ERROR, args)
+
+    def log_debug(self, *args) -> str:
+        return self._log(logging.DEBUG, args)
+
+    def log_minor(self, *args) -> str:
+        return self._log(logging.DEBUG, args)

@@ -28,8 +28,9 @@ PROJECTION_STEREOSCOPIC = 1
 PROJECTION_EQUIRECTANGULAR = 2
 
 
-def _grid(x_line, y_line, height: int, width: int) -> torch.Tensor:
-    """(H, W, 2) grid of (x_line[j], y_line[i])."""
+def grid(x_line, y_line, height: int, width: int) -> torch.Tensor:
+    """(H, W, 2) grid of (x_line[j], y_line[i]): how a field of the trivial
+    camera is materialized from its axis lines."""
     x_line = torch.as_tensor(x_line)
     y_line = torch.as_tensor(y_line, device=x_line.device)
     return torch.stack(torch.broadcast_tensors(
@@ -64,12 +65,12 @@ class CameraRays:
 
     def _materialize(self, name: str) -> torch.Tensor:
         x, y, z = self._lines[name]
-        grid = _grid(x, y, self.height, self.width)
+        plane = grid(x, y, self.height, self.width)
         if z is None:
-            return grid
-        depth = torch.broadcast_to(torch.as_tensor(z, device=grid.device),
+            return plane
+        depth = torch.broadcast_to(torch.as_tensor(z, device=plane.device),
                                    (self.height, self.width))
-        return torch.cat([grid, depth[..., None].to(grid.dtype)], dim=-1)
+        return torch.cat([plane, depth[..., None].to(plane.dtype)], dim=-1)
 
     @cached_property
     def origin(self): return self._materialize("origin")
@@ -92,6 +93,11 @@ class CameraRays:
     def out_of_bounds(self) -> torch.Tensor:
         """(H, W) bool, a broadcast view of the column line."""
         return self.out_of_bounds_x[None, :].expand(self.height, self.width)
+
+    @property
+    def ray_direction(self) -> torch.Tensor:
+        """(H, W, 3) unit vectors from origin to target."""
+        return sl.normalize(self.target - self.origin)
 
 
 def project_trivial(
@@ -169,6 +175,11 @@ class PlaneCameraRays:
         self.forward = forward
         self.up = up
         self.right = right
+
+    @property
+    def ray_direction(self) -> torch.Tensor:
+        """(H, W, 3) unit vectors from origin to target."""
+        return sl.normalize(self.target - self.origin)
 
     @cached_property
     def out_of_bounds(self) -> torch.Tensor:

@@ -32,6 +32,8 @@ wraps, CLAMP_TO_EDGE clamps, row 0 = the top of the image (v = 1).
                                       field; the exact gather on CPU tensors
   lookup_nearest_1d_select            one frame's table over an index field
                                       (the realtime bar field): K2 at B = 1
+  lookup_nearest_1d(_planes)          the plain nearest table lookups
+                                      (a gather of the bf16-rounded table)
 
 Linear filtering is a product with a hat-weight matrix (two nonzeros per
 row), in float32 (no TF32: shaderflow_tpu_torch.resolve_device), with
@@ -729,6 +731,40 @@ def lookup_nearest_1d_select_batched(
     flat16 = tables.reshape(batch, bins * channels).to(torch.bfloat16).contiguous()
     out = expand_tables(flat16, index, out_dtype or torch.float32)
     return out.reshape(batch, height, width)
+
+
+def _nearest_rows(tex: Sampler2D, v_field: torch.Tensor) -> torch.Tensor:
+    """The table row of every pixel (lookup_index with one channel), in
+    v_field's shape, as int64 for indexing."""
+    rows = lookup_index(v_field, tex.height, 1, repeat_y=tex.repeat_y)
+    return rows.reshape(v_field.shape).to(torch.int64)
+
+
+def lookup_nearest_1d(tex: Sampler2D, v_field: torch.Tensor, mode: str = "onehot",
+                      precision: str = "float32") -> torch.Tensor:
+    """Per-pixel NEAREST lookup along a texture's v axis (u at its first
+    column) -> (..., C): the radial spectrogram's access pattern. The
+    reference's default ("onehot") contracts a bf16 one-hot against the
+    bf16-rounded table with float32 accumulation: one nonzero term a
+    pixel, so it equals a gather of the bf16 table, which is what runs
+    here; precision="bfloat16" returns it as bfloat16. mode="select" is
+    the exact float32 gather."""
+    rows = _nearest_rows(tex, v_field)
+    table = tex.data[:, 0, :]                                 # (H, C)
+    if mode == "select":
+        return table[rows]
+    out_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    return table.to(torch.bfloat16)[rows].to(out_dtype)
+
+
+def lookup_nearest_1d_planes(tex: Sampler2D, v_field: torch.Tensor,
+                             precision: str = "bfloat16") -> tuple:
+    """lookup_nearest_1d as one plane per channel (each the shape of
+    v_field), the bf16-rounded table's values, in bfloat16 by default."""
+    rows = _nearest_rows(tex, v_field)
+    table = tex.data[:, 0, :].to(torch.bfloat16)
+    out_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
+    return tuple(table[:, c][rows].to(out_dtype) for c in range(table.shape[1]))
 
 
 def lookup_nearest_1d_select(tex: Sampler2D, v_field: torch.Tensor,

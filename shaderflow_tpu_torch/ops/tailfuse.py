@@ -561,6 +561,12 @@ def final_equal_resolution(planes: torch.Tensor, subsample: int,
     return out
 
 
+def backend_supports_fusion(device="cuda") -> bool:
+    """Whether K1 runs for tensors on `device`: on a CUDA card; the CPU
+    runs its plain version (fused_tail_final's dispatch)."""
+    return torch.device(device).type == "cuda"
+
+
 def supports_fusion(render_height: int, render_width: int,
                     out_height: int, out_width: int, subsample: int) -> bool:
     """K1 handles the exact-pooling SSAA regime (render is the output times

@@ -226,6 +226,11 @@ class ShaderScene(ShaderModule):
         return (self.time / self.runtime) % 1.0
 
     @property
+    def cycle(self) -> float:
+        """tau in radians: one turn over the runtime."""
+        return self.tau * math.tau
+
+    @property
     def frametime(self) -> float:
         return 1.0 / self.fps
 
@@ -285,6 +290,11 @@ class ShaderScene(ShaderModule):
         if isinstance(value, str):
             value = _parse_ratio(value)
         self._aspect_ratio = value
+
+    @property
+    def components(self) -> int:
+        """Channels of the final (output) texture."""
+        return self._final.texture.components
 
     def resize(
         self,
@@ -396,6 +406,7 @@ class ShaderScene(ShaderModule):
         export = ExportingHelper(self)
         export.make_sink(output, width=final_width, height=final_height,
                          turbo=turbo, buffers=buffers)
+        export.open_bar()
         return self._export_loop(export, batch, start_frame=round(start * self.fps))
 
     def _setup_run(self, *, width=1920, height=1080, scale=1.0, ratio=None,

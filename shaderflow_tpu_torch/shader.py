@@ -299,6 +299,9 @@ class Frag:
         prelude is inactive (callers branch to their per-frame form)."""
         return self._preludes.get(name)
 
+    def has_prelude(self, name: str) -> bool:
+        return name in self._preludes
+
     def prelude_indexed(self, name: str):
         """The whole (B, ...) prelude stack and this frame's position in the
         batch (a Python int), for ops.tailfuse.Indexed: the tail reads the

@@ -98,6 +98,7 @@ class ShaderTexture(ShaderModule):
         it."""
         self.version: int = 0     # bumped on every (re)allocation and write
         self.dirty: bool = False  # written since the engine last uploaded or snapshot it
+        self.empty: bool = True   # never written
         self.sequence = None
         """Per-frame device content (F, H, W, C) (offline audio paths): the
         engine indexes it by frame instead of uploading host writes."""
@@ -188,6 +189,10 @@ class ShaderTexture(ShaderModule):
         self.resolution = value
 
     @property
+    def aspect_ratio(self) -> float:
+        return self.width / (self.height or 1)
+
+    @property
     def components(self) -> int:
         return self._components
 
@@ -243,6 +248,20 @@ class ShaderTexture(ShaderModule):
             self.wire_u8 = None
         self.version += 1
         return self
+
+    @property
+    def zeros(self) -> np.ndarray:
+        """A zero (H, W, C) float32 box."""
+        return np.zeros((self.height, self.width, self._components), dtype=np.float32)
+
+    @property
+    def bytes_per_pixel(self) -> int:
+        return self._dtype.itemsize * self._components
+
+    @property
+    def size_t(self) -> int:
+        """Bytes of one box at the texture's dtype."""
+        return self.width * self.height * self.bytes_per_pixel
 
     # -- input / output -----------------------------------------------------
 
@@ -305,7 +324,11 @@ class ShaderTexture(ShaderModule):
             target[temporal, layer, height - y - h:height - y, x:x + w] = data[::-1]
         self.version += 1
         self.dirty = True
+        self.empty = False
         return self
+
+    def is_empty(self) -> bool:
+        return self.empty
 
     def read(self, temporal: int = 0, layer: int = -1) -> np.ndarray:
         """A copy of one box, (H, W, C) float32, row 0 = top."""
@@ -389,3 +412,10 @@ class ShaderTexture(ShaderModule):
         yield self.uniform("vec2", f"{self.name}Size", self.resolution)
         yield StaticUniform("int", f"{self.name}Layers", self._layers)
         yield StaticUniform("int", f"{self.name}Temporal", self._temporal)
+
+    def sampler_names(self):
+        """(temporal, layer, '<name><T>x<L>') of every box: GLSL's sampler
+        names."""
+        for t in range(self._temporal):
+            for l in range(self._layers):
+                yield (t, l, f"{self.name}{t}x{l}")

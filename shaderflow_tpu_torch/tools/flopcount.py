@@ -254,7 +254,27 @@ def _fixture_library() -> ctypes.CDLL:
         function.restype = ctypes.c_int
         function.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                              ctypes.c_void_p]
+    if library.empty_launch.argtypes is None:
+        library.empty_launch.restype = ctypes.c_int
+        library.empty_launch.argtypes = [ctypes.c_void_p]
     return library
+
+
+def empty_launch(device="cuda") -> None:
+    """One launch of an empty kernel (csrc/fixture.cu) on the device's
+    current stream: the device time of a launch with no work, beside which
+    the bounds of single tiny launches (T1, T3) are read. No work on the
+    CPU, where nothing launches."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return
+    if device.type != "cuda":
+        raise ValueError(f"Unsupported device {device}")
+    library = _fixture_library()
+    with torch.cuda.device(device):
+        status = library.empty_launch(torch.cuda.current_stream(device).cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"empty launch failed: cudaError {status}")
 
 
 def fixture(x: torch.Tensor) -> torch.Tensor:

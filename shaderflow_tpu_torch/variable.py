@@ -7,7 +7,7 @@ names document arity and drive value coercion.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -31,14 +31,17 @@ class ShaderVariable:
     projection enums, texture layer counts): the engine reads them at build
     time instead of packing them per frame."""
 
-    __slots__ = ("type", "name", "value", "qualifier", "static")
+    __slots__ = ("type", "name", "value", "qualifier", "direction", "interpolation", "static")
 
     def __init__(self, type: str, name: str, value: Any = None,
-                 qualifier: str = None, static: bool = False):
+                 qualifier: Optional[str] = None, direction: Optional[str] = None,
+                 interpolation: Optional[str] = None, static: bool = False):
         self.type = type
         self.name = name
         self.value = value
         self.qualifier = qualifier
+        self.direction = direction
+        self.interpolation = interpolation
         self.static = static
 
     def __hash__(self) -> int:
@@ -49,6 +52,17 @@ class ShaderVariable:
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.type} {self.name} = {self.value!r})"
+
+    def copy(self, **update) -> "ShaderVariable":
+        kwargs = {slot: getattr(self, slot) for slot in self.__slots__}
+        kwargs.update(update)
+        return type(self)(**kwargs)
+
+    @property
+    def declaration(self) -> str:
+        """The GLSL declaration, e.g. "flat out vec2 iUv;"."""
+        parts = [self.interpolation, self.direction, self.qualifier, self.type, self.name]
+        return " ".join(p for p in parts if p) + ";"
 
     def coerce(self) -> np.ndarray:
         """Convert .value to the canonical numpy array for batching."""
@@ -93,4 +107,22 @@ class StaticUniform(Uniform):
 
     def __init__(self, type: str, name: str, value: Any = None, **kwargs):
         kwargs.setdefault("static", True)
+        super().__init__(type, name, value, **kwargs)
+
+
+class InVariable(ShaderVariable):
+    def __init__(self, type: str, name: str, value: Any = None, **kwargs):
+        kwargs.setdefault("direction", "in")
+        super().__init__(type, name, value, **kwargs)
+
+
+class OutVariable(ShaderVariable):
+    def __init__(self, type: str, name: str, value: Any = None, **kwargs):
+        kwargs.setdefault("direction", "out")
+        super().__init__(type, name, value, **kwargs)
+
+
+class FlatVariable(ShaderVariable):
+    def __init__(self, type: str, name: str, value: Any = None, **kwargs):
+        kwargs.setdefault("interpolation", "flat")
         super().__init__(type, name, value, **kwargs)
