@@ -69,8 +69,8 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      on tensors (no tracer) within tailfuse.EAGER_BF16_BAR
  23. an output="null" export of the bf16 level-1 visualizer: frames/s
   The offline example scenes (SCENE_PATHS: Basic 512x288@30 5 s; MusicBars
-  and Waveform 1280x720@30 2 s of the asset; RayMarch 1920x1080@60 2 s;
-  Tetration 1920x1080@60 2x SSAA 2 s; Dynamics, MultiShader, Multipass,
+  and Waveform 1280x720@30 2 s of the asset; RayMarch 1920x1080@60 1 s;
+  Tetration 1920x1080@60 2x SSAA 1 s; Dynamics, MultiShader, Multipass,
   MotionBlur and Life 1920x1080@60 1 s)
  24. each scene through main(...) to a .rgb file: file size, non-constant
      frames, launch counters (K1 (a) == frames for Tetration, every kernel
@@ -153,7 +153,30 @@ Then an {"any_ssaa": ...} line (32-34) and a {"video": ...} line (35).
      K1-K3 (counters 0), fps, late ticks, host ms a frame, device ms and
      kernels a frame; frame 29 at dt = 1/60 equal to device="cpu"'s; where
      pygame imports, a run on SDL's dummy driver
-Then an {"audio": ...} line (36-37). Phase 17 also times an empty kernel
+Then an {"audio": ...} line (36-37).
+  The live piano, the HUD, the cv2 preview, FluidSynth and segments
+ 38. the live PianoRoll at 3840x2160, ssaa 1, in the realtime loop,
+     headless (a warm-up, the unpaced ceiling, then REALTIME_FRAMES at 60
+     fps): the note scan each frame into three streamed textures, K1 (d)
+     == frames and nothing else; fps, late ticks, host ms a frame with the
+     scan apart, device ms and kernels a frame; frame 2 at dt = 1/60
+     against its plain recomputation and against device="cpu" (at most 1
+     u8 step on < 1 %); K1 (d) on its tail: planes bit-equal to plain,
+     timed against its bound (the K1 (d) row's realtime entry)
+ 39. the realtime visualizer at 1920x1080, 2x SSAA through the display
+     pump into a stub window with the HUD on: K1 == K2 == frames, fps
+     against 60, the HUD's ms a frame, the last shown frame outside the
+     HUD's box equal to the engine's frame
+ 40. realtime Mandelbrot at 1920x1080, 2x SSAA in the cv2 preview through
+     a stub cv2 module (no real window): waitKey's 'w' moves the camera,
+     its release synthesized; the last shown frame equal to the engine's
+ 41. the FluidSynth hooks through a stub synth module: the log of a
+     PianoRoll run on the card equal to the CPU's
+ 42. the visualizer at 1920x1080@60, 2x SSAA, SECONDS as two segments
+     exported by two concurrent processes on the card
+     (parallel.export_segment), joined: sha256-equal to the single
+     export; each process's seconds and counters
+Then a {"live": ...} line (38-42). Phase 17 also times an empty kernel
 (csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
@@ -197,7 +220,12 @@ K3_KERNELS = {"lines": ("escape_kernel", "6LinesCfE"),
               "julia": ("escape_kernel", "6ApartCfE")}
 
 
+STARTED = time.perf_counter()
+
+
 def say(phase: str, **fields) -> None:
+    """One phase line; `at_s` is the script's elapsed seconds."""
+    fields["at_s"] = f"{time.perf_counter() - STARTED:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
@@ -415,8 +443,8 @@ SCENE_PATHS = (
     ("Basic", "torch_demo", 512, 288, 30, 5.0, 1),
     ("MusicBars", "torch_demo", 1280, 720, 30, 2.0, 1),
     ("Waveform", "torch_demo", 1280, 720, 30, 2.0, 1),
-    ("RayMarch", "torch_demo", 1920, 1080, 60, 2.0, 1),
-    ("Tetration", "torch_fractals", 1920, 1080, 60, 2.0, 2),
+    ("RayMarch", "torch_demo", 1920, 1080, 60, 1.0, 1),
+    ("Tetration", "torch_fractals", 1920, 1080, 60, 1.0, 2),
     ("Dynamics", "torch_demo", 1920, 1080, 60, 1.0, 1),
     ("MultiShader", "torch_demo", 1920, 1080, 60, 1.0, 1),
     ("Multipass", "torch_demo", 1920, 1080, 60, 1.0, 1),
@@ -814,12 +842,14 @@ class StubWindow:
 
 
 def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
-                 backend=None, window=None, keep=0, ssaa: float = SSAA) -> dict:
+                 backend=None, window=None, keep=0, ssaa: float = SSAA,
+                 width: int = WIDTH, height: int = HEIGHT, prepare=None) -> dict:
     """cls().main(...) with no output, headless (or with `window`) until
     `frames` frames: its counters, wall fps, the dt of every tick, the host
     time of each frame's capture (scene.next) and flush enqueue; `keep` > 0
     also keeps copies of the last `keep` flushed frames by frame index,
-    taken on the render stream right after each flush."""
+    taken on the render stream right after each flush; `prepare(scene)`
+    runs on the built scene before the loop."""
     import torch
     from shaderflow_tpu_torch.scene import WindowBackend
     zero_counters, read_counters = counters
@@ -828,6 +858,8 @@ def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
     if window is not None:
         scene.open_window = lambda: window
     scene.initialize()
+    if prepare is not None:
+        prepare(scene)
     ticks, stamps, tick_s, capture_s, flush_s, copies, pumps = [], [], [], [], [], {}, []
     tick, step, flush = scene._realtime_frame, scene.next, scene.engine.flush
 
@@ -863,7 +895,7 @@ def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
     scene._async_display_frame = tracked_display
     zero_counters()
     started = time.perf_counter()
-    scene.main(width=WIDTH, height=HEIGHT, fps=fps, ssaa=ssaa, frameskip=frameskip,
+    scene.main(width=width, height=height, fps=fps, ssaa=ssaa, frameskip=frameskip,
                device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - started
@@ -887,12 +919,13 @@ def realtime_run(cls, counters, fps: float, frames: int, frameskip: bool = True,
                 batch=scene._rt_batch_n, copies=copies, pump=pumps[0] if pumps else None)
 
 
-def realtime_frames(cls, device: str, count: int, ssaa: float = SSAA):
+def realtime_frames(cls, device: str, count: int, ssaa: float = SSAA,
+                    width: int = WIDTH, height: int = HEIGHT):
     """cls() driven as the realtime loop drives it, at a fixed dt = 1/60:
     `count` frames of one flush each -> (scene, the last frame)."""
     from shaderflow_tpu_torch.scene import WindowBackend
     scene = cls(backend=WindowBackend.Headless)
-    scene._setup_run(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=ssaa, device=device)
+    scene._setup_run(width=width, height=height, fps=FPS, ssaa=ssaa, device=device)
     for _ in range(count):
         scene.engine.begin_batch()
         scene.next(dt=1.0 / FPS)
@@ -1915,6 +1948,463 @@ def audio_scene_path(counters, card: str) -> dict:
     return figures
 
 
+# --------------------------------------------------------------------------- #
+# The live piano, the HUD, the cv2 preview, FluidSynth, segments (38-42)
+
+PIANO_W, PIANO_H = 3840, 2160
+SEGMENT_HOSTS = 2
+# The FluidSynth phase: frames of its run, and the size (the log is
+# host work: the same at any size)
+FLUID_FRAMES, FLUID_W, FLUID_H = 90, 320, 180
+
+
+def piano_live_path(counters, card: str) -> dict:
+    """Phase 38: the live PianoRoll at 3840x2160, ssaa 1, in the realtime
+    loop, headless: a warm-up, the unpaced ceiling, then REALTIME_FRAMES at
+    60 fps; counters (K1 (d) == frames, nothing else), the three piano
+    textures streamed, fps, late ticks, host ms a frame with the note scan
+    apart, one frame's device ms and kernels; frame 2 at dt = 1/60 against
+    its plain recomputation on the card and against device="cpu"; K1 (d)
+    on that frame's tail against its plain planes, timed (the K1 (d) row's
+    realtime entry)."""
+    import torch
+    import torch_piano_roll
+    from shaderflow_tpu_torch.ops import tailfuse, tailgen
+    from shaderflow_tpu_torch.piano.module import ShaderPiano
+    os.environ["SHADERFLOW_AUDIO_BACKEND"] = "none"
+    os.environ.pop("SHADERFLOW_RT_BATCH", None)
+    device = torch.device("cuda")
+    size = dict(width=PIANO_W, height=PIANO_H, ssaa=1)
+    realtime_run(torch_piano_roll.PianoRoll, counters, FPS, 3, frameskip=False, **size)
+    ceiling = realtime_run(torch_piano_roll.PianoRoll, counters, 1000.0, CEILING_FRAMES,
+                           frameskip=False, **size)
+    scans = []
+    scan = ShaderPiano._scan_frame
+
+    def timed_scan(self, now, dt):
+        started = time.perf_counter()
+        result = scan(self, now, dt)
+        scans.append(time.perf_counter() - started)
+        return result
+
+    ShaderPiano._scan_frame = timed_scan
+    builds = tailgen.compiled.builds
+    try:
+        run = realtime_run(torch_piano_roll.PianoRoll, counters, FPS, REALTIME_FRAMES, **size)
+    finally:
+        ShaderPiano._scan_frame = scan
+    frames, scene = run["frames"], run["scene"]
+    builds = tailgen.compiled.builds - builds
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k1d=frames)
+    if run["launches"] != expected or frames < REALTIME_FRAMES // 4 or builds:
+        raise AssertionError(f"live PianoRoll: launch counters {run['launches']} for {frames} "
+                             "frames, expected K1 (d) == frames and nothing else; K1 traced "
+                             f"{builds} times in the paced run (its tail is the warm-up's)")
+    streamed = {"iPianoKeys", "iPianoRoll", "iPianoChan"}
+    if not streamed <= scene.engine._streamed_names:
+        raise AssertionError(f"live PianoRoll streams {scene.engine._streamed_names}")
+    frame_ms, frame_launches, render_host_ms = frame_profile(scene, PIANO_H, PIANO_W)
+    scan_ms = 1e3 * statistics.mean(scans[-frames:])
+    del run["scene"], scene
+
+    # Frame 2 at dt = 1/60: against its plain recomputation on the card and
+    # against the same frames on the CPU; K1 (d) on its tail
+    check, frame = realtime_frames(torch_piano_roll.PianoRoll, "cuda", 3, **size)
+    frame = frame.cpu().numpy()
+    spec = piano_spec(check, 0)
+    aspect = check.aspect_ratio
+    plain_planes = tailfuse.planes_plain(spec, PIANO_H, PIANO_W, aspect)
+    plain_frame = tailfuse.final_equal_resolution(plain_planes, check.subsample).cpu()
+    plain_err, plain_share = u8_diff(frame, plain_frame)
+    if plain_err > 1 or plain_share >= 0.01:
+        raise AssertionError(f"live PianoRoll frame 2 vs plain: max {plain_err} u8 steps on "
+                             f"{plain_share:.4%}")
+    _, cpu_frame = realtime_frames(torch_piano_roll.PianoRoll, "cpu", 3, **size)
+    cpu_err, cpu_share = u8_diff(frame, cpu_frame.numpy())
+    if cpu_err > 1 or cpu_share >= 0.01:
+        raise AssertionError(f"live PianoRoll frame 2 vs device=cpu: max {cpu_err} u8 steps "
+                             f"on {cpu_share:.4%}")
+    planes_args = (spec, PIANO_H, PIANO_W, PIANO_H, PIANO_W, 1, aspect)
+    planes = tailfuse.fused_tail_final(*planes_args, quantize=False)
+    if not torch.equal(planes.view(torch.int16), plain_planes.view(torch.int16)):
+        raise AssertionError("K1 (d) on the live PianoRoll's tail: bf16 planes differ from "
+                             "the plain version's")
+    launch = tailgen.prepare(*planes_args, device, quantize=False)
+    planes_out = torch.empty_like(planes)
+    k1d_bound_ms, k1d_bound_by = walked_bound(lambda: launch(planes_out))
+    k1d_row = dict(launches=frames, max_abs_err=0.0, ms=device_ms(lambda: launch(planes_out)),
+                   call_ms=median_ms(lambda: launch(planes_out), 20),
+                   plain_ms=device_ms(lambda: tailfuse.planes_plain(spec, PIANO_H, PIANO_W,
+                                                                     aspect), 5),
+                   bound_ms=k1d_bound_ms, bound_by=k1d_bound_by, **k1_figures(launch))
+    figures = dict(
+        target_fps=FPS, frames=frames, fps=run["fps"], wall_fps=run["wall_fps"],
+        late_frames=run["late"], capture_ms=run["capture_ms"], scan_ms=scan_ms,
+        flush_ms=run["flush_ms"], host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+        device_ms_per_frame=frame_ms, launches_per_frame=frame_launches,
+        busy=frames * frame_ms / 1e3 / run["wall"], batch=run["batch"],
+        ceiling_fps=ceiling["fps"], ceiling_frames=ceiling["frames"],
+        launches=run["launches"], k1_traces=builds, frame_checked=2,
+        max_u8_diff_vs_plain=plain_err,
+        differing_share_vs_plain=plain_share, max_u8_diff_vs_cpu=cpu_err,
+        differing_share_vs_cpu=cpu_share)
+    say("piano_live", size=f"{PIANO_W}x{PIANO_H}", ssaa=1, target_fps=FPS, frames=frames,
+        fps=f"{run['fps']:.3f}", wall_fps=f"{run['wall_fps']:.3f}", late_frames=run["late"],
+        capture_ms=f"{run['capture_ms']:.4f}", scan_ms=f"{scan_ms:.4f}",
+        flush_ms=f"{run['flush_ms']:.4f}", device_ms_per_frame=f"{frame_ms:.4f}",
+        launches_per_frame=frame_launches, render_enqueue_host_ms=f"{render_host_ms:.4f}",
+        busy=f"{figures['busy']:.4f}", batch=run["batch"],
+        ceiling_fps=f"{ceiling['fps']:.3f}", launches=run["launches"], k1_traces=builds,
+        first_ticks_ms=run["first_ticks_ms"], card=repr(card))
+    say("piano_live_check", frame=2, dt="1/60", max_u8_diff_vs_plain=plain_err,
+        differing_share_vs_plain=f"{plain_share:.3e}", max_u8_diff_vs_cpu=cpu_err,
+        differing_share_vs_cpu=f"{cpu_share:.3e}")
+    say("k1d_realtime", render=f"{PIANO_H}x{PIANO_W}", s=1, planes_bit_equal=True,
+        **{key: (f"{value:.4f}" if isinstance(value, float) else value)
+           for key, value in k1d_row.items()})
+    return dict(figures=figures, k1d=k1d_row)
+
+
+def hud_path(counters, card: str) -> dict:
+    """Phase 39: the realtime visualizer at 1920x1080, 2x SSAA through the
+    display pump into a recording stub window with the HUD on
+    (render_ui): counters (K1 == K2 == frames), fps against 60, the HUD's
+    ms a frame; the last shown frame outside the HUD's box equal to the
+    engine's frame at that index, and changed inside it."""
+    import torch_demo
+    from shaderflow_tpu_torch.scene import WindowBackend
+    hud_s = []
+
+    def prepare(scene):
+        scene.render_ui = True
+        draw = scene._draw_hud
+
+        def timed(frame):
+            started = time.perf_counter()
+            out = draw(frame)
+            hud_s.append(time.perf_counter() - started)
+            return out
+        scene._draw_hud = timed
+
+    # A warm-up first: a kernel build or the HUD's first text would read as
+    # one long dt (with frameskip, most of the paced run)
+    realtime_run(torch_demo.Visualizer, counters, FPS, 3, frameskip=False,
+                 backend=WindowBackend.Preview, window=StubWindow(), prepare=prepare)
+    hud_s.clear()
+    window = StubWindow()
+    run = realtime_run(torch_demo.Visualizer, counters, FPS, PUMP_FRAMES,
+                       backend=WindowBackend.Preview, window=window, keep=16, prepare=prepare)
+    scene, pump, frames = run["scene"], run["pump"], run["frames"]
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k1=frames, k2=frames)
+    if run["launches"] != expected or pump is None or window.last is None or not hud_s:
+        raise AssertionError(f"HUD run: counters {run['launches']}, expected K1 == K2 == "
+                             f"{frames}; shown {window.shown}, HUD draws {len(hud_s)}")
+    if pump.shown_tag not in run["copies"]:
+        raise AssertionError(f"the last shown frame {pump.shown_tag} is older than the copies")
+    engine_frame = run["copies"][pump.shown_tag].cpu().numpy()
+    shown = window.last
+    y1 = min(shown.shape[0], scene._HUD_ROW0 + scene._HUD_ROWH * len(scene._hud_rows) + 6)
+    x1 = min(shown.shape[1], scene._HUD_WIDTH)
+    outside = (shown.shape == engine_frame.shape
+               and (shown[y1:] == engine_frame[y1:]).all()
+               and (shown[:y1, x1:] == engine_frame[:y1, x1:]).all())
+    inside_changed = float((shown[:y1, :x1] != engine_frame[:y1, :x1]).mean())
+    if not outside or inside_changed < 0.5:
+        raise AssertionError(f"HUD frame: outside the box equal {outside}, inside changed "
+                             f"{inside_changed:.3f}")
+    hud_ms, hud_draws = 1e3 * statistics.mean(hud_s), len(hud_s)
+    # The same HUD drawn outside the loop (no render, no pump thread), and
+    # its text pass alone: what the HUD costs by itself
+    hud_s.clear()
+    for _ in range(20):
+        scene._draw_hud(engine_frame.copy())
+    isolated_ms = 1e3 * statistics.median(hud_s)
+    import cv2
+    rows = len(scene._hud_rows)
+    started = time.perf_counter()
+    for _ in range(20):
+        text = engine_frame.copy()
+        for index in range(rows):
+            for color, thickness in (((0, 0, 0), 2), ((255, 255, 255), 1)):
+                cv2.putText(text, "fps avg  61.0  min  58.3  target 60 " * 2, (8, 18 + 16 * index),
+                            cv2.FONT_HERSHEY_SIMPLEX, 0.42, color, thickness, cv2.LINE_AA)
+    text_ms = (time.perf_counter() - started) / 20 * 1e3
+    figures = dict(target_fps=FPS, frames=frames, fps=run["fps"], late_frames=run["late"],
+                   shown=window.shown, hud_draws=hud_draws, hud_ms_per_frame=hud_ms,
+                   hud_isolated_ms=isolated_ms, text_pass_ms_with_copy=text_ms,
+                   hud_box=[y1, x1], inside_changed_share=inside_changed,
+                   outside_equal=True, host_ms_per_frame=run["capture_ms"] + run["flush_ms"],
+                   batch=run["batch"], launches=run["launches"])
+    say("hud", size=f"{WIDTH}x{HEIGHT}", ssaa=SSAA, target_fps=FPS, frames=frames,
+        fps=f"{run['fps']:.3f}", late_frames=run["late"], shown=window.shown,
+        hud_draws=hud_draws, hud_ms_per_frame=f"{hud_ms:.4f}", hud_isolated_ms=f"{isolated_ms:.4f}",
+        text_pass_ms_with_copy=f"{text_ms:.4f}", hud_box=f"{y1}x{x1}",
+        inside_changed=f"{inside_changed:.4f}", outside_equal=True,
+        host_ms_per_frame=f"{run['capture_ms'] + run['flush_ms']:.4f}", batch=run["batch"],
+        launches=run["launches"], card=repr(card))
+    return figures
+
+
+class StubCV2:
+    """A stand-in for cv2's window functions (no real window opens: the
+    card has no display, and a Qt build of OpenCV can abort a process
+    without one): records the frames shown, hands out `keys` through
+    waitKey (then 255)."""
+    WINDOW_NORMAL, WINDOW_FULLSCREEN, WND_PROP_FULLSCREEN = 0, 1, 0
+    EVENT_MOUSEMOVE, EVENT_LBUTTONDOWN, EVENT_RBUTTONDOWN, EVENT_MBUTTONDOWN = 0, 1, 2, 3
+    EVENT_LBUTTONUP, EVENT_RBUTTONUP, EVENT_MBUTTONUP, EVENT_MOUSEWHEEL = 4, 5, 6, 10
+
+    def __init__(self, keys=()):
+        self.keys = list(keys)
+        self.calls = []
+        self.shown = 0
+        self.last = None
+        self.callback = None
+
+    def namedWindow(self, title, flags=0):
+        self.calls.append("namedWindow")
+
+    def setMouseCallback(self, title, callback):
+        self.callback = callback
+        self.calls.append("setMouseCallback")
+
+    def imshow(self, title, frame):
+        self.shown += 1
+        self.last = frame.copy()
+
+    def waitKey(self, delay=0):
+        return self.keys.pop(0) if self.keys else 255
+
+    def setWindowProperty(self, *args):
+        self.calls.append("setWindowProperty")
+
+    def destroyAllWindows(self):
+        self.calls.append("destroyAllWindows")
+
+
+def cv2_preview_path(counters, card: str) -> dict:
+    """Phase 40: realtime Mandelbrot at 1920x1080, 2x SSAA in the cv2
+    preview (the window backend a preview asks for; SDL cannot open one
+    here) through a stub cv2 module: 'w' through waitKey on the first 20
+    ticks moves the camera, then its release is synthesized; counters (K3 == K1 == frames); the last frame shown (BGR)
+    equal to the engine's frame at that index."""
+    import numpy as np
+    import torch_fractals
+    from shaderflow_tpu_torch.keyboard import ShaderKeyboard
+    from shaderflow_tpu_torch.scene import WindowBackend
+    stub = StubCV2(keys=[ord("w")] * 20)
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = stub
+    os.environ.pop("SHADERFLOW_PREVIEW", None)
+    positions = []
+
+    def prepare(scene):
+        scene.open_window = lambda: None    # SDL refused: the cv2 preview takes over
+        positions.append(np.asarray(scene.camera.position.target).copy())
+
+    try:
+        realtime_run(torch_fractals.Mandelbrot, counters, FPS, 3, frameskip=False)
+        run = realtime_run(torch_fractals.Mandelbrot, counters, FPS, PUMP_FRAMES,
+                           backend=WindowBackend.Preview, keep=16, prepare=prepare)
+    finally:
+        if saved is None:
+            sys.modules.pop("cv2", None)
+        else:
+            sys.modules["cv2"] = saved
+    scene, pump, frames = run["scene"], run["pump"], run["frames"]
+    expected = {key: 0 for key in run["launches"]}
+    expected.update(k3=frames, k1=frames)
+    moved = float(np.linalg.norm(np.asarray(scene.camera.position.target) - positions[0]))
+    held = scene.keyboard(ShaderKeyboard.Keys.W)
+    if (run["launches"] != expected or stub.calls[:2] != ["namedWindow", "setMouseCallback"]
+            or stub.calls[-1] != "destroyAllWindows" or not stub.shown or moved <= 0 or held):
+        raise AssertionError(f"cv2 preview: counters {run['launches']}, calls {stub.calls}, "
+                             f"shown {stub.shown}, camera moved {moved}, W held {held}")
+    engine_frame = run["copies"][pump.shown_tag].cpu().numpy()
+    err, share = u8_diff(stub.last[..., ::-1], engine_frame)
+    if err:
+        raise AssertionError(f"cv2 preview: the last shown frame differs from the engine's "
+                             f"by {err} u8 steps on {share:.4%}")
+    figures = dict(target_fps=FPS, frames=frames, fps=run["fps"], late_frames=run["late"],
+                   shown=stub.shown, camera_moved=moved, last_shown_equal=True,
+                   launches=run["launches"])
+    say("cv2_preview", size=f"{WIDTH}x{HEIGHT}", ssaa=SSAA, frames=frames,
+        fps=f"{run['fps']:.3f}", late_frames=run["late"], shown=stub.shown,
+        camera_moved=f"{moved:.6f}", w_released=not held, last_shown_equal=True,
+        launches=run["launches"], card=repr(card))
+    return figures
+
+
+class SynthLog:
+    """A stand-in `fluidsynth` module: Synth() records every call."""
+
+    def __init__(self):
+        self.calls = []
+        log = self.calls
+
+        class Synth:
+            def __init__(self):
+                log.append(("Synth",))
+
+            def setting(self, key, value):
+                log.append(("setting", key, value))
+
+            def start(self):
+                log.append(("start",))
+
+            def sfload(self, path):
+                log.append(("sfload", Path(path).name))
+                return 1
+
+            def program_select(self, channel, soundfont, bank, preset):
+                log.append(("program_select", channel, soundfont, bank, preset))
+
+            def noteon(self, channel, note, velocity):
+                log.append(("noteon", channel, note, velocity))
+
+            def noteoff(self, channel, note):
+                log.append(("noteoff", channel, note))
+
+        self.Synth = Synth
+
+
+def fluid_run(device: str) -> list:
+    """The PianoRoll with a stub synth and a soundfont, FLUID_FRAMES frames
+    as the realtime loop steps them (dt = 1/60, one flush each) on
+    `device`, then every note off -> the synth's log."""
+    import torch_piano_roll
+    from shaderflow_tpu_torch.scene import WindowBackend
+    log = SynthLog()
+    saved = sys.modules.get("fluidsynth")
+    sys.modules["fluidsynth"] = log
+    try:
+        scene = torch_piano_roll.PianoRoll(backend=WindowBackend.Headless)
+        scene.initialize()
+        scene.piano.soundfont_file = "piano.sf2"
+        scene._setup_run(width=FLUID_W, height=FLUID_H, fps=FPS, ssaa=1, device=device)
+        for _ in range(FLUID_FRAMES):
+            scene.engine.begin_batch()
+            scene.next(dt=1.0 / FPS)
+            scene.engine.flush(1)
+        scene.piano.fluid_all_notes_off()
+    finally:
+        if saved is None:
+            sys.modules.pop("fluidsynth", None)
+        else:
+            sys.modules["fluidsynth"] = saved
+    return log.calls
+
+
+def fluid_path(card: str) -> dict:
+    """Phase 41: the FluidSynth hooks through a stub `fluidsynth` module:
+    the synth's log of a FLUID_FRAMES-frame run on the card equal to
+    the same run's on the CPU (start, the soundfont's program_select
+    on 32 channels, every noteon and noteoff of the scan)."""
+    card_log = fluid_run("cuda")
+    cpu_log = fluid_run("cpu")
+    kinds = [call[0] for call in card_log]
+    if card_log != cpu_log or kinds.count("noteon") == 0 or kinds.count("program_select") != 32:
+        raise AssertionError(f"FluidSynth log: card {len(card_log)} calls, cpu {len(cpu_log)}, "
+                             f"equal {card_log == cpu_log}, noteon {kinds.count('noteon')}")
+    figures = dict(frames=FLUID_FRAMES, calls=len(card_log), noteon=kinds.count("noteon"),
+                   noteoff=kinds.count("noteoff"), program_select=kinds.count("program_select"),
+                   equal_to_cpu=True, sha256=digest(json.dumps(card_log).encode()))
+    say("fluidsynth", size=f"{FLUID_W}x{FLUID_H}", **figures)
+    return figures
+
+
+SEGMENT_SCRIPT = """
+import json, sys, time
+sys.path.insert(0, {repo!r})
+sys.path.insert(0, {examples!r})
+import torch
+import torch_demo
+from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse
+from shaderflow_tpu_torch.parallel import export_segment
+sampling.expand_tables.launches = tailfuse.fused_tail_final.launches = 0
+fractal.escape_iterations_sep.launches = tailfuse.fused_tail_final.planes_launches = 0
+started = time.perf_counter()
+export_segment(torch_demo.Visualizer(), {output!r}, hosts={hosts}, host={host}, time={seconds},
+               fps={fps}, width={width}, height={height}, ssaa={ssaa}, device="cuda")
+torch.cuda.synchronize()
+print(json.dumps({{"host": {host}, "seconds": time.perf_counter() - started,
+                   "k2": sampling.expand_tables.launches,
+                   "k1": tailfuse.fused_tail_final.launches,
+                   "k1d": tailfuse.fused_tail_final.planes_launches,
+                   "k3": fractal.escape_iterations_sep.launches}}))
+"""
+
+
+def segments_path(counters, card: str) -> dict:
+    """Phase 42: the visualizer at 1920x1080, 60 fps, 2x SSAA, SECONDS, as
+    SEGMENT_HOSTS segments exported by concurrent processes on the one card
+    (parallel.export_segment), joined (join_segments): sha256-equal to the
+    single export of this process; each process's seconds and counters
+    (K2 == its batches, K1 == its frames), the single export's seconds."""
+    import torch_demo
+    from shaderflow_tpu_torch.parallel import join_segments, segment_plan
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        single = Path(tmp) / "single.rgb"
+        zero_counters()
+        started = time.perf_counter()
+        torch_demo.Visualizer().main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA,
+                                     time=SECONDS, output=str(single), device="cuda")
+        single_s = time.perf_counter() - started
+        single_launches = read_counters()
+        single_sha = digest(single)
+        single.unlink()
+        joined = Path(tmp) / "joined.rgb"
+        processes = []
+        started = time.perf_counter()
+        for host in range(SEGMENT_HOSTS):
+            script = SEGMENT_SCRIPT.format(
+                repo=str(REPO), examples=str(REPO / "examples" / "torch"), output=str(joined),
+                hosts=SEGMENT_HOSTS, host=host, seconds=SECONDS, fps=FPS, width=WIDTH,
+                height=HEIGHT, ssaa=SSAA)
+            processes.append(subprocess.Popen([sys.executable, "-c", script],
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                              text=True))
+        results = []
+        try:
+            for process in processes:
+                out, err = process.communicate(timeout=600)
+                if process.returncode != 0:
+                    raise AssertionError(f"segment process failed:\n{err[-4000:]}")
+                results.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for process in processes:
+                if process.poll() is None:
+                    process.kill()
+                    process.wait()
+        both_s = time.perf_counter() - started
+        join_segments(joined, hosts=SEGMENT_HOSTS)
+        joined_sha = digest(joined)
+        joined_size = joined.stat().st_size
+    plan = segment_plan(SECONDS, FPS, SEGMENT_HOSTS)
+    for result, (start, end) in zip(results, plan):
+        count = round(end * FPS) - round(start * FPS)
+        if (result["k1"], result["k2"], result["k1d"], result["k3"]) != (count, 1, 0, 0):
+            raise AssertionError(f"segment {result['host']}: counters {result}, expected "
+                                 f"K1 == {count} frames, K2 == 1 batch")
+    if joined_sha != single_sha or joined_size != frames * HEIGHT * WIDTH * 3:
+        raise AssertionError(f"joined segments: sha256 {joined_sha} vs the single export's "
+                             f"{single_sha}, {joined_size} bytes")
+    figures = dict(hosts=SEGMENT_HOSTS, frames=frames, single_seconds=single_s,
+                   single_launches=single_launches, both_seconds=both_s,
+                   segments=results, sha256=joined_sha, equal=True)
+    say("segments", config=f"Visualizer {WIDTH}x{HEIGHT} {FPS}fps {SSAA}xSSAA {SECONDS}s",
+        hosts=SEGMENT_HOSTS, single_seconds=f"{single_s:.3f}",
+        segment_seconds=[round(r["seconds"], 3) for r in results],
+        both_seconds=f"{both_s:.3f}", launches=[{k: r[k] for k in ("k1", "k2", "k1d", "k3")}
+                                                for r in results],
+        sha256_equal=True, card=repr(card))
+    return figures
+
+
 def main() -> int:
     script_started = time.perf_counter()
     import torch
@@ -2529,6 +3019,19 @@ def main() -> int:
     # 37. The Audio scene in the realtime loop, from a stub recorder
     audio_scene = audio_scene_path((zero_counters, read_counters), card)
     print(json.dumps({"audio": {"export": audio_export, "scene": audio_scene}, "card": card}))
+    # 38. The live PianoRoll at 4K60: K1 (d) once a frame from streamed textures
+    piano_live = piano_live_path((zero_counters, read_counters), card)
+    # 39. The HUD over the realtime visualizer through the display pump
+    hud = hud_path((zero_counters, read_counters), card)
+    # 40. The cv2 preview through a stub cv2, keys through waitKey
+    cv2_preview = cv2_preview_path((zero_counters, read_counters), card)
+    # 41. The FluidSynth hooks through a stub synth: the card's log == the CPU's
+    fluid = fluid_path(card)
+    # 42. Two processes on the card, each a segment of the visualizer, joined
+    segments = segments_path((zero_counters, read_counters), card)
+    print(json.dumps({"live": {"piano": piano_live["figures"], "hud": hud,
+                               "cv2_preview": cv2_preview, "fluidsynth": fluid,
+                               "segments": segments}, "card": card}))
     say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
@@ -2552,21 +3055,25 @@ def main() -> int:
          "ms": k1v_ms, "call_ms": k1v_call_ms, "plain_ms": k1v_plain_ms,
          "bound_ms": k1v_bound_ms, "bound_by": k1v_bound_by, "library_ms": None,
          **k1v_compiled, "realtime": realtime["k1"],
-         "audio_export": {"launches": audio_export["launches"]["k1"]}},
+         "audio_export": {"launches": audio_export["launches"]["k1"]},
+         "hud": {"launches": hud["launches"]["k1"]},
+         "segments": {"launches": [r["k1"] for r in segments["segments"]]}},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
          "launches": visualizer_launches["k2"], "max_abs_err": k2_err,
          "ms": k2_ms, "call_ms": k2_call_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound_ms,
          "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"],
-         "any_ssaa": any_ssaa["k2"], "audio_export": {"launches": audio_export["launches"]["k2"]}},
+         "any_ssaa": any_ssaa["k2"], "audio_export": {"launches": audio_export["launches"]["k2"]},
+         "hud": {"launches": hud["launches"]["k2"]},
+         "segments": {"launches": [r["k2"] for r in segments["segments"]]}},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": piano_launches["k1d"], "max_abs_err": k1d_err,
          "ms": k1d_ms, "call_ms": k1d_call_ms, "plain_ms": k1d_plain_ms,
          "bound_ms": k1d_bound_ms, "bound_by": k1d_bound_by, "library_ms": None,
-         **k1d_compiled},
+         **k1d_compiled, "realtime": piano_live["k1d"]},
         {"name": "K3 escape_lines (Mandelbrot escape counts, lines form)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",

@@ -334,6 +334,13 @@ class ShaderAudio(BrokenAudio, ShaderModule):
             scene=self.scene, name=f"{self.name}STD",
             frequency=10, zeta=1, response=0, value=0)
 
+    def ui(self):
+        yield f"mode {self.mode.name}  {self.samplerate:.0f} Hz x{self.channels}"
+        if self._file is not None:
+            yield f"file {self._file.name}  {self.duration:.1f}s"
+        yield (f"volume {float(self.volume.value):.3f}  "
+               f"std {float(self.std.value):.3f}")
+
     def commands(self) -> None:
         self.register_command(self.print_recorders)
         self.register_command(self.print_speakers)

@@ -23,7 +23,7 @@ import torch
 
 from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.audio import BrokenAudio
-from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.module import ShaderModule, UIField
 from shaderflow_tpu_torch.ops import dynamics as dyn
 from shaderflow_tpu_torch.ops import spectral
 from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
@@ -264,6 +264,27 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
         self.texture.write(
             data=column.reshape(self.spectrogram_bins, 1, self.audio.channels),
             viewport=(self.offset, 0, 1, self.spectrogram_bins))
+
+    def ui(self):
+        yield (f"{self.spectrogram_bins} bins  fft 2^{self.fft_n}  "
+               f"{self.minimum_frequency:.0f}-{self.maximum_frequency:.0f} Hz")
+        yield f"device sequence: {self.texture.sequence is not None}"
+
+    def ui_fields(self):
+        def set_min(value):
+            self.minimum_frequency = min(value, self.maximum_frequency / 2)
+
+        def set_max(value):
+            self.maximum_frequency = max(value, self.minimum_frequency * 2)
+
+        # The band matrix rebuilds on its (min, max, bins) key: an edit
+        # takes effect at the next update()
+        return [
+            UIField("min Hz", lambda: self.minimum_frequency, set_min,
+                    step=10.0, minimum=1.0, fmt="{:.0f}"),
+            UIField("max Hz", lambda: self.maximum_frequency, set_max,
+                    step=500.0, minimum=10.0, fmt="{:.0f}"),
+        ]
 
     def pipeline(self):
         yield Uniform("int", f"{self.name}Length", self.length_samples)

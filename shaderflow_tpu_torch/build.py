@@ -7,11 +7,15 @@ Everything builds from the sources in this checkout, at first use, into
 BUILD_DIR (gitignored); a library is rebuilt when its source is newer, and
 ptxas's register/spill report is kept beside it (ptxas_report). A failed
 build raises — there is no fallback to the plain PyTorch versions.
+Processes sharing a checkout (a segmented export's, a user's two runs)
+build under one file lock: the first builds, the others wait and load.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import importlib.util
 import os
@@ -61,15 +65,42 @@ def ptxas_report(source: Path) -> str:
     return library_path(source).with_suffix(".ptxas.txt").read_text()
 
 
+@contextlib.contextmanager
+def build_lock():
+    """An exclusive lock on BUILD_DIR/.lock for as long as the block runs
+    (flock: released if the holder dies)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "a") as handle:
+        fcntl.flock(handle, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(handle, fcntl.LOCK_UN)
+
+
+def _stale(sources) -> list[Path]:
+    return [source for source in sources
+            if not library_path(source).exists()
+            or library_path(source).stat().st_mtime < source.stat().st_mtime]
+
+
 def build_cuda_libraries(sources=None) -> list[str]:
     """Compile every missing or stale library at once: one nvcc per source,
-    all started together, then wait for all. Returns the names built."""
-    stale = [source for source in (sources or cuda_sources())
-             if not library_path(source).exists()
-             or library_path(source).stat().st_mtime < source.stat().st_mtime]
-    if not stale:
+    all started together, then wait for all; under the build lock, so a
+    second process waits for the first's build instead of repeating it.
+    Returns the names built."""
+    sources = list(sources or cuda_sources())
+    if not _stale(sources):
         return []
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock():
+        stale = _stale(sources)
+        if not stale:
+            return []
+        _compile(stale)
+    return [source.stem for source in stale]
+
+
+def _compile(stale: list[Path]) -> None:
     compiler = nvcc()
     jobs = []
     for source in stale:
@@ -88,7 +119,6 @@ def build_cuda_libraries(sources=None) -> list[str]:
         os.replace(partial, library_path(source))  # atomic: loaders see old or new
     if failures:
         raise RuntimeError("\n".join(failures))
-    return [source.stem for source in stale]
 
 
 def cuda_library(source: Path) -> ctypes.CDLL:
@@ -112,9 +142,10 @@ def triton_module(source: str, stem: str = "tail") -> ModuleType:
     directory.mkdir(parents=True, exist_ok=True)
     path = directory / f"{name}.py"
     if not path.exists() or path.read_text() != source:
-        partial = path.with_suffix(f".{os.getpid()}.tmp")
-        partial.write_text(source)
-        os.replace(partial, path)
+        with build_lock():
+            partial = path.with_suffix(f".{os.getpid()}.tmp")
+            partial.write_text(source)
+            os.replace(partial, path)
     spec = importlib.util.spec_from_file_location(
         f"shaderflow_tpu_torch_generated.{name}", path)
     module = importlib.util.module_from_spec(spec)

@@ -7,8 +7,8 @@ zoom, isometric, focal length, orbital, dolly); three modes govern
 interaction and three projections the device-side ray math
 (ops/cameralib.py). The `iCameraTrivial` static marks the untouched
 orientation with perspective projection, where the ray math is separable.
-The HUD panel is not ported; target_setter, the setter its fields edit
-a smoothed parameter through, is.
+Its HUD panel shows the mode, position and lens, and edits the zoom,
+isometric and dolly targets (target_setter).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.variable import ShaderVariable, StaticUniform
 from shaderflow_tpu_torch.dynamics import ShaderDynamics
 from shaderflow_tpu_torch.keyboard import ShaderKeyboard
-from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.module import ShaderModule, UIField
 from shaderflow_tpu_torch.ops import quaternion as qt
 from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
 
@@ -257,6 +257,24 @@ class ShaderCamera(ShaderModule):
             self.isometric.target = min(max(0.0, float(self.isometric.target) + 0.5 * dt), 1.0)
         if keyboard(keys.G):
             self.isometric.target = min(max(0.0, float(self.isometric.target) - 0.5 * dt), 1.0)
+
+    def ui(self):
+        yield f"mode {self.mode.name}  projection {self.projection.name}"
+        yield (f"position ({self.position.value[0]:+.2f}, "
+               f"{self.position.value[1]:+.2f}, {self.position.value[2]:+.2f})")
+        yield f"zoom {float(self.zoom.value):.3f}  iso {float(self.isometric.value):.2f}"
+        yield (f"orbital {float(self.orbital.value):.2f}  "
+               f"dolly {float(self.dolly.value):.2f}")
+
+    def ui_fields(self):
+        return [
+            UIField("zoom", lambda: float(self.zoom.target),
+                    target_setter(self.zoom), step=0.05, minimum=0.01),
+            UIField("isometric", lambda: float(self.isometric.target),
+                    target_setter(self.isometric), step=0.05, minimum=0.0, maximum=1.0),
+            UIField("dolly", lambda: float(self.dolly.target),
+                    target_setter(self.dolly), step=0.05),
+        ]
 
     def apply_zoom(self, value: float) -> None:
         """Multiplicative zoom so zoom-in then zoom-out returns exactly."""

@@ -1,7 +1,8 @@
 """
 Frame timing statistics — port of shaderflow_tpu/frametimer.py: a rolling
 window of real frame deltas sized history-seconds x fps, with average /
-min / max frametime and framerate plus percentile cuts.
+min / max frametime and framerate plus percentile cuts, and its HUD panel
+(the rates and a sparkline of the frametimes).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from collections import deque
 
 import numpy as np
 
-from shaderflow_tpu_torch.module import ShaderModule
+from shaderflow_tpu_torch.module import ShaderModule, UIPlot
 
 
 class ShaderFrametimer(ShaderModule):
@@ -62,3 +63,12 @@ class ShaderFrametimer(ShaderModule):
     @property
     def framerate_minimum(self) -> float:
         return self._finite(1.0 / (self.frametime_maximum + 1e-9))
+
+    def ui(self):
+        yield (f"fps avg {self.framerate_average():6.1f}  "
+               f"min {self.framerate_minimum:6.1f}  max {self.framerate_maximum:6.1f}")
+        yield (f"dt avg {1000 * self.frametime_average():6.2f} ms  "
+               f"max {1000 * self.frametime_maximum:6.2f} ms")
+
+    def ui_plots(self):
+        return [UIPlot("frametime ms", [1000.0 * dt for dt in self.frametimes], lo=0.0)]

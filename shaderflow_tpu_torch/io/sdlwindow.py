@@ -11,8 +11,8 @@ the modifier intercepts).
 
 Headless runs drive the same code through SDL's dummy video backend
 (SHADERFLOW_SDL_VIDEODRIVER=dummy): windows open, frames blit, and
-pygame.event.post injects events through the real queue. The HUD's text
-rasterizer (draw_text) waits for the HUD's port.
+pygame.event.post injects events through the real queue. draw_text is the
+HUD's text rasterizer where cv2 is not installed.
 """
 
 from __future__ import annotations
@@ -147,6 +147,33 @@ class SDLWindow:
             elif event.type == getattr(pygame, "WINDOWRESTORED", -2):
                 out.append(("iconify", False))
         return out
+
+    _font = None
+
+    @classmethod
+    def draw_text(cls, frame: np.ndarray, lines: list[str],
+                  origin: tuple[int, int] = (8, 6), pitch: int = 16) -> np.ndarray:
+        """Rasterize HUD text onto an (H, W, 3) uint8 frame with
+        pygame.font, the rows at the cv2 path's geometry (the HUD's hit map
+        holds for both)."""
+        import pygame
+        if cls._font is None:
+            pygame.font.init()
+            cls._font = pygame.font.Font(None, 15)
+        x0, y0 = origin
+        h, w = frame.shape[:2]
+        for index, text in enumerate(lines):
+            surf = cls._font.render(text, True, (255, 255, 255), (0, 0, 0))
+            glyph = pygame.surfarray.array3d(surf).swapaxes(0, 1)
+            y = y0 + pitch * index + 2
+            gh = min(glyph.shape[0], h - y)
+            gw = min(glyph.shape[1], w - x0)
+            if gh <= 0 or gw <= 0:
+                continue
+            region = frame[y:y + gh, x0:x0 + gw]
+            mask = glyph[:gh, :gw].max(axis=-1, keepdims=True) > 32
+            np.copyto(region, glyph[:gh, :gw], where=np.broadcast_to(mask, region.shape))
+        return frame
 
     def set_exclusive(self, state: bool) -> None:
         """Exclusive mouse mode (the F1 key): grab the cursor inside the

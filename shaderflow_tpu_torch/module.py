@@ -8,7 +8,9 @@ load_state hooks, can relay()
 messages to every module, and full_pipeline() concatenates every module's
 uniforms, and register CLI commands (`commands` / `register_command`,
 dispatched by cli.py as `<Scene> <command>`). The scene itself is the
-first module. The realtime HUD hooks are not ported yet.
+first module. The realtime HUD reads each module's panel: ui() lines,
+ui_fields() (UIField: an editable scalar) and ui_plots() (UIPlot: a
+sparkline).
 """
 
 from __future__ import annotations
@@ -168,3 +170,61 @@ class ShaderModule:
 
     def log_minor(self, *args) -> str:
         return self._log(logging.DEBUG, args)
+
+    # -- the realtime HUD's panel -------------------------------------------
+
+    def ui(self) -> Iterable[str]:
+        """Lines of this module's HUD panel (the realtime preview: TAB
+        toggles the HUD, [ and ] select the expanded panel)."""
+        return []
+
+    def ui_fields(self) -> list["UIField"]:
+        """Editable scalars of this module's panel: with the panel selected,
+        ',' / '.' select a field and '-' / '+' nudge it by its step (Shift:
+        x10, Ctrl: x0.1); a drag or the wheel on its row does the same."""
+        return []
+
+    def ui_plots(self) -> list["UIPlot"]:
+        """Sparklines drawn under this module's panel fields."""
+        return []
+
+
+class UIField:
+    """One editable scalar on a module's HUD panel."""
+
+    def __init__(self, label: str, get, set, step: float = 0.1,
+                 minimum: Optional[float] = None, maximum: Optional[float] = None,
+                 fmt: str = "{:+.3f}"):
+        self.label = label
+        self.get = get
+        self.set = set
+        self.step = float(step)
+        self.minimum = minimum
+        self.maximum = maximum
+        self.fmt = fmt
+
+    def nudge(self, direction: float, scale: float = 1.0) -> float:
+        """Move the value by direction x step x scale, clamped to the
+        bounds; returns the new value."""
+        value = float(self.get()) + direction * self.step * scale
+        if self.minimum is not None:
+            value = max(self.minimum, value)
+        if self.maximum is not None:
+            value = min(self.maximum, value)
+        self.set(value)
+        return value
+
+    def render(self) -> str:
+        return f"{self.label} " + self.fmt.format(float(self.get()))
+
+
+class UIPlot:
+    """One sparkline on a module's HUD panel: `values` oldest to newest;
+    `lo` / `hi` pin the y range (None: the values' own)."""
+
+    def __init__(self, label: str, values, lo: Optional[float] = None,
+                 hi: Optional[float] = None):
+        self.label = label
+        self.values = values
+        self.lo = lo
+        self.hi = hi

@@ -9,19 +9,23 @@ pressed-keys velocity texture (smoothed by a second-order system) and the
 channel texture, plus a dynamically zooming visible note range (a vec2
 uniform). MIDI loading uses the in-package parser (piano/midi.py).
 
-Offline exports precompute the whole run's three per-frame textures with
-the same host scan (float32 numpy) and bind them as device sequences; the
-note range is recorded and replayed per frame. The realtime per-frame path
-(streamed texture writes) is not ported yet. The live-synthesis hooks
-(FluidSynth) are realtime only: the offline path never starts a synth, and
-fluid_start raises.
+Offline exports (with `precompute`, the default) run the whole run's
+scan up front and bind the three per-frame textures as device sequences;
+the note range is recorded and replayed per frame. Otherwise (the
+realtime preview, or precompute=False) each frame runs the scan and
+writes the three textures, which the engine streams: one snapshot a frame,
+up in the flush's one staged host-to-device copy. Live synthesis goes
+through FluidSynth (pyfluidsynth) and sounds notes only in realtime; a
+missing binary or module warns and the scene runs silent.
 """
 
 from __future__ import annotations
 
+import itertools
+import shutil
 from collections import deque
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Any, Iterable, Optional
 
 import numpy as np
 import torch
@@ -42,6 +46,10 @@ MAX_NOTE = 128
 class ShaderPiano(ShaderModule):
 
     name: str = "iPiano"
+    precompute: bool = True
+    """Freewheel exports precompute the whole run's textures as device
+    sequences; False streams the per-frame scan as the realtime path does
+    (an animated scene.speed needs it)."""
     time_offset: float = 0.0
     roll_time: float = 2.0
     height: float = 0.275
@@ -63,7 +71,9 @@ class ShaderPiano(ShaderModule):
             frequency=0.05, zeta=1 / (2 ** 0.5), response=0)
         self._playing_matrix: list[list[Optional[PianoNote]]] = \
             [[None] * MAX_CHANNELS for _ in range(MAX_NOTE)]
-        self.fluidsynth = None
+        self.fluidsynth: Any = None
+        self.soundfont: Any = None
+        self.soundfont_file: Any = None  # a .sf2 loaded when the live synth starts
         self._sequence_key = None
         self._sequence_arrays = None
         self._range_values: Optional[np.ndarray] = None
@@ -156,6 +166,11 @@ class ShaderPiano(ShaderModule):
 
     def setup(self) -> None:
         self._frame_index = 0
+        # Live synthesis starts with a realtime run only
+        if self.scene.realtime and not self.scene.freewheel and self.fluidsynth is None:
+            self.fluid_start()
+            if self.fluidsynth is not None and self.soundfont_file is not None:
+                self.fluid_load(self.soundfont_file)
 
     def commands(self) -> None:
         self.register_command(self.midi_stats, "midi-stats")
@@ -283,12 +298,15 @@ class ShaderPiano(ShaderModule):
 
                 other = self._playing_matrix[midi][note.channel]
                 if (other is None) or (other.end > note.end):
+                    play_velocity = int(128 * ((note.velocity / 128) ** 0.5))
+                    self.fluid_key_down(midi, play_velocity, note.channel)
                     self._playing_matrix[midi][note.channel] = note
 
             for channel in range(MAX_CHANNELS * self.scene.realtime):
                 other = self._playing_matrix[midi][channel]
                 if other and other.end < time:
                     self._playing_matrix[midi][channel] = None
+                    self.fluid_key_up(midi, other.channel)
 
         # Dynamic zoom follows the lookahead window
         self.note_range_dynamics.frequency = 0.5 / self.lookup_time
@@ -304,18 +322,34 @@ class ShaderPiano(ShaderModule):
         return roll, channels
 
     def prewarm(self) -> None:
-        if self.scene.freewheel:
+        if self.scene.freewheel and self.precompute:
             self._precompute_sequences()
 
     def update(self) -> None:
-        if not self.scene.freewheel:
-            raise NotImplementedError(
-                "The realtime piano roll (per-frame streamed textures and "
-                "live synthesis) is not ported yet: export offline")
-        if self.keys_texture.sequence is None or self._range_values is None:
-            self._precompute_sequences()
-        index = min(self.scene._frame_counter, len(self._range_values) - 1)
-        self.note_range_dynamics.value = self._range_values[index]
+        if self.scene.freewheel and self.precompute:
+            if self.keys_texture.sequence is None or self._range_values is None:
+                self._precompute_sequences()
+            index = min(self.scene._frame_counter, len(self._range_values) - 1)
+            self.note_range_dynamics.value = self._range_values[index]
+            return
+
+        # The per-frame scan into the three textures: written during the
+        # frame loop, the engine streams them (a snapshot each frame)
+        self.keys_texture.set_sequence(None)
+        self.channel_texture.set_sequence(None)
+        self.roll_texture.set_sequence(None)
+        roll, channels = self._scan_frame(
+            self.scene.time + self.time_offset, abs(self.scene.dt))
+        self.keys_texture.write(data=self.key_press_dynamics.value.astype(np.float32))
+        self.roll_texture.write(data=roll)
+        self.channel_texture.write(data=channels.astype(np.float32))
+
+    def ui(self):
+        yield (f"notes {sum(1 for _ in self.notes)}  "
+               f"range {self.global_minimum_note}-{self.global_maximum_note}")
+        rng = self.note_range_dynamics.value
+        yield f"visible {rng[0]:.1f}-{rng[1]:.1f}  roll {self.roll_time:.1f}s"
+        yield f"synth: {'live' if self.fluidsynth else 'off'}"
 
     def pipeline(self) -> Iterable[ShaderVariable]:
         yield Uniform("int", f"{self.name}GlobalMin", self.global_minimum_note)
@@ -329,16 +363,40 @@ class ShaderPiano(ShaderModule):
 
     # -- FluidSynth (live synthesis, realtime only) -----------------------------
 
+    @staticmethod
+    def fluid_install() -> None:
+        if not shutil.which("fluidsynth"):
+            logger.warn("FluidSynth binary not found; live MIDI synthesis is disabled")
+
     def fluid_start(self) -> None:
-        raise NotImplementedError(
-            "Live MIDI synthesis (FluidSynth) belongs to the realtime path, "
-            "which is not ported yet")
+        try:
+            import fluidsynth
+        except ImportError:
+            logger.warn("pyfluidsynth not installed; live MIDI synthesis is disabled")
+            return
+        self.fluidsynth = fluidsynth.Synth()
+        self.fluidsynth.setting("synth.gain", 1.2)
+        self.fluidsynth.start()
+
+    def fluid_load(self, soundfont) -> None:
+        if self.fluidsynth is not None:
+            self.soundfont = self.fluidsynth.sfload(str(soundfont))
+            for channel in range(MAX_CHANNELS):
+                self.fluid_select(channel, 0, 0)
+
+    def fluid_select(self, channel: int = 0, bank: int = 0, preset: int = 0) -> None:
+        if self.fluidsynth and self.scene.realtime:
+            self.fluidsynth.program_select(channel, self.soundfont, bank, preset)
 
     def fluid_key_down(self, note: int, velocity: int = 127, channel: int = 0) -> None:
-        """No-op offline (the reference sounds notes only in realtime)."""
+        if self.fluidsynth and self.scene.realtime:
+            self.fluidsynth.noteon(channel, note, velocity)
 
     def fluid_key_up(self, note: int, channel: int = 0) -> None:
-        """No-op offline (the reference sounds notes only in realtime)."""
+        if self.fluidsynth and self.scene.realtime:
+            self.fluidsynth.noteoff(channel, note)
 
     def fluid_all_notes_off(self) -> None:
-        """No-op offline (the reference sounds notes only in realtime)."""
+        if self.fluidsynth and self.scene.realtime:
+            for channel, note in itertools.product(range(MAX_CHANNELS), range(MAX_NOTE)):
+                self.fluidsynth.noteoff(channel, note)

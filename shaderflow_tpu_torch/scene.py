@@ -19,14 +19,20 @@ Without one, main() runs the realtime preview: the scheduler paces one
 task at the scene's fps (frameskip stretches dt when a frame is late);
 each tick polls the shaders' files, runs the once tasks, steps and
 captures a frame (or a micro-batch, _rt_batch_size) and flushes it. With a
-window (WindowBackend.Preview: io/sdlwindow.py) the frames reach it
-through the display pump (io/displaypump.py) and its events come back as
-message relays; headless, the loop waits on frame k-1 while frame k
-renders. `frame_limit` ends a run after that many frames.
+window (WindowBackend.Preview) the frames reach it through the display pump
+(io/displaypump.py): an SDL window (io/sdlwindow.py), whose events come back
+as message relays, or where SDL cannot open one (or SHADERFLOW_PREVIEW=cv2)
+OpenCV's window, its keys from the X11 keymap (io/x11keys.py) or waitKey
+and its mouse through a callback; with neither, the loop runs headless and
+waits on frame k-1 while frame k renders. The window is a fallback of the
+display only: the render stays on the device. TAB toggles the HUD (a
+module list with the selected module's panel: ui() lines, editable
+ui_fields(), ui_plots() sparklines), drawn on a host copy of the shown
+frame. `frame_limit` ends a run after that many frames.
 
 The device is an argument: main(..., device="cuda") by default, and
 device="cpu" runs every kernel's plain PyTorch version. Not ported yet:
-the cv2 preview and its X11 key poller, the HUD, multi-device sharding.
+multi-device sharding (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -156,12 +162,26 @@ class ShaderScene(ShaderModule):
         self.mouse_inside: bool = False
         self.mouse_buttons: dict[int, bool] = {k: False for k in range(1, 6)}
         self.exclusive: bool = False
+        self.render_ui: bool = False
+        # HUD navigation ([ / ] select the expanded module panel, , / .
+        # select an editable field, - / + nudge it) and its mouse state:
+        # each drawn row's action, a drag on a field, the pointer, and the
+        # shown frame's size (window pixels map into it)
+        self._ui_index: int = 0
+        self._ui_field_index: int = 0
+        self._hud_rows: list = []
+        self._hud_dragging: bool = False
+        self._mouse_xy: tuple[int, int] = (-1, -1)
+        self._shown_frame_size: Optional[tuple[int, int]] = None
 
         # Realtime loop: the pacing scheduler and its frame task, the
         # window, the display pump, the micro-batch controller's state
         self.scheduler = Scheduler()
         self.vsync = None
         self._window = None
+        self._preview = None      # the cv2 module while its preview window is open
+        self._keymap = None       # the cv2 preview's key sources (io/x11keys.py)
+        self._autorelease = None
         self._display_pump = None
         self._inflight_rt: list = []
         self._pending_preview: list = []
@@ -523,24 +543,47 @@ class ShaderScene(ShaderModule):
     # Realtime loop
 
     def open_window(self):
-        """The preview's window (WindowBackend.Preview): an SDL window
-        (io/sdlwindow.py). The cv2 preview the reference falls back to is
-        not ported yet: asking for it (SHADERFLOW_PREVIEW=cv2), or an SDL
-        window that cannot open, raises instead of running headless."""
-        if os.environ.get("SHADERFLOW_PREVIEW", "").lower() == "cv2":
-            raise NotImplementedError("SHADERFLOW_PREVIEW=cv2: the cv2 preview window "
-                                      "is not ported yet; the SDL window is")
+        """The preview's SDL window (io/sdlwindow.py): a focused-window
+        event queue with exact key press and release, modifiers, unicode,
+        wheel, resize, file drop and close. None where SDL cannot open one."""
         try:
             from shaderflow_tpu_torch.io.sdlwindow import SDLWindow
             return SDLWindow(self.title, *self.resolution)
         except Exception as error:
-            raise NotImplementedError(
-                f"The SDL preview window could not open ({error}), and the cv2 "
-                "preview fallback is not ported yet; run headless "
-                "(WINDOW_BACKEND=headless) or export with an output") from error
+            logger.debug(f"SDL window unavailable ({error}); falling back to the cv2 preview")
+            return None
+
+    def open_preview(self):
+        """The cv2 preview: OpenCV's window, its mouse into
+        _cv2_mouse_event -> the cv2 module, or None where it cannot open."""
+        try:
+            import cv2
+            cv2.namedWindow(self.title, cv2.WINDOW_NORMAL)
+            cv2.setMouseCallback(self.title, self._cv2_mouse_event)
+            return cv2
+        except Exception as error:
+            logger.debug(f"cv2 preview unavailable ({error}); running headless")
+            return None
 
     def _realtime_loop(self, frameskip: bool) -> None:
-        self._window = self.open_window() if self.backend == WindowBackend.Preview else None
+        # The display: SDL first, the cv2 preview where SDL cannot open (or
+        # SHADERFLOW_PREVIEW=cv2; =sdl never takes cv2), else headless. The
+        # render runs on the device whichever shows it
+        window = preview = None
+        if self.backend == WindowBackend.Preview:
+            choice = os.environ.get("SHADERFLOW_PREVIEW", "").lower()
+            if choice != "cv2":
+                window = self.open_window()
+            if window is None and choice != "sdl":
+                preview = self.open_preview()
+        self._window, self._preview = window, preview
+        if preview is not None:
+            # The cv2 preview's keys: the X11 keymap where an X server is
+            # (exact transitions with Shift, Ctrl, Alt), else waitKey codes
+            # with releases synthesized (AutoReleaseKeys)
+            from shaderflow_tpu_torch.io.x11keys import AutoReleaseKeys, X11Keymap
+            self._keymap = X11Keymap()
+            self._autorelease = AutoReleaseKeys()
         # A forced micro-batch (SHADERFLOW_RT_BATCH=N) covers N frame periods
         # a launch, so the frame task paces at fps / N; auto mode starts at
         # one frame and _rt_batch_feedback retunes the frequency
@@ -571,6 +614,12 @@ class ShaderScene(ShaderModule):
             if self._window is not None:
                 self._window.close()
                 self._window = None
+            if self._preview is not None:
+                self._preview.destroyAllWindows()
+                self._preview = None
+            if self._keymap is not None:
+                self._keymap.close()
+                self._keymap = None
 
     def _rendered(self) -> Optional[torch.cuda.Event]:
         """An event behind the frames just flushed (None on the CPU)."""
@@ -584,7 +633,7 @@ class ShaderScene(ShaderModule):
         if self.frame_limit is not None and self.frame >= self.frame_limit:
             self.quit = True
             return
-        async_display = (self._window is not None
+        async_display = ((self._window is not None or self._preview is not None)
                          and os.environ.get("SHADERFLOW_SYNC_DISPLAY") != "1")
         n = self._rt_batch_size(auto_ok=async_display)
         if self.frame_limit is not None:
@@ -615,8 +664,18 @@ class ShaderScene(ShaderModule):
             return
         frames, done = self._pending_preview.pop(0)
         if self._window is not None:
-            self._window.show(fetch_frame(frames[-1]))
+            frame = fetch_frame(frames[-1])
+            if self.render_ui:
+                frame = self._draw_hud(frame.copy())
+            self._window.show(frame)
             self._dispatch_window_events(self._window.poll())
+        elif self._preview is not None:
+            cv2 = self._preview
+            frame = fetch_frame(frames[-1])
+            if self.render_ui:
+                frame = self._draw_hud(frame.copy())
+            cv2.imshow(self.title, frame[..., ::-1])
+            self._poll_input(cv2.waitKey(1) & 0xFF)
         elif done is not None:
             done.synchronize()   # headless: wait for frame k - depth, for honest pacing
 
@@ -688,17 +747,41 @@ class ShaderScene(ShaderModule):
         self._display_pump.offer(dispatched, tag=self._frame_counter - 1)
         frame = self._display_pump.take()
         if frame is not None:
-            # the pump may stride a frame on slow links: the window blits it scaled
-            self._window.show(frame)
-        self._dispatch_window_events(self._window.poll())
+            # The pump may stride a frame on slow links: the window blits it
+            # scaled, and the HUD's hit map is in this frame's pixels. The
+            # HUD draws on a copy, never into the pump's page-locked slot
+            self._shown_frame_size = (frame.shape[1], frame.shape[0])
+            if self.render_ui:
+                frame = self._draw_hud(frame.copy())
+        if self._window is not None:
+            if frame is not None:
+                self._window.show(frame)
+            self._dispatch_window_events(self._window.poll())
+        else:
+            cv2 = self._preview
+            if frame is not None:
+                cv2.imshow(self.title, frame[..., ::-1])
+            self._poll_input(cv2.waitKey(1) & 0xFF)
 
     def _dispatch_window_events(self, events: list) -> None:
         """Window events -> message relays (the reference's glfw callback
         surface: key press and release, unicode, mouse move / press /
         release / wheel with the Ctrl, Alt and exclusive drag intercepts,
-        resize, file drop, enter, iconify, close)."""
+        resize, file drop, enter, iconify, close). A left press on the HUD
+        panel, the drag it starts and the wheel over the panel go to the
+        HUD (_hud_mouse) and relay nothing."""
         Mouse = ShaderMessage.Mouse
         Keyboard = ShaderMessage.Keyboard
+
+        def frame_xy(x: int, y: int) -> tuple[int, int]:
+            # Window pixels -> the shown frame's pixels (a resized window,
+            # a strided frame: both blit scaled), where the HUD's rows are
+            if self._window is None:
+                return x, y
+            ww, wh = self._window.size
+            fw, fh = self._shown_frame_size or self.resolution
+            return (int(x * fw / max(1, ww)), int(y * fh / max(1, wh)))
+
         for event in events:
             kind = event[0]
             if kind == "keydown":
@@ -712,11 +795,14 @@ class ShaderScene(ShaderModule):
                 self.relay(Keyboard.Unicode(char=event[1]))
             elif kind == "mousemove":
                 _, x, y, dx, dy, held = event
+                self._mouse_xy = (x, y)
                 u, v = self._pixel_to_gluv(x, y)
                 du = u - self.mouse_gluv[0]
                 dv = v - self.mouse_gluv[1]
                 self.mouse_inside = True
-                if 1 in held or 2 in held:
+                if self._hud_dragging and held:
+                    self._hud_mouse("drag", *frame_xy(x, y), dx=dx, dy=dy)
+                elif 1 in held or 2 in held:
                     self._handle_drag(x=x, y=y, dx=dx, dy=dy, u=u, v=v, du=du, dv=dv)
                 else:
                     self.relay(Mouse.Position(x=x, y=y, dx=dx, dy=dy,
@@ -724,12 +810,23 @@ class ShaderScene(ShaderModule):
             elif kind in ("mousedown", "mouseup"):
                 _, button, x, y = event
                 state = kind == "mousedown"
+                if state and button == 1 and self._hud_mouse("press", *frame_xy(x, y)):
+                    self._hud_dragging = True
+                    continue
+                if not state and button == 1 and self._hud_dragging:
+                    # Only the left release ends (and is taken by) a HUD
+                    # drag: another button's release still relays
+                    self._hud_dragging = False
+                    continue
                 self.mouse_buttons[button] = state
                 u, v = self._pixel_to_gluv(x, y)
                 cls = Mouse.Press if state else Mouse.Release
                 self.relay(cls(button=button, x=x, y=y, u=u, v=v))
             elif kind == "wheel":
                 step = float(event[1])
+                mx, my = self._mouse_xy
+                if mx >= 0 and self._hud_mouse("wheel", *frame_xy(mx, my), dy=int(step)):
+                    continue
                 self.relay(Mouse.Scroll(dy=int(step), dv=step / 10))
             elif kind == "resize":
                 _, width, height = event
@@ -780,6 +877,255 @@ class ShaderScene(ShaderModule):
         return (u, v)
 
     # ------------------------------------------------------------------ #
+    # The cv2 preview's input
+
+    def _poll_input(self, waitkey_code: int, now: Optional[float] = None) -> None:
+        """The cv2 preview's keys, once a frame: the X11 keymap's exact
+        transitions (Shift, Ctrl and Alt included) where it is active, else
+        waitKey's autorepeat codes (lowercase letters to the key table,
+        repeats dropped, a release synthesized when the train goes quiet,
+        no modifiers)."""
+        Keyboard = ShaderMessage.Keyboard
+        keymap = self._keymap
+        if keymap is not None and keymap.active:
+            downs, ups = keymap.poll()
+            for code in downs:
+                if code == ShaderKeyboard.Keys.ESCAPE:
+                    self.quit = True
+                self.relay(Keyboard.KeyDown(key=code))
+            for code in ups:
+                self.relay(Keyboard.KeyUp(key=code))
+            return
+        now = time.monotonic() if now is None else now
+        if self._autorelease is None:
+            from shaderflow_tpu_torch.io.x11keys import AutoReleaseKeys
+            self._autorelease = AutoReleaseKeys()
+        key = waitkey_code
+        if key == 27:  # ESC
+            self.quit = True
+        elif key != 255:
+            if ord("a") <= key <= ord("z"):
+                key -= 32  # the key table is uppercase; waitKey gives ASCII
+            if self._autorelease.feed(key, now):
+                self.relay(Keyboard.KeyDown(key=key))
+        for code in self._autorelease.poll(now):
+            self.relay(Keyboard.KeyUp(key=code))
+
+    def _cv2_mouse_event(self, event: int, x: int, y: int, flags: int, param=None) -> None:
+        """The cv2 preview's mouse callback -> message relays (press and
+        release of three buttons, moves, drags, the wheel), the HUD's
+        panel first."""
+        cv2 = self._preview
+        if cv2 is None:
+            return
+        u, v = self._pixel_to_gluv(x, y)
+        du, dv = u - self.mouse_gluv[0], v - self.mouse_gluv[1]
+        Mouse = ShaderMessage.Mouse
+        self.mouse_inside = True
+        buttons = {cv2.EVENT_LBUTTONDOWN: (1, True), cv2.EVENT_LBUTTONUP: (1, False),
+                   cv2.EVENT_RBUTTONDOWN: (2, True), cv2.EVENT_RBUTTONUP: (2, False),
+                   cv2.EVENT_MBUTTONDOWN: (3, True), cv2.EVENT_MBUTTONUP: (3, False)}
+        if event in buttons:
+            button, state = buttons[event]
+            if state and button == 1 and self._hud_mouse("press", x, y):
+                self._hud_dragging = True
+                return
+            if not state and button == 1 and self._hud_dragging:
+                self._hud_dragging = False
+                return
+            self.mouse_buttons[button] = state
+            cls = Mouse.Press if state else Mouse.Release
+            self.relay(cls(button=button, x=x, y=y, u=u, v=v))
+        elif event == cv2.EVENT_MOUSEMOVE:
+            if self._hud_dragging:
+                dx = int(round((du / 2 / max(1e-9, self.aspect_ratio)) * self.resolution[0]))
+                self._hud_mouse("drag", x, y, dx=dx)
+            elif self.mouse_buttons.get(1) or self.mouse_buttons.get(2):
+                dx = int(round((du / 2 / max(1e-9, self.aspect_ratio)) * self.resolution[0]))
+                dy = int(round((-dv / 2) * self.resolution[1]))
+                self._handle_drag(x=x, y=y, dx=dx, dy=dy, u=u, v=v, du=du, dv=dv)
+            else:
+                self.relay(Mouse.Position(x=x, y=y, u=u, v=v, du=du, dv=dv))
+        elif event == getattr(cv2, "EVENT_MOUSEWHEEL", -1):
+            step = 1.0 if flags > 0 else -1.0
+            self.relay(Mouse.Scroll(dy=int(step), dv=step / 10))
+
+    # ------------------------------------------------------------------ #
+    # The HUD (TAB): module panels drawn over the shown frame
+
+    _HUD_WIDTH = 420      # the panel's hit width, frame pixels
+    _HUD_ROW0 = 6         # the first row's top edge
+    _HUD_ROWH = 16        # row pitch (the putText layout)
+    _HUD_PLOT_ROWS = 3    # text rows a sparkline strip takes
+
+    def _ui_panels(self) -> list:
+        """The HUD's panels in order: every module, the scene's own panel
+        (speed, quality, ssaa) last."""
+        return [m for m in self.modules if m is not self] + [self]
+
+    def _ui_selected_module(self):
+        panels = self._ui_panels()
+        return panels[self._ui_index % len(panels)] if panels else None
+
+    def ui(self) -> list[str]:
+        return [f"backend={self.backend.value}  quality={self.quality:.0f}",
+                f"exclusive={self.exclusive}  fullscreen={self.fullscreen}"]
+
+    def ui_fields(self) -> list:
+        from shaderflow_tpu_torch.module import UIField
+        return [
+            UIField("speed", lambda: self.speed, lambda v: setattr(self, "speed", v),
+                    step=0.1, fmt="{:+.2f}"),
+            UIField("quality", lambda: self.quality, lambda v: setattr(self, "quality", v),
+                    step=5.0, minimum=0.0, maximum=100.0, fmt="{:.0f}"),
+            # The ssaa property's setter (not resize(ssaa=)): it relays
+            # RecreateTextures and invalidates the engine, which resize()
+            # skips when the output size is unchanged
+            UIField("ssaa", lambda: self.ssaa, lambda v: setattr(self, "ssaa", v),
+                    step=0.25, minimum=0.25, maximum=4.0, fmt="{:.2f}"),
+        ]
+
+    def _ui_nudge(self, direction: float) -> None:
+        """Nudge the selected panel's selected field by its step (Shift
+        x10, Ctrl x0.1)."""
+        module = self._ui_selected_module()
+        fields = module.ui_fields() if module is not None else []
+        if not fields:
+            return
+        field = fields[self._ui_field_index % len(fields)]
+        scale = 1.0
+        if self.keyboard(ShaderKeyboard.Keys.LEFT_SHIFT):
+            scale = 10.0
+        elif self.keyboard(ShaderKeyboard.Keys.LEFT_CTRL):
+            scale = 0.1
+        value = field.nudge(direction, scale)
+        logger.info(f"(-/+) {type(module).__name__} {field.label} -> {value:g}")
+
+    def _draw_hud(self, frame: np.ndarray) -> np.ndarray:
+        """The HUD over an (H, W, 3) uint8 host frame, in place: the scene's
+        sizes, time and rates, the module list with the selected panel
+        expanded (its ui() lines, ui_fields() rows, ui_plots() sparklines)
+        on a darkened box. Text through cv2 where it is installed, else
+        pygame.font; whichever window shows the frame."""
+        lines = [
+            (f"{self.name}  {self.render_resolution} -> {self.resolution} "
+             f"@ {self.ssaa:.2f}x SSAA", None),
+            (f"t={self.time:6.2f}s  frame={self.frame}  speed={self.speed:.2f}", None),
+            (f"fps avg {self.frametimer.framerate_average():6.1f}  "
+             f"min {self.frametimer.framerate_minimum:6.1f}  target {self.fps:.0f}", None),
+        ]
+        # Each row carries its mouse action: a module row selects its
+        # panel, a field row its field
+        panels = self._ui_panels()
+        selected = panels[self._ui_index % len(panels)] if panels else None
+        plot_strips: list[tuple] = []  # (first row, values, lo, hi)
+        for module_index, module in enumerate(panels):
+            marker = ">" if module is selected else " "
+            label = "Scene" if module is self else type(module).__name__
+            lines.append((f" {marker}{module.uuid:>2} {label}"
+                          + (f" ({module.name})" if module.name else ""),
+                          ("module", module_index)))
+            if module is not selected:
+                continue
+            try:
+                for panel_line in module.ui() or []:
+                    lines.append((f"      {panel_line}", None))
+                fields = module.ui_fields()
+                for index, field in enumerate(fields):
+                    edit = "*" if index == self._ui_field_index % len(fields) else " "
+                    lines.append((f"     {edit}{field.render()}   (-/+ or drag)",
+                                  ("field", index)))
+                # A sparkline: a label row and a strip of rows drawn after the text
+                for plot in module.ui_plots() or []:
+                    values = np.asarray(list(plot.values), np.float32)
+                    if values.size < 2:
+                        continue
+                    lo = plot.lo if plot.lo is not None else float(values.min())
+                    hi = plot.hi if plot.hi is not None else float(values.max())
+                    lines.append((f"      {plot.label}  [{values[-1]:.3g}]  {lo:.3g}..{hi:.3g}",
+                                  None))
+                    plot_strips.append((len(lines), values, lo, hi))
+                    lines.extend([("", None)] * self._HUD_PLOT_ROWS)
+            except Exception as error:
+                lines.append((f"      ui() error: {error}", None))
+        lines = lines[:28]
+        plot_strips = [(row, v, lo, hi) for row, v, lo, hi in plot_strips
+                       if row + self._HUD_PLOT_ROWS <= len(lines)]
+        # The hit map: row i spans y in [ROW0 + ROWH i, ROW0 + ROWH (i + 1))
+        # at x < _HUD_WIDTH (_hud_mouse)
+        self._hud_rows = [action for _, action in lines]
+        y1 = min(frame.shape[0], self._HUD_ROW0 + self._HUD_ROWH * len(lines) + 6)
+        x1 = min(frame.shape[1], self._HUD_WIDTH)
+        frame[:y1, :x1] = frame[:y1, :x1] // 2
+        try:
+            import cv2
+            for index, (text, _) in enumerate(lines):
+                cv2.putText(frame, text, (8, 18 + 16 * index), cv2.FONT_HERSHEY_SIMPLEX,
+                            0.42, (0, 0, 0), 2, cv2.LINE_AA)
+                cv2.putText(frame, text, (8, 18 + 16 * index), cv2.FONT_HERSHEY_SIMPLEX,
+                            0.42, (255, 255, 255), 1, cv2.LINE_AA)
+        except ImportError:
+            from shaderflow_tpu_torch.io.sdlwindow import SDLWindow
+            SDLWindow.draw_text(frame, [text for text, _ in lines],
+                                origin=(8, self._HUD_ROW0), pitch=self._HUD_ROWH)
+        for row, values, lo, hi in plot_strips:
+            self._raster_plot(frame, row, values, lo, hi)
+        return frame
+
+    def _raster_plot(self, frame: np.ndarray, row: int, values: np.ndarray,
+                     lo: float, hi: float) -> None:
+        """One sparkline strip into the HUD (numpy only)."""
+        y0 = self._HUD_ROW0 + self._HUD_ROWH * row + 2
+        height = self._HUD_ROWH * self._HUD_PLOT_ROWS - 6
+        x0, width = 14, min(self._HUD_WIDTH - 28, frame.shape[1] - 14)
+        if y0 + height > frame.shape[0] or width < 8:
+            return
+        strip = frame[y0:y0 + height, x0:x0 + width]
+        strip //= 2  # darkened twice: the plot's bed reads against the box
+        columns = np.interp(np.linspace(0, values.size - 1, width),
+                            np.arange(values.size), values)
+        span = (hi - lo) or 1.0
+        ys = np.clip(((hi - columns) / span) * (height - 1), 0, height - 1).astype(np.int32)
+        xs = np.arange(width)
+        strip[ys, xs] = 255
+        strip[np.clip(ys + 1, 0, height - 1), xs] = 255
+
+    def _hud_mouse(self, kind: str, x: int, y: int, dx: int = 0, dy: int = 0) -> bool:
+        """The mouse on the HUD's panel, in frame pixels: a press on a
+        module row opens its panel, on a field row selects the field; a
+        horizontal drag or the wheel nudges the selected field. True when
+        the panel took the event (the caller then relays nothing)."""
+        rows = self._hud_rows
+        if not self.render_ui or not rows:
+            return False
+        if x >= self._HUD_WIDTH or y < self._HUD_ROW0:
+            return False
+        row = (y - self._HUD_ROW0) // self._HUD_ROWH
+        if row >= len(rows):
+            return False
+        action = rows[row]
+        if kind == "press":
+            if action is None:
+                return True   # a press on panel text never reaches the scene
+            what, index = action
+            if what == "module":
+                self._ui_index = index
+                self._ui_field_index = 0
+            else:
+                self._ui_field_index = index
+            return True
+        if kind == "drag":
+            if action is not None and action[0] == "field":
+                self._ui_field_index = action[1]
+            if dx:
+                self._ui_nudge(1.0 if dx > 0 else -1.0)
+            return True
+        if kind == "wheel":
+            self._ui_nudge(1.0 if dy > 0 else -1.0)
+            return True
+        return False
+
+    # ------------------------------------------------------------------ #
     # Module protocol
 
     def handle(self, message) -> None:
@@ -798,6 +1144,21 @@ class ShaderScene(ShaderModule):
             elif message.key == keys.R:
                 logger.info("(R  ) Reloading shaders")
                 self.relay(ShaderMessage.Shader.Compile)
+            elif message.key == keys.TAB:
+                self.render_ui = not self.render_ui
+            elif message.key == keys.BRACKET_LEFT:
+                self._ui_index -= 1
+                self._ui_field_index = 0
+            elif message.key == keys.BRACKET_RIGHT:
+                self._ui_index += 1
+                self._ui_field_index = 0
+            elif message.key == keys.COMMA:
+                self._ui_field_index -= 1
+            elif message.key == keys.PERIOD:
+                self._ui_field_index += 1
+            elif message.key in (keys.MINUS, keys.EQUAL, keys.PLUS):
+                # -/+ nudge the selected panel field by its step
+                self._ui_nudge(-1.0 if message.key == keys.MINUS else +1.0)
             elif message.key == keys.F1:
                 logger.info("(F1 ) Toggling exclusive mode")
                 self.exclusive = not self.exclusive
@@ -820,6 +1181,11 @@ class ShaderScene(ShaderModule):
                 self.fullscreen = not self.fullscreen
                 if self._window is not None:
                     self._window.set_fullscreen(self.fullscreen)
+                elif self._preview is not None:
+                    cv2 = self._preview
+                    cv2.setWindowProperty(
+                        self.title, cv2.WND_PROP_FULLSCREEN,
+                        cv2.WINDOW_FULLSCREEN if self.fullscreen else cv2.WINDOW_NORMAL)
 
         elif isinstance(message, (ShaderMessage.Mouse.Drag, ShaderMessage.Mouse.Position)):
             self.mouse_gluv = (message.u, message.v)

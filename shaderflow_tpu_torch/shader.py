@@ -544,6 +544,13 @@ class ShaderProgram(ShaderModule):
         if isinstance(message, ShaderMessage.Shader.Compile):
             self.compile()
 
+    def ui(self):
+        tex = self.texture
+        yield (f"{tex.resolution[0]}x{tex.resolution[1]}  "
+               f"layers {tex.layers}  temporal {tex.temporal}")
+        if self._watch_path is not None:
+            yield f"watching {self._watch_path.name}"
+
     def render_layer(self, ctx: Frag):
         """Run one layer of this program: a TailSpec (the engine fuses it
         with the final pass or evaluates it) or an (H, W, C) float tensor in

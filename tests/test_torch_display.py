@@ -337,11 +337,30 @@ def test_realtime_forced_micro_batch(monkeypatch):
 
 
 def test_cv2_preview_is_refused(monkeypatch):
-    """The cv2 preview is not ported: asking for it raises, it never runs
-    headless instead."""
-    monkeypatch.setenv("SHADERFLOW_PREVIEW", "cv2")
+    """SHADERFLOW_PREVIEW=cv2 takes the cv2 preview (it no longer refuses):
+    the SDL window is not tried, frames go to OpenCV's window through the
+    display pump, and F11 toggles its fullscreen property."""
+    import sys
+
+    from test_torch_preview_input import stub_cv2
+
+    from shaderflow_tpu_torch.io import sdlwindow
+    from shaderflow_tpu_torch.keyboard import ShaderKeyboard
+    from shaderflow_tpu_torch.message import ShaderMessage
     from shaderflow_tpu_torch.scene import ShaderScene, WindowBackend
+    monkeypatch.setenv("SHADERFLOW_PREVIEW", "cv2")
+    monkeypatch.delenv("SHADERFLOW_SYNC_DISPLAY", raising=False)
+    monkeypatch.setattr(sdlwindow, "SDLWindow", None)
+    stub = stub_cv2()
+    monkeypatch.setitem(sys.modules, "cv2", stub)
     scene = ShaderScene(backend=WindowBackend.Preview)
-    scene.frame_limit = 2
-    with pytest.raises(NotImplementedError, match="cv2"):
-        scene.main(width=32, height=16, fps=60, device="cpu")
+    scene.frame_limit = 6
+    scene.initialize()
+    original = scene._poll_input
+    scene._poll_input = lambda code, now=None: (
+        scene.relay(ShaderMessage.Keyboard.KeyDown(key=ShaderKeyboard.Keys.F11)) if scene.frame == 3 else None,
+        original(code, now))[1]
+    scene.main(width=32, height=16, fps=60, frameskip=False, device="cpu")
+    names = [call[0] for call in stub.calls]
+    assert "imshow" in names and "setWindowProperty" in names
+    assert scene._display_pump is None and scene.fullscreen

@@ -152,8 +152,10 @@ def test_port_imports_no_jax(tmp_path):
     Julia, the visualizer in the bf16 tail mode at blur level 1, and one
     scene of each later group: Basic, MusicBars, RayMarch, Tetration, Life,
     Mandelbrot at ssaa 1.5 (the general final pass) and Video),
-    a realtime run of the visualizer (main without an output, headless,
-    to frame_limit) and the GLSL Plasma scene through the command line
+    a realtime run of the visualizer and of the live PianoRoll (main
+    without an output, headless, to frame_limit), a segmented Mandelbrot
+    export (parallel.export_segment, join_segments), the cv2 preview's key
+    poller (io/x11keys.py) and the GLSL Plasma scene through the command line
     (cli.main) run with jax and the JAX package blocked, and leave no
     module of either loaded; the GLSL front-end and the command line's
     sources import neither."""
@@ -193,6 +195,16 @@ realtime = torch_demo.Visualizer()
 realtime.frame_limit = 2
 realtime.main(width=32, height=18, fps=10, ssaa=2, frameskip=False, device="cpu")
 assert realtime._frame_counter >= 2 and realtime.engine._streamed_names
+import shaderflow_tpu_torch.io.x11keys
+piano_live = torch_piano_roll.PianoRoll()
+piano_live.frame_limit = 2
+piano_live.main(width=32, height=18, fps=10, ssaa=1, frameskip=False, device="cpu")
+assert "iPianoRoll" in piano_live.engine._streamed_names
+from shaderflow_tpu_torch.parallel import export_segment, join_segments
+for host in range(2):
+    export_segment(torch_fractals.Mandelbrot(), {str(tmp_path / "seg.rgb")!r}, hosts=2, host=host,
+                   time=0.2, fps=10, width=32, height=18, ssaa=2, device="cpu")
+join_segments({str(tmp_path / "seg.rgb")!r}, hosts=2)
 import os
 import shaderflow_tpu_torch.tools.bench_dtype, shaderflow_tpu_torch.tools.probe_bf16_ops
 os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
@@ -208,13 +220,14 @@ assert not loaded, loaded
 print("frames", *(np.fromfile({str(tmp_path)!r} + "/" + name, np.uint8).size // (32 * 18 * 3)
                   for name in ("out.rgb", "viz.rgb", "piano.rgb", "julia.rgb", "viz_bf16.rgb",
                                "basic.rgb", "bars.rgb", "raymarch.rgb", "tetration.rgb",
-                               "life.rgb", "plasma.rgb", "ssaa15.rgb", "video.rgb")))
+                               "life.rgb", "plasma.rgb", "ssaa15.rgb", "video.rgb",
+                               "seg.rgb")))
 """
     env = dict(os.environ, HOME=str(tmp_path))
     result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                             text=True, env=env, timeout=120)
     assert result.returncode == 0, result.stderr
-    assert "frames 2 3 4 1 3 2 2 2 2 2 3 2 3" in result.stdout
+    assert "frames 2 3 4 1 3 2 2 2 2 2 3 2 3 2" in result.stdout
     pattern = re.compile(r"^\s*(from\s+(shaderflow_tpu|jax)(\.|\s)|import\s+(shaderflow_tpu|jax)\b)",
                          re.MULTILINE)
     for name in ("glsl.py", "cli.py", "__main__.py"):
