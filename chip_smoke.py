@@ -3,6 +3,7 @@
 Smoke test of the PyTorch port (shaderflow_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh    # phases 43-44 alone, on every card there
 
 Phases, each printing its own line (any failure raises; exit code != 0):
   1. card and toolchain: nvidia-smi name / power limit, torch, CUDA,
@@ -176,7 +177,25 @@ Then an {"audio": ...} line (36-37).
      exported by two concurrent processes on the card
      (parallel.export_segment), joined: sha256-equal to the single
      export; each process's seconds and counters
-Then a {"live": ...} line (38-42). Phase 17 also times an empty kernel
+Then a {"live": ...} line (38-42).
+  Multi-device sharding (parallel/mesh.py), each configuration exported
+  through Scene.main(devices=N) with N shards of the card (mesh_devices,
+  each shard on a stream of its own) and, where the machine has N cards,
+  with one shard on each; every export's frames sha256-equal to the
+  single device's:
+ 43. frame sharding: the visualizer, Mandelbrot and Tetration at
+     1920x1080@60, 2x SSAA, MESH_SECONDS, single and over MESH_SHARDS
+     shards: launch counters (K1 == frames, K3 == frames for Mandelbrot,
+     K2 == flushes x shards for the visualizer), frames per shard, fps of
+     a null export, device ms and kernels a frame (one flush of
+     MESH_PROFILE_FRAMES, kernel time summed over the shards' streams),
+     their share of the wall time, the peak of torch.cuda.memory_allocated
+     above what was allocated before the export
+ 44. row sharding: MotionBlur and Life at 1920x1080@60, ssaa 1 (phase
+     24's configuration), MESH_SECONDS, the same figures, no kernel of
+     K1-K3; every shard's row window and its rings, distinct tensors equal
+     across shards
+Then a {"mesh": ...} line (43-44). Phase 17 also times an empty kernel
 (csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
@@ -2405,9 +2424,194 @@ def segments_path(counters, card: str) -> dict:
     return figures
 
 
+# Phases 43-44: seconds of each export, shard counts of the card, frames
+# of the profiled flush (divides every shard count)
+MESH_SECONDS, MESH_SHARDS, MESH_PROFILE_FRAMES = 1.0, (2, 4), 8
+
+
+def zero_counters() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse
+    fractal.escape_iterations_sep.launches = 0
+    fractal.escape_iterations.launches = 0
+    sampling.expand_tables.launches = 0
+    tailfuse.fused_tail_final.launches = 0
+    tailfuse.fused_tail_final.planes_launches = 0
+    tailfuse.fused_tail_final.bf16_launches = 0
+
+
+def read_counters() -> dict:
+    from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse
+    return {"k3": fractal.escape_iterations_sep.launches,
+            "k3p": fractal.escape_iterations.launches,
+            "k2": sampling.expand_tables.launches,
+            "k1": tailfuse.fused_tail_final.launches,
+            "k1d": tailfuse.fused_tail_final.planes_launches,
+            "k1h": tailfuse.fused_tail_final.bf16_launches}
+
+
+def mesh_configs(shards_of_one_card: bool = True) -> list:
+    """(label, mesh_devices, devices) of phases 43-44: one device, N
+    shards of card 0, and one shard on each of N cards where the machine
+    has N."""
+    import torch
+    configs = [("single", None, None)]
+    if shards_of_one_card:
+        configs += [(f"{n}x cuda:0", ["cuda:0"] * n, n) for n in MESH_SHARDS]
+    configs += [(f"{n} cards", [f"cuda:{k}" for k in range(n)], n) for n in MESH_SHARDS
+                if n <= torch.cuda.device_count()]
+    return configs
+
+
+def mesh_export(cls, label: str, pool, devices, counters, options: dict) -> dict:
+    """One configuration of phases 43-44: a .rgb export through
+    Scene.main(devices=...) (sha256, counters, the shards' frames and row
+    windows), then a null export (seconds, peak memory) and the device
+    profile of one flush of its last batch's first MESH_PROFILE_FRAMES."""
+    import gc
+
+    import torch
+    zero_counters, read_counters = counters
+    gc.collect()   # earlier scenes' rings (module <-> scene cycles)
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "out.rgb"
+        scene = cls()
+        scene.mesh_devices = pool
+        zero_counters()
+        scene.main(output=str(output), devices=devices, device="cuda", **options)
+        launches = read_counters()
+        sha = digest(output)
+    engine = scene.engine
+    shards = engine._shards
+    figures = dict(config=label, sha256=sha, launches=launches,
+                   shards=len(shards) or 1, frames_per_shard=[len(s.frames) for s in shards],
+                   windows=[dict(s.windows) for s in shards])
+    if shards and shards[0]._carry:
+        engine.join_shards()
+        rings = [shard._carry for shard in shards]
+        figures["rings_split"] = all(
+            len({ring[name].data.data_ptr() for ring in rings}) == len(shards)
+            and all(torch.equal(ring[name].data.to(rings[0][name].data.device),
+                                rings[0][name].data) for ring in rings)
+            for name in rings[0])
+    del scene, engine, shards
+    gc.collect()
+    scene = cls()
+    scene.mesh_devices = pool
+    cards = range(torch.cuda.device_count())
+    for card in cards:
+        torch.cuda.synchronize(card)
+        torch.cuda.reset_peak_memory_stats(card)
+    held = [torch.cuda.memory_allocated(card) for card in cards]   # earlier phases'
+    started = time.perf_counter()
+    scene.main(output="null", devices=devices, device="cuda", **options)
+    for card in cards:
+        torch.cuda.synchronize(card)
+    seconds = time.perf_counter() - started
+    frames = round(options["time"] * options["fps"])
+    peaks = [torch.cuda.max_memory_allocated(card) - before
+             for card, before in zip(cards, held)]
+    count = min(MESH_PROFILE_FRAMES, len(scene.engine.frame_indices()))
+
+    def flush():
+        scene.engine.flush(count)
+        for card in cards:   # device_profile synchronizes the current card only
+            torch.cuda.synchronize(card)
+    flush_ms, flush_launches = device_profile(flush, 2)
+    figures.update(frames=frames, seconds=seconds, fps=frames / seconds,
+                   device_ms_per_frame=flush_ms / count,
+                   launches_per_frame=(flush_launches / count if flush_launches else None),
+                   busy=frames * flush_ms / count / 1e3 / seconds, peak_bytes=peaks[0],
+                   peak_bytes_per_card=peaks)
+    return figures
+
+
+def mesh_paths(counters, card: str, shards_of_one_card: bool = True) -> dict:
+    """Phases 43-44: every scene and configuration of mesh_configs(); the
+    counters and sha256 of each against the single export's (see the
+    module docstring). A warm-up export of each scene builds its kernels
+    first."""
+    import torch
+    import torch_demo
+    import torch_fractals
+    from shaderflow_tpu_torch.parallel.mesh import frame_parts
+    frames = round(MESH_SECONDS * FPS)
+    paths = {}
+    for phase, ssaa, classes in (
+            ("mesh_frames", SSAA, (torch_demo.Visualizer, torch_fractals.Mandelbrot,
+                                   torch_fractals.Tetration)),
+            ("mesh_rows", 1, (torch_demo.MotionBlur, torch_demo.Life))):
+        options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=ssaa, time=MESH_SECONDS)
+        for cls in classes:
+            name = cls.__name__
+            cls().main(output="null", device="cuda", **{**options, "time": 2 / FPS})
+            runs = []
+            for label, pool, devices in mesh_configs(shards_of_one_card):
+                run = mesh_export(cls, label, pool, devices, counters, options)
+                n = run["shards"]
+                expected = {key: 0 for key in run["launches"]}
+                if phase == "mesh_frames":
+                    expected["k1"] = frames
+                    if name == "Mandelbrot":
+                        expected["k3"] = frames
+                    if name == "Visualizer":
+                        # one flush a batch of 128 frames, K2 once a shard
+                        expected["k2"] = -(-frames // 128) * n
+                    if n > 1 and run["frames_per_shard"] != [
+                            end - first for first, end in frame_parts(frames, n)]:
+                        raise AssertionError(f"{name} {label}: frames per shard "
+                                             f"{run['frames_per_shard']}")
+                elif n > 1:
+                    rows = [window["iScreen"] for window in run["windows"]]
+                    want = [(k * HEIGHT // n, (k + 1) * HEIGHT // n) for k in range(n)]
+                    if rows != want or not run["rings_split"]:
+                        raise AssertionError(f"{name} {label}: windows {rows}, rings split "
+                                             f"{run['rings_split']}")
+                if run["launches"] != expected:
+                    raise AssertionError(f"{name} {label}: counters {run['launches']}, "
+                                         f"expected {expected}")
+                if runs and run["sha256"] != runs[0]["sha256"]:
+                    raise AssertionError(f"{name} {label}: sha256 {run['sha256']} vs the "
+                                         f"single export's {runs[0]['sha256']}")
+                say(phase, scene=name, config=repr(label), shards=n, frames=frames,
+                    sha256_equal=run["sha256"] == runs[0]["sha256"] if runs else "reference",
+                    launches=run["launches"], frames_per_shard=run["frames_per_shard"],
+                    seconds=f"{run['seconds']:.4f}", fps=f"{run['fps']:.3f}",
+                    device_ms_per_frame=f"{run['device_ms_per_frame']:.4f}",
+                    launches_per_frame=run["launches_per_frame"], busy=f"{run['busy']:.4f}",
+                    peak_gib=[round(peak / 2 ** 30, 3) for peak in run["peak_bytes_per_card"]],
+                    rings_split=run.get("rings_split", "-"), card=repr(card))
+                runs.append(run)
+            paths[name] = runs
+    if torch.cuda.device_count() < 2:
+        say("mesh_cards", cards="not measured: one card on this machine")
+    return paths
+
+
+def mesh_main(card: str) -> int:
+    """`python3 chip_smoke.py --mesh`: phases 43-44 alone, on every card of
+    the machine: on one card its shards, on several one shard a card (the
+    path that exists only across cards, against one device)."""
+    import torch
+    from shaderflow_tpu_torch import build
+    say("card", nvidia_smi=repr(card), count=torch.cuda.device_count(),
+        built=",".join(build.build_cuda_libraries()) or "cached")
+    mesh = mesh_paths((zero_counters, read_counters), card,
+                      shards_of_one_card=torch.cuda.device_count() < 2)
+    print(json.dumps({"mesh": mesh, "card": card}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     script_started = time.perf_counter()
     import torch
+    if sys.argv[1:] not in ([], ["--mesh"]):
+        print("usage: chip_smoke.py [--mesh]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this checks the "
               "port on a CUDA card", file=sys.stderr)
@@ -2430,6 +2634,8 @@ def main() -> int:
 
     device = torch.device("cuda")
     card = card_line()
+    if sys.argv[1:] == ["--mesh"]:
+        return mesh_main(card)
     frames = round(SECONDS * FPS)
     render_h, render_w = HEIGHT * SSAA, WIDTH * SSAA
     aspect = WIDTH / HEIGHT
@@ -2520,22 +2726,6 @@ def main() -> int:
         max_u8_diff=k1_err, differing_share=f"{k1_share:.3e}",
         ms=f"{k1_ms:.4f}", call_ms=f"{k1_call_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
         bound_ms=f"{k1_bound_ms:.4f}", bound_by=k1_bound_by, **k1_compiled)
-
-    def zero_counters():
-        fractal.escape_iterations_sep.launches = 0
-        fractal.escape_iterations.launches = 0
-        sampling.expand_tables.launches = 0
-        tailfuse.fused_tail_final.launches = 0
-        tailfuse.fused_tail_final.planes_launches = 0
-        tailfuse.fused_tail_final.bf16_launches = 0
-
-    def read_counters():
-        return {"k3": fractal.escape_iterations_sep.launches,
-                "k3p": fractal.escape_iterations.launches,
-                "k2": sampling.expand_tables.launches,
-                "k1": tailfuse.fused_tail_final.launches,
-                "k1d": tailfuse.fused_tail_final.planes_launches,
-                "k1h": tailfuse.fused_tail_final.bf16_launches}
 
     with tempfile.TemporaryDirectory() as tmp:
         # 5. The Mandelbrot slice through the port's entry point
@@ -3032,6 +3222,16 @@ def main() -> int:
     print(json.dumps({"live": {"piano": piano_live["figures"], "hud": hud,
                                "cv2_preview": cv2_preview, "fluidsynth": fluid,
                                "segments": segments}, "card": card}))
+    # 43.-44. Frame and row sharding over shards of the card
+    mesh = mesh_paths((zero_counters, read_counters), card)
+    print(json.dumps({"mesh": mesh, "card": card}))
+
+    def mesh_launches(name: str, key: str) -> dict:
+        """A kernel's launches in each phase 43 configuration of a scene,
+        and each shard's frames there."""
+        return {run["config"]: {"launches": run["launches"][key],
+                                "frames_per_shard": run["frames_per_shard"]}
+                for run in mesh[name]}
     say("done", seconds=f"{time.perf_counter() - script_started:.1f}")
 
     julia = plane_slices["julia"]
@@ -3047,7 +3247,9 @@ def main() -> int:
          "tetration": {"launches": scenes["Tetration"]["launches"]["k1"],
                        "max_abs_err": k1t_err, "ms": k1t_ms, "call_ms": k1t_call_ms,
                        "plain_ms": k1t_plain_ms, "bound_ms": k1t_bound_ms,
-                       "bound_by": k1t_bound_by, **k1t_compiled}},
+                       "bound_by": k1t_bound_by, **k1t_compiled,
+                       "mesh": mesh_launches("Tetration", "k1")},
+         "mesh": mesh_launches("Mandelbrot", "k1")},
         {"name": "K1 (b)+(c) fused tail with Indexed and ColSampled inputs (visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
@@ -3057,7 +3259,8 @@ def main() -> int:
          **k1v_compiled, "realtime": realtime["k1"],
          "audio_export": {"launches": audio_export["launches"]["k1"]},
          "hud": {"launches": hud["launches"]["k1"]},
-         "segments": {"launches": [r["k1"] for r in segments["segments"]]}},
+         "segments": {"launches": [r["k1"] for r in segments["segments"]]},
+         "mesh": mesh_launches("Visualizer", "k1")},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
@@ -3066,7 +3269,8 @@ def main() -> int:
          "bound_by": k2_bound_by, "library_ms": k2_library_ms, "realtime": realtime["k2"],
          "any_ssaa": any_ssaa["k2"], "audio_export": {"launches": audio_export["launches"]["k2"]},
          "hud": {"launches": hud["launches"]["k2"]},
-         "segments": {"launches": [r["k2"] for r in segments["segments"]]}},
+         "segments": {"launches": [r["k2"] for r in segments["segments"]]},
+         "mesh": mesh_launches("Visualizer", "k2")},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
@@ -3080,7 +3284,7 @@ def main() -> int:
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None, **k3_compiled["lines"],
-         "any_ssaa": any_ssaa["k3"]},
+         "any_ssaa": any_ssaa["k3"], "mesh": mesh_launches("Mandelbrot", "k3")},
         {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",

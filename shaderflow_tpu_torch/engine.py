@@ -49,11 +49,21 @@ into the matrix, padded to the program's components. The final pass reads
 the main program's slot 1 when it is temporal (the newest box after its
 roll), else slot 0.
 
-Not yet: frame/row sharding over devices.
+With a mesh (engine.mesh, parallel/mesh.py: Scene.main(devices=N)) a
+flush is split over N shards, each a device (a card, or a repeated one:
+shards of one card, each on a stream of its own) holding its own copies of
+the static textures, sequences, mip pyramids and batch-invariant preludes
+(a Shard; copies made when the engine's tensor changes). Without a
+temporal program the batch's frames split over the shards (each runs the
+batch preludes on its frames and renders them); with one, every shard
+steps every frame on a window of each program's rows, and the windows are
+gathered into every shard's texture after each layer. The shards' frames
+go down into one host batch (WireBatch), each on its own stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
 from typing import TYPE_CHECKING, Any, Optional
 
@@ -76,23 +86,46 @@ class WireBatch:
     device->host copy into pinned memory is enqueued right behind the
     batch's compute, so it overlaps the host's capture of the next batch;
     fetch() waits for it. With host=False only completion is tracked
-    (NullSink: frames never leave the device)."""
+    (NullSink: frames never leave the device). The parts of a sharded
+    flush (ShardedFrames) go into one host batch, each copied on its
+    shard's stream into its frames or rows: no part is gathered onto
+    another device."""
 
-    def __init__(self, frames: torch.Tensor, host: bool = True):
+    def __init__(self, frames, host: bool = True):
         self.frames = frames    # keeps the device batch alive until drained
         self.shape = tuple(frames.shape)
-        self.host: Optional[torch.Tensor] = frames if frames.device.type == "cpu" else None
-        self.done: Optional[torch.cuda.Event] = None
-        if frames.device.type == "cuda":
+        self.host: Optional[torch.Tensor] = None
+        self.done: list[torch.cuda.Event] = []
+        if isinstance(frames, ShardedFrames):
+            self._stage_parts(frames, host)
+        elif frames.device.type == "cpu":
+            self.host = frames
+        else:
             if host:
                 self.host = torch.empty(frames.shape, dtype=frames.dtype, pin_memory=True)
                 self.host.copy_(frames, non_blocking=True)
-            self.done = torch.cuda.Event()
-            self.done.record(torch.cuda.current_stream(frames.device))
+            self.done.append(torch.cuda.Event())
+            self.done[-1].record(torch.cuda.current_stream(frames.device))
+
+    def _stage_parts(self, frames: "ShardedFrames", host: bool) -> None:
+        on_card = any(shard.stream is not None for shard, *_ in frames.parts)
+        if host:
+            self.host = torch.empty(self.shape, dtype=torch.uint8, pin_memory=on_card)
+        for shard, frame_slice, row_slice, part in frames.parts:
+            with shard.context():
+                if host and row_slice == slice(None):
+                    self.host[frame_slice].copy_(part, non_blocking=True)
+                elif host:
+                    # A row window of every frame: contiguous in each frame
+                    for index, frame in enumerate(range(*frame_slice.indices(self.shape[0]))):
+                        self.host[frame, row_slice].copy_(part[index], non_blocking=True)
+                if shard.stream is not None:
+                    self.done.append(torch.cuda.Event())
+                    self.done[-1].record(shard.stream)
 
     def wait(self) -> None:
-        if self.done is not None:
-            self.done.synchronize()
+        for event in self.done:
+            event.synchronize()
 
     def fetch(self) -> np.ndarray:
         if self.host is None:
@@ -101,8 +134,9 @@ class WireBatch:
         return self.host.numpy()
 
 
-def to_wire(frames: torch.Tensor, host: bool = True) -> WireBatch:
-    """Stage a (F, H, W, 3) u8 batch for host delivery (see WireBatch)."""
+def to_wire(frames, host: bool = True) -> WireBatch:
+    """Stage a (F, H, W, 3) u8 batch, or a sharded flush's parts, for host
+    delivery (see WireBatch)."""
     return WireBatch(frames, host=host)
 
 
@@ -236,6 +270,85 @@ class Ring:
         return torch.roll(self.data, -self.origin, dims=0)
 
 
+class Shard:
+    """One shard of a mesh (parallel/mesh.py): its device, its own CUDA
+    stream on a card, and its own copies of what its frames read. Its
+    attributes carry the engine's names, since RenderEngine keeps the same
+    state for its one device: the engine's per-frame methods read either
+    (shard=None is the engine's own)."""
+
+    def __init__(self, index: int, device: torch.device):
+        self.index = index
+        self.device = device
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.staging = StagingPool()
+        self._static_tex: dict[str, torch.Tensor] = {}
+        self._sequences: dict[str, tuple] = {}
+        self._stream_tex: dict[str, torch.Tensor] = {}
+        self._prelude_cache: dict[str, torch.Tensor] = {}
+        self._prelude_state = None
+        self._mip_cache: dict = {}
+        self._carry: dict[str, Ring] = {}
+        self._program_coords: list = []
+        self._coords = None
+        self._copies: dict = {}        # key -> (the engine's tensor, its copy here)
+        self.slabs: dict = {}          # (program index, rows) -> Coords of the rows
+        # What it rendered: its frames of the last flush (frame path); its
+        # row window of each program in the last frame and the rows it
+        # rendered, over frames and layers (row path)
+        self.frames: list[int] = []
+        self.windows: dict[str, tuple] = {}
+        self.rows_rendered: dict[str, int] = {}
+
+    def context(self) -> contextlib.ExitStack:
+        """Its device and stream as the current ones (nothing on the CPU)."""
+        stack = contextlib.ExitStack()
+        if self.stream is not None:
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self.stream))
+        return stack
+
+    def follow(self, engine: "RenderEngine") -> None:
+        """Before a flush: order this shard's stream after what the engine
+        enqueued on its device's current stream (static uploads, the
+        modules' sequences), then copy the engine's static textures and
+        bound sequences that changed since the last flush."""
+        if self.stream is not None:
+            self.stream.wait_stream(torch.cuda.current_stream(engine.device))
+        with self.context():
+            self._static_tex = {name: self._copy(("tex", name), tensor)
+                                for name, tensor in engine._static_tex.items()}
+            self._sequences = {name: (source, self._copy(("seq", name), seq), window)
+                               for name, (source, seq, window) in engine._sequences.items()}
+        live = {("tex", name) for name in self._static_tex} | {("seq", name)
+                                                              for name in self._sequences}
+        self._copies = {key: entry for key, entry in self._copies.items() if key in live}
+
+    def _copy(self, key: tuple, tensor: torch.Tensor) -> torch.Tensor:
+        entry = self._copies.get(key)
+        if entry is None or entry[0] is not tensor:
+            copy = tensor.to(self.device, non_blocking=True)
+            if copy is tensor and self.stream is not None:
+                # Made on another stream, read on this one: its memory is
+                # not reused before the reads queued here are done
+                tensor.record_stream(self.stream)
+            entry = self._copies[key] = (tensor, copy)
+        return entry[1]
+
+
+class ShardedFrames:
+    """A sharded flush's (F, H, W, 3) u8 frames, left where each shard
+    rendered them: parts (shard, frame slice, row slice, tensor)."""
+
+    def __init__(self, parts: list, shape: tuple):
+        self.parts = parts
+        self.shape = shape
+
+    def cpu(self) -> torch.Tensor:
+        """The whole batch on the host (waits for every part)."""
+        return torch.from_numpy(WireBatch(self).fetch())
+
+
 class PreludeCtx:
     """The context handed to scene.batch_preludes functions, once per flush.
 
@@ -356,6 +469,13 @@ class RenderEngine:
         self.last_flush_retraced = False   # the last flush built a new K1 (a compile)
         # Per-batch capture state
         self._frame_uniforms: list[dict[str, np.ndarray]] = []
+        # Multi-device sharding (parallel/mesh.py): the mesh, its shards
+        # (made for one mesh and one build), and the programs that render
+        # whole rows on every shard under the row path
+        self.mesh = None
+        self._shards: list[Shard] = []
+        self._shards_mesh = None
+        self._whole_rows: set[str] = set()
 
     @property
     def device(self) -> torch.device:
@@ -393,15 +513,7 @@ class RenderEngine:
 
         self._statics = {v.name: v.value for v in scene.full_pipeline()
                          if v.static and v.value is not None}
-        # Coordinate flavors live for the build (one set per render size)
-        by_size: dict[tuple[int, int], Any] = {}
-        self._program_coords = []
-        for program in programs:
-            width, height = program.texture.resolution
-            if (height, width) not in by_size:
-                by_size[(height, width)] = make_coords(height, width, scene.aspect_ratio,
-                                                       self.device)
-            self._program_coords.append(by_size[(height, width)])
+        self._program_coords = self.coords_on(self.device)
         width, height = programs[-1].texture.resolution
         self._render_size = (height, width)
         self._coords = self._program_coords[-1]
@@ -413,11 +525,66 @@ class RenderEngine:
                     program.texture.make()
                 self._carry[program.name] = Ring(torch.from_numpy(
                     program.texture.matrix).to(device=self.device, dtype=torch.float32))
+        # Shards hold copies of this build's state: made anew at the next
+        # sharded flush (their rings from these)
+        self._shards, self._shards_mesh = [], None
+        self._whole_rows = set()
         self.stale = False
         out_width, out_height = scene._final.texture.resolution
         logger.debug(f"Engine built: render {width}x{height} -> output "
                      f"{out_width}x{out_height} subsample {scene.subsample} "
                      f"on {self.device}")
+
+    def coords_on(self, device: torch.device) -> list:
+        """Each program's coordinate flavors on `device`, in render order:
+        they live for the build (one set per render size)."""
+        by_size: dict[tuple[int, int], Any] = {}
+        coords = []
+        for program in self._programs():
+            width, height = program.texture.resolution
+            if (height, width) not in by_size:
+                by_size[(height, width)] = make_coords(height, width, self.scene.aspect_ratio,
+                                                       device)
+            coords.append(by_size[(height, width)])
+        return coords
+
+    def shards(self) -> list[Shard]:
+        """The shards of self.mesh, made once for a mesh and a build (their
+        program coordinates with them). A mesh naming a device this run
+        cannot use raises: a sharded flush never runs on fewer shards than
+        its mesh has."""
+        if self._shards_mesh is not self.mesh:
+            self.leave_mesh()
+            count = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            for device in self.mesh:
+                if device.type != self.device.type:
+                    raise ValueError(f"Mesh device {device} on a run on {self.device}")
+                if device.type == "cuda" and not (device.index is not None
+                                                  and device.index < count):
+                    raise RuntimeError(f"Mesh device {device}: {count} cards visible")
+            self._shards = [Shard(index, device) for index, device in enumerate(self.mesh)]
+            for shard in self._shards:
+                with shard.context():   # made on the stream that reads them
+                    shard._program_coords = self.coords_on(shard.device)
+                shard._coords = shard._program_coords[-1]
+            self._shards_mesh = self.mesh
+        return self._shards
+
+    def leave_mesh(self) -> None:
+        """Drop the shards; the rings of a row-sharded run (every shard
+        holds them whole) come back to the engine's device."""
+        if self._shards and self._shards[0]._carry:
+            self.join_shards()
+            self._carry = {name: Ring(ring.data.to(self.device, copy=True), ring.origin)
+                           for name, ring in self._shards[0]._carry.items()}
+        self._shards, self._shards_mesh = [], None
+
+    def join_shards(self) -> None:
+        """Order the engine's current stream after the work enqueued on
+        every shard's stream (before it reads what the shards wrote)."""
+        for shard in self._shards:
+            if shard.stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(shard.stream)
 
     # ------------------------------------------------------------------ #
     # Batch capture (host side, per frame)
@@ -471,19 +638,22 @@ class RenderEngine:
             self._static_versions[name] = tex.version
             tex.dirty = False
 
-    def bound_sequences(self) -> dict[str, torch.Tensor]:
-        """name -> the device sequence each frame indexes (ring-padded)."""
-        return {name: bound[1] for name, bound in self._sequences.items()}
+    def bound_sequences(self, shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
+        """name -> the device sequence each frame indexes (ring-padded), on
+        the engine's device or a shard's."""
+        return {name: bound[1] for name, bound in (shard or self)._sequences.items()}
 
-    def _frame_textures(self, frame_index: int, step: int = 0) -> dict[str, torch.Tensor]:
+    def _frame_textures(self, frame_index: int, step: int = 0,
+                        shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
         """Every texture one frame reads, (T, L, H, W, C) views: the static
         uploads, the frame's box of each sequence (row clip(frame_index),
         or the ring of the last L columns) and snapshot `step` of each
-        streamed texture."""
-        textures = dict(self._static_tex)
-        for name, stack in self._stream_tex.items():
+        streamed texture (the engine's, or a shard's copies)."""
+        state = shard or self
+        textures = dict(state._static_tex)
+        for name, stack in state._stream_tex.items():
             textures[name] = stack[step]
-        for name, (_, seq, window) in self._sequences.items():
+        for name, (_, seq, window) in state._sequences.items():
             if window > 1:
                 # The slice at k spans columns k-L+1..k (oldest first);
                 # rolling by k+2 puts column k at x = (k+1) % L, the host
@@ -499,48 +669,51 @@ class RenderEngine:
     # ------------------------------------------------------------------ #
     # Batch preludes
 
-    def _run_preludes(self, frame_indices: list[int]) -> tuple[dict, dict]:
+    def _run_preludes(self, frame_indices: list[int],
+                      shard: Optional[Shard] = None) -> tuple[dict, dict]:
         """Run the scene's batch preludes for one flush -> (per-batch values
         with leading axis B, batch-invariant values with leading axis 1).
         Invariant values are reused while the state they were computed for
-        holds; values carried by load_reference_state take precedence."""
+        holds; values carried by load_reference_state take precedence. A
+        shard runs them on its frames, on its device, with its cache."""
         functions = dict(getattr(self.scene, "batch_preludes", None) or {})
         if not functions:
             return {}, {}
-        sequences = self.bound_sequences()
+        target = shard or self
+        sequences = self.bound_sequences(shard)
         # (name, __code__): scenes re-register fresh closures from the same
         # factory on every build, which share semantics by contract
         state = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
                               for name, fn in functions.items())),
                  tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
                               for name, seq in sequences.items())),
-                 self._render_size, self.scene.aspect_ratio, str(self.device))
-        if state != self._prelude_state:
-            self._prelude_state = state
-            self._prelude_cache = {name: value.to(self.device)
-                                   for name, value in self.pinned_preludes.items()}
-        frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(self.device)
+                 self._render_size, self.scene.aspect_ratio, str(target.device))
+        if state != target._prelude_state:
+            target._prelude_state = state
+            target._prelude_cache = {name: value.to(target.device)
+                                     for name, value in self.pinned_preludes.items()}
+        frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(target.device)
         ctx = PreludeCtx(frames, sequences, self._render_size, self.scene.aspect_ratio)
         per_batch = {}
         for name, fn in functions.items():
-            if name in self._prelude_cache:
+            if name in target._prelude_cache:
                 continue
             value = fn(ctx)
             if value is None:
                 continue
             if value.shape[0] == 1:
-                self._prelude_cache[name] = value
+                target._prelude_cache[name] = value
             elif value.shape[0] != len(frame_indices):
                 raise ValueError(f"Prelude {name!r}: leading axis {value.shape[0]} "
                                  f"!= batch {len(frame_indices)}")
             else:
                 per_batch[name] = value
-        return per_batch, self.invariant_preludes()
+        return per_batch, self.invariant_preludes(shard)
 
-    def invariant_preludes(self) -> dict[str, torch.Tensor]:
+    def invariant_preludes(self, shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
         """The cached batch-invariant prelude values (leading axis 1)."""
         functions = getattr(self.scene, "batch_preludes", None) or {}
-        return {name: value for name, value in self._prelude_cache.items()
+        return {name: value for name, value in (shard or self)._prelude_cache.items()
                 if name in functions}
 
     def capture_frame(self) -> None:
@@ -649,13 +822,16 @@ class RenderEngine:
         return {name: np.stack(snapshots[:count])
                 for name, snapshots in self._frame_streams.items() if snapshots}
 
-    def upload(self, packed: np.ndarray, streams: dict) -> tuple:
-        """The batch's packed uniforms and stream stacks on the device: one
-        staged copy on the card (StagingPool), views of the host arrays on
-        the CPU. u8 streams are normalized here, once per batch."""
+    def upload(self, packed: np.ndarray, streams: dict, shard: Optional[Shard] = None) -> tuple:
+        """The batch's packed uniforms and stream stacks on the device (or
+        a shard's, through its own staging buffers): one staged copy on the
+        card (StagingPool), views of the host arrays on the CPU. u8 streams
+        are normalized here, once per batch."""
         names = list(streams)
-        if self.device.type == "cuda":
-            tensors = self.staging.upload([packed, *(streams[n] for n in names)], self.device)
+        target = shard or self
+        if target.device.type == "cuda":
+            tensors = target.staging.upload([packed, *(streams[n] for n in names)],
+                                            target.device)
         else:
             tensors = [torch.from_numpy(a) for a in (packed, *(streams[n] for n in names))]
         stacks = {name: (normalize_u8(stack) if stack.dtype == torch.uint8 else stack)
@@ -675,73 +851,92 @@ class RenderEngine:
     def frame_context(self, row: torch.Tensor, spec: tuple, step: int,
                       frame_index: int, per_batch: dict, invariant: dict,
                       coords=None, layer: int = 0, textures: Optional[dict] = None,
-                      uniforms: Optional[FrameUniforms] = None) -> Frag:
+                      uniforms: Optional[FrameUniforms] = None,
+                      shard: Optional[Shard] = None) -> Frag:
         """The Frag of one frame and layer (the main program's coordinates
         and the external textures unless given): its packed uniform row on
         the device, its textures (sequence rows at frame_index, streamed
         snapshot `step`), and the batch's prelude values (frame `step` of
-        each per-batch stack, entry 0 of each batch-invariant one)."""
+        each per-batch stack, entry 0 of each batch-invariant one). A
+        shard's frame reads the shard's copies and pyramids."""
+        state = shard or self
         uniforms = uniforms if uniforms is not None else FrameUniforms(row, spec)
-        coords = coords if coords is not None else self._coords
+        coords = coords if coords is not None else state._coords
         return Frag(coords=finish_coords(coords, uniforms["iResolution"]),
                     uniforms=uniforms, statics={**self._statics, "iLayer": layer},
                     layer=layer,
                     textures=(textures if textures is not None
-                              else self._frame_textures(frame_index, step)),
+                              else self._frame_textures(frame_index, step, shard)),
                     texture_meta=self.texture_meta(),
                     preludes={**{n: v[step] for n, v in per_batch.items()},
                               **{n: v[0] for n, v in invariant.items()}},
                     prelude_stacks={**per_batch, **invariant}, prelude_step=step,
-                    mip_cache=self._mip_cache)
+                    mip_cache=state._mip_cache)
 
     def carried(self) -> dict[str, torch.Tensor]:
-        """The temporal rings as they stand, in slot order (copies)."""
-        return {name: ring.ordered() for name, ring in self._carry.items()}
+        """The temporal rings as they stand, in slot order (copies on the
+        engine's device; under the row path every shard holds them whole,
+        and the first shard's are read)."""
+        carry = self._carry
+        if self._shards and self._shards[0]._carry:
+            self.join_shards()
+            carry = self._shards[0]._carry
+        return {name: ring.ordered().to(self.device) for name, ring in carry.items()}
+
+    def layer_value(self, result, program: ShaderProgram, coords) -> torch.Tensor:
+        """A layer's result as its texture holds it: a TailSpec evaluated
+        by the plain tail, padded with ones or cropped to the texture's
+        components (render_layer already did so for any other result)."""
+        if not isinstance(result, tailfuse.TailSpec):
+            return result
+        components = program.texture.components
+        result = tailfuse.eval_reference(result, coords.height, coords.width,
+                                         self.scene.aspect_ratio)
+        if result.shape[-1] < components:
+            pad = torch.ones(result.shape[:-1] + (components - result.shape[-1],),
+                             dtype=torch.float32, device=result.device)
+            result = torch.cat([result, pad], dim=-1)
+        return result[..., :components]
 
     def render_frame(self, row: torch.Tensor, spec: tuple, step: int, frame_index: int,
-                     per_batch: dict, invariant: dict, out: torch.Tensor) -> None:
+                     per_batch: dict, invariant: dict, out: torch.Tensor,
+                     shard: Optional[Shard] = None) -> None:
         """Render one frame into `out` (H, W, 3) u8: every program and
-        layer in order (the module docstring), then the final pass."""
+        layer in order (the module docstring), then the final pass; on a
+        shard, from its copies (the frame path)."""
         scene = self.scene
+        state = shard or self
         programs = self._programs()
         uniforms = FrameUniforms(row, spec)
-        textures = self._frame_textures(frame_index, step)
-        textures.update(self._carry)
+        textures = self._frame_textures(frame_index, step, shard)
+        textures.update(state._carry)
         out_width, out_height = scene._final.texture.resolution
         subsample = int(scene.subsample)
         aspect = scene.aspect_ratio
-        for program, coords in zip(programs, self._program_coords):
+        for program, coords in zip(programs, state._program_coords):
             texture = program.texture
             temporal, layers = texture.temporal, texture.layers
             if temporal > 1:
-                matrix = self._carry[program.name]
+                matrix = state._carry[program.name]
             else:
                 matrix = Ring(torch.zeros((1, layers, coords.height, coords.width,
                                            texture.components),
-                                          dtype=torch.float32, device=self.device))
+                                          dtype=torch.float32, device=state.device))
                 textures[program.name] = matrix
             for layer in range(layers):
                 ctx = self.frame_context(row, spec, step, frame_index, per_batch, invariant,
                                          coords=coords, layer=layer, textures=textures,
-                                         uniforms=uniforms)
+                                         uniforms=uniforms, shard=shard)
                 result = program.render_layer(ctx)
-                if isinstance(result, tailfuse.TailSpec):
-                    if program is programs[-1] and temporal == 1 and layers == 1:
-                        # The main program's tail fuses with the final pass:
-                        # its texture is never materialized
-                        tailfuse.run_tail_final(result, coords.height, coords.width,
-                                                out_height, out_width, subsample, aspect,
-                                                out=out)
-                        return
-                    result = tailfuse.eval_reference(result, coords.height, coords.width,
-                                                     aspect)
-                    if result.shape[-1] < texture.components:
-                        pad = torch.ones(result.shape[:-1] + (texture.components
-                                                              - result.shape[-1],),
-                                         dtype=torch.float32, device=result.device)
-                        result = torch.cat([result, pad], dim=-1)
-                    result = result[..., :texture.components]
-                matrix[0, layer] = result
+                if (isinstance(result, tailfuse.TailSpec) and program is programs[-1]
+                        and temporal == 1 and layers == 1):
+                    # The main program's tail fuses with the final pass:
+                    # its texture is never materialized
+                    tailfuse.run_tail_final(result, coords.height, coords.width,
+                                            out_height, out_width, subsample, aspect,
+                                            out=out)
+                    return
+                matrix[0, layer] = self.layer_value(result, program, coords)
             if temporal > 1:
                 matrix.roll()
         # After its roll a temporal main program's newest box sits at slot 1
@@ -762,6 +957,12 @@ class RenderEngine:
             # Modules bind their sequences on their first update
             self._refresh_textures()
         builds = tailgen.compiled.builds
+        if self.mesh is not None:
+            from shaderflow_tpu_torch.parallel import mesh
+            frames = (mesh.flush_rows if self._carry else mesh.flush_frames)(self, count)
+            self.last_flush_retraced = tailgen.compiled.builds != builds
+            return frames
+        self.leave_mesh()
         packed, spec = self.stack_captures(count)
         packed, self._stream_tex = self.upload(packed, self.stack_streams(count))
 
@@ -779,8 +980,11 @@ class RenderEngine:
 
     def reset_carry(self) -> None:
         """Re-seed the temporal rings from their programs' host matrices
-        (the scene's reset key)."""
-        for program in self._programs():
-            if program.name in self._carry and program.texture.matrix is not None:
-                self._carry[program.name] = Ring(torch.from_numpy(
-                    program.texture.matrix).to(device=self.device, dtype=torch.float32))
+        (the scene's reset key), the engine's and every shard's."""
+        for state in (self, *self._shards):
+            with state.context() if state is not self else contextlib.nullcontext():
+                for program in self._programs():
+                    if program.name in state._carry and program.texture.matrix is not None:
+                        state._carry[program.name] = Ring(torch.from_numpy(
+                            program.texture.matrix).to(device=state.device,
+                                                        dtype=torch.float32))

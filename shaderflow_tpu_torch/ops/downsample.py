@@ -12,14 +12,18 @@ final pass of every regime K1 does not take, on the CPU and on the card.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.ops.sampling import apply_resample, resample_plan
 
 
 def box_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Exact factor x factor average pooling of (H, W, C) (VALID windows:
     trailing rows/columns that do not fill a window are dropped)."""
+    require_whole_rows("box_downsample")
     height, width = x.shape[0] // factor, x.shape[1] // factor
     x = x[:height * factor, :width * factor]
     windows = x.reshape(height, factor, width, factor, x.shape[2])
@@ -39,30 +43,37 @@ def ssaa_downsample(
     out_width: int,
     subsample: int = 2,
     components: int = 3,
+    rows: Optional[tuple] = None,
 ) -> torch.Tensor:
     """Downsample a supersampled (Hr, Wr, C) float render to
-    (out_height, out_width, components) float in [0, 1]."""
+    (out_height, out_width, components) float in [0, 1]. `rows` =
+    (first, end) computes those output rows only, each equal to the whole
+    pass's: the identity and the exact pooling read only the render rows
+    under them (the rest of `render` may hold anything), the stencil one
+    row more on each side, the general path the whole render."""
+    require_whole_rows("ssaa_downsample")
     rh, rw = render.shape[0], render.shape[1]
     render = render[..., :components]
+    first, end = rows if rows is not None else (0, out_height)
 
     # Equal resolution: the subsample^2 bilinear taps of a clamp-to-edge
     # texture collapse to a separable 3-tap stencil [m, 1-2m, m] per axis
     if (rh, rw) == (out_height, out_width) and subsample >= 1:
         if subsample == 1:
-            return render
+            return render[first:end]
         m = sum(max(0.0, -0.5 + (k + 0.5) / subsample)
                 for k in range(subsample)) / subsample
         padded = torch.nn.functional.pad(
             render.permute(2, 0, 1)[None], (1, 1, 1, 1),
             mode="replicate")[0].permute(1, 2, 0)
-        rows = ((1.0 - 2.0 * m) * padded[1:1 + out_height]
-                + m * (padded[0:out_height] + padded[2:2 + out_height]))
-        return ((1.0 - 2.0 * m) * rows[:, 1:1 + out_width]
-                + m * (rows[:, 0:out_width] + rows[:, 2:2 + out_width]))
+        vertical = ((1.0 - 2.0 * m) * padded[1 + first:1 + end]
+                    + m * (padded[first:end] + padded[2 + first:2 + end]))
+        return ((1.0 - 2.0 * m) * vertical[:, 1:1 + out_width]
+                + m * (vertical[:, 0:out_width] + vertical[:, 2:2 + out_width]))
 
     # Exact average pooling when taps align with texel centers
     if rh == out_height * subsample and rw == out_width * subsample and subsample > 1:
-        return box_downsample(render, subsample)
+        return box_downsample(render[first * subsample:end * subsample], subsample)
 
     # General path: subsample^2 bilinear taps an output pixel
     # (final.glsl:21-29). The tap grid is axis-aligned, so by linearity the
@@ -71,7 +82,7 @@ def ssaa_downsample(
     # same math), contracted block by block (resample_separable_blocked).
     # The weights depend on the sizes only: made once, on the host
     plan = _general_plan(rh, rw, out_height, out_width, int(subsample), render.device)
-    return apply_resample(render, plan)[..., :components]
+    return apply_resample(render, plan)[first:end, :, :components]
 
 
 _PLANS: dict = {}
@@ -103,7 +114,8 @@ def _general_plan(render_height: int, render_width: int, out_height: int,
 
 
 def final_pass(render: torch.Tensor, out_height: int, out_width: int,
-               subsample: int = 2) -> torch.Tensor:
-    """Full final pass: SSAA downsample + u8 quantize -> (H, W, 3) uint8."""
+               subsample: int = 2, rows: Optional[tuple] = None) -> torch.Tensor:
+    """Full final pass: SSAA downsample + u8 quantize -> (H, W, 3) uint8,
+    or its output rows `rows` (ssaa_downsample)."""
     return quantize_u8(ssaa_downsample(render, out_height, out_width,
-                                       subsample, components=3))
+                                       subsample, components=3, rows=rows))

@@ -51,6 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from shaderflow_tpu_torch.ops import stdlib as sl
+from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.tools import flopcount
 
 
@@ -204,6 +205,7 @@ def mip_pyramid(tex: Sampler2D, max_levels: int = None,
 def _screen_diff(a: torch.Tensor, dim: int) -> torch.Tensor:
     """Forward difference along a screen axis, the last pixel reusing its
     neighbour's (GL quads behave the same way)."""
+    require_whole_rows("screen-space derivatives")
     diff = torch.diff(a, dim=dim)
     return torch.cat([diff, diff.narrow(dim, diff.shape[dim] - 1, 1)], dim=dim)
 
@@ -308,6 +310,7 @@ def _separable_lod(mip: MipSampler, u_line: torch.Tensor,
     """One level for axis-aligned grid sampling, a 0-d tensor: log2 of the
     largest line spacing in texels (uniform up to animation), in place of
     auto_lod's per-pixel field."""
+    require_whole_rows("mip level selection")
     zero = torch.zeros((), dtype=torch.float32, device=u_line.device)
     fu = torch.abs(torch.diff(u_line)).max() * mip.width if u_line.shape[0] > 1 else zero
     fv = torch.abs(torch.diff(v_line)).max() * mip.height if v_line.shape[0] > 1 else zero
@@ -368,6 +371,7 @@ def sample_separable(tex: Sampler2D, u_line: torch.Tensor, v_line: torch.Tensor,
         iy = _wrap(torch.floor(v + 0.5).to(torch.int64), h, tex.repeat_y)
         ix = _wrap(torch.floor(u + 0.5).to(torch.int64), w, tex.repeat_x)
         return tex.data[iy][:, ix]
+    require_whole_rows("sample_separable")
     w_rows = _interp_matrix(v, h, tex.repeat_y)               # (H', H)
     w_cols = _interp_matrix(u, w, tex.repeat_x)               # (W', W)
     data = tex.data.to(torch.float32)
@@ -394,6 +398,7 @@ def sample_separable_planes(tex: Sampler2D, u_line: torch.Tensor, v_line: torch.
         ix = _wrap(torch.floor(u + 0.5).to(torch.int64), w, tex.repeat_x)
         data = tex.data[iy][:, ix]
         return tuple(data[..., c] for c in range(data.shape[-1]))
+    require_whole_rows("sample_separable_planes")
     w_rows = _interp_matrix(v, h, tex.repeat_y)               # (H', H)
     w_cols = _interp_matrix(u, w, tex.repeat_x)               # (W', W)
     planes = tex.data.to(torch.float32).permute(2, 0, 1)      # (C, H, W)
@@ -460,6 +465,7 @@ def sample_rows_planes_blocked(
     [0, H-1] (CLAMP semantics; no REPEAT seam). precision="bfloat16" rounds
     the weights and texels to bf16 (products are exact in f32, sums f32)."""
     _reject_mip(tex, "sample_rows_planes_blocked")
+    require_whole_rows("sample_rows_planes_blocked")
     h, w = tex.height, tex.width
     v = (1.0 - v_line) * h - 0.5
     out_h = v.shape[0]
@@ -505,6 +511,7 @@ def sample_separable_planes_blocked(
     monotone and stay inside [0, n-1] (CLAMP semantics; no REPEAT seam).
     The dense products when the windows would cover the texture."""
     _reject_mip(tex, "sample_separable_planes_blocked")
+    require_whole_rows("sample_separable_planes_blocked")
     h, w = tex.height, tex.width
     du, dv = texels_per_px
     in_rows = _window(block * dv, h)
@@ -570,6 +577,7 @@ def apply_resample(data: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     (Ho, Wo, C) float32: rows, then the columns of the row-filtered
     intermediate, each block of outputs contracting its window (a narrow()
     view at a host offset) with one product for every channel."""
+    require_whole_rows("apply_resample")
     planes = data.to(torch.float32).permute(2, 0, 1)            # (C, H, W)
     if plan.row_offsets is None:
         rows = torch.matmul(plan.row_weights, planes)            # (C, Ho, W)
@@ -628,6 +636,7 @@ def convolve2d(image: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     kernel[h2+dy, w2+dx] * image[y+dy, x+dx] (cross-correlation, the
     splat_kernel orientation). (H, W, C) -> (H, W, C); one depthwise
     conv2d (float32, no TF32)."""
+    require_whole_rows("convolve2d")
     channels = image.shape[2]
     kh, kw = kernel.shape
     weight = kernel.to(torch.float32).expand(channels, 1, kh, kw).contiguous()

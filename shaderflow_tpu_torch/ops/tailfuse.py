@@ -44,6 +44,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from shaderflow_tpu_torch.ops.downsample import final_pass, quantize_u8
+from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
 
 
@@ -545,6 +546,7 @@ def final_equal_resolution(planes: torch.Tensor, subsample: int,
     the last sum in float32 — the bf16 rounding of the final sum folds
     into quantize_u8's upcast. Torch's bfloat16 ops compute in float32 and
     round each result, on the CPU and on the card alike."""
+    require_whole_rows("final_equal_resolution")
     m = stencil_weight(subsample)
     center = 1.0 - 2.0 * m
     channels, height, width = planes.shape
@@ -579,12 +581,15 @@ _PLANES: dict = {}
 
 
 def _frame_planes(height: int, width: int, device: torch.device) -> torch.Tensor:
-    """One (3, H, W) bf16 buffer per size and device, reused by every
-    frame: the frame loop runs on one stream, so frame k + 1's K1 (d)
-    writes it only after frame k's stencil read it."""
-    key = (height, width, str(device))
+    """One (3, H, W) bf16 buffer per size, device and stream, reused by
+    every frame: frames on one stream run in order, so frame k + 1's K1 (d)
+    writes it only after frame k's stencil read it. The shards of a mesh
+    on one card render on streams of their own, each with its buffer."""
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+    key = (height, width, str(device), stream)
     if key not in _PLANES:
-        _PLANES.clear()
+        if len(_PLANES) >= 8:
+            _PLANES.pop(next(iter(_PLANES)))
         _PLANES[key] = torch.empty((3, height, width), dtype=torch.bfloat16, device=device)
     return _PLANES[key]
 

@@ -31,8 +31,11 @@ ui_fields(), ui_plots() sparklines), drawn on a host copy of the shown
 frame. `frame_limit` ends a run after that many frames.
 
 The device is an argument: main(..., device="cuda") by default, and
-device="cpu" runs every kernel's plain PyTorch version. Not ported yet:
-multi-device sharding (parallel/mesh.py).
+device="cpu" runs every kernel's plain PyTorch version. main(...,
+devices=N) shards an export's flushes over N devices (parallel/mesh.py):
+the frames of a batch for a scene without temporal feedback, the rows of
+every frame for one with it; the first N of `mesh_devices` (by default the
+visible cards, or the CPU).
 """
 
 from __future__ import annotations
@@ -122,6 +125,12 @@ class ShaderScene(ShaderModule):
 
     frame_limit: Optional[int] = None
     """Stop the realtime loop after N frames (tests, timed demos)."""
+
+    mesh_devices: Optional[list] = None
+    """The devices an export with devices=N shards over (its first N); by
+    default the visible cards of a run on the card, the CPU device of a run
+    on the CPU. A device may repeat: N shards of one card, each on a CUDA
+    stream of its own, or N shards of the CPU."""
 
     _RT_BATCH_MAX = 8
 
@@ -376,6 +385,8 @@ class ShaderScene(ShaderModule):
         self.next(dt=0.0)
         self.time, self.dt, self.rdt, self._frame_counter = saved
         frames = self.engine.flush(1)
+        if not isinstance(frames, torch.Tensor):   # a sharded flush's parts
+            return frames.cpu().numpy()[0]
         return fetch_frame(frames[0])
 
     # ------------------------------------------------------------------ #
@@ -403,6 +414,7 @@ class ShaderScene(ShaderModule):
         buffers: int = 5,
         batch: Optional[int] = None,
         start: float = 0.0,
+        devices: Optional[int] = None,
         device: Union[str, torch.device] = "cuda",
     ) -> Optional[Path]:
         """Export the scene to `output` ("null" renders and discards), or
@@ -415,7 +427,11 @@ class ShaderScene(ShaderModule):
         replayed without rendering (a scene with a temporal ring renders
         the replayed frames to rebuild it), then [start, duration) is
         rendered. `frameskip` (realtime): a late frame steps the real time
-        it took, else at most one period."""
+        it took, else at most one period. `devices` shards an export over
+        that many devices (parallel/mesh.py): the frames of each batch for
+        a scene without temporal feedback, else the rows of every frame
+        (the output height must divide it); the realtime loop ignores
+        it."""
         final_width, final_height = self._setup_run(
             width=width, height=height, scale=scale, ratio=ratio, fps=fps,
             fullscreen=fullscreen, quality=quality, ssaa=ssaa, subsample=subsample,
@@ -427,7 +443,8 @@ class ShaderScene(ShaderModule):
         export.make_sink(output, width=final_width, height=final_height,
                          turbo=turbo, buffers=buffers)
         export.open_bar()
-        return self._export_loop(export, batch, start_frame=round(start * self.fps))
+        return self._export_loop(export, batch, start_frame=round(start * self.fps),
+                                 devices=devices)
 
     def _setup_run(self, *, width=1920, height=1080, scale=1.0, ratio=None,
                    fps=60.0, fullscreen=False, quality=50.0, ssaa=1.0, subsample=2,
@@ -487,10 +504,39 @@ class ShaderScene(ShaderModule):
             module.prewarm()
 
     def _export_loop(self, export: ExportingHelper, batch: Optional[int],
-                     start_frame: int = 0):
+                     start_frame: int = 0, devices: Optional[int] = None):
         total = export.total_frames
         size = int(batch or self.default_batch_size())
         self._prewarm_modules()
+
+        self.engine.mesh = None
+        if devices and devices > 1:
+            from shaderflow_tpu_torch.parallel.mesh import (
+                available_devices, frame_mesh, supports_frame_sharding)
+            pool = (list(self.mesh_devices) if self.mesh_devices is not None
+                    else available_devices(self.device))
+            available = len(pool)
+            if available < devices:
+                logger.warning(f"Requested {devices} devices, {available} "
+                               f"available — rendering on one chip")
+            elif supports_frame_sharding(self):
+                # A batch of a multiple of the mesh gives every shard as
+                # many frames
+                size = max(size, devices) // devices * devices
+                self.engine.mesh = frame_mesh(devices, pool)
+                logger.info(f"Frame-sharded export over {devices} devices "
+                            f"(batch {size}, {size // devices}/chip)")
+            elif self.height % devices == 0:
+                # Temporal feedback serializes frames; shard pixel rows
+                # instead (engine.flush row path, exact by construction)
+                self.engine.mesh = frame_mesh(devices, pool)
+                logger.info(f"Row-sharded export over {devices} devices "
+                            f"(temporal feedback; {self.height // devices} "
+                            f"rows/chip)")
+            else:
+                logger.warning(f"Scene has temporal feedback and height "
+                               f"{self.height} does not divide {devices} "
+                               f"devices — rendering on one chip")
 
         if start_frame:
             # Stateless scenes replay host updates only; a scene with a
@@ -566,6 +612,7 @@ class ShaderScene(ShaderModule):
             return None
 
     def _realtime_loop(self, frameskip: bool) -> None:
+        self.engine.mesh = None   # devices=N shards exports only
         # The display: SDL first, the cv2 preview where SDL cannot open (or
         # SHADERFLOW_PREVIEW=cv2; =sdl never takes cv2), else headless. The
         # render runs on the device whichever shows it

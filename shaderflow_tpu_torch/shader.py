@@ -34,6 +34,7 @@ from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib, sampling
 from shaderflow_tpu_torch.ops import stdlib as sl
+from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
 from shaderflow_tpu_torch.ops.sampling import Sampler2D, texel_fetch
 from shaderflow_tpu_torch.texture import ShaderTexture
@@ -53,13 +54,22 @@ class Coords(Mapping):
     lines are the data, and each grid flavor is built on first access and
     cached for the life of the engine build (one render size). stxy/glxy
     depend on the per-frame iResolution uniform: finish_coords returns a
-    view that builds them lazily per frame."""
+    view that builds them lazily per frame.
+
+    `rows` = (first, end) restricts the flavors to a window of rows (a
+    slab of the row-sharded render, parallel/mesh.py): v_line is the
+    whole render's line sliced, so every value equals the whole render's
+    at the same pixel; `height` is the slab's, `full_height` the
+    render's."""
 
     _GRIDS = ("astuv", "agluv", "stuv", "gluv")
     _FRAME = ("stxy", "glxy")
 
-    def __init__(self, height: int, width: int, aspect: float, device: torch.device):
-        self.height = height
+    def __init__(self, height: int, width: int, aspect: float, device: torch.device,
+                 rows: Optional[tuple] = None):
+        self.rows = rows
+        self.full_height = height
+        self.height = height if rows is None else rows[1] - rows[0]
         self.width = width
         self.aspect = aspect
         self.device = torch.device(device)
@@ -70,6 +80,8 @@ class Coords(Mapping):
         # counts of chaotic boundary pixels amplify an ulp of c.
         self.u_line = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) * reciprocal(width)
         self.v_line = 1.0 - (torch.arange(height, dtype=torch.float32, device=device) + 0.5) * reciprocal(height)
+        if rows is not None:
+            self.v_line = self.v_line[rows[0]:rows[1]]
         self.resolution = None   # per-frame iResolution, set by finish_coords
         self._grids: dict[str, torch.Tensor] = {}
         self._frame: dict[str, torch.Tensor] = {}
@@ -122,9 +134,10 @@ class Coords(Mapping):
 
 
 def make_coords(render_height: int, render_width: int, aspect: float,
-                device="cpu") -> Coords:
-    """Coordinate flavors of one render size (lazy; see Coords)."""
-    return Coords(render_height, render_width, aspect, device)
+                device="cpu", rows: Optional[tuple] = None) -> Coords:
+    """Coordinate flavors of one render size (lazy; see Coords), or of the
+    window `rows` of it."""
+    return Coords(render_height, render_width, aspect, device, rows)
 
 
 def finish_coords(coords: Coords, resolution) -> Coords:
@@ -296,7 +309,9 @@ class Frag:
     def prelude(self, name: str):
         """This frame's slice of a batch prelude (engine.PreludeCtx): a
         value the scene computed once for the whole batch; None when the
-        prelude is inactive (callers branch to their per-frame form)."""
+        prelude is inactive (callers branch to their per-frame form). Its
+        planes are the whole render's: a slab renders whole rows."""
+        require_whole_rows("a batch prelude")
         return self._preludes.get(name)
 
     def has_prelude(self, name: str) -> bool:
@@ -306,6 +321,7 @@ class Frag:
         """The whole (B, ...) prelude stack and this frame's position in the
         batch (a Python int), for ops.tailfuse.Indexed: the tail reads the
         frame's plane straight from the stack. None when inactive."""
+        require_whole_rows("a batch prelude")
         stack = self._prelude_stacks.get(name)
         if stack is None or self._prelude_step is None:
             return None
@@ -317,6 +333,7 @@ class Frag:
         """Defer the remaining per-pixel math to the fused tail stage
         (ops/tailfuse.py): kernel K1 on the card, the plain path on CPU.
         Only valid as the RETURN value of a pixel program."""
+        require_whole_rows("the fused tail")   # K1 writes whole frames
         from shaderflow_tpu_torch.ops import tailfuse
         return tailfuse.make_spec(fn, self._coords.height, self._coords.width, **inputs)
 
