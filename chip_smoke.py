@@ -55,10 +55,16 @@ Phases, each printing its own line (any failure raises; exit code != 0):
  17. T3: the cost walker's fixture (csrc/fixture.cu, x * 2 + 1 over four
      (32, 128) blocks) equal to its plain version, and the walker's counts
      equal to the hand counts (body x grid)
- 18. T1: the bf16 op probe through K1's compiler, its table printed; every
-     op of the recorded table (tailgen.BF16_PROBE_OK) must still be `ok`
- 19. T2: the f32-vs-bf16 chain, both times, the speedup and the verdict;
-     each kernel equal to its plain chain
+ 18. T1: the bf16 op probe through K1's compiler, one launch an op over
+     both input sets stacked, its table printed; every op of the recorded
+     table (tailgen.BF16_PROBE_OK) must still be `ok`; the launches and
+     the timed stacked launch beside phase 17's empty launch
+ 19. T2: the f32-vs-bf16 chain (csrc/chain.cu), each dtype equal to its
+     plain chain, timed in turns by CUDA-graph replay beside its bound; its
+     square root equal to torch.sqrt on every float32 in [2^-10, 4); each
+     kernel's registers and spills (none allowed), SASS instructions a
+     round and packed bf16x2 arithmetic (required in bf16), a round's
+     issue slots (40 against 80 rounds); the verdict
   The bf16 tail mode at blur level 1 (SHADERFLOW_TAIL_BF16=1,
   SHADERFLOW_VIZ_BLUR_LEVEL=1: what the JAX package grades)
  20. the visualizer slice (1920x1080, 60 fps, 2x SSAA, 2 s) through main(...)
@@ -2656,11 +2662,12 @@ def main() -> int:
     fractal._escape_library()
     sampling._lookup_library()
     flopcount._fixture_library()
+    bench_dtype._chain_library()
     sources = {source.stem: source for source in build.cuda_sources()}
     say("build", libraries=",".join(built) or "cached",
         seconds=f"{time.perf_counter() - started:.3f}",
         ptxas=repr(" | ".join(build.ptxas_report(sources[n]).strip().replace("\n", " ; ")
-                              for n in ("escape", "lookup", "fixture"))))
+                              for n in ("escape", "lookup", "fixture", "chain"))))
     escape_sass = sass.dump(build.library_path(sources["escape"]))
     escape_ptxas = build.ptxas_report(sources["escape"])
     k3_compiled = {}
@@ -3022,7 +3029,8 @@ def main() -> int:
         bound_by=t3_bound_by, library_ms=f"{t3_library_ms:.4f}")
     say("empty_launch", ms=f"{empty_ms:.4f}", call_ms=f"{empty_call_ms:.4f}", card=repr(card))
 
-    # 18. T1: the bf16 op probe through K1's compiler (its own path)
+    # 18. T1: the bf16 op probe through K1's compiler (its own path): one
+    # launch an op over both input sets stacked, over every SM
     probe_bf16_ops.run_op.launches = 0
     started = time.perf_counter()
     table = probe_bf16_ops.probe_all(device)
@@ -3034,43 +3042,78 @@ def main() -> int:
     if probe_faults or t1_launches == 0:
         raise AssertionError(f"the recorded bf16 probe table says ok, but the probe finds "
                              f"{probe_faults} on this card (launches {t1_launches})")
-    a16, b16 = probe_bf16_ops.inputs(device)[1]
+    a16, b16 = probe_bf16_ops.stacked_inputs(device)
     mul = probe_bf16_ops.compile_op("mul")
     t1_err = (probe_bf16_ops.run_op(mul, a16, b16).float() - (a16 * b16).float()).abs().max().item()
     t1_ms = device_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16))
     t1_call_ms = median_ms(lambda: probe_bf16_ops.run_op(mul, a16, b16), 20)
     t1_plain_ms = device_ms(lambda: a16 * b16)
     t1_bound_ms, t1_bound_by = walked_bound(lambda: probe_bf16_ops.run_op(mul, a16, b16))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    t1_block = probe_bf16_ops.block_size(a16.numel(), sms)
     say("t1_summary", ops=len(table), ok=sum(r == "ok" for r in table.values()),
-        seconds=f"{t1_s:.3f}", launches=t1_launches,
+        seconds=f"{t1_s:.3f}", launches=t1_launches, shape=tuple(a16.shape), sms=sms,
+        programs=a16.numel() // t1_block, block=t1_block,
         mul_ms=f"{t1_ms:.4f}", mul_call_ms=f"{t1_call_ms:.4f}",
-        mul_plain_ms=f"{t1_plain_ms:.4f}",
-        bound_ms=f"{t1_bound_ms:.6f}", bound_by=t1_bound_by)
+        mul_plain_ms=f"{t1_plain_ms:.4f}", bound_ms=f"{t1_bound_ms:.6f}",
+        bound_by=t1_bound_by, empty_launch_ms=f"{empty_ms:.4f}", card=repr(card))
 
-    # 19. T2: the tail-shaped chain in float32 and bfloat16 (its own path)
+    # 19. T2: the tail-shaped chain (csrc/chain.cu) in float32 and bfloat16
+    # (its own path): both dtypes checked against the plain chain and timed
+    # in turns by CUDA-graph replay (bench: the kernel's ms and the one
+    # verdict); the kernel's square root against torch.sqrt on every
+    # float32 of its domain; registers, spills, SASS a round, and what a
+    # round costs in issue slots
     bench_dtype.chain.launches = 0
     t2 = bench_dtype.bench()
     t2_launches = bench_dtype.chain.launches
-    t2_f32, t2_bf16 = t2["float32"], t2["bfloat16"]
-    if not (t2_f32["equal"] and t2_bf16["equal"]):
-        raise AssertionError(f"T2 chain vs plain: f32 max {t2_f32['max_abs_err']}, "
-                             f"bf16 max {t2_bf16['max_abs_err']}")
-    t2_inputs = bench_dtype.inputs(torch.bfloat16)
-    t2_bound_ms, t2_bound_by = walked_bound(lambda: bench_dtype.chain(*t2_inputs))
-    t2_f32_inputs = bench_dtype.inputs(torch.float32)
+    if not (t2["float32"]["equal"] and t2["bfloat16"]["equal"]):
+        raise AssertionError(f"T2 chain vs plain: f32 max {t2['float32']['max_abs_err']}, "
+                             f"bf16 max {t2['bfloat16']['max_abs_err']}")
+    domain = bench_dtype.sqrt_domain(device)
+    sqrt_differ = int((bench_dtype.chain_sqrt(domain) != torch.sqrt(domain)).sum())
+    t2_sqrt = {"values": domain.numel(), "differ": sqrt_differ}
+    del domain
+    say("t2_sqrt", domain="[2^-10, 4)", **t2_sqrt)
+    if sqrt_differ:
+        raise AssertionError(f"T2's square root differs from torch.sqrt on {sqrt_differ} "
+                             f"float32 values of [2^-10, 4)")
+    t2_code = bench_dtype.compiled()
     t2_times = {}
-    for dtype, inputs in (("bf16", t2_inputs), ("f32", t2_f32_inputs)):
-        t2_times[dtype] = dict(
-            ms=device_ms(lambda: bench_dtype.chain(*inputs)),
-            call_ms=median_ms(lambda: bench_dtype.chain(*inputs), 20),
-            plain_ms=device_ms(lambda: bench_dtype.chain_plain(*inputs), 3))
-    say("t2", shape=f"{bench_dtype.H}x{bench_dtype.W}", reps=bench_dtype.REPS,
-        launches=t2_launches, **{f"{dtype}_{key}": f"{value:.4f}" for dtype in t2_times
-                                 for key, value in t2_times[dtype].items()},
-        f32_bench_ms=f"{t2_f32['ms']:.4f}", bf16_bench_ms=f"{t2_bf16['ms']:.4f}",
-        f32_tops=f"{t2_f32['tops']:.2f}", bf16_tops=f"{t2_bf16['tops']:.2f}",
-        bound_ms=f"{t2_bound_ms:.4f}", bound_by=t2_bound_by,
-        verdict=repr(bench_dtype.verdict(t2_times["f32"]["ms"], t2_times["bf16"]["ms"])))
+    for label, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        inputs = bench_dtype.inputs(dtype)
+        name = str(dtype).replace("torch.", "")
+        bound_ms, bound_by = walked_bound(
+            lambda: bench_dtype.chain(*inputs, check_domain=False))
+        cost = bench_dtype.round_cost(dtype)
+        times = dict(ms=t2[name]["ms"],
+                     call_ms=median_ms(lambda: bench_dtype.chain(*inputs, check_domain=False), 20),
+                     plain_ms=t2[name]["plain_ms"], max_abs_err=t2[name]["max_abs_err"],
+                     round_ms=cost["round_ms"],
+                     slots_per_element_round=cost["slots_per_element_round"])
+        code = t2_code[name]
+        issuing = code["instructions_per_element_round"] / cost["slots_per_element_round"]
+        t2_times[label] = {**times, "bound_ms": bound_ms, "bound_by": bound_by,
+                           "share": bound_ms / times["ms"], "issuing": issuing,
+                           **{key: value for key, value in code.items() if key != "ops"}}
+        say("t2", dtype=name, shape=f"{bench_dtype.H}x{bench_dtype.W}", reps=bench_dtype.REPS,
+            **{key: f"{value:.6f}" for key, value in times.items()},
+            bound_ms=f"{bound_ms:.6f}", bound_by=bound_by,
+            share=f"{bound_ms / times['ms']:.3f}", tops=f"{t2[name]['tops']:.2f}",
+            n_regs=code["n_regs"], spill_stores=code["spill_stores"],
+            spill_loads=code["spill_loads"], rounds_a_trip=code["rounds_a_trip"],
+            instructions_per_round=f"{code['instructions_per_round']:.2f}",
+            instructions_per_element_round=f"{code['instructions_per_element_round']:.3f}",
+            issuing=f"{issuing:.3f}", bf16x2_per_round=f"{code['bf16x2_per_round']:.2f}",
+            ops=code["ops"])
+        if code["spill_stores"] or code["spill_loads"]:
+            raise AssertionError(f"T2's {name} kernel spills: {code}")
+    if not t2_times["bf16"]["bf16x2_per_round"]:
+        raise AssertionError(f"T2's bf16 kernel issues no packed bf16x2 arithmetic: "
+                             f"{t2_code['bfloat16']['ops']}")
+    say("t2_summary", launches=t2_launches,
+        verdict=repr(bench_dtype.verdict(t2_times["f32"]["ms"], t2_times["bf16"]["ms"])),
+        card=repr(card))
 
     # 20. The bf16 tail mode at blur level 1: the visualizer slice
     os.environ.update(SHADERFLOW_TAIL_BF16="1", SHADERFLOW_VIZ_BLUR_LEVEL="1")
@@ -3300,20 +3343,20 @@ def main() -> int:
          "ms": k1h_ms, "call_ms": k1h_call_ms, "plain_ms": k1h_plain_ms,
          "bound_ms": k1h_bound_ms, "bound_by": k1h_bound_by, "library_ms": None,
          **k1h_compiled},
-        {"name": "T1 probe_bf16_ops (one bf16 kernel per op; timed: mul at 256x256)",
+        {"name": "T1 probe_bf16_ops (one bf16 kernel per op, one launch over both input "
+                 "sets; timed: mul at 2x256x256)",
          "route": "triton", "source": "shaderflow_tpu_torch/tools/probe_bf16_ops.py",
          "replaces": "tools/probe_bf16_ops.py:45",
          "launches": t1_launches, "max_abs_err": t1_err,
          "ms": t1_ms, "call_ms": t1_call_ms, "plain_ms": t1_plain_ms, "bound_ms": t1_bound_ms,
          "bound_by": t1_bound_by, "library_ms": t1_plain_ms,
          "empty_launch_ms": empty_ms, "table": table},
-        {"name": "T2 bench_dtype chain (timed: bf16; f32 beside it)",
-         "route": "triton", "source": "shaderflow_tpu_torch/tools/bench_dtype.py",
+        {"name": "T2 bench_dtype chain (timed by CUDA-graph replay: bf16; f32 beside it)",
+         "route": "cuda", "source": "shaderflow_tpu_torch/csrc/chain.cu",
          "replaces": "tools/bench_vpu_dtype.py:35",
-         "launches": t2_launches, "max_abs_err": t2_bf16["max_abs_err"],
-         **t2_times["bf16"], "bound_ms": t2_bound_ms, "bound_by": t2_bound_by, "library_ms": None,
+         "launches": t2_launches, **t2_times["bf16"], "library_ms": None,
          **{f"f32_{key}": value for key, value in t2_times["f32"].items()},
-         "speedup": t2_times["f32"]["ms"] / t2_times["bf16"]["ms"]},
+         "speedup": t2_times["f32"]["ms"] / t2_times["bf16"]["ms"], "sqrt_check": t2_sqrt},
         {"name": "T3 cost-walker fixture x * 2 + 1 (128x128, four (32, 128) blocks)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/fixture.cu",
          "replaces": "tests/test_flopcount.py:64",

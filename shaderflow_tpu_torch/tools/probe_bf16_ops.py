@@ -6,11 +6,13 @@ Replaces tools/probe_bf16_ops.py:probe (one bf16 Pallas kernel per op,
 pallas_call :53), which decided what the TPU target lowered in bf16. Same
 OPS list, same inputs (1.25 and 0.75 filling (256, 256) bf16 arrays), plus
 a seeded random bf16 sweep. For each op it compiles one bf16 @triton.jit
-kernel and holds its result against the plain version: every op computed
-in float32 and rounded to bfloat16, with Python constants rounded to
-bfloat16 first (JAX's weak types; Triton casts a Python number to the
-tensor's type the same way). Each op reports `ok` (bit-equal on both input
-sets), `differs (max N ulp)` or `FAIL (<first line of the error>)`.
+kernel, launches it once over both input sets stacked as (2, 256, 256),
+its programs spread over every SM of the card (block_size), and holds its
+result against the plain version: every op computed in float32 and
+rounded to bfloat16, with Python constants rounded to bfloat16 first
+(JAX's weak types; Triton casts a Python number to the tensor's type the
+same way). Each op reports `ok` (bit-equal on both input sets), `differs
+(max N ulp)` or `FAIL (<first line of the error>)`.
 
 Why Triton: the question is what K1's own compiler (ops/tailgen.py emits
 Triton) lowers natively in bf16 on sm_90a, and with what rounding; only a
@@ -18,8 +20,9 @@ probe through the same compiler, with K1's launch options
 (enable_fp_fusion=False), answers it. ops/tailgen.py keeps the ops found
 bit-equal as BF16_PROBE_OK.
 
-Bound on this card: bytes (two (256, 256) bf16 inputs read, one written):
-the probe checks compilation and rounding; its time is launch overhead.
+Bound on this card: bytes (two (2, 256, 256) bf16 inputs read, one
+written): the probe checks compilation and rounding; its time is launch
+overhead (an empty kernel's launch takes longer than the bound).
 
     python -m shaderflow_tpu_torch.tools.probe_bf16_ops      # on a CUDA card
 """
@@ -32,7 +35,7 @@ import torch
 from shaderflow_tpu_torch.tools import flopcount
 
 SHAPE = (256, 256)
-BLOCK = 1024      # elements per program
+MAX_BLOCK = 1024  # elements per program at most
 
 
 def _c(value: float) -> torch.Tensor:
@@ -93,6 +96,23 @@ def inputs(device) -> list[tuple]:
             (bf16(sweep_a), bf16(sweep_b))]
 
 
+def stacked_inputs(device) -> tuple:
+    """Both input sets of `inputs` stacked: a and b of shape (2, 256, 256),
+    set k at index k."""
+    sets = inputs(device)
+    return tuple(torch.stack([pair[i] for pair in sets]) for i in range(2))
+
+
+def block_size(elements: int, sms: int) -> int:
+    """Elements per program: the largest power of two up to MAX_BLOCK that
+    still gives every SM a program (at least 1; 512 for the stacked sets
+    on 132 SMs: 256 programs)."""
+    block = MAX_BLOCK
+    while block > 1 and elements // block < sms:
+        block //= 2
+    return block
+
+
 def ulp_distance(got: torch.Tensor, want: torch.Tensor) -> int:
     """Largest distance in bf16 ulps (NaN equals NaN; a NaN against a
     number counts as 2**16 ulps)."""
@@ -115,14 +135,20 @@ def compile_op(name: str):
 
 
 def run_op(probe_kernel, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One launch of a probe kernel on (256, 256) bf16 CUDA tensors,
+    """One launch of a probe kernel on contiguous bf16 CUDA tensors of one
+    shape (the stacked sets), its grid over every SM of the card (block_size),
     declared to the cost walker as one op per element and the bytes of a,
     b and the result (a composite op's extra ops are not counted: a floor)."""
-    blocks = a.numel() // BLOCK
-    body = flopcount.Cost(alu=BLOCK, kernel_bytes=3 * 2 * BLOCK)
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    block = block_size(a.numel(), sms)
+    if a.shape != b.shape or a.numel() % block:
+        raise ValueError(f"T1 takes two bf16 tensors of one shape, a multiple of {block} "
+                         f"elements, got {tuple(a.shape)} and {tuple(b.shape)}")
+    blocks = a.numel() // block
+    body = flopcount.Cost(alu=block, kernel_bytes=3 * 2 * block)
     out = torch.empty_like(a)
     with flopcount.kernel("T1 probe", blocks, body), torch.cuda.device(a.device):
-        probe_kernel[(blocks,)](a, b, out, BLOCK=BLOCK, enable_fp_fusion=False)
+        probe_kernel[(blocks,)](a, b, out, BLOCK=block, enable_fp_fusion=False)
     run_op.launches += 1
     return out
 
@@ -130,11 +156,18 @@ def run_op(probe_kernel, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 run_op.launches = 0
 
 
+def entry(got: torch.Tensor, want: torch.Tensor) -> str:
+    """An op's table entry from its kernel's result and the plain one."""
+    worst = ulp_distance(got, want)
+    return "ok" if worst == 0 else f"differs (max {worst} ulp)"
+
+
 def probe(name: str, device="cuda") -> str:
-    """Compile and run one op on both input sets -> its table entry."""
+    """Compile one op and run it once over both input sets stacked -> its
+    table entry."""
+    a, b = stacked_inputs(device)
     try:
-        kernel = compile_op(name)
-        results = [(run_op(kernel, a, b), OPS[name][1](a, b)) for a, b in inputs(device)]
+        got = run_op(compile_op(name), a, b)
         torch.cuda.synchronize(device)
     except Exception as error:   # compile failures arrive as several exception types
         # Triton's CompilationError opens with the source position; the
@@ -142,8 +175,7 @@ def probe(name: str, device="cuda") -> str:
         cause = error.__cause__ or error
         lines = str(cause).strip().splitlines() or [type(cause).__name__]
         return f"FAIL ({lines[0][:100]})"
-    worst = max(ulp_distance(got, want) for got, want in results)
-    return "ok" if worst == 0 else f"differs (max {worst} ulp)"
+    return entry(got, OPS[name][1](a, b))
 
 
 def probe_all(device="cuda") -> dict[str, str]:

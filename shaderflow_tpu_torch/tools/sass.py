@@ -8,10 +8,14 @@ from its SASS (`cuobjdump -sass` on the built library).
 
 The hottest loop of a kernel is the innermost loop (a backward branch with
 no other backward branch inside it) that touches no memory and holds the
-most float products and sums; its escape steps are those float operations
-over ESCAPE_STEP_FLOPS (one escape step: 4 products, 4 sums). The parsing
-is plain text: the CPU tests feed it recorded text, the tools run it where
-the CUDA toolkit is.
+most instructions of its work opcodes; its steps are those instructions
+over a step's count. By default the work is float products and sums and a
+step is K3's escape step (ESCAPE_STEP_FLOPS: 4 products, 4 sums); T2's
+chain counts MUFU (one square root an element and round) over the
+elements a thread holds, so a step is a round (bench_dtype.compiled). The
+loop's packed bfloat16 arithmetic (HADD2, HMUL2, HFMA2 with a BF16
+modifier) is counted apart. The parsing is plain text: the CPU tests feed
+it recorded text, the tools run it where the CUDA toolkit is.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from pathlib import Path
 ESCAPE_STEP_FLOPS = 8
 SASS_BYTES = 16          # one Hopper instruction
 _MEMORY = {"LDG", "STG", "LD", "ST", "LDL", "STL", "ATOM", "ATOMG", "RED"}
-_FLOPS = {"FADD", "FMUL"}
+_FLOPS = ("FADD", "FMUL")
+_PACKED = {"HADD2", "HMUL2", "HFMA2"}
 
 
 def _matching(names, parts: tuple[str, ...]) -> str:
@@ -70,17 +75,31 @@ def functions(sass: str) -> dict[str, list[tuple[int, str]]]:
     return found
 
 
-def _opcode(instruction: str) -> str:
-    """The base opcode: `@!P0 FSETP.GT.AND P0, ...` -> FSETP."""
+def _mnemonic(instruction: str) -> str:
+    """The opcode with its modifiers: `@!P0 FSETP.GT.AND P0, ...` -> FSETP.GT.AND."""
     words = instruction.split()
     if words and words[0].startswith("@"):
         words = words[1:]
-    return words[0].split(".")[0] if words else ""
+    return words[0] if words else ""
 
 
-def hot_loop(instructions: list[tuple[int, str]]) -> dict:
-    """The hottest loop of one function's instructions -> {loop_instructions,
-    loop_steps, instructions_per_step, ops (opcode counts in the loop)}."""
+def _opcode(instruction: str) -> str:
+    """The base opcode: `@!P0 FSETP.GT.AND P0, ...` -> FSETP."""
+    return _mnemonic(instruction).split(".")[0]
+
+
+def bf16x2(instruction: str) -> bool:
+    """Packed bfloat16 arithmetic: `HFMA2.BF16_V2 R0, R1, R2, -RZ`."""
+    opcode, *modifiers = _mnemonic(instruction).split(".")
+    return opcode in _PACKED and any(modifier.startswith("BF16") for modifier in modifiers)
+
+
+def hot_loop(instructions: list[tuple[int, str]], work=_FLOPS,
+             per_step: float = ESCAPE_STEP_FLOPS) -> dict:
+    """The hottest loop of one function's instructions (the most `work`
+    opcodes) -> {loop_instructions, loop_steps (its work over per_step),
+    instructions_per_step, bf16x2 (packed bfloat16 arithmetic in the loop),
+    ops (opcode counts in the loop)}."""
     loops = []
     for address, instruction in instructions:
         if _opcode(instruction) == "BRA":
@@ -92,17 +111,18 @@ def hot_loop(instructions: list[tuple[int, str]]) -> dict:
                             for s, e in loops)]
     best = None
     for start, end in innermost:
-        body = [_opcode(text) for address, text in instructions if start <= address <= end]
-        ops = Counter(body)
-        flops = sum(ops[op] for op in _FLOPS)
-        if flops and not any(ops[op] for op in _MEMORY) and (best is None or flops > best[0]):
-            best = (flops, (end - start) // SASS_BYTES + 1, ops)
+        body = [text for address, text in instructions if start <= address <= end]
+        ops = Counter(_opcode(text) for text in body)
+        amount = sum(ops[op] for op in work)
+        if amount and not any(ops[op] for op in _MEMORY) and (best is None or amount > best[0]):
+            best = (amount, (end - start) // SASS_BYTES + 1, ops, sum(map(bf16x2, body)))
     if best is None:
-        raise ValueError("no memory-free innermost loop with float products or sums")
-    flops, count, ops = best
-    steps = flops / ESCAPE_STEP_FLOPS
+        raise ValueError(f"no memory-free innermost loop with {'/'.join(work)}")
+    amount, count, ops, packed = best
+    steps = amount / per_step
     return {"loop_instructions": count, "loop_steps": steps,
-            "instructions_per_step": count / steps, "ops": dict(sorted(ops.items()))}
+            "instructions_per_step": count / steps, "bf16x2": packed,
+            "ops": dict(sorted(ops.items()))}
 
 
 def cuobjdump() -> str:
@@ -116,11 +136,12 @@ def dump(library: Path) -> str:
                           text=True, check=True, timeout=120).stdout
 
 
-def step_figures(sass: str, *parts: str) -> dict:
+def step_figures(sass: str, *parts: str, work=_FLOPS,
+                 per_step: float = ESCAPE_STEP_FLOPS) -> dict:
     """The hot loop of the one function whose mangled name holds every part."""
     table = functions(sass)
     name = _matching(table, parts)
-    return {"function": name, **hot_loop(table[name])}
+    return {"function": name, **hot_loop(table[name], work, per_step)}
 
 
 def main() -> int:

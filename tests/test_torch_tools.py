@@ -8,7 +8,9 @@ against the JAX package's tools they replace:
   * T1, the bf16 op probe (tools/probe_bf16_ops.py): the port's plain ops
     against the reference's OPS on the same bf16 inputs;
   * T2, the f32-vs-bf16 chain (tools/bench_vpu_dtype.py): the port's plain
-    chain against make_kernel in interpret mode at a reduced size;
+    chain against make_kernel in interpret mode at a reduced size, and the
+    walker's count of the packed kernel (tests/test_torch_chain.py holds
+    what its bf16x2 form relies on);
   * the port's reader of ptxas reports and SASS (tools/sass.py), on
     recorded text.
 
@@ -302,6 +304,49 @@ def test_sass_hot_loop_instructions_per_step():
         sass.step_figures(SASS, "6ApartCiE")
 
 
+CHAIN_SASS = """
+        Function : _ZN12_GLOBAL__N_110chain_bf16EPKNS_5PairsES2_PS0_xi
+        /*0000*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0010*/                   HMUL2.BF16_V2 R8, R8, R5 ;
+        /*0020*/                   HADD2.BF16_V2 R8, R8, R4 ;
+        /*0030*/                   HSET2.BF16_V2.GT.AND R9, R8, 1, 1, PT ;
+        /*0040*/                   HFMA2.BF16_V2 R9, R9, -0.5, -0.5, 1, 1 ;
+        /*0050*/                   HMUL2.BF16_V2 R8, R8, R9 ;
+        /*0060*/                   IMAD.U32 R10, R8, 0x10000, RZ ;
+        /*0070*/                   LOP3.LUT R11, R8, 0xffff0000, RZ, 0xc0, !PT ;
+        /*0080*/                   FADD R10, |R10|, 0.0010000000474974513054 ;
+        /*0090*/                   FADD R11, |R11|, 0.0010000000474974513054 ;
+        /*00a0*/                   MUFU.RSQ R12, R10 ;
+        /*00b0*/                   MUFU.RSQ R13, R11 ;
+        /*00c0*/                   FMUL R14, R10, R12 ;
+        /*00d0*/                   FMUL R15, R11, R13 ;
+        /*00e0*/                   F2FP.BF16.F32.PACK_AB R8, R15, R14 ;
+        /*00f0*/              @!P0 HFMA2.MMA.BF16_V2 R8, R8, 1, 1, R4 ;
+        /*0100*/                   IADD3 R0, R0, 0x1, RZ ;
+        /*0110*/                   ISETP.NE.AND P1, PT, R0, R7, PT ;
+        /*0120*/               @P1 BRA 0x10 ;
+        /*0130*/                   STG.E.128 desc[UR4][R2.64], R8 ;
+        /*0140*/                   EXIT ;
+"""
+
+
+def test_sass_chain_loop_rounds_and_bf16x2():
+    """T2's hot loop is picked by its MUFU (one square root an element and
+    round) and its rounds are MUFU over the elements a thread holds; the
+    packed bf16 arithmetic (HADD2, HMUL2, HFMA2 with a BF16 modifier,
+    predicated or not) is counted, the compare (HSET2) and the pack (F2FP)
+    are not."""
+    from shaderflow_tpu_torch.tools import sass
+    figures = sass.step_figures(CHAIN_SASS, "chain_bf16", work=("MUFU",), per_step=2)
+    assert (figures["loop_instructions"], figures["loop_steps"]) == (18, 1.0)
+    assert figures["instructions_per_step"] == 18 and figures["bf16x2"] == 5
+    assert figures["ops"]["MUFU"] == 2 and figures["ops"]["HSET2"] == 1
+    assert sass.bf16x2("@!P0 HFMA2.MMA.BF16_V2 R8, R8, 1, 1, R4")
+    assert not sass.bf16x2("HFMA2 R8, R8, R9, R4") and not sass.bf16x2("F2FP.BF16.F32.PACK_AB R8, R1, R2")
+    with pytest.raises(ValueError, match="no memory-free innermost loop with MUFU"):
+        sass.step_figures(SASS, "escape_kernel", "6ApartCfE", work=("MUFU",))
+
+
 def test_ptxas_registers_and_spills():
     from shaderflow_tpu_torch.tools import sass
     assert sass.ptxas_figures(PTXAS, "escape_kernel", "6ApartCfE") == {
@@ -331,6 +376,44 @@ def test_probe_plain_ops_match_reference(name):
         got = probe_bf16_ops.OPS[name][1](a, b)
         assert got.dtype == torch.bfloat16
         assert probe_bf16_ops.ulp_distance(got, want) == 0, name
+
+
+@pytest.mark.parametrize("name", list(probe_bf16_ops.OPS))
+def test_probe_stacked_sets_give_the_table_entry_of_the_sets_apart(name):
+    """One launch over both input sets stacked (2, 256, 256) gives each op
+    the table entry the two sets gave probed apart: the plain side on the
+    stack is the stack of the plain sides, and the entry of a result that
+    matches, or differs on one set, is the worse of the two sets'."""
+    sets = probe_bf16_ops.inputs("cpu")
+    a, b = probe_bf16_ops.stacked_inputs("cpu")
+    assert a.shape == b.shape == (2, *probe_bf16_ops.SHAPE)
+    for k, (set_a, set_b) in enumerate(sets):
+        assert torch.equal(a[k], set_a) and torch.equal(b[k], set_b)
+    plain = probe_bf16_ops.OPS[name][1]
+    want = plain(a, b)
+    apart = [plain(set_a, set_b) for set_a, set_b in sets]
+    assert probe_bf16_ops.ulp_distance(want, torch.stack(apart)) == 0
+    for off in (None, 0, 1):
+        got = want.clone()
+        if off is not None:      # one value a few ulps away, in set `off`
+            bits = got[off].view(torch.int16)
+            bits[7, 9] = bits[7, 9] + (3 if bits[7, 9] >= 0 else -3)
+        worst = max(probe_bf16_ops.ulp_distance(got[k], apart[k]) for k in range(2))
+        together = probe_bf16_ops.entry(got, want)
+        assert together == ("ok" if worst == 0 else f"differs (max {worst} ulp)")
+        assert (together == "ok") == (off is None)
+
+
+def test_probe_grid_spreads_over_every_sm():
+    """The stacked sets' 131,072 elements in blocks of 512 on 132 SMs (256
+    programs, where blocks of 1024 gave 128 and one set alone 64)."""
+    elements = 2 * probe_bf16_ops.SHAPE[0] * probe_bf16_ops.SHAPE[1]
+    assert probe_bf16_ops.block_size(elements, 132) == 512
+    for sms in (1, 16, 108, 132, 144, 1000):
+        block = probe_bf16_ops.block_size(elements, sms)
+        assert elements % block == 0 and block <= probe_bf16_ops.MAX_BLOCK
+        assert elements // block >= min(sms, elements) or block == 1
+        assert block == probe_bf16_ops.MAX_BLOCK or elements // (2 * block) < sms
 
 
 def test_ulp_distance():
@@ -420,14 +503,37 @@ def test_chain_plain_matches_reference(dtype, chain_reference):
 
 
 def test_chain_counts_and_verdict():
-    """The walker's count of one chain launch (the declared tile cost times
-    the grid) and the reference's verdict rule (speedup > 1.3)."""
-    assert bench_dtype.H % bench_dtype.TH == 0 and bench_dtype.W % bench_dtype.TW == 0
-    blocks = (bench_dtype.H // bench_dtype.TH) * (bench_dtype.W // bench_dtype.TW)
-    cost = bench_dtype.tile_cost(torch.bfloat16).scaled(blocks)
+    """The walker's count of one chain launch in each dtype (the declared
+    block cost times the grid), per element and round, the ALU instructions
+    the exact chain needs: float32 8 (the tail as one FMA, the abs a free
+    operand modifier) and 1 sqrt; bfloat16 4.5 (7 issued as bf16x2 pairs
+    count half, the float32 + 1e-3 one) and 1 sqrt. float32's 8 ALU ops
+    take what its sqrt takes on the special-function units, which bound
+    both dtypes. The count scales with the rounds a call asks (walked
+    without the domain check, whose compares the walker counts as the
+    caller's). And the reference's verdict rule (speedup > 1.3)."""
     elements = bench_dtype.H * bench_dtype.W
-    assert cost.alu == 10 * bench_dtype.REPS * elements
-    assert cost.sfu == bench_dtype.REPS * elements
-    assert cost.kernel_bytes == 3 * 2 * elements
+    reps = bench_dtype.REPS
+    for dtype, alu in ((torch.float32, 8), (torch.bfloat16, 4.5)):
+        blocks, per = bench_dtype.grid(dtype)
+        assert blocks * bench_dtype.THREADS * per == elements
+        cost = bench_dtype.tile_cost(dtype).scaled(blocks)
+        assert cost.alu == alu * reps * elements
+        assert cost.sfu == reps * elements
+        assert cost.kernel_bytes == 3 * dtype.itemsize * elements
+        for rounds in (reps, 2 * reps):
+            with flopcount.Walker() as walker, pytest.MonkeyPatch.context() as patch:
+                patch.setattr(bench_dtype, "chain_plain", lambda a, b, reps=None: a)
+                bench_dtype.chain(*bench_dtype.inputs(dtype, device="cpu"), rounds,
+                                  check_domain=False)
+            assert walker.kernels == {"T2 chain": 1}
+            assert (walker.cost.alu, walker.cost.sfu) == (cost.alu * rounds / reps,
+                                                          cost.sfu * rounds / reps)
+    f32_ms, f32_by = bench_dtype.bound(torch.float32)
+    bf16_ms, bf16_by = bench_dtype.bound(torch.bfloat16)
+    assert f32_by == bf16_by == "operations"
+    sfu_ms = 1e3 * reps * elements / flopcount.SFU_OPS_PER_S
+    assert 1e3 * 8 * reps * elements / flopcount.ALU_OPS_PER_S == pytest.approx(sfu_ms)
+    assert f32_ms == pytest.approx(sfu_ms) and bf16_ms == pytest.approx(sfu_ms)
     assert "NOT worth it" in bench_dtype.verdict(1.0, 1.0)
     assert "worth shipping" in bench_dtype.verdict(1.4, 1.0)
