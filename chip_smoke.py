@@ -52,9 +52,13 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      in-kernel): torch.equal
  16. an output="null" export of each: frames/s
   The tools (each its own path: counters zeroed before, read after)
- 17. T3: the cost walker's fixture (csrc/fixture.cu, x * 2 + 1 over four
-     (32, 128) blocks) equal to its plain version, and the walker's counts
-     equal to the hand counts (body x grid)
+ 17. T3: the cost walker's fixture (csrc/fixture.cu, x * 2 + 1, one flat
+     16-byte stream) at 128x128 (four logical (32, 128) blocks), at a 64
+     MiB stream (32 x 4096 rows) and at 32 and 32 x 133 rows: one launch
+     each, torch.equal to its plain version, the walker's counts equal to
+     the hand counts (body x logical grid); the launch's CTAs, threads and
+     registers; at 128x128 and at the stream size its device ms beside its
+     bound (the share) and beside an empty kernel's (the gap)
  18. T1: the bf16 op probe through K1's compiler, one launch an op over
      both input sets stacked, its table printed; every op of the recorded
      table (tailgen.BF16_PROBE_OK) must still be `ok`; the launches and
@@ -201,7 +205,17 @@ Then a {"live": ...} line (38-42).
      24's configuration), MESH_SECONDS, the same figures, no kernel of
      K1-K3; every shard's row window and its rings, distinct tensors equal
      across shards
-Then a {"mesh": ...} line (43-44). Phase 17 also times an empty kernel
+Then a {"mesh": ...} line (43-44).
+  The frame pump (io/framepump.{py,cpp}) behind FFmpegSink's turbo
+ 45. the visualizer at 1920x1080@60, 2x SSAA, SECONDS to an .mp4 path
+     through a stub encoder on PATH that drains at most DRAIN_FPS frames a
+     second and writes the sha256 of what it read: FramePump.is_native; the
+     stub's drain rate alone; a null export's fps; exports with
+     turbo=True, buffers=5 and with turbo=False, once each at the default
+     batch, in turns at batches of 8 (buffers=16 too): fps of each, every
+     one sha256-equal to the same frames' .rgb export, K1 == frames, K2 ==
+     flushes
+Then a {"framepump": ...} line (45). Phase 17 also times an empty kernel
 (csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
@@ -1638,11 +1652,25 @@ if "f32le" in args:
     except BrokenPipeError:
         pass
     sys.exit(0)
-count = 0
-while chunk := sys.stdin.buffer.read(1 << 22):
+# An encode: with STUB_FRAME_BYTES and STUB_DRAIN_FPS, stdin is read a
+# frame at a time and drained at that rate at most, and a file output gets
+# the sha256 of what came, its size and the seconds from its first byte
+import hashlib, os, time
+frame = int(os.environ.get("STUB_FRAME_BYTES", "0"))
+rate = float(os.environ.get("STUB_DRAIN_FPS", "0"))
+hasher, count, started = hashlib.sha256(), 0, None
+while chunk := sys.stdin.buffer.read(frame or (1 << 22)):
+    started = started or time.monotonic()
     count += len(chunk)
+    hasher.update(chunk)
+    if frame and rate:
+        time.sleep(max(0.0, started + count / frame / rate - time.monotonic()))
+seconds = time.monotonic() - started if started else 0.0
 if args[-1] == "-":
     sys.stdout.buffer.write(b"STUB" + count.to_bytes(8, "little"))
+elif frame:
+    Path(args[-1]).write_text(json.dumps(dict(sha256=hasher.hexdigest(), bytes=count,
+                                              seconds=seconds)))
 """
 
 STUB_AUDIO_FFPROBE = r"""#!{python}
@@ -1661,7 +1689,10 @@ def make_stub_audio(directory: Path, samples, rate: int) -> Path:
     """A stub `ffmpeg` and `ffprobe` in `directory` (no ffmpeg binary is
     needed): a decode to f32le replays `samples` (frames, channels)
     float32; the probes answer their rate, channels and duration; an encode
-    drains its stdin and, for output "-", writes b"STUB" + the byte count.
+    drains its stdin and, for output "-", writes b"STUB" + the byte count;
+    with STUB_FRAME_BYTES and STUB_DRAIN_FPS in the environment it drains
+    a frame at a time at that rate at most and writes, to a file output,
+    {"sha256", "bytes", "seconds"} of what it read (FRAMEPUMP_PATH).
     Every call's arguments go to calls.jsonl. The port's decode and encode
     paths are its real ffmpeg pipes."""
     import numpy as np
@@ -2435,6 +2466,136 @@ def segments_path(counters, card: str) -> dict:
 MESH_SECONDS, MESH_SHARDS, MESH_PROFILE_FRAMES = 1.0, (2, 4), 8
 
 
+# Phase 45: the stub encoder's drain rate (frames a second: about the
+# visualizer's null-export rate at 1080p 2x SSAA, so render and encode take
+# about as long), the pump's slots, and the exports of each batch size:
+# (batch, [(turbo, buffers), ...]). The default batch (one batch of every
+# frame of SECONDS: nothing to overlap) once each; batches of 8, where the
+# overlap is measured, in turns, with slots enough for a batch (16) too
+DRAIN_FPS, PUMP_BUFFERS = 120.0, 5
+PUMP_EXPORTS = ((None, [(True, 5), (False, 5)]),
+                (8, [(True, 5), (False, 5), (True, 16), (True, 16), (False, 5), (True, 5)] * 2))
+
+
+def framepump_path(counters, card: str) -> dict:
+    """Phase 45: the frame pump behind FFmpegSink's turbo and buffers. The
+    visualizer at 1920x1080, 60 fps, 2x SSAA, SECONDS, exported to an .mp4
+    path through the stub encoder on PATH (make_stub_audio: the audio
+    decoded through it too), which drains a frame at a time at DRAIN_FPS at
+    most and writes the sha256 of what it read: FramePump.is_native; the
+    stub's drain rate alone (frames pushed through a pump into it); a null
+    export's fps; then for each batch size of PUMP_EXPORTS the export with
+    turbo=True, buffers=PUMP_BUFFERS and with turbo=False (the default
+    batch once each; batch 8 in turns, with buffers=16, slots for a whole
+    batch, too): fps of each (frames over main()'s wall), the stub's
+    seconds from its first byte (and frames over them), each sha256-equal
+    to the same frames' .rgb export, K1 == frames and K2 == flushes."""
+    import subprocess
+    import wave
+    import numpy as np
+    import torch_demo
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+    from shaderflow_tpu_torch.io.framepump import FramePump
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    frame_bytes = WIDTH * HEIGHT * 3
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
+    with wave.open(str(torch_demo.MUSIC), "rb") as handle:
+        rate, channels = handle.getframerate(), handle.getnchannels()
+        pcm = np.frombuffer(handle.readframes(handle.getnframes()), "<i2")
+    pcm = (pcm.astype(np.float32) / 32768.0).reshape(-1, channels)
+    saved = {key: os.environ.get(key) for key in ("PATH", "STUB_FRAME_BYTES", "STUB_DRAIN_FPS")}
+    caches = ("binary", "ffprobe", "get_audio_samplerate", "get_audio_channels")
+    runs = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            stub = make_stub_audio(tmp / "bin", pcm, rate)
+            os.environ.update(PATH=f"{stub}{os.pathsep}{saved['PATH']}",
+                              STUB_FRAME_BYTES=str(frame_bytes), STUB_DRAIN_FPS=str(DRAIN_FPS))
+            for name in caches:
+                getattr(FFmpeg, name).cache_clear()
+            if FFmpeg.binary() != str(stub / "ffmpeg"):
+                raise AssertionError(f"ffmpeg on PATH is {FFmpeg.binary()}, not the stub")
+            # The frames every encode must receive (and the kernels built)
+            torch_demo.Visualizer().main(output=str(tmp / "frames.rgb"), device="cuda",
+                                         **options)
+            want = digest(tmp / "frames.rgb")
+            (tmp / "frames.rgb").unlink()
+            # The stub alone: FRAMES frames pushed through a native pump
+            encoder = subprocess.Popen([str(stub / "ffmpeg"), "-f", "rawvideo", "-i", "-",
+                                        str(tmp / "drain.json")], stdin=subprocess.PIPE)
+            pump = FramePump(encoder.stdin.fileno(), frame_bytes, slots=PUMP_BUFFERS)
+            native = pump.is_native
+            blank = np.zeros((HEIGHT, WIDTH, 3), np.uint8)
+            for _ in range(frames):
+                pump.submit(blank)
+            pump.close()
+            encoder.stdin.close()
+            if encoder.wait(timeout=120) != 0 or not native:
+                raise AssertionError(f"the stub alone: exit {encoder.returncode}, "
+                                     f"native pump {native}")
+            drained = json.loads((tmp / "drain.json").read_text())
+            if drained["bytes"] != frames * frame_bytes:
+                raise AssertionError(f"the stub alone read {drained['bytes']} bytes")
+            drain_fps = frames / drained["seconds"]
+            _, null_s, null_fps = null_export(torch_demo.Visualizer(), options)
+            for batch, exports in PUMP_EXPORTS:
+                flushes = -(-frames // (batch or torch_demo.Visualizer().default_batch_size()))
+                for turbo, buffers in exports:
+                    output = tmp / "out.mp4"
+                    zero_counters()
+                    started = time.perf_counter()
+                    returned = torch_demo.Visualizer().main(
+                        output=str(output), turbo=turbo, buffers=buffers, batch=batch,
+                        device="cuda", **options)
+                    wall = time.perf_counter() - started
+                    launches = read_counters()
+                    got = json.loads(output.read_text())
+                    output.unlink()
+                    expected = {key: 0 for key in launches}
+                    expected.update(k2=flushes, k1=frames)
+                    if (launches != expected or got["sha256"] != want
+                            or got["bytes"] != frames * frame_bytes
+                            or Path(returned) != output):
+                        raise AssertionError(
+                            f"turbo={turbo} batch={batch}: counters {launches} (expected "
+                            f"{expected}), {got['bytes']} bytes, sha256 equal "
+                            f"{got['sha256'] == want}, returned {returned!r}")
+                    run = dict(turbo=turbo, buffers=buffers, batch=batch or "default",
+                               flushes=flushes, seconds=wall, fps=frames / wall,
+                               stub_seconds=got["seconds"],
+                               stub_fps=frames / got["seconds"], launches=launches,
+                               sha256_equal=True)
+                    runs.append(run)
+                    say("framepump", **{key: (f"{value:.4f}" if isinstance(value, float)
+                                              else value) for key, value in run.items()},
+                        card=repr(card))
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+    summary = {}
+    for run in runs:
+        mode = f"batch_{run['batch']}_" + (f"turbo{run['buffers']}" if run["turbo"] else "direct")
+        summary.setdefault(f"{mode}_fps", []).append(run["fps"])
+        summary.setdefault(f"{mode}_stub_fps", []).append(run["stub_fps"])
+    figures = dict(config=f"Visualizer {WIDTH}x{HEIGHT} {FPS}fps {SSAA}xSSAA {SECONDS:g}s "
+                   f"to .mp4 through a stub encoder draining at most {DRAIN_FPS:g} fps",
+                   frames=frames, native=native, drain_fps=drain_fps,
+                   null_fps=null_fps, null_seconds=null_s,
+                   serial_fps=1.0 / (1.0 / null_fps + 1.0 / drain_fps),
+                   lower_fps=min(null_fps, drain_fps), **summary, runs=runs)
+    say("framepump_summary", **{key: (f"{value:.4f}" if isinstance(value, float) else value)
+                                for key, value in figures.items() if key != "runs"},
+        card=repr(card))
+    return figures
+
+
 def zero_counters() -> None:
     """Every kernel wrapper's launch count set to 0."""
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse
@@ -2996,38 +3157,55 @@ def main() -> int:
             frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
             card=repr(card))
 
-    # 17. T3: the cost walker's fixture and the walker's counts (its own path)
-    x = (torch.arange(128 * 128, dtype=torch.float32, device=device) / 7.0).reshape(128, 128)
-    flopcount.fixture.launches = 0
-    with flopcount.Walker() as walker:
-        fixture_out = flopcount.fixture(x)
-    t3_launches = flopcount.fixture.launches
-    fixture_want = flopcount.fixture_plain(x)
-    torch.cuda.synchronize()
-    t3_err = (fixture_out - fixture_want).abs().max().item()
-    hand = (4 * 2 * 32 * 128, 2 * 128 * 128 * 4)   # body x grid: ops, bytes
-    if not torch.equal(fixture_out, fixture_want) or t3_launches != 1:
-        raise AssertionError(f"T3 fixture vs x * 2 + 1: max {t3_err}, launches {t3_launches}")
-    if (walker.cost.alu, walker.cost.kernel_bytes) != hand:
-        raise AssertionError(f"walker counted {walker.cost}, hand count (ops, bytes) {hand}")
-    t3_ms = device_ms(lambda: flopcount.fixture(x))
-    t3_call_ms = median_ms(lambda: flopcount.fixture(x), 20)
-    t3_plain_ms = device_ms(lambda: flopcount.fixture_plain(x))
-    one, two = torch.ones((), device=device), torch.full((), 2.0, device=device)
-    if not torch.equal(torch.addcmul(one, x, two), fixture_want):
-        raise AssertionError("T3's library call differs from x * 2 + 1")
-    t3_library_ms = device_ms(lambda: torch.addcmul(one, x, two))
-    t3_bound_ms, t3_bound_by = flopcount.roofline(walker.cost)
+    # 17. T3: the cost walker's fixture and the walker's counts (its own
+    # path), at its own size, at a 64 MiB stream and at two odd sizes: one
+    # launch a call, torch.equal to x * 2 + 1, the walker's count the hand
+    # count (body x logical grid) whatever the launch grid
     # The floor of a launch: an empty kernel's device time, beside which the
     # bounds of T1's and T3's single tiny launches are read
     empty_ms = device_ms(lambda: flopcount.empty_launch(device))
     empty_call_ms = median_ms(lambda: flopcount.empty_launch(device), 20)
-    say("t3", shape="128x128", blocks=4, equal=True, walker_alu=int(walker.cost.alu),
-        walker_bytes=int(walker.cost.kernel_bytes), hand=hand, launches=t3_launches,
-        ms=f"{t3_ms:.4f}", call_ms=f"{t3_call_ms:.4f}", plain_ms=f"{t3_plain_ms:.4f}",
-        bound_ms=f"{t3_bound_ms:.6f}",
-        bound_by=t3_bound_by, library_ms=f"{t3_library_ms:.4f}")
     say("empty_launch", ms=f"{empty_ms:.4f}", call_ms=f"{empty_call_ms:.4f}", card=repr(card))
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    t3_compiled = sass.ptxas_figures(build.ptxas_report(sources["fixture"]), "fixture_kernel")
+    if t3_compiled["spill_stores"] or t3_compiled["spill_loads"]:
+        raise AssertionError(f"T3's kernel spills: {t3_compiled}")
+    one, two = torch.ones((), device=device), torch.full((), 2.0, device=device)
+    t3 = {}
+    for label, rows in flopcount.FIXTURE_ROWS.items():
+        x = flopcount.fixture_inputs(rows, device)
+        flopcount.fixture.launches = 0
+        with flopcount.Walker() as walker:
+            fixture_out = flopcount.fixture(x)
+        launches = flopcount.fixture.launches
+        fixture_want = flopcount.fixture_plain(x)
+        torch.cuda.synchronize()
+        err = (fixture_out - fixture_want).abs().max().item()
+        hand = (rows // 32 * 2 * 32 * 128, 2 * rows * 128 * 4)   # body x grid: ops, bytes
+        if not torch.equal(fixture_out, fixture_want) or launches != 1:
+            raise AssertionError(f"T3 fixture at {rows}x128 vs x * 2 + 1: max {err}, "
+                                 f"launches {launches}")
+        if (walker.cost.alu, walker.cost.kernel_bytes) != hand:
+            raise AssertionError(f"walker counted {walker.cost}, hand count (ops, bytes) {hand}")
+        ctas, threads = flopcount.fixture_geometry(x.numel() // 4, sms)
+        entry = {"rows": rows, "launches": launches, "max_abs_err": err, "ctas": ctas,
+                 "threads": threads, "n_regs": t3_compiled["n_regs"]}
+        if label in ("fixture", "stream"):
+            if not torch.equal(torch.addcmul(one, x, two), fixture_want):
+                raise AssertionError("T3's library call differs from x * 2 + 1")
+            bound_ms, bound_by = flopcount.roofline(walker.cost)
+            ms = device_ms(lambda: flopcount.fixture(x))
+            entry.update(ms=ms, call_ms=median_ms(lambda: flopcount.fixture(x), 20),
+                         plain_ms=device_ms(lambda: flopcount.fixture_plain(x)),
+                         library_ms=device_ms(lambda: torch.addcmul(one, x, two)),
+                         bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                         gap_ms=ms - empty_ms)
+        del x, fixture_out, fixture_want
+        t3[label] = entry
+        say("t3", size=label, shape=f"{rows}x128", equal=True, walker_alu=int(walker.cost.alu),
+            walker_bytes=int(walker.cost.kernel_bytes), sms=sms,
+            **{key: (f"{value:.6f}" if isinstance(value, float) else value)
+               for key, value in entry.items()}, card=repr(card))
 
     # 18. T1: the bf16 op probe through K1's compiler (its own path): one
     # launch an op over both input sets stacked, over every SM
@@ -3268,6 +3446,10 @@ def main() -> int:
     # 43.-44. Frame and row sharding over shards of the card
     mesh = mesh_paths((zero_counters, read_counters), card)
     print(json.dumps({"mesh": mesh, "card": card}))
+    # 45. The frame pump: the visualizer to .mp4 through a paced stub
+    # encoder, turbo against direct
+    pump = framepump_path((zero_counters, read_counters), card)
+    print(json.dumps({"framepump": pump, "card": card}))
 
     def mesh_launches(name: str, key: str) -> dict:
         """A kernel's launches in each phase 43 configuration of a scene,
@@ -3303,7 +3485,8 @@ def main() -> int:
          "audio_export": {"launches": audio_export["launches"]["k1"]},
          "hud": {"launches": hud["launches"]["k1"]},
          "segments": {"launches": [r["k1"] for r in segments["segments"]]},
-         "mesh": mesh_launches("Visualizer", "k1")},
+         "mesh": mesh_launches("Visualizer", "k1"),
+         "framepump": {"launches": [r["launches"]["k1"] for r in pump["runs"]]}},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
@@ -3313,7 +3496,8 @@ def main() -> int:
          "any_ssaa": any_ssaa["k2"], "audio_export": {"launches": audio_export["launches"]["k2"]},
          "hud": {"launches": hud["launches"]["k2"]},
          "segments": {"launches": [r["k2"] for r in segments["segments"]]},
-         "mesh": mesh_launches("Visualizer", "k2")},
+         "mesh": mesh_launches("Visualizer", "k2"),
+         "framepump": {"launches": [r["launches"]["k2"] for r in pump["runs"]]}},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
@@ -3357,12 +3541,13 @@ def main() -> int:
          "launches": t2_launches, **t2_times["bf16"], "library_ms": None,
          **{f"f32_{key}": value for key, value in t2_times["f32"].items()},
          "speedup": t2_times["f32"]["ms"] / t2_times["bf16"]["ms"], "sqrt_check": t2_sqrt},
-        {"name": "T3 cost-walker fixture x * 2 + 1 (128x128, four (32, 128) blocks)",
+        {"name": "T3 cost-walker fixture x * 2 + 1 (128x128, four (32, 128) blocks; "
+                 "a 64 MiB stream and odd sizes beside it)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/fixture.cu",
          "replaces": "tests/test_flopcount.py:64",
-         "launches": t3_launches, "max_abs_err": t3_err,
-         "ms": t3_ms, "call_ms": t3_call_ms, "plain_ms": t3_plain_ms, "bound_ms": t3_bound_ms,
-         "bound_by": t3_bound_by, "library_ms": t3_library_ms, "empty_launch_ms": empty_ms},
+         **t3["fixture"], "empty_launch_ms": empty_ms, "sms": sms,
+         "spills": t3_compiled["spill_stores"] + t3_compiled["spill_loads"],
+         **{label: t3[label] for label in ("stream", "one_block", "odd")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

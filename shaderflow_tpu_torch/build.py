@@ -1,7 +1,8 @@
 """
 Kernel builds: CUDA C++ sources compiled by nvcc into plain-C shared
 libraries (bound with ctypes), and generated Triton sources written to
-files (`@triton.jit` reads its function's source from a file).
+files (`@triton.jit` reads its function's source from a file); the host
+C++ of the frame pump (io/framepump.cpp) compiled by g++ the same way.
 
 Everything builds from the sources in this checkout, at first use, into
 BUILD_DIR (gitignored); a library is rebuilt when its source is newer, and
@@ -33,6 +34,9 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# The host C++ libraries (io/framepump.cpp): g++, linked with pthreads
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libraries: dict[str, ctypes.CDLL] = {}
 _modules: dict[str, ModuleType] = {}
@@ -128,6 +132,33 @@ def cuda_library(source: Path) -> ctypes.CDLL:
         build_cuda_libraries([source])
         _libraries[name] = ctypes.CDLL(str(library_path(source)))
     return _libraries[name]
+
+
+def cxx_library(source: Path) -> ctypes.CDLL:
+    """Compile (when missing or stale) with g++ and load lib<stem>.so for a
+    host C++ `source`, under the build lock; a failed build raises."""
+    name = source.stem
+    if name not in _libraries:
+        if _stale([source]):
+            with build_lock():
+                if _stale([source]):
+                    _compile_host(source)
+        _libraries[name] = ctypes.CDLL(str(library_path(source)))
+    return _libraries[name]
+
+
+def _compile_host(source: Path) -> None:
+    compiler = shutil.which("g++")
+    if compiler is None:
+        raise RuntimeError(f"g++ not found on PATH: {source.name} builds with a C++ compiler")
+    partial = library_path(source).with_suffix(f".{os.getpid()}.tmp")
+    process = subprocess.run([compiler, *CXX_FLAGS, "-o", str(partial), str(source),
+                              "-lpthread"], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    if process.returncode != 0:
+        partial.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {source}:\n{process.stdout}")
+    os.replace(partial, library_path(source))  # atomic: loaders see old or new
 
 
 def triton_module(source: str, stem: str = "tail") -> ModuleType:

@@ -164,10 +164,11 @@ class ExportingHelper:
 
     def make_sink(self, output: Union[Path, str, None], *, width: int, height: int,
                   turbo: bool = True, buffers: int = 5) -> VideoSink:
-        """The sink of `output`. `turbo` and `buffers` size the reference's
-        frame pump, which the port does not carry (FFmpegSink writes the
-        encoder's stdin from the export loop)."""
+        """The sink of `output`. An FFmpegSink hands its frames to the frame
+        pump with `turbo` (`buffers` slots of one frame), else writes the
+        encoder's stdin from the export loop."""
         scene = self.scene
+        frame_bytes = scene.width * scene.height * 3
         if output is None or str(output) in ("null", "null://", "/dev/null"):
             self.type = OutputType.NULL
             self.sink = NullSink()
@@ -177,7 +178,7 @@ class ExportingHelper:
             self.type = OutputType.PIPE
             if FFmpeg.available():
                 self._encoder(output, width, height)
-                self.sink = FFmpegSink(self.ffmpeg, pipe_output=True)
+                self.sink = FFmpegSink(self.ffmpeg, frame_bytes, buffers, turbo, pipe_output=True)
             else:
                 logger.warn("No ffmpeg binary: pipe output returns raw rgb24 bytes")
                 self.sink = PipeSink()
@@ -187,7 +188,7 @@ class ExportingHelper:
             self.type = OutputType.TCP
             if FFmpeg.available():
                 self._encoder(output, width, height, f="mpegts")
-                self.sink = FFmpegSink(self.ffmpeg)
+                self.sink = FFmpegSink(self.ffmpeg, frame_bytes, buffers, turbo)
             else:
                 logger.warn("No ffmpeg binary: streaming raw rgb24 over TCP")
                 self.sink = TCPSink(output)
@@ -207,7 +208,7 @@ class ExportingHelper:
             self.sink = ImageSink(path if suffix == "" else path.parent)
         elif FFmpeg.available():
             self._encoder(path, width, height)
-            self.sink = FFmpegSink(self.ffmpeg)
+            self.sink = FFmpegSink(self.ffmpeg, frame_bytes, buffers, turbo)
         else:
             logger.warn(f"No ffmpeg binary: encoding {path.name} with OpenCV "
                         f"(audio, if any, becomes a sidecar .wav)")

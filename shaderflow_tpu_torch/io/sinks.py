@@ -11,15 +11,17 @@ shaderflow_tpu/io/sinks.py).
   TCPSink     - raw rgb24 bytes streamed to a TCP endpoint (tcp://host:port)
   NullSink    - swallow frames (render throughput)
 
-FFmpegSink writes each batch to the encoder's stdin from the export loop's
-thread; the reference's multithreaded C++ frame pump is not carried over.
+FFmpegSink hands each frame to the frame pump (io/framepump.py, `turbo`),
+which writes `buffers` slots to the encoder's stdin on a thread of its own
+while the export renders on; turbo=False writes stdin from the export
+loop's thread.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from subprocess import PIPE
+from subprocess import PIPE, TimeoutExpired
 from tempfile import TemporaryFile
 from typing import Optional, Union
 
@@ -27,6 +29,7 @@ import numpy as np
 
 from shaderflow_tpu_torch import logger
 from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+from shaderflow_tpu_torch.io.framepump import FramePump
 
 
 class VideoSink:
@@ -55,30 +58,58 @@ class NullSink(VideoSink):
 
 
 class FFmpegSink(VideoSink):
-    """Rawvideo frames piped to an FFmpeg subprocess; process death is
-    detected per batch and its captured stderr is replayed in the error.
-    pipe_output=True collects the encoder's stdout, which finish returns."""
+    """Rawvideo frames piped to an FFmpeg subprocess: with `turbo`, frame by
+    frame through the frame pump (`buffers` slots of `frame_bytes`), else
+    written to stdin directly. Process death is detected per batch, and a
+    write that fails (the encoder gone: EPIPE) raises with the encoder's
+    captured stderr. pipe_output=True collects the encoder's stdout, which
+    finish returns."""
 
-    def __init__(self, ffmpeg: FFmpeg, pipe_output: bool = False):
+    def __init__(self, ffmpeg: FFmpeg, frame_bytes: int, buffers: int = 5, turbo: bool = True,
+                 pipe_output: bool = False):
         self.ffmpeg = ffmpeg
         self.pipe_output = pipe_output
         self.stdout = TemporaryFile(mode="w+b") if pipe_output else None
         self.stderr = TemporaryFile(mode="w+b")
         self.process = ffmpeg.popen(stdin=PIPE, stdout=self.stdout, stderr=self.stderr)
+        self.pump: Optional[FramePump] = None
+        if turbo:
+            self.pump = FramePump(self.process.stdin.fileno(), frame_bytes, slots=buffers)
+
+    def _encoder_error(self) -> RuntimeError:
+        """The encoder's death as an error carrying its captured stderr
+        (waiting for it to exit, so all of it is there)."""
+        try:
+            self.process.wait(timeout=10)
+        except TimeoutExpired:
+            pass
+        self.stderr.seek(0)
+        return RuntimeError("FFmpeg process closed unexpectedly with traceback:\n"
+                            + self.stderr.read().decode("utf-8", "replace"))
 
     def _check_alive(self) -> None:
         if self.process.poll() is not None:
-            self.stderr.seek(0)
-            raise RuntimeError(
-                "FFmpeg process closed unexpectedly with traceback:\n"
-                + self.stderr.read().decode("utf-8", "replace"))
+            raise self._encoder_error()
 
     def write_batch(self, frames: np.ndarray) -> None:
         self._check_alive()
-        self.process.stdin.write(np.ascontiguousarray(frames).data)
+        try:
+            if self.pump is not None:
+                for frame in frames:
+                    self.pump.submit(frame)
+            else:
+                self.process.stdin.write(np.ascontiguousarray(frames).data)
+        except BrokenPipeError as error:
+            raise self._encoder_error() from error
 
     def finish(self) -> Optional[Union[Path, bytes]]:
-        self.process.stdin.close()
+        try:
+            if self.pump is not None:
+                pump, self.pump = self.pump, None
+                pump.close()
+            self.process.stdin.close()
+        except BrokenPipeError as error:
+            raise self._encoder_error() from error
         self.process.wait()
         self.stderr.close()
         if self.pipe_output:

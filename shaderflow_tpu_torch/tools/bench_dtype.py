@@ -221,28 +221,16 @@ def compiled() -> dict:
 
 
 def launch_ms(fn, count: int = N, counter=None) -> float:
-    """Device time of one call: after a warm-up call (which builds),
-    `count` calls captured in one CUDA graph, replayed once to warm up and
-    once between two CUDA events, over count. A replay has no host work
-    between launches, so a kernel shorter than its Python wrapper's call
-    (this one) is timed by the card, not by the host. `counter`, the
-    wrapper fn launches once a call (its captured calls count none), gains
-    the `count` launches of each replay."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(count):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
+    """Device time of one call by CUDA-graph replay (flopcount.replay_ms:
+    `count` calls captured after a warm-up call, which builds). A replay has
+    no host work between launches, so a kernel shorter than its Python
+    wrapper's call (this one) is timed by the card, not by the host.
+    `counter`, the wrapper fn launches once a call (its captured calls count
+    none), gains the `count` launches of each of the two replays."""
+    ms = flopcount.replay_ms(fn, count)
     if counter is not None:
         counter.launches += 2 * count
-    return start.elapsed_time(end) / count
+    return ms
 
 
 def round_cost(dtype: torch.dtype) -> dict:

@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -239,6 +240,25 @@ def roofline(cost: Cost, loop_trips: float = 0.0) -> tuple[float, str]:
 
 FIXTURE_BLOCK = (32, 128)
 FIXTURE_BODY = Cost(alu=2 * 32 * 128, kernel_bytes=2 * 32 * 128 * 4)   # one block
+FIXTURE_SOURCE = Path(__file__).parent.parent / "csrc" / "fixture.cu"
+# The launch geometry of csrc/fixture.cu (see fixture_geometry)
+FIXTURE_THREADS = 128          # the largest CTA
+MIN_THREADS = 32               # the smallest CTA: one warp
+
+
+def fixture_geometry(vectors: int, sms: int) -> tuple[int, int]:
+    """The fixture's launch -> (CTAs, threads a CTA) for `vectors` float4
+    on a card of `sms` SMs: one float4 a thread, CTAs of FIXTURE_THREADS,
+    or smaller (down to a warp) where that spreads a small tensor over more
+    SMs."""
+    per_sm = max(1, -(-vectors // sms))
+    threads = min(FIXTURE_THREADS, max(MIN_THREADS, 1 << (per_sm.bit_length() - 1)))
+    return max(1, -(-vectors // threads)), threads
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def fixture_plain(x: torch.Tensor) -> torch.Tensor:
@@ -248,12 +268,12 @@ def fixture_plain(x: torch.Tensor) -> torch.Tensor:
 
 def _fixture_library() -> ctypes.CDLL:
     from shaderflow_tpu_torch.build import cuda_library
-    library = cuda_library(Path(__file__).parent.parent / "csrc" / "fixture.cu")
+    library = cuda_library(FIXTURE_SOURCE)
     function = library.fixture_launch
     if function.argtypes is None:
         function.restype = ctypes.c_int
-        function.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p]
+        function.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     if library.empty_launch.argtypes is None:
         library.empty_launch.restype = ctypes.c_int
         library.empty_launch.argtypes = [ctypes.c_void_p]
@@ -278,10 +298,11 @@ def empty_launch(device="cuda") -> None:
 
 
 def fixture(x: torch.Tensor) -> torch.Tensor:
-    """T3's fixture: x * 2 + 1 on a contiguous float32 (32 k, 128) tensor,
-    one block per (32, 128) block. The CUDA C++ kernel csrc/fixture.cu for
-    CUDA tensors, fixture_plain for CPU tensors; declared to the walker as
-    FIXTURE_BODY per block. `fixture.launches` counts kernel launches."""
+    """T3's fixture: x * 2 + 1 on a contiguous float32 (32 k, 128) tensor.
+    The CUDA C++ kernel csrc/fixture.cu for CUDA tensors, launched once
+    with fixture_geometry's grid, fixture_plain for CPU tensors; declared
+    to the walker as FIXTURE_BODY per logical (32, 128) block, whatever the
+    launch grid. `fixture.launches` counts kernel launches."""
     rows, cols = FIXTURE_BLOCK
     if (x.dtype != torch.float32 or x.ndim != 2 or x.shape[1] != cols
             or x.shape[0] % rows or not x.is_contiguous()):
@@ -294,10 +315,15 @@ def fixture(x: torch.Tensor) -> torch.Tensor:
         if x.device.type != "cuda":
             raise ValueError(f"Unsupported device {x.device}")
         out = torch.empty_like(x)
+        vectors = x.numel() // 4
+        ctas, threads = fixture_geometry(
+            vectors, _sm_count(x.device.index if x.device.index is not None
+                               else torch.cuda.current_device()))
         library = _fixture_library()
         with torch.cuda.device(x.device):
-            status = library.fixture_launch(x.data_ptr(), out.data_ptr(), blocks,
-                                            torch.cuda.current_stream(x.device).cuda_stream)
+            status = library.fixture_launch(
+                x.data_ptr(), out.data_ptr(), vectors, ctas, threads,
+                torch.cuda.current_stream(x.device).cuda_stream)
         if status != 0:
             raise RuntimeError(f"fixture launch failed: cudaError {status}")
         fixture.launches += 1
@@ -307,20 +333,79 @@ def fixture(x: torch.Tensor) -> torch.Tensor:
 fixture.launches = 0
 
 
+# Sizes the tool checks and times, in rows of 128 float32: the fixture's
+# own 128x128, a 64 MiB stream (larger than the 50 MB L2) and two odd sizes
+# (one logical block; 133 blocks, an odd count)
+FIXTURE_ROWS = {"fixture": 128, "stream": 32 * 4096, "one_block": 32, "odd": 32 * 133}
+TIMED_CALLS = 50     # launches a CUDA graph replays per timing
+
+
+def replay_ms(fn, count: int = TIMED_CALLS) -> float:
+    """Device time of one fn() call: `count` calls captured in one CUDA
+    graph (after a warm-up call, which builds), replayed once to warm up
+    and once between two CUDA events, over count. No host work sits
+    between the launches, so a launch shorter than its Python call is timed
+    by the card."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(count):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / count
+
+
+def fixture_inputs(rows: int, device="cuda") -> torch.Tensor:
+    """A (rows, 128) float32 input: i / 7 for element i."""
+    return (torch.arange(rows * 128, dtype=torch.float32, device=device) / 7.0).reshape(rows, 128)
+
+
 def main() -> int:
-    """Run the fixture on the card and walk it: the walker's count must be
-    the hand count (body x grid), the kernel equal to its plain version."""
+    """python -m shaderflow_tpu_torch.tools.flopcount
+
+    Walk the fixture at 128x128 (the walker's count must be the hand count,
+    body x logical grid), check it torch.equal to x * 2 + 1 with one launch
+    at every size of FIXTURE_ROWS, then time it by graph replay at each
+    size beside its bound and the empty launch."""
+    import json
     if not torch.cuda.is_available():
         raise SystemExit("flopcount: the fixture kernel runs on a CUDA card")
-    x = torch.arange(128 * 128, dtype=torch.float32, device="cuda").reshape(128, 128) / 7.0
+    device = torch.device("cuda")
+    sms = _sm_count(torch.cuda.current_device())
+    x = fixture_inputs(128)
     with Walker() as walker:
         out = fixture(x)
     torch.cuda.synchronize()
-    equal = torch.equal(out, fixture_plain(x))
-    print(f"fixture equal to x * 2 + 1: {equal}; walker alu {walker.cost.alu:.0f} "
-          f"(hand count {4 * 2 * 32 * 128}), bytes {walker.cost.kernel_bytes:.0f} "
-          f"(hand count {2 * 128 * 128 * 4}), bound {roofline(walker.cost)}")
-    return 0 if equal else 1
+    hand = (4 * 2 * 32 * 128, 2 * 128 * 128 * 4)
+    if (walker.cost.alu, walker.cost.kernel_bytes) != hand or not torch.equal(
+            out, fixture_plain(x)):
+        raise SystemExit(f"fixture: walker {walker.cost}, hand count {hand}, "
+                         f"equal {torch.equal(out, fixture_plain(x))}")
+    empty_ms = replay_ms(lambda: empty_launch(device))
+    results = {}
+    for label, rows in FIXTURE_ROWS.items():
+        x = fixture_inputs(rows)
+        before = fixture.launches
+        equal = torch.equal(fixture(x), fixture_plain(x))
+        if not equal or fixture.launches != before + 1:
+            raise SystemExit(f"fixture at {rows}x128: equal {equal}, "
+                             f"launches {fixture.launches - before}")
+        with Walker() as walker:
+            fixture(x)
+        bound_ms, bound_by = roofline(walker.cost)
+        ms = replay_ms(lambda: fixture(x))
+        results[label] = {"rows": rows, "geometry": fixture_geometry(x.numel() // 4, sms),
+                          "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                          "share": bound_ms / ms, "gap_ms": ms - empty_ms}
+    print(json.dumps({"empty_launch_ms": empty_ms, "sms": sms, "sizes": results,
+                      "card": torch.cuda.get_device_name(0)}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -148,6 +148,28 @@ def test_fixture_counted_as_body_times_grid():
     assert flopcount.roofline(walker.cost)[1] == "bytes"
 
 
+@pytest.mark.parametrize("sms", [1, 132])
+def test_fixture_geometry_covers_every_float4_once(sms):
+    """The fixture's launch geometry touches every float4 of the tensor
+    exactly once, for 1 to 300 logical (32, 128) blocks: thread t of CTA c
+    takes float4 c * threads + t where that is below the count, so a grid
+    covers it once when its last CTA starts inside the tensor and ends at
+    or past its end; CTAs of 32 to 128 threads (smaller while that spreads
+    the tensor over more SMs)."""
+    for blocks in range(1, 301):
+        vectors = blocks * 32 * 128 // 4
+        ctas, threads = flopcount.fixture_geometry(vectors, sms)
+        assert 32 <= threads <= 128, (blocks, threads)
+        assert ctas * threads >= vectors > (ctas - 1) * threads, (blocks, ctas, threads)
+    if sms == 132:
+        # 128x128 spreads over 128 SMs in one-warp CTAs; the 64 MiB stream
+        # is 32,768 CTAs of 128 threads
+        assert flopcount.fixture_geometry(128 * 128 // 4, sms) == (128, 32)
+        assert flopcount.fixture_geometry(32 * 4096 * 128 // 4, sms) == (32768, 128)
+    else:
+        assert flopcount.fixture_geometry(1024, sms) == (8, 128)
+
+
 def test_fixture_rejects_other_shapes():
     with pytest.raises(ValueError, match="32 k, 128"):
         flopcount.fixture(torch.zeros((100, 128)))

@@ -38,6 +38,9 @@ def test_cli_discovers_scenes_from_an_installed_wheel(tmp_path):
     bundled = site / "shaderflow_tpu" / "resources" / "examples" / "torch"
     assert (bundled / "torch_demo.py").is_file()
     assert not (site / "examples").exists() and not (site / "shaderflow_tpu_torch" / "examples").exists()
+    # The sources built at first use: the CUDA kernels and the frame pump
+    assert (site / "shaderflow_tpu_torch" / "csrc" / "fixture.cu").is_file()
+    assert (site / "shaderflow_tpu_torch" / "io" / "framepump.cpp").is_file()
 
     script = """
 import sys
