@@ -215,7 +215,37 @@ Then a {"mesh": ...} line (43-44).
      batch, in turns at batches of 8 (buffers=16 too): fps of each, every
      one sha256-equal to the same frames' .rgb export, K1 == frames, K2 ==
      flushes
-Then a {"framepump": ...} line (45). Phase 17 also times an empty kernel
+Then a {"framepump": ...} line (45).
+  Config 5 with its A/V mux
+ 46. PianoRoll at 3840x2160@60, ssaa 1, SECONDS to an .mp4 at the default
+     batch through the stub encoder (unpaced; it also decodes the audio):
+     the encoder's argv (the audio input, -shortest, the video options),
+     sha256 equal to the same frames' .rgb export, K1 (d) == frames, fps,
+     the default batch (32) and the pipeline depth the budget chose (2)
+Then a {"config5": ...} line (46).
+  The JAX package's run-time switches (switches.NAMES: none may be set
+  when the script starts; each phase sets its own around its calls
+  only), on the visualizer at 1920x1080@60, 2x SSAA, SECONDS unless
+  stated
+ 47. (a) SHADERFLOW_PIPELINE_DEPTH: .rgb exports at batch 8 by default and
+     at depths 1, 2, 3, sha256-equal, fps of each; (b)
+     SHADERFLOW_BATCH_TRACE=1 on phase 45's encoder export (turbo) at the
+     default batch and at batch 8: a line a flush, the median capture,
+     dispatch and drain ms; (c) SHADERFLOW_NO_TAILFUSE=1: Mandelbrot and
+     the visualizer exported on the card under it raise before any launch
+     (the port takes the reference tail on CPU tensors only); frames
+     REF_FRAMES of the card's default export within 1 u8 step of the
+     reference route's on the CPU on < 1 % of values (the visualizer
+     < 2 %), null-export fps; (d) SKIP_TPU=1: SKIP_RUNS traced null
+     exports of SKIP_SECONDS (capture, dispatch and drain ms a frame from
+     inside the loop, fps over the wall) and a .rgb export, every frame
+     zero, no kernel counted, a watched flush with no CUDA activity (the
+     profile and a TorchDispatchMode, tools/watch.py), beside phases 6 and
+     10, the realtime loop's unpaced ceiling; (e)
+     SHADERFLOW_REF_SLOT0=1: MotionBlur at 1920x1080@60, ssaa 1, 13 frames
+     on the card against device="cpu" (1 u8 step on < 1 %), unlike the
+     default export
+Then a {"switches": ...} line (47). Phase 17 also times an empty kernel
 (csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
@@ -233,8 +263,10 @@ last {"ok": true, "device": {...}}. Needs no network and no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -2477,6 +2509,40 @@ PUMP_EXPORTS = ((None, [(True, 5), (False, 5)]),
                 (8, [(True, 5), (False, 5), (True, 16), (True, 16), (False, 5), (True, 5)] * 2))
 
 
+@contextlib.contextmanager
+def stub_encoder(directory: Path, music: Path, frame_bytes: int, drain_fps: float):
+    """make_stub_audio in `directory` with `music`'s samples (a WAV), first
+    on PATH, reading frame_bytes a frame and draining at most drain_fps (0:
+    unpaced); FFmpeg's caches cleared on entry and exit, the environment
+    restored. Yields the stub's directory."""
+    import wave
+    import numpy as np
+    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
+    with wave.open(str(music), "rb") as handle:
+        rate, channels = handle.getframerate(), handle.getnchannels()
+        pcm = np.frombuffer(handle.readframes(handle.getnframes()), "<i2")
+    pcm = (pcm.astype(np.float32) / 32768.0).reshape(-1, channels)
+    caches = ("binary", "ffprobe", "get_audio_samplerate", "get_audio_channels")
+    saved = {key: os.environ.get(key) for key in ("PATH", "STUB_FRAME_BYTES", "STUB_DRAIN_FPS")}
+    stub = make_stub_audio(directory, pcm, rate)
+    try:
+        os.environ.update(PATH=f"{stub}{os.pathsep}{saved['PATH']}",
+                          STUB_FRAME_BYTES=str(frame_bytes), STUB_DRAIN_FPS=str(drain_fps))
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+        if FFmpeg.binary() != str(stub / "ffmpeg"):
+            raise AssertionError(f"ffmpeg on PATH is {FFmpeg.binary()}, not the stub")
+        yield stub
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        for name in caches:
+            getattr(FFmpeg, name).cache_clear()
+
+
 def framepump_path(counters, card: str) -> dict:
     """Phase 45: the frame pump behind FFmpegSink's turbo and buffers. The
     visualizer at 1920x1080, 60 fps, 2x SSAA, SECONDS, exported to an .mp4
@@ -2491,32 +2557,17 @@ def framepump_path(counters, card: str) -> dict:
     seconds from its first byte (and frames over them), each sha256-equal
     to the same frames' .rgb export, K1 == frames and K2 == flushes."""
     import subprocess
-    import wave
     import numpy as np
     import torch_demo
-    from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
     from shaderflow_tpu_torch.io.framepump import FramePump
     zero_counters, read_counters = counters
     frames = round(SECONDS * FPS)
     frame_bytes = WIDTH * HEIGHT * 3
     options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
-    with wave.open(str(torch_demo.MUSIC), "rb") as handle:
-        rate, channels = handle.getframerate(), handle.getnchannels()
-        pcm = np.frombuffer(handle.readframes(handle.getnframes()), "<i2")
-    pcm = (pcm.astype(np.float32) / 32768.0).reshape(-1, channels)
-    saved = {key: os.environ.get(key) for key in ("PATH", "STUB_FRAME_BYTES", "STUB_DRAIN_FPS")}
-    caches = ("binary", "ffprobe", "get_audio_samplerate", "get_audio_channels")
     runs = []
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            tmp = Path(tmp)
-            stub = make_stub_audio(tmp / "bin", pcm, rate)
-            os.environ.update(PATH=f"{stub}{os.pathsep}{saved['PATH']}",
-                              STUB_FRAME_BYTES=str(frame_bytes), STUB_DRAIN_FPS=str(DRAIN_FPS))
-            for name in caches:
-                getattr(FFmpeg, name).cache_clear()
-            if FFmpeg.binary() != str(stub / "ffmpeg"):
-                raise AssertionError(f"ffmpeg on PATH is {FFmpeg.binary()}, not the stub")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with stub_encoder(tmp / "bin", torch_demo.MUSIC, frame_bytes, DRAIN_FPS) as stub:
             # The frames every encode must receive (and the kernels built)
             torch_demo.Visualizer().main(output=str(tmp / "frames.rgb"), device="cuda",
                                          **options)
@@ -2571,14 +2622,6 @@ def framepump_path(counters, card: str) -> dict:
                     say("framepump", **{key: (f"{value:.4f}" if isinstance(value, float)
                                               else value) for key, value in run.items()},
                         card=repr(card))
-    finally:
-        for key, value in saved.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
-        for name in caches:
-            getattr(FFmpeg, name).cache_clear()
     summary = {}
     for run in runs:
         mode = f"batch_{run['batch']}_" + (f"turbo{run['buffers']}" if run["turbo"] else "direct")
@@ -2593,6 +2636,428 @@ def framepump_path(counters, card: str) -> dict:
     say("framepump_summary", **{key: (f"{value:.4f}" if isinstance(value, float) else value)
                                 for key, value in figures.items() if key != "runs"},
         card=repr(card))
+    return figures
+
+
+# --------------------------------------------------------------------------- #
+# Config 5 with its mux (46) and the JAX package's run-time switches (47)
+
+# A BATCH_TRACE line (a progress bar may precede it on its line)
+TRACE_LINE = re.compile(r"BATCH_TRACE frames=(\d+)\+(\d+) capture=(\d+\.\d)ms "
+                        r"dispatch=(\d+\.\d)ms drain=(\d+\.\d)ms$", re.M)
+# Phase 46: config 5's size; phase 47: the batch of the depth and trace
+# exports, and the depths timed
+MUX_WIDTH, MUX_HEIGHT = 3840, 2160
+SWITCH_BATCH, DEPTHS = 8, (1, 2, 3)
+# Phase 47 (c): the frames held against the reference route on the CPU
+# (negative: from the end); 47 (d): the host loop's runs and their length
+REF_FRAMES, SKIP_RUNS, SKIP_SECONDS = (0, -1), 3, 10.0
+
+
+@contextlib.contextmanager
+def switched(**values: str):
+    """The environment with `values` set, restored after."""
+    saved = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
+def rgb_diff(got: Path, want: Path, frame_bytes: int) -> tuple[int, float]:
+    """u8_diff of two .rgb exports of equal size, read a few frames at a
+    time -> (max u8 steps, share of differing values)."""
+    import numpy as np
+    size = want.stat().st_size
+    if got.stat().st_size != size:
+        raise AssertionError(f"{got.name}: {got.stat().st_size} bytes, {want.name}: {size}")
+    a, b = np.memmap(got, np.uint8, "r"), np.memmap(want, np.uint8, "r")
+    worst, differing, step = 0, 0, 8 * frame_bytes
+    for start in range(0, size, step):
+        diff = np.abs(a[start:start + step].astype(np.int16) - b[start:start + step])
+        worst, differing = max(worst, int(diff.max())), differing + int(np.count_nonzero(diff))
+    return worst, differing / size
+
+
+def traced_batches(stderr: str, frames: int) -> list[tuple]:
+    """The BATCH_TRACE lines of one export -> [(first frame, count,
+    capture ms, dispatch ms, drain ms)]; every line in the JAX package's
+    format and the batches covering frames 0..frames-1 in order."""
+    batches = [(int(m.group(1)), int(m.group(2)), *map(float, m.group(3, 4, 5)))
+               for m in TRACE_LINE.finditer(stderr)]
+    if len(batches) != stderr.count("BATCH_TRACE") or not batches:
+        raise AssertionError(f"BATCH_TRACE lines out of format: {stderr[-2000:]!r}")
+    starts = [first for first, *_ in batches]
+    if starts != [sum(b[1] for b in batches[:i]) for i in range(len(batches))] \
+            or sum(b[1] for b in batches) != frames:
+        raise AssertionError(f"BATCH_TRACE batches {[b[:2] for b in batches]} do not cover "
+                             f"{frames} frames")
+    return batches
+
+
+def config5_mux_path(counters, card: str) -> dict:
+    """Phase 46: config 5 (BASELINE.json: MIDI and audio spectrogram to a 4K60
+    export, full A/V mux). PianoRoll at 3840x2160, 60 fps, ssaa 1, SECONDS,
+    exported at the default batch to an .mp4 through the stub encoder
+    (make_stub_audio: it also decodes the audio; unpaced), which writes the
+    sha256 of what it read: the encoder's argv (the audio input,
+    -shortest, the video options), the sha256 equal to the same frames'
+    .rgb export, K1 (d) == frames and no other kernel, fps over main()'s
+    wall, the default batch (32) and the pipeline depth the budget chose
+    (2)."""
+    import torch_piano_roll
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    frame_bytes = MUX_WIDTH * MUX_HEIGHT * 3
+    options = dict(width=MUX_WIDTH, height=MUX_HEIGHT, fps=FPS, ssaa=1, time=SECONDS)
+    audio = str(torch_piano_roll.MUSIC)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # The frames the encoder must receive (and the kernel built)
+        started = time.perf_counter()
+        torch_piano_roll.PianoRoll().main(output=str(tmp / "frames.rgb"), device="cuda",
+                                          **options)
+        rgb_s = time.perf_counter() - started
+        if (tmp / "frames.rgb").stat().st_size != frames * frame_bytes:
+            raise AssertionError(f"PianoRoll .rgb: {(tmp / 'frames.rgb').stat().st_size} bytes")
+        want = digest(tmp / "frames.rgb")
+        (tmp / "frames.rgb").unlink()
+        with stub_encoder(tmp / "bin", torch_piano_roll.MUSIC, frame_bytes, 0.0) as stub:
+            output = tmp / "out.mp4"
+            scene = torch_piano_roll.PianoRoll()
+            zero_counters()
+            started = time.perf_counter()
+            returned = scene.main(output=str(output), device="cuda", **options)
+            wall = time.perf_counter() - started
+            launches = read_counters()
+            got = json.loads(output.read_text())
+            calls = [json.loads(line)
+                     for line in (stub / "calls.jsonl").read_text().splitlines()]
+    encodes = [args for args in calls if "f32le" not in args]
+    argv = encodes[0] if len(encodes) == 1 else []
+    inputs = [argv[i + 1] for i, arg in enumerate(argv) if arg == "-i"]
+    video = {flag: argv[argv.index(flag) + 1] for flag in ("-s", "-r", "-pix_fmt", "-c:v")
+             if flag in argv}
+    if (len(encodes) != 1 or inputs != ["-", audio] or "-shortest" not in argv
+            or video.get("-s") != f"{MUX_WIDTH}x{MUX_HEIGHT}" or float(video["-r"]) != FPS
+            or "-c:v" not in video or argv[-1] != str(output)):
+        raise AssertionError(f"config 5's encoder commands: {encodes}")
+    expected = {key: 0 for key in launches}
+    expected["k1d"] = frames
+    if launches != expected:
+        raise AssertionError(f"config 5 counters {launches}, expected {expected}")
+    if got["sha256"] != want or got["bytes"] != frames * frame_bytes or \
+            Path(returned) != output:
+        raise AssertionError(f"config 5's .mp4: {got['bytes']} bytes, sha256 equal "
+                             f"{got['sha256'] == want}, returned {returned!r}")
+    batch = scene.default_batch_size()
+    depth = scene.pipeline_depth(batch)
+    if (batch, depth) != (32, 2):
+        raise AssertionError(f"config 5: default batch {batch}, pipeline depth {depth}; "
+                             "expected 32 and 2")
+    figures = dict(config=f"PianoRoll {MUX_WIDTH}x{MUX_HEIGHT} {FPS}fps ssaa=1 {SECONDS:g}s "
+                   "to .mp4 with its audio muxed, through an unpaced stub encoder",
+                   frames=frames, batch=batch, pipeline_depth=depth,
+                   flushes=-(-frames // batch), seconds=wall, fps=frames / wall,
+                   rgb_seconds=rgb_s, rgb_fps=frames / rgb_s, stub_seconds=got["seconds"],
+                   stub_fps=frames / got["seconds"], launches=launches, sha256_equal=True,
+                   audio_input=audio, shortest=True, argv=argv)
+    say("config5_mux", **{key: (f"{value:.4f}" if isinstance(value, float) else
+                                repr(" ".join(value)) if key == "argv" else value)
+                          for key, value in figures.items()}, card=repr(card))
+    return figures
+
+
+def depth_path(counters, card: str) -> dict:
+    """Phase 47 (a): SHADERFLOW_PIPELINE_DEPTH. The visualizer at 1920x1080,
+    60 fps, 2x SSAA, SECONDS, batch SWITCH_BATCH, to a .rgb file without the
+    switch and at each depth of DEPTHS: every export sha256-equal to the
+    default's, the default depth 2; fps of each (frames over main()'s
+    wall)."""
+    import torch_demo
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
+                   batch=SWITCH_BATCH)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        output = Path(tmp) / "depth.rgb"
+        for depth in (None, *DEPTHS):
+            env = {} if depth is None else {"SHADERFLOW_PIPELINE_DEPTH": str(depth)}
+            with switched(**env):
+                scene = torch_demo.Visualizer()
+                zero_counters()
+                started = time.perf_counter()
+                scene.main(output=str(output), device="cuda", **options)
+                wall = time.perf_counter() - started
+                chosen = scene.pipeline_depth(SWITCH_BATCH)
+            launches = read_counters()
+            sha = digest(output)
+            output.unlink()
+            label = "default" if depth is None else f"depth_{depth}"
+            runs[label] = dict(depth=chosen, fps=frames / wall, seconds=wall,
+                               launches=launches, sha256_equal=sha == runs.get(
+                                   "default", {}).get("sha256", sha), sha256=sha)
+            say("switch_depth", run=label, batch=SWITCH_BATCH, depth=chosen,
+                seconds=f"{wall:.4f}", fps=f"{frames / wall:.3f}", launches=launches,
+                sha256_equal=runs[label]["sha256_equal"], card=repr(card))
+            if chosen != (depth or 2) or not runs[label]["sha256_equal"] or \
+                    launches["k1"] != frames:
+                raise AssertionError(f"SHADERFLOW_PIPELINE_DEPTH={depth}: {runs[label]}")
+    return runs
+
+
+def trace_path(counters, card: str) -> dict:
+    """Phase 47 (b): SHADERFLOW_BATCH_TRACE=1 on phase 45's export (the
+    visualizer to .mp4 through the stub encoder draining at most DRAIN_FPS,
+    turbo on, PUMP_BUFFERS slots) at the default batch and at batch
+    SWITCH_BATCH: one line a flush, in the JAX package's format, the frames
+    the stub read sha256-equal to the .rgb export's; the median capture,
+    dispatch (the host's enqueue of the flush) and drain ms a batch, and
+    their sums over the export beside main()'s wall."""
+    import io
+    import torch_demo
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    frame_bytes = WIDTH * HEIGHT * 3
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        torch_demo.Visualizer().main(output=str(tmp / "frames.rgb"), device="cuda", **options)
+        want = digest(tmp / "frames.rgb")
+        (tmp / "frames.rgb").unlink()
+        with stub_encoder(tmp / "bin", torch_demo.MUSIC, frame_bytes, DRAIN_FPS):
+            for batch in (None, SWITCH_BATCH):
+                output = tmp / "out.mp4"
+                err = io.StringIO()
+                with switched(SHADERFLOW_BATCH_TRACE="1"), contextlib.redirect_stderr(err):
+                    zero_counters()
+                    started = time.perf_counter()
+                    torch_demo.Visualizer().main(output=str(output), turbo=True,
+                                                 buffers=PUMP_BUFFERS, batch=batch,
+                                                 device="cuda", **options)
+                    wall = time.perf_counter() - started
+                launches = read_counters()
+                got = json.loads(output.read_text())
+                output.unlink()
+                batches = traced_batches(err.getvalue(), frames)
+                flushes = -(-frames // (batch or torch_demo.Visualizer().default_batch_size()))
+                if len(batches) != flushes or launches["k2"] != flushes or \
+                        got["sha256"] != want:
+                    raise AssertionError(f"trace at batch {batch}: {len(batches)} lines, "
+                                         f"{flushes} flushes, counters {launches}, sha256 "
+                                         f"equal {got['sha256'] == want}")
+                parts = {name: [b[i] for b in batches]
+                         for i, name in ((2, "capture"), (3, "dispatch"), (4, "drain"))}
+                label = f"batch_{batch or 'default'}"
+                runs[label] = dict(
+                    lines=len(batches), flushes=flushes, seconds=wall, fps=frames / wall,
+                    stub_fps=frames / got["seconds"], sha256_equal=True,
+                    **{f"{name}_ms_median": statistics.median(values)
+                       for name, values in parts.items()},
+                    **{f"{name}_ms_total": sum(values) for name, values in parts.items()},
+                    batches=[list(b) for b in batches])
+                say("switch_trace", run=label, **{
+                    key: (f"{value:.4f}" if isinstance(value, float) else value)
+                    for key, value in runs[label].items() if key != "batches"},
+                    card=repr(card))
+    return runs
+
+
+def no_tailfuse_path(counters, card: str) -> dict:
+    """Phase 47 (c): SHADERFLOW_NO_TAILFUSE=1. The port takes the reference
+    tail on CPU tensors only: under the switch an export on the card
+    raises before anything runs (no launch, no output file). The PSNR
+    gate's FUSED-vs-REF row: Mandelbrot and the visualizer at 1920x1080,
+    60 fps, 2x SSAA, SECONDS exported on the card by default (K1 ==
+    frames; K3 == frames for Mandelbrot, K2 == flushes for the
+    visualizer), frames REF_FRAMES of it against the reference route's
+    (the switch, device="cpu", cpu_frame): within 1 u8 step on < 1 % of
+    values (the visualizer < 2 %); fps of the card's null export."""
+    import numpy as np
+    import torch_demo
+    import torch_fractals
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    indices = [index % frames for index in REF_FRAMES]
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
+    figures = {}
+    for cls, bar in ((torch_fractals.Mandelbrot, 0.01), (torch_demo.Visualizer, 0.02)):
+        name = cls.__name__
+        flushes = -(-frames // cls().default_batch_size())
+        fused = {"k3": frames if name == "Mandelbrot" else 0, "k3p": 0,
+                 "k2": flushes if name == "Visualizer" else 0, "k1": frames, "k1d": 0,
+                 "k1h": 0}
+        zeros = {key: 0 for key in fused}
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            refused = tmp / "refused.rgb"
+            with switched(SHADERFLOW_NO_TAILFUSE="1"):
+                zero_counters()
+                try:
+                    cls().main(output=str(refused), device="cuda", **options)
+                    refusal = ""
+                except RuntimeError as error:
+                    refusal = str(error)
+                refused_launches = read_counters()
+                if "SHADERFLOW_NO_TAILFUSE" not in refusal or refused_launches != zeros \
+                        or refused.exists():
+                    raise AssertionError(f"{name} on the card under SHADERFLOW_NO_TAILFUSE=1: "
+                                         f"raised {refusal!r}, counters {refused_launches}, "
+                                         f"output written {refused.exists()}")
+                started = time.perf_counter()
+                reference = [cpu_frame(cls, index, options) for index in indices]
+                cpu_s = time.perf_counter() - started
+            zero_counters()
+            cls().main(output=str(tmp / "fused.rgb"), device="cuda", **options)
+            launches = read_counters()
+            if launches != fused:
+                raise AssertionError(f"{name} fused: counters {launches}, expected {fused}")
+            exported = np.memmap(tmp / "fused.rgb", np.uint8, "r").reshape(frames, HEIGHT,
+                                                                           WIDTH, 3)
+            diffs = [u8_diff(exported[index], want) for index, want in zip(indices, reference)]
+            del exported
+        _, null_s, null_fps = null_export(cls(), options)
+        err = max(worst for worst, _ in diffs)
+        share = max(differing for _, differing in diffs)
+        if err > 1 or share >= bar:
+            raise AssertionError(f"{name}: the card's frames {indices} against the reference "
+                                 f"route's: {diffs}")
+        figures[name] = dict(refused=True, refused_launches=refused_launches,
+                             fused_launches=launches, frames_checked=indices,
+                             max_u8_diff=err, differing_share=share,
+                             cpu_reference_seconds=cpu_s, null_seconds=null_s,
+                             null_fps=null_fps)
+        say("switch_no_tailfuse", scene=name, **{
+            key: (f"{value:.3e}" if key == "differing_share" else
+                  f"{value:.4f}" if isinstance(value, float) else value)
+            for key, value in figures[name].items()}, card=repr(card))
+    return figures
+
+
+def skip_path(counters, card: str, reference: dict) -> dict:
+    """Phase 47 (d): SKIP_TPU=1, the host loop alone. The visualizer at
+    1920x1080, 60 fps, 2x SSAA: after a short warm-up export, SKIP_RUNS
+    null exports of SKIP_SECONDS traced (SHADERFLOW_BATCH_TRACE=1): the
+    ceiling read from inside the loop, capture, dispatch (the flush's
+    return) and drain ms a frame summed from the trace, beside frames over
+    main()'s wall (set-up included); a .rgb export of SECONDS: every frame
+    zero, the right count; K1 == K2 == K3 == 0 throughout; a flush of 8
+    frames watched (tools/watch.py): no CUDA kernel and no copy in its
+    profile, no torch op on a CUDA tensor, no launch counted; `reference`
+    beside it (the null exports of phases 6 and 10, with the device); the
+    realtime loop headless, unpaced (fps=1000, no frameskip) for
+    CEILING_FRAMES frames."""
+    import numpy as np
+    import io
+    import torch_demo
+    from shaderflow_tpu_torch.scene import WindowBackend
+    from shaderflow_tpu_torch.tools import watch
+    zero_counters, read_counters = counters
+    frames = round(SECONDS * FPS)
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS)
+    zeros = {key: 0 for key in read_counters()}
+    runs = []
+    with switched(SKIP_TPU="1"):
+        zero_counters()
+        null_export(torch_demo.Visualizer(), {**options, "time": 0.25})
+        long_frames = round(SKIP_SECONDS * FPS)
+        for _ in range(SKIP_RUNS):
+            err = io.StringIO()
+            with switched(SHADERFLOW_BATCH_TRACE="1"), contextlib.redirect_stderr(err):
+                _, null_s, null_fps = null_export(torch_demo.Visualizer(),
+                                                  {**options, "time": SKIP_SECONDS})
+            batches = traced_batches(err.getvalue(), long_frames)
+            runs.append(dict(seconds=null_s, fps=null_fps, **{
+                f"{part}_ms_per_frame": sum(b[i] for b in batches) / long_frames
+                for i, part in ((2, "capture"), (3, "dispatch"), (4, "drain"))}))
+        with tempfile.TemporaryDirectory() as tmp:
+            output = Path(tmp) / "skip.rgb"
+            torch_demo.Visualizer().main(output=str(output), device="cuda", **options)
+            data = np.fromfile(output, np.uint8)
+        launches = read_counters()
+        if data.size != frames * HEIGHT * WIDTH * 3 or data.any() or launches != zeros:
+            raise AssertionError(f"SKIP_TPU export: {data.size} bytes, any nonzero "
+                                 f"{bool(data.any())}, counters {launches}")
+        del data
+        scene = torch_demo.Visualizer(backend=WindowBackend.Headless)
+        scene._setup_run(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, device="cuda")
+        scene.engine.begin_batch()
+        for _ in range(8):
+            scene.next(dt=1.0 / FPS)
+        out = []
+        zero_counters()
+        activities = watch.profiled_activities(lambda: out.append(scene.engine.flush(8)))
+        ops = watch.cuda_ops(lambda: out.append(scene.engine.flush(8)))
+        if activities or ops or read_counters() != zeros or any(
+                frames.device.type != "cpu" or frames.any()
+                or tuple(frames.shape) != (8, HEIGHT, WIDTH, 3) for frames in out):
+            raise AssertionError(f"SKIP_TPU flush: CUDA activities {activities}, torch ops "
+                                 f"on the card {ops}, counters {read_counters()}, frames "
+                                 f"{[(f.device, tuple(f.shape)) for f in out]}")
+        with switched(SHADERFLOW_AUDIO_BACKEND="none"):
+            live = realtime_run(torch_demo.Visualizer, counters, fps=1000.0,
+                                frames=CEILING_FRAMES, frameskip=False)
+        if live["launches"] != zeros:
+            raise AssertionError(f"SKIP_TPU realtime counters {live['launches']}")
+    loop_ms = [sum(run[f"{part}_ms_per_frame"] for part in ("capture", "dispatch", "drain"))
+               for run in runs]
+    figures = dict(frames=long_frames, runs=runs,
+                   loop_ms_per_frame_median=statistics.median(loop_ms),
+                   loop_fps_median=1e3 / statistics.median(loop_ms),
+                   null_fps_median=statistics.median(run["fps"] for run in runs),
+                   capture_ms_per_frame_median=statistics.median(
+                       run["capture_ms_per_frame"] for run in runs),
+                   dispatch_ms_per_frame_median=statistics.median(
+                       run["dispatch_ms_per_frame"] for run in runs),
+                   flush_cuda_activities=0, realtime_ceiling_fps=live["fps"],
+                   realtime_capture_ms=live["capture_ms"], realtime_flush_ms=live["flush_ms"],
+                   **{f"{name}_fps": fps for name, fps in reference.items()})
+    say("switch_skip_tpu", **{key: (f"{value:.4f}" if isinstance(value, float) else
+                                    [{k: round(v, 4) for k, v in run.items()} for run in value]
+                                    if key == "runs" else value)
+                              for key, value in figures.items()}, card=repr(card))
+    return figures
+
+
+def slot0_path(counters, card: str) -> dict:
+    """Phase 47 (e): SHADERFLOW_REF_SLOT0=1. MotionBlur (a temporal main
+    program) at 1920x1080, 60 fps, ssaa 1, frames 0..TEMPORAL_CHECK_FRAME,
+    on the card and with device="cpu" under the switch: within 1 u8 step
+    on < 1 % of values; and the card's default export differing from it."""
+    import torch_demo
+    zero_counters, read_counters = counters
+    frames = TEMPORAL_CHECK_FRAME + 1
+    options = dict(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=1, time=frames / FPS)
+    frame_bytes = WIDTH * HEIGHT * 3
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        with switched(SHADERFLOW_REF_SLOT0="1"):
+            zero_counters()
+            started = time.perf_counter()
+            torch_demo.MotionBlur().main(output=str(tmp / "card.rgb"), device="cuda", **options)
+            card_s = time.perf_counter() - started
+            launches = read_counters()
+            torch_demo.MotionBlur().main(output=str(tmp / "cpu.rgb"), device="cpu", **options)
+        torch_demo.MotionBlur().main(output=str(tmp / "default.rgb"), device="cuda", **options)
+        err, share = rgb_diff(tmp / "card.rgb", tmp / "cpu.rgb", frame_bytes)
+        _, default_share = rgb_diff(tmp / "card.rgb", tmp / "default.rgb", frame_bytes)
+    if err > 1 or share >= 0.01 or default_share < 0.1 or any(launches.values()):
+        raise AssertionError(f"SHADERFLOW_REF_SLOT0=1: card vs cpu max {err} u8 steps on "
+                             f"{share:.4%}; against the default {default_share:.4%} "
+                             f"differ; counters {launches}")
+    figures = dict(frames=frames, seconds=card_s, fps=frames / card_s, max_u8_diff_vs_cpu=err,
+                   differing_share_vs_cpu=share, differing_share_vs_default=default_share,
+                   launches=launches)
+    say("switch_ref_slot0", **{key: (f"{value:.4e}" if "share" in key else
+                                     f"{value:.4f}" if isinstance(value, float) else value)
+                               for key, value in figures.items()}, card=repr(card))
     return figures
 
 
@@ -2788,6 +3253,12 @@ def main() -> int:
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from shaderflow_tpu_torch import switches
+    inherited = [name for name in switches.NAMES if name in os.environ]
+    if inherited:
+        print(f"chip_smoke: {', '.join(inherited)} set in the environment: the phases "
+              "set each switch around their own calls only", file=sys.stderr)
+        return 2
     sys.path.insert(0, str(REPO / "examples" / "torch"))
     import torch_demo
     import torch_fractals
@@ -2924,6 +3395,7 @@ def main() -> int:
         scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
                    output="null", device="cuda")
         null_s = time.perf_counter() - started
+        null_fps = {"phase6_mandelbrot_null": frames / null_s}
         say("mandelbrot_timing", config="Mandelbrot 1920x1080 60fps 2xSSAA 2s null",
             frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
             card=repr(card))
@@ -3009,6 +3481,7 @@ def main() -> int:
     scene.main(width=WIDTH, height=HEIGHT, fps=FPS, ssaa=SSAA, time=SECONDS,
                output="null", device="cuda")
     null_s = time.perf_counter() - started
+    null_fps["phase10_visualizer_null"] = frames / null_s
     say("visualizer_timing", config="Visualizer 1920x1080 60fps 2xSSAA 2s null",
         frames=frames, seconds=f"{null_s:.4f}", fps=f"{frames / null_s:.3f}",
         card=repr(card))
@@ -3450,6 +3923,16 @@ def main() -> int:
     # encoder, turbo against direct
     pump = framepump_path((zero_counters, read_counters), card)
     print(json.dumps({"framepump": pump, "card": card}))
+    # 46. Config 5 with its mux: PianoRoll at 4K60 to .mp4 with its audio
+    config5 = config5_mux_path((zero_counters, read_counters), card)
+    print(json.dumps({"config5": config5, "card": card}))
+    # 47. The JAX package's run-time switches, each set around its own calls
+    switches = {"pipeline_depth": depth_path((zero_counters, read_counters), card),
+                "batch_trace": trace_path((zero_counters, read_counters), card),
+                "no_tailfuse": no_tailfuse_path((zero_counters, read_counters), card),
+                "skip_tpu": skip_path((zero_counters, read_counters), card, null_fps),
+                "ref_slot0": slot0_path((zero_counters, read_counters), card)}
+    print(json.dumps({"switches": switches, "card": card}))
 
     def mesh_launches(name: str, key: str) -> dict:
         """A kernel's launches in each phase 43 configuration of a scene,
@@ -3486,7 +3969,9 @@ def main() -> int:
          "hud": {"launches": hud["launches"]["k1"]},
          "segments": {"launches": [r["k1"] for r in segments["segments"]]},
          "mesh": mesh_launches("Visualizer", "k1"),
-         "framepump": {"launches": [r["launches"]["k1"] for r in pump["runs"]]}},
+         "framepump": {"launches": [r["launches"]["k1"] for r in pump["runs"]]},
+         "no_tailfuse": {"refused_launches": switches["no_tailfuse"]["Visualizer"]
+                         ["refused_launches"]["k1"]}},
         {"name": "K2 lookup_expand (bar-field table expand)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/lookup.cu",
          "replaces": "shaderflow_tpu/ops/sampling.py:851",
@@ -3497,21 +3982,26 @@ def main() -> int:
          "hud": {"launches": hud["launches"]["k2"]},
          "segments": {"launches": [r["k2"] for r in segments["segments"]]},
          "mesh": mesh_launches("Visualizer", "k2"),
-         "framepump": {"launches": [r["launches"]["k2"] for r in pump["runs"]]}},
+         "framepump": {"launches": [r["launches"]["k2"] for r in pump["runs"]]},
+         "no_tailfuse": {"refused_launches": switches["no_tailfuse"]["Visualizer"]
+                         ["refused_launches"]["k2"]}},
         {"name": "K1 (d) fused tail, quantize=False: bf16 planes at s = 1 (PianoRoll tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",
          "launches": piano_launches["k1d"], "max_abs_err": k1d_err,
          "ms": k1d_ms, "call_ms": k1d_call_ms, "plain_ms": k1d_plain_ms,
          "bound_ms": k1d_bound_ms, "bound_by": k1d_bound_by, "library_ms": None,
-         **k1d_compiled, "realtime": piano_live["k1d"]},
+         **k1d_compiled, "realtime": piano_live["k1d"],
+         "config5_mux": {"launches": config5["launches"]["k1d"]}},
         {"name": "K3 escape_lines (Mandelbrot escape counts, lines form)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",
          "launches": mandelbrot_launches["k3"], "max_abs_err": k3_err,
          "ms": k3_ms, "call_ms": k3_call_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_bound_ms,
          "bound_by": k3_bound_by, "library_ms": None, **k3_compiled["lines"],
-         "any_ssaa": any_ssaa["k3"], "mesh": mesh_launches("Mandelbrot", "k3")},
+         "any_ssaa": any_ssaa["k3"], "mesh": mesh_launches("Mandelbrot", "k3"),
+         "no_tailfuse": {"refused_launches": switches["no_tailfuse"]["Mandelbrot"]
+                         ["refused_launches"]["k3"]}},
         {"name": "K3 escape_planes (Julia escape counts, planes form, c on the device)",
          "route": "cuda", "source": "shaderflow_tpu_torch/csrc/escape.cu",
          "replaces": "shaderflow_tpu/ops/fractal.py:66",

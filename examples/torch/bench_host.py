@@ -29,6 +29,10 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent.parent
 WIDTH, HEIGHT, FPS = 1920, 1080, 60
+# The port's run-time switches (shaderflow_tpu_torch/switches.py NAMES),
+# named here so that the check needs neither tree's package
+SWITCHES = ("SHADERFLOW_PIPELINE_DEPTH", "SHADERFLOW_BATCH_TRACE", "SHADERFLOW_NO_TAILFUSE",
+            "SKIP_TPU", "SHADERFLOW_REF_SLOT0")
 
 
 def null_fps(cls, seconds: float, **options) -> float:
@@ -64,6 +68,11 @@ def main() -> int:
     parser.add_argument("--label", default="tree")
     parser.add_argument("--json", default=None)
     args = parser.parse_args()
+    inherited = [name for name in SWITCHES if name in os.environ]
+    if inherited:
+        print(f"bench_host: {', '.join(inherited)} set in the environment; it measures "
+              "the default path", file=sys.stderr)
+        return 2
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
     sys.path.insert(0, str(repo / "examples" / "torch"))

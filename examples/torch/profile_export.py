@@ -67,6 +67,8 @@ def main() -> int:
     parser.add_argument("--runs", type=int, default=5)
     parser.add_argument("--json", type=Path, default=None)
     args = parser.parse_args()
+    from shaderflow_tpu_torch import switches
+    switches.refuse("profile_export")
     if not torch.cuda.is_available():
         print("profile_export: needs a CUDA card", file=sys.stderr)
         return 2

@@ -47,7 +47,10 @@ the last program, when it has temporal == 1 and one layer, fuses a TailSpec
 with the final pass; any other TailSpec is evaluated by the plain tail
 into the matrix, padded to the program's components. The final pass reads
 the main program's slot 1 when it is temporal (the newest box after its
-roll), else slot 0.
+roll), else slot 0 (final_slot; SHADERFLOW_REF_SLOT0=1 reads slot 0).
+
+Under SKIP_TPU=1 (switches.skip_device) a flush returns black frames on
+the host and does no device work: the host loop alone, timed.
 
 With a mesh (engine.mesh, parallel/mesh.py: Scene.main(devices=N)) a
 flush is split over N shards, each a device (a card, or a repeated one:
@@ -70,7 +73,7 @@ from typing import TYPE_CHECKING, Any, Optional
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch import logger
+from shaderflow_tpu_torch import logger, switches
 from shaderflow_tpu_torch.ops import tailfuse, tailgen
 from shaderflow_tpu_torch.ops.downsample import final_pass
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
@@ -79,6 +82,16 @@ from shaderflow_tpu_torch.texture import ShaderTexture
 
 if TYPE_CHECKING:
     from shaderflow_tpu_torch.scene import ShaderScene
+
+
+def final_slot(temporal: int) -> int:
+    """The temporal slot of the main program that the final pass reads:
+    after its roll a temporal program's newest box sits at slot 1;
+    SHADERFLOW_REF_SLOT0=1 reads slot 0 (the oldest box). Read at each
+    build."""
+    if switches.ref_slot0():
+        return 0
+    return 1 if temporal > 1 else 0
 
 
 class WireBatch:
@@ -136,7 +149,8 @@ class WireBatch:
 
 def to_wire(frames, host: bool = True) -> WireBatch:
     """Stage a (F, H, W, 3) u8 batch, or a sharded flush's parts, for host
-    delivery (see WireBatch)."""
+    delivery (see WireBatch). A batch on the host (the CPU, SKIP_TPU) is
+    taken as it is, without a copy."""
     return WireBatch(frames, host=host)
 
 
@@ -529,6 +543,7 @@ class RenderEngine:
         # sharded flush (their rings from these)
         self._shards, self._shards_mesh = [], None
         self._whole_rows = set()
+        self._main_slot = final_slot(scene.shader.texture.temporal)
         self.stale = False
         out_width, out_height = scene._final.texture.resolution
         logger.debug(f"Engine built: render {width}x{height} -> output "
@@ -939,17 +954,22 @@ class RenderEngine:
                 matrix[0, layer] = self.layer_value(result, program, coords)
             if temporal > 1:
                 matrix.roll()
-        # After its roll a temporal main program's newest box sits at slot 1
         main = textures[scene.shader.name]
-        slot = 1 if scene.shader.texture.temporal > 1 else 0
-        out.copy_(final_pass(main[slot, -1], out_height, out_width, subsample))
+        out.copy_(final_pass(main[self._main_slot, -1], out_height, out_width, subsample))
 
     def flush(self, count: Optional[int] = None) -> Optional[torch.Tensor]:
         """Render the captured frames -> (F, H, W, 3) uint8 on the device.
-        Work is enqueued on the current stream; nothing waits for it."""
+        Work is enqueued on the current stream; nothing waits for it. Under
+        SKIP_TPU=1, zeros on the host (switches.skip_device)."""
         count = count if count is not None else len(self._frame_uniforms)
         if count == 0:
             return None
+        if switches.skip_device():
+            # numpy's zeros, as the JAX package's: pages the sink never
+            # reads are never written
+            width, height = self.scene._final.texture.resolution
+            self.last_flush_retraced = False
+            return torch.from_numpy(np.zeros((count, height, width, 3), np.uint8))
         if self.stale:
             # A static changed during capture: rebuild; captures stay valid
             self.build()

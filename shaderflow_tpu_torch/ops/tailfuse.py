@@ -43,6 +43,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from shaderflow_tpu_torch import switches
 from shaderflow_tpu_torch.ops.downsample import final_pass, quantize_u8
 from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
@@ -309,6 +310,14 @@ class TailCtx:
     def vec(self, name: str) -> tuple:
         return tuple(p.to(self.dtype) for p in self._planes[name])
 
+    def channels(self, name: str) -> int:
+        """The number of planes of input `name`."""
+        return len(self._planes[name])
+
+    # Aliases that make the intent explicit where a tail reads its inputs
+    def vec2(self, name: str) -> tuple:
+        return self.vec(name)
+
     def vec3(self, name: str) -> tuple:
         return self.vec(name)
 
@@ -565,8 +574,10 @@ def final_equal_resolution(planes: torch.Tensor, subsample: int,
 
 def backend_supports_fusion(device="cuda") -> bool:
     """Whether K1 runs for tensors on `device`: on a CUDA card; the CPU
-    runs its plain version (fused_tail_final's dispatch)."""
-    return torch.device(device).type == "cuda"
+    runs its plain version (fused_tail_final's dispatch). False under
+    SHADERFLOW_NO_TAILFUSE=1, as the JAX package's is, since the switch
+    takes K1 out of the dispatch (switches.reference_tail)."""
+    return not switches.no_tailfuse() and torch.device(device).type == "cuda"
 
 
 def supports_fusion(render_height: int, render_width: int,
@@ -604,12 +615,16 @@ def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
     3, 4, realtime ssaa < 1) evaluates the tail with eval_reference and
     runs the plain final pass (downsample.final_pass: the banded general
     resample), on the card as on the CPU, as the reference does on every
-    backend."""
-    if supports_fusion(render_height, render_width, out_height, out_width, subsample):
+    backend. Under SHADERFLOW_NO_TAILFUSE=1 every regime takes that route
+    on CPU tensors and raises on the card (switches.reference_tail)."""
+    device = out.device if out is not None else spec_device(spec)
+    reference = switches.reference_tail(device)
+    if not reference and supports_fusion(render_height, render_width, out_height,
+                                         out_width, subsample):
         return fused_tail_final(spec, render_height, render_width, out_height,
                                 out_width, subsample, aspect, out=out)
-    device = out.device if out is not None else spec_device(spec)
-    if (render_height, render_width) == (out_height, out_width) and int(subsample) > 1:
+    if (not reference and (render_height, render_width) == (out_height, out_width)
+            and int(subsample) > 1):
         planes = fused_tail_final(spec, render_height, render_width, out_height,
                                   out_width, 1, aspect, quantize=False,
                                   out=_frame_planes(out_height, out_width, device))

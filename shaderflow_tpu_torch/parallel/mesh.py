@@ -225,7 +225,7 @@ def flush_rows(engine, count: int) -> ShardedFrames:
             if temporal > 1:
                 for shard in shards:
                     shard._carry[program.name].roll()
-        slot = 1 if main.texture.temporal > 1 else 0
+        slot = engine._main_slot
         for shard, (_, _, _, out), (_, textures) in zip(shards, batch, frames):
             first, end = row_window(out_height, n, shard.index)
             with shard.context():

@@ -51,7 +51,7 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch import logger, resolve_device
+from shaderflow_tpu_torch import logger, resolve_device, switches
 from shaderflow_tpu_torch.engine import RenderEngine, fetch_frame, to_wire
 from shaderflow_tpu_torch.exporting import ExportingHelper
 from shaderflow_tpu_torch.frametimer import ShaderFrametimer
@@ -117,11 +117,6 @@ class WindowBackend(Enum):
 
 
 class ShaderScene(ShaderModule):
-
-    PIPELINE_DEPTH = 2
-    """Batches in flight before the host drains the oldest: the device
-    always has a queued batch when one finishes, and the sink's host work
-    overlaps the next batch's compute."""
 
     frame_limit: Optional[int] = None
     """Stop the realtime loop after N frames (tests, timed demos)."""
@@ -437,6 +432,7 @@ class ShaderScene(ShaderModule):
             fullscreen=fullscreen, quality=quality, ssaa=ssaa, subsample=subsample,
             output=output, time=time, speed=speed, freewheel=freewheel, raw=raw,
             device=device)
+        switches.announce(self.device)
         if self.realtime:
             return self._realtime_loop(frameskip)
         export = ExportingHelper(self)
@@ -496,6 +492,17 @@ class ShaderScene(ShaderModule):
         1080p, 32 at 4K)."""
         pixels = self._width * self._height
         return int(np.clip(2 ** 28 // max(1, pixels), 4, 128))
+
+    def pipeline_depth(self, size: int) -> int:
+        """Batches an export keeps in flight before the host drains the
+        oldest: the device always has a queued batch when one finishes, and
+        the sink's host work overlaps the next batch's compute. 2 while
+        three (size, H, W, 3) u8 batches fit in 2.5 GB, else 1; the budget
+        is the JAX package's (shaderflow_tpu/scene.py:591-595), sized for
+        the v5e's 16 GB and kept as it is. SHADERFLOW_PIPELINE_DEPTH
+        overrides it (at least 1)."""
+        batch_bytes = size * self._width * self._height * 3
+        return switches.pipeline_depth(2 if 3 * batch_bytes <= (5 << 29) else 1)
 
     def _prewarm_modules(self) -> None:
         """Every module's prewarm() before the first frame (the whole-file
@@ -564,17 +571,33 @@ class ShaderScene(ShaderModule):
                 replayed += 1
             total = total - start_frame
 
+        depth = self.pipeline_depth(size)
+        # SHADERFLOW_BATCH_TRACE=1: a line a batch on stderr, in the JAX
+        # package's format. dispatch is the host's time to enqueue the
+        # flush, not device time (nothing waits for the device here);
+        # drain is pipe_batch's: the wait for the oldest batch's copy to
+        # the host and the sink's write, not told apart
+        trace = switches.batch_trace()
         in_flight: list = []
         frame_index = 0
         while frame_index < total and not self.quit:
+            t0 = time.perf_counter() if trace else 0.0
             count = min(size, total - frame_index)
             self.engine.begin_batch()
             for _ in range(count):
                 self.next(dt=self.frametime)
+            t1 = time.perf_counter() if trace else 0.0
             frames = self.engine.flush(count)
+            t2 = time.perf_counter() if trace else 0.0
             in_flight.append(to_wire(frames, host=export.wants_host_frames))
-            while len(in_flight) > self.PIPELINE_DEPTH:
+            while len(in_flight) > depth:
                 export.pipe_batch(in_flight.pop(0))
+            if trace:
+                t3 = time.perf_counter()
+                print(f"BATCH_TRACE frames={frame_index}+{count} "
+                      f"capture={1e3 * (t1 - t0):.1f}ms "
+                      f"dispatch={1e3 * (t2 - t1):.1f}ms "
+                      f"drain={1e3 * (t3 - t2):.1f}ms", file=sys.stderr, flush=True)
             frame_index += count
 
         for staged in in_flight:

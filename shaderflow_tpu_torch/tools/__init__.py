@@ -9,6 +9,7 @@ own kernels:
   flopcount       T3: the cost walker the roofline bounds come from, and
                   its fixture kernel (csrc/fixture.cu)
   sass            registers, spills and SASS of the CUDA C++ kernels
+  watch           witnesses that host code does no work on the card
 
 Each runs on a CUDA card as `python -m shaderflow_tpu_torch.tools.<name>`;
 importing them needs neither triton nor a card.
