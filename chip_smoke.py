@@ -245,7 +245,26 @@ Then a {"config5": ...} line (46).
      SHADERFLOW_REF_SLOT0=1: MotionBlur at 1920x1080@60, ssaa 1, 13 frames
      on the card against device="cpu" (1 u8 step on < 1 %), unlike the
      default export
-Then a {"switches": ...} line (47). Phase 17 also times an empty kernel
+Then a {"switches": ...} line (47).
+  The repo's gating and accounting tools (examples/torch/), each run as
+  its own process(es) from this checkout; each prints its table or JSON
+  on the lines before its phase line
+ 48. the PSNR gate (psnr_gate.py): the port's frames on the card against
+     the GL oracle (tools/gl_oracle.py) at the JAX gate's eight configs
+     and bars, and the visualizer and Mandelbrot at 1920x1080, 2x SSAA;
+     the FUSED-vs-REF and bf16-tail-vs-ref rows against the reference
+     route on the CPU; every row at its bar, K1, K1 bf16, K2, K3 lines and
+     planes launched
+ 49. the roofline (roofline.py) of the six graded configs, each in its own
+     process: steady ms a frame (a three-batch export less a one-batch
+     one), the walker's count of one flush, the bound, the unit that
+     bounds it and the share (none over 100 %); Mandelbrot's useful and
+     executed escape steps a pixel
+ 50. the cold start (coldstart.py) of the 10 s visualizer export at
+     1080p60, 2x SSAA from an empty build directory and Triton cache (an
+     nvcc build at least), then with this checkout's (no nvcc build): each
+     build, the precomputes, the flushes that built a K1, both exports
+Then a {"tools": ...} line (48-50). Phase 17 also times an empty kernel
 (csrc/fixture.cu), the floor under T1's and T3's single launches.
 Kernel times (`ms`, `plain_ms`, `library_ms`) are device time: the
 durations of the kernels a call launched, from torch.profiler's CUDA
@@ -3061,6 +3080,100 @@ def slot0_path(counters, card: str) -> dict:
     return figures
 
 
+TOOLS = REPO / "examples" / "torch"
+
+
+def run_tool(script: str, *arguments: str) -> tuple[list[str], float]:
+    """python3 examples/torch/<script> with `arguments`, in a process of its
+    own -> (its standard output's lines, wall seconds); raises with its
+    error output when it exits with another code than 0. This process's
+    cached card memory is released first: the tool's process needs it."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    process = subprocess.run([sys.executable, str(TOOLS / script), *arguments],
+                             capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - started
+    if process.returncode != 0:
+        print(process.stdout[-6000:], flush=True)
+        raise AssertionError(f"{script} {' '.join(arguments)} exited {process.returncode} "
+                             f"(this process reserves {torch.cuda.memory_reserved() / 2**30:.1f} "
+                             f"GiB of the card):\n{process.stderr[-4000:]}")
+    return process.stdout.strip().splitlines(), seconds
+
+
+def gate_path(card: str) -> dict:
+    """Phase 48: the PSNR gate (examples/torch/psnr_gate.py) on the card:
+    its table on the lines before, every row at its bar (the tool exits 1
+    otherwise, which raises here); the kernels its frames went through
+    (K1, K1 bf16, K2, K3 lines and planes each launched)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, seconds = run_tool("psnr_gate.py", "--out", str(Path(tmp) / "psnr_gate.md"))
+    for line in lines[:-1]:
+        print(line)
+    result = json.loads(lines[-1])
+    launches = result["launches"]
+    if result["failed"] or not all(launches[key] for key in ("k1", "k1h", "k2", "k3", "k3p")):
+        raise AssertionError(f"psnr_gate: failed {result['failed']}, launches {launches}")
+    figures = dict(rows=len(result["psnr_gate"]), seconds=seconds, render_s=result["render_s"],
+                   gate_wall_s=result["wall_s"], launches=launches,
+                   rows_by_config={row["config"] if row["check"].startswith("oracle")
+                                   else f"{row['check']} {row['config']}":
+                                   row["value"] if row["value"] != float("inf") else "inf"
+                                   for row in result["psnr_gate"]})
+    say("psnr_gate", rows=figures["rows"], failed=0, seconds=f"{seconds:.1f}",
+        render_s=f"{result['render_s']:.1f}", gate_wall_s=f"{result['wall_s']:.1f}",
+        launches=launches, card=repr(card))
+    return figures
+
+
+def roofline_path(card: str) -> dict:
+    """Phase 49: the roofline (examples/torch/roofline.py) of the six graded
+    configs, each in its own process: the table on the lines before; each
+    row's ms a frame, count, bound, bounding unit and share (the tool
+    raises over 100 %); Mandelbrot's useful and executed escape steps."""
+    lines, seconds = run_tool("roofline.py")
+    rows = [json.loads(line) for line in lines if line.startswith("{")]
+    for line in lines:
+        if not line.startswith("{"):
+            print(line)
+    if len(rows) != 6 or any(not 0 < row["share"] <= 1 for row in rows):
+        raise AssertionError(f"roofline: {len(rows)} rows, shares "
+                             f"{[row['share'] for row in rows]}")
+    mandelbrot = next(row for row in rows if row["config"] == "mandelbrot")
+    if not 0 < mandelbrot["useful_steps_px"] <= mandelbrot["executed_steps_px"]:
+        raise AssertionError(f"roofline: Mandelbrot's steps {mandelbrot}")
+    for row in rows:
+        say("roofline", config=row["config"], ms_per_frame=f"{row['ms_per_frame']:.4f}",
+            bound_ms=f"{row['bound_ms']:.5f}", bound_by=row["bound_by"],
+            share=f"{row['share']:.4f}", card=repr(card))
+    return {"seconds": seconds, "rows": rows}
+
+
+def coldstart_path(card: str) -> dict:
+    """Phase 50: the cold start (examples/torch/coldstart.py) of the 10 s
+    visualizer export, from an empty build directory and Triton cache (at
+    least one nvcc build), then with the checkout's (no nvcc build): both
+    JSON lines on the lines before."""
+    fresh_lines, fresh_s = run_tool("coldstart.py")
+    kept_lines, kept_s = run_tool("coldstart.py", "--keep-cache")
+    print(fresh_lines[-1])
+    print(kept_lines[-1])
+    fresh, kept = json.loads(fresh_lines[-1]), json.loads(kept_lines[-1])
+    nvcc = [[e["tool"] for e in run["build_events"]].count("nvcc") for run in (fresh, kept)]
+    if nvcc[0] < 1 or nvcc[1] != 0:
+        raise AssertionError(f"coldstart: nvcc builds {nvcc[0]} fresh, {nvcc[1]} with the "
+                             "checkout's build")
+    for run, seconds in ((fresh, fresh_s), (kept, kept_s)):
+        say("coldstart", cache=run["cache"], seconds=f"{seconds:.1f}",
+            builds=len(run["build_events"]),
+            cold_export_s=f"{run['phases']['cold_export_total']:.3f}",
+            warm_export_s=f"{run['phases']['warm_export_total']:.3f}", card=repr(card))
+    return {"fresh": fresh, "checkout": kept, "seconds": fresh_s + kept_s}
+
+
 def zero_counters() -> None:
     """Every kernel wrapper's launch count set to 0."""
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse
@@ -3933,6 +4046,11 @@ def main() -> int:
                 "skip_tpu": skip_path((zero_counters, read_counters), card, null_fps),
                 "ref_slot0": slot0_path((zero_counters, read_counters), card)}
     print(json.dumps({"switches": switches, "card": card}))
+    # 48-50. The gate, the roofline and the cold start (examples/torch/),
+    # each tool in processes of its own
+    tools = {"psnr_gate": gate_path(card), "roofline": roofline_path(card),
+             "coldstart": coldstart_path(card)}
+    print(json.dumps({"tools": tools, "card": card}))
 
     def mesh_launches(name: str, key: str) -> dict:
         """A kernel's launches in each phase 43 configuration of a scene,

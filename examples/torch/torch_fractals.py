@@ -70,19 +70,30 @@ def mandelbrot_tail(quality: int, trivial: bool):
     return tail
 
 
+def mandelbrot_quality(sf) -> tuple[int, int]:
+    """The frame's escape budget: (quality, mandelbrot_cap(quality))."""
+    quality = max(1, int(1000.0 * sf.uniform("iQualityS")))
+    return quality, mandelbrot_cap(quality)
+
+
+def mandelbrot_lines(sf) -> tuple:
+    """c = gluv - vec2(0.5, 0.0) under the trivial camera, as K3's two
+    lines: (x line (W,), y line (H,))."""
+    gluv_x, gluv_y = sf.camera.line("gluv")
+    return gluv_x - 0.5, gluv_y
+
+
 def mandelbrot_frag(sf):
     """Escape-time Mandelbrot with magma palette (mandelbrot.frag)."""
     from shaderflow_tpu_torch.ops import tailfuse
     from shaderflow_tpu_torch.ops.fractal import escape_iterations, escape_iterations_sep
     cam = sf.camera
-    quality = max(1, int(1000.0 * sf.uniform("iQualityS")))
-    cap = mandelbrot_cap(quality)
+    quality, cap = mandelbrot_quality(sf)
     # Trivial (axis-aligned) camera: c is an outer product of two lines,
     # and out-of-bounds is a column line. `iCameraTrivial` is a static.
     trivial = bool(sf.uniform("iCameraTrivial", default=False))
     if trivial:
-        gluv_x, gluv_y = cam.line("gluv")
-        iters = escape_iterations_sep(gluv_x - 0.5, gluv_y, quality,
+        iters = escape_iterations_sep(*mandelbrot_lines(sf), quality,
                                       radius=3.0, saturate=cap,
                                       out_dtype=torch.float32)
         oob_in = tailfuse.Col(cam.out_of_bounds_x.to(torch.float32))

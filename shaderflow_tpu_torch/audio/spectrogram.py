@@ -16,6 +16,7 @@ the texture at the scrolling offset, which the engine streams.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -154,6 +155,9 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
         self._precomputed: Optional[torch.Tensor] = None  # (F, bins, 1, C) smoothed
         self._precompute_key = None
         self._precompute_value = None
+        # {"run": seconds} of the last whole-export precompute, the device's
+        # work included (coldstart.py reads it)
+        self.precompute_timings: dict[str, float] = {}
         ShaderModule.__init__(self, scene=scene, name=name, **kwargs)
         self.texture = ShaderTexture(
             scene=self.scene, name=self.name, dtype=np.float32, repeat_y=False)
@@ -224,7 +228,12 @@ class ShaderSpectrogram(BrokenSpectrogram, ShaderModule):
                str(self.scene.device))
         if self._precompute_key == key and self._precompute_value is not None:
             return self._precompute_value
+        started = time.perf_counter()
         self._precompute_value = self._precompute()
+        if self._precompute_value is not None:
+            if self._precompute_value.device.type == "cuda":
+                torch.cuda.synchronize(self._precompute_value.device)
+            self.precompute_timings = {"run": time.perf_counter() - started}
         self._precompute_key = key
         return self._precompute_value
 

@@ -12,6 +12,7 @@ bars, which the engine streams.
 
 from __future__ import annotations
 
+import time
 from enum import Enum
 from typing import Optional
 
@@ -54,6 +55,9 @@ class ShaderWaveform(ShaderModule):
         self._precomputed: Optional[torch.Tensor] = None  # (F, 1, points, C)
         self._precompute_key = None
         self._precompute_value = None
+        # {"run": seconds} of the last whole-export precompute, the device's
+        # work included (coldstart.py reads it)
+        self.precompute_timings: dict[str, float] = {}
         super().__init__(scene=scene, name=name, **kwargs)
 
     def build(self) -> None:
@@ -111,7 +115,12 @@ class ShaderWaveform(ShaderModule):
                self.chunk_size, self.reducer, str(self.scene.device))
         if self._precompute_key == key and self._precompute_value is not None:
             return self._precompute_value
+        started = time.perf_counter()
         self._precompute_value = self._precompute()
+        if self._precompute_value is not None:
+            if self._precompute_value.device.type == "cuda":
+                torch.cuda.synchronize(self._precompute_value.device)
+            self.precompute_timings = {"run": time.perf_counter() - started}
         self._precompute_key = key
         return self._precompute_value
 

@@ -22,6 +22,7 @@ import importlib.util
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from types import ModuleType
 
@@ -40,6 +41,12 @@ CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libraries: dict[str, ctypes.CDLL] = {}
 _modules: dict[str, ModuleType] = {}
+# Every build of this process: (source file names, "nvcc" / "g++" / "triton",
+# wall seconds). An nvcc entry is one batch of sources compiled in parallel
+# (their names joined by spaces, the batch's wall); a Triton entry is the
+# first launch of a generated kernel (ops/tailgen.py: its JIT compile, or
+# its load from Triton's cache)
+build_events: list[tuple[str, str, float]] = []
 
 
 def nvcc() -> str:
@@ -107,6 +114,7 @@ def build_cuda_libraries(sources=None) -> list[str]:
 def _compile(stale: list[Path]) -> None:
     compiler = nvcc()
     jobs = []
+    started = time.perf_counter()
     for source in stale:
         partial = library_path(source).with_suffix(f".{os.getpid()}.tmp")
         process = subprocess.Popen([compiler, *NVCC_FLAGS, "-o", str(partial), str(source)],
@@ -114,8 +122,10 @@ def _compile(stale: list[Path]) -> None:
                                    text=True)
         jobs.append((source, partial, process))
     failures = []
-    for source, partial, process in jobs:
-        output = process.communicate()[0]
+    outputs = [process.communicate()[0] for _, _, process in jobs]
+    build_events.append((" ".join(source.name for source in stale), "nvcc",
+                         time.perf_counter() - started))
+    for (source, partial, process), output in zip(jobs, outputs):
         if process.returncode != 0:
             failures.append(f"nvcc failed on {source}:\n{output}")
             continue
@@ -152,19 +162,25 @@ def _compile_host(source: Path) -> None:
     if compiler is None:
         raise RuntimeError(f"g++ not found on PATH: {source.name} builds with a C++ compiler")
     partial = library_path(source).with_suffix(f".{os.getpid()}.tmp")
+    started = time.perf_counter()
     process = subprocess.run([compiler, *CXX_FLAGS, "-o", str(partial), str(source),
                               "-lpthread"], stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
+    build_events.append((source.name, "g++", time.perf_counter() - started))
     if process.returncode != 0:
         partial.unlink(missing_ok=True)
         raise RuntimeError(f"g++ failed on {source}:\n{process.stdout}")
     os.replace(partial, library_path(source))  # atomic: loaders see old or new
 
 
+def triton_name(source: str, stem: str = "tail") -> str:
+    """The module name of generated Triton source: stem and content hash."""
+    return f"{stem}_{hashlib.sha256(source.encode()).hexdigest()[:16]}"
+
+
 def triton_module(source: str, stem: str = "tail") -> ModuleType:
     """Import generated Triton source, cached by content hash."""
-    digest = hashlib.sha256(source.encode()).hexdigest()[:16]
-    name = f"{stem}_{digest}"
+    name = triton_name(source, stem)
     if name in _modules:
         return _modules[name]
     # Triton's compile cache too stays inside the checkout (not $HOME)

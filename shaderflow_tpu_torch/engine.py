@@ -67,6 +67,7 @@ go down into one host batch (WireBatch), each on its own stream.
 from __future__ import annotations
 
 import contextlib
+import time
 from collections.abc import Mapping
 from typing import TYPE_CHECKING, Any, Optional
 
@@ -481,6 +482,9 @@ class RenderEngine:
         self._stream_tex: dict[str, torch.Tensor] = {}   # name -> (F, T, L, H, W, C) on device
         self.staging = StagingPool()
         self.last_flush_retraced = False   # the last flush built a new K1 (a compile)
+        # (frames, host seconds) of each flush that built a new K1: its
+        # trace, generation and Triton compile (coldstart.py reads them)
+        self.compile_events: list[tuple[int, float]] = []
         # Per-batch capture state
         self._frame_uniforms: list[dict[str, np.ndarray]] = []
         # Multi-device sharding (parallel/mesh.py): the mesh, its shards
@@ -977,10 +981,11 @@ class RenderEngine:
             # Modules bind their sequences on their first update
             self._refresh_textures()
         builds = tailgen.compiled.builds
+        started = time.perf_counter()
         if self.mesh is not None:
             from shaderflow_tpu_torch.parallel import mesh
             frames = (mesh.flush_rows if self._carry else mesh.flush_frames)(self, count)
-            self.last_flush_retraced = tailgen.compiled.builds != builds
+            self._note_builds(builds, count, started)
             return frames
         self.leave_mesh()
         packed, spec = self.stack_captures(count)
@@ -995,8 +1000,15 @@ class RenderEngine:
         for index in range(count):
             self.render_frame(packed[index], spec, index, frame_indices[index],
                               per_batch, invariant, frames[index])
-        self.last_flush_retraced = tailgen.compiled.builds != builds
+        self._note_builds(builds, count, started)
         return frames
+
+    def _note_builds(self, builds: int, count: int, started: float) -> None:
+        """After a flush of `count` frames begun at perf_counter `started`:
+        whether it built a new K1, and if so its host seconds."""
+        self.last_flush_retraced = tailgen.compiled.builds != builds
+        if self.last_flush_retraced:
+            self.compile_events.append((count, time.perf_counter() - started))
 
     def reset_carry(self) -> None:
         """Re-seed the temporal rings from their programs' host matrices

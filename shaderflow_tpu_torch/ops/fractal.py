@@ -123,7 +123,8 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
     (int32 or float32; counts are exact in f32, max_iter << 2^24).
 
     Kernel K3 (csrc/escape.cu) for CUDA tensors — built at first use,
-    launched on the current stream; escape_lines_plain for CPU tensors.
+    launched on the current stream; escape_lines_plain for CPU tensors,
+    declared to the cost walker as the kernel's launch.
     `escape_iterations_sep.launches` counts kernel launches."""
     if cx_line.ndim != 1 or cy_line.ndim != 1:
         raise ValueError(f"lines must be 1-D, got {tuple(cx_line.shape)} "
@@ -132,21 +133,22 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
         raise ValueError(f"out_dtype must be int32 or float32, got {out_dtype}")
     if cx_line.device != cy_line.device:
         raise ValueError(f"lines on different devices: {cx_line.device}, {cy_line.device}")
+    height, width = cy_line.shape[0], cx_line.shape[0]
+    cost = lambda: _escape_cost(height * width, 4 * (height + width))
     if cx_line.device.type == "cpu":
-        return escape_lines_plain(cx_line.to(torch.float32),
-                                  cy_line.to(torch.float32), max_iter,
-                                  radius, saturate, out_dtype)
+        with flopcount.kernel("K3 lines", height * width, cost):
+            return escape_lines_plain(cx_line.to(torch.float32),
+                                      cy_line.to(torch.float32), max_iter,
+                                      radius, saturate, out_dtype)
     if cx_line.device.type != "cuda":
         raise ValueError(f"Unsupported device {cx_line.device}")
     for line in (cx_line, cy_line):
         if line.dtype != torch.float32 or not line.is_contiguous():
             raise ValueError("K3 takes contiguous float32 lines, got "
                              f"{line.dtype} contiguous={line.is_contiguous()}")
-    height, width = cy_line.shape[0], cx_line.shape[0]
     trip = int(max_iter) if saturate is None else min(int(max_iter), int(saturate))
     out = torch.empty((height, width), dtype=out_dtype, device=cx_line.device)
     library = _escape_library()
-    cost = lambda: _escape_cost(height * width, 4 * (height + width))
     with flopcount.kernel("K3 lines", height * width, cost), torch.cuda.device(cx_line.device):
         status = library.escape_lines(
             cx_line.data_ptr(), cy_line.data_ptr(), out.data_ptr(),
@@ -240,14 +242,17 @@ def escape_iterations(c: torch.Tensor, max_iter: int, radius: float = 3.0,
     rotated or non-perspective cameras), z0 = c, interior pixels reported
     as max_iter. K3's planes form on CUDA tensors (c read in place from a
     contiguous (..., 2) field, the interior test computed in-kernel);
-    escape_plain on CPU tensors. `escape_iterations.launches` counts the
+    escape_plain on CPU tensors, declared to the cost walker as the
+    kernel's launch. `escape_iterations.launches` counts the
     launches of the planes form (escape_iterations_z0's too)."""
     _check_out_dtype(out_dtype)
     cx, cy = c[..., 0], c[..., 1]
     if c.device.type == "cpu":
-        return escape_plain(cx, cy, cx, cy, int(max_iter), float(radius),
-                            interior=_interior_mask(cx, cy), saturate=saturate,
-                            out_dtype=out_dtype)
+        pixels = cx.numel()
+        with flopcount.kernel("K3 planes", pixels, lambda: _escape_cost(pixels, 8 * pixels)):
+            return escape_plain(cx, cy, cx, cy, int(max_iter), float(radius),
+                                interior=_interior_mask(cx, cy), saturate=saturate,
+                                out_dtype=out_dtype)
     if c.device.type != "cuda" or c.dtype != torch.float32:
         raise ValueError(f"K3 takes float32 CUDA tensors, got {c.dtype} on {c.device}")
     c = c.contiguous()
@@ -270,15 +275,22 @@ def escape_iterations_z0(z0: torch.Tensor, cx, cy, max_iter: int, radius: float 
     On CUDA, K3's planes form: a 0-d (or one-element) tensor c is read on
     the device through a pointer (no host sync), Python numbers become
     0-d tensors, anything else is broadcast to z0's planes. escape_plain
-    on CPU tensors."""
+    on CPU tensors, declared to the cost walker as the kernel's launch."""
     del monotone
     _check_out_dtype(out_dtype)
     zx0, zy0 = z0[..., 0], z0[..., 1]
     if z0.device.type == "cpu":
         cx = torch.as_tensor(cx, dtype=torch.float32)
         cy = torch.as_tensor(cy, dtype=torch.float32)
-        return escape_plain(zx0, zy0, cx, cy, int(max_iter), float(radius),
-                            interior=interior, saturate=saturate, out_dtype=out_dtype)
+        pixels = zx0.numel()
+        # the bytes the card reads: z0's planes, c's planes (or two values),
+        # the interior plane
+        operand_bytes = (8 * pixels + (8 if cx.numel() == cy.numel() == 1 else 8 * pixels)
+                         + (pixels if interior is not None else 0))
+        with flopcount.kernel("K3 planes", pixels,
+                              lambda: _escape_cost(pixels, operand_bytes)):
+            return escape_plain(zx0, zy0, cx, cy, int(max_iter), float(radius),
+                                interior=interior, saturate=saturate, out_dtype=out_dtype)
     if z0.device.type != "cuda" or z0.dtype != torch.float32:
         raise ValueError(f"K3 takes float32 CUDA tensors, got {z0.dtype} on {z0.device}")
     cx = torch.as_tensor(cx, dtype=torch.float32, device=z0.device)

@@ -683,15 +683,25 @@ def expand_plain(flat16: torch.Tensor, index: torch.Tensor,
     return flat16[:, index.to(torch.int64)].to(out_dtype)
 
 
+def _expand_cost(flat16: torch.Tensor, npx: int, out_dtype) -> flopcount.Cost:
+    """One pixel's share of a K2 launch for the cost walker: its index
+    read, its value of every frame written, the tables read once."""
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    return flopcount.Cost(kernel_bytes=4 + flat16.shape[0] * out_size + flat16.numel() * 2 / npx)
+
+
 def expand_tables(flat16: torch.Tensor, index: torch.Tensor,
                   out_dtype=torch.float32) -> torch.Tensor:
     """(B, n) bf16 tables expanded over an (npx,) int32 index in [0, n) ->
     (B, npx) of out_dtype (bfloat16 or float32). Kernel K2 (csrc/lookup.cu)
     for CUDA tensors — built at first use, launched on the current stream;
-    expand_plain for CPU tensors. `expand_tables.launches` counts kernel
-    launches."""
+    expand_plain for CPU tensors. Either is declared to the cost walker as
+    one launch of `npx` pixels (_expand_cost). `expand_tables.launches`
+    counts kernel launches."""
     if flat16.device.type == "cpu":
-        return expand_plain(flat16, index, out_dtype)
+        with flopcount.kernel("K2", index.shape[0],
+                              lambda: _expand_cost(flat16, index.shape[0], out_dtype)):
+            return expand_plain(flat16, index, out_dtype)
     if flat16.device.type != "cuda" or index.device != flat16.device:
         raise ValueError(f"K2 takes tables and index on one CUDA device, got "
                          f"{flat16.device} and {index.device}")
@@ -707,10 +717,7 @@ def expand_tables(flat16: torch.Tensor, index: torch.Tensor,
     out = torch.empty((batch, index.shape[0]), dtype=out_dtype, device=flat16.device)
     library = _lookup_library()
     npx = index.shape[0]
-    # per pixel for the cost walker: its index read, its value of every
-    # frame written, the tables read once
-    cost = lambda: flopcount.Cost(kernel_bytes=4 + batch * out.element_size()
-                                  + flat16.numel() * 2 / npx)
+    cost = lambda: _expand_cost(flat16, npx, out_dtype)
     with flopcount.kernel("K2", npx, cost), torch.cuda.device(flat16.device):
         status = library.lookup_expand(
             index.data_ptr(), flat16.data_ptr(), out.data_ptr(),

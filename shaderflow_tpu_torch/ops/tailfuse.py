@@ -480,7 +480,8 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
 
     Requires the exact-pooling regime: render == out * subsample. Kernel
     K1 (Triton, generated by ops/tailgen.py) for CUDA inputs; the plain
-    version (tail_plain, planes_plain) for CPU inputs.
+    version (tail_plain, planes_plain) for CPU inputs, declared to the cost
+    walker as the kernel's launch (tailgen.declared_plain).
     `fused_tail_final.launches` counts launches of the u8 form,
     `fused_tail_final.planes_launches` those of the quantize=False form,
     `fused_tail_final.bf16_launches` those of either form traced with the
@@ -494,11 +495,14 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
         raise ValueError(f"fused_tail_final(quantize=False) runs at s = 1, got s={s}")
     device = out.device if out is not None else spec_device(spec)
     if device.type == "cpu":
-        if quantize:
-            result = tail_plain(spec, render_height, render_width, out_height,
-                                out_width, s, aspect)
-        else:
-            result = planes_plain(spec, render_height, render_width, aspect)
+        from shaderflow_tpu_torch.ops import tailgen
+        with tailgen.declared_plain(spec, render_height, render_width, out_height,
+                                    out_width, s, aspect, quantize):
+            if quantize:
+                result = tail_plain(spec, render_height, render_width, out_height,
+                                    out_width, s, aspect)
+            else:
+                result = planes_plain(spec, render_height, render_width, aspect)
         if out is None:
             return result
         out.copy_(result)

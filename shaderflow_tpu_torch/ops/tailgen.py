@@ -101,13 +101,16 @@ path (differences come only from the order of the s x s sum).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch.ops.tailfuse import TailCtx, TailSpec, indexed_position, tail_dtype
+from shaderflow_tpu_torch.ops.tailfuse import (TailCtx, TailSpec, indexed_position, spec_device,
+                                               tail_dtype)
 from shaderflow_tpu_torch.tools import flopcount
 
 
@@ -1025,14 +1028,20 @@ def _tail_key(spec: TailSpec, *shape) -> tuple:
 
 class Compiled(NamedTuple):
     """One traced and generated K1: input keys in kernel-argument order, the
-    Triton kernel, Graph.op_counts(outputs), and its tile (tile_shape)."""
+    Triton kernel, Graph.op_counts(outputs), its tile (tile_shape), the
+    file name of its generated source (build.triton_name), and whether its
+    next launch is the source's first in this process (Triton's JIT
+    compile, or its load from Triton's cache)."""
     keys: list
     kernel: Any
     op_counts: dict
     tile: tuple
+    source: str
+    first_launch: bool
 
 
 _PREPARED: dict = {}   # _tail_key -> Compiled
+_SOURCES: set = set()  # generated sources bound in this process
 
 
 def kernel_cost(op_counts: dict, inputs: list, out_shape: tuple, out_dtype: torch.dtype,
@@ -1066,6 +1075,16 @@ def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
             f"contiguous={tensor.is_contiguous()}")
 
 
+def _generated(spec: TailSpec, render_height: int, render_width: int, subsample: int,
+               aspect: float, quantize: bool) -> tuple:
+    """Trace and generate K1 for this spec -> (source, keys, op_counts, tile)."""
+    graph, outputs = trace(spec, render_height, render_width, aspect)
+    bf16 = frozenset(name for name, cs in spec.colsampled.items()
+                     if cs.planes[0].dtype == torch.bfloat16)
+    source, keys = generate(graph, outputs, subsample, bf16, quantize)
+    return source, keys, graph.op_counts(outputs), tile_shape(graph, outputs, subsample)
+
+
 def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: int,
              aspect: float, quantize: bool, device: torch.device) -> Compiled:
     """The traced, generated and compiled K1 for this spec, kept per
@@ -1073,22 +1092,22 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
     serve a tail traced after SHADERFLOW_TAIL_BF16 flipped.
     `compiled.builds` counts cache misses (each a Triton compile at its
     first launch)."""
-    from shaderflow_tpu_torch.build import triton_module
+    from shaderflow_tpu_torch.build import triton_module, triton_name
     key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
                     bool(quantize), str(device), str(tail_dtype()))
     if key is not None and key in _PREPARED:
         return _PREPARED[key]
     compiled.builds += 1
-    graph, outputs = trace(spec, render_height, render_width, aspect)
-    bf16 = frozenset(name for name, cs in spec.colsampled.items()
-                     if cs.planes[0].dtype == torch.bfloat16)
-    source, keys = generate(graph, outputs, subsample, bf16, quantize)
-    entry = Compiled(keys, triton_module(source, stem="tail").tail_kernel,
-                     graph.op_counts(outputs), tile_shape(graph, outputs, subsample))
+    source, keys, op_counts, tile = _generated(spec, render_height, render_width, subsample,
+                                               aspect, quantize)
+    name = f"{triton_name(source, stem='tail')}.py"
+    entry = Compiled(keys, triton_module(source, stem="tail").tail_kernel, op_counts, tile,
+                     name, name not in _SOURCES)
+    _SOURCES.add(name)
     if key is not None:
         if len(_PREPARED) >= 64:
             _PREPARED.clear()
-        _PREPARED[key] = entry
+        _PREPARED[key] = entry._replace(first_launch=False)
     return entry
 
 
@@ -1102,28 +1121,17 @@ def registers(compiled_kernel) -> tuple[int, int]:
     return int(compiled_kernel.n_regs), int(compiled_kernel.n_spills)
 
 
-def prepare(spec: TailSpec, render_height: int, render_width: int,
-            out_height: int, out_width: int, subsample: int, aspect: float,
-            device: torch.device, quantize: bool = True):
-    """Trace, generate (compiled once per distinct source) and bind K1 for
-    this spec -> launch(out): a closure that enqueues the kernel on the
-    current stream, writing the (out_h, out_w, 3) u8 tensor `out` (with
-    quantize=False: the (3, out_h, out_w) bf16 planes). Inputs must be
-    contiguous on `device`, planes float32 or bfloat16, everything else
-    float32 (tables are cast to float32 here); raises on anything the
-    template does not take. launch.compiled is the compiled kernel of the
-    last launch (registers() reads it), launch.tile the tile it runs."""
-    if device.index is None:   # "cuda" means the current card
-        device = torch.device(device.type, torch.cuda.current_device())
-    entry = compiled(spec, render_height, render_width, subsample, aspect, quantize, device)
-
+def _operands(spec: TailSpec, keys: list, render_height: int, render_width: int,
+              device: torch.device) -> list:
+    """K1's arguments after `out`, in kernel order, for the input keys of
+    its generated source; raises on an input the template does not take."""
     planes = {name: spec.planes[name] for name in spec.planes}
     planes.update({name: (ix.stack[indexed_position(ix)],)   # a view: no copy
                    for name, ix in spec.indexed.items()})
-    sampled = sorted({name for kind, name, _ in entry.keys if kind == "colsampled"})
+    sampled = sorted({name for kind, name, _ in keys if kind == "colsampled"})
     pointers = []
     scalars = []
-    for kind, name, channel in entry.keys:
+    for kind, name, channel in keys:
         if kind == "scalar":
             scalars.append(torch.as_tensor(spec.scalars[name], dtype=torch.float32,
                                            device=device).reshape(()))
@@ -1153,30 +1161,90 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     pointers += [spec.colsampled[name].planes[0].shape[1] for name in sampled]
     if scalars:
         pointers.append(torch.stack(scalars))
-    rows, width, warps = entry.tile
-    grid = (math.ceil(out_height / rows), math.ceil(out_width / width))
+    return pointers
 
-    out_shape, out_dtype = (((out_height, out_width, 3), torch.uint8) if quantize
-                            else ((3, out_height, out_width), torch.bfloat16))
+
+def _out_form(out_height: int, out_width: int, quantize: bool) -> tuple:
+    """(shape, dtype) of K1's output: u8 frames, or bf16 planes."""
+    return (((out_height, out_width, 3), torch.uint8) if quantize
+            else ((3, out_height, out_width), torch.bfloat16))
+
+
+def _launch_cost(op_counts: dict, tile: tuple, pointers: list, out_height: int,
+                 out_width: int, subsample: int, quantize: bool) -> tuple:
+    """(grid, blocks, block_cost) of one K1 launch: its grid over the
+    output, and one program's share of kernel_cost for the cost walker."""
+    rows, width, _ = tile
+    grid = (math.ceil(out_height / rows), math.ceil(out_width / width))
     blocks = grid[0] * grid[1]
+    out_shape, out_dtype = _out_form(out_height, out_width, quantize)
 
     def block_cost() -> flopcount.Cost:
-        """One program's share of the launch (kernel_cost) for the cost
-        walker."""
-        return kernel_cost(entry.op_counts, pointers, out_shape, out_dtype, subsample,
+        return kernel_cost(op_counts, pointers, out_shape, out_dtype, subsample,
                            quantize).scaled(1.0 / blocks)
 
+    return grid, blocks, block_cost
+
+
+def declared_plain(spec: TailSpec, render_height: int, render_width: int,
+                   out_height: int, out_width: int, subsample: int, aspect: float,
+                   quantize: bool = True):
+    """Around K1's plain version on CPU tensors: the launch the card would
+    make (its blocks and block cost, as prepare declares them) declared to
+    the active cost walkers, so that a count does not depend on the
+    device. Traces only while a walker is active."""
+    if not flopcount.walking():
+        return contextlib.nullcontext()
+    _, keys, op_counts, tile = _generated(spec, render_height, render_width, subsample,
+                                          aspect, quantize)
+    pointers = _operands(spec, keys, render_height, render_width, spec_device(spec))
+    _, blocks, block_cost = _launch_cost(op_counts, tile, pointers, out_height, out_width,
+                                         subsample, quantize)
+    return flopcount.kernel("K1", blocks, block_cost)
+
+
+def prepare(spec: TailSpec, render_height: int, render_width: int,
+            out_height: int, out_width: int, subsample: int, aspect: float,
+            device: torch.device, quantize: bool = True):
+    """Trace, generate (compiled once per distinct source) and bind K1 for
+    this spec -> launch(out): a closure that enqueues the kernel on the
+    current stream, writing the (out_h, out_w, 3) u8 tensor `out` (with
+    quantize=False: the (3, out_h, out_w) bf16 planes). Inputs must be
+    contiguous on `device`, planes float32 or bfloat16, everything else
+    float32 (tables are cast to float32 here); raises on anything the
+    template does not take. launch.compiled is the compiled kernel of the
+    last launch (registers() reads it), launch.tile the tile it runs. The
+    first launch of each generated source in a process (Triton's JIT
+    compile, or its load from Triton's cache) adds a "triton" entry to
+    build.build_events."""
+    if device.index is None:   # "cuda" means the current card
+        device = torch.device(device.type, torch.cuda.current_device())
+    entry = compiled(spec, render_height, render_width, subsample, aspect, quantize, device)
+    pointers = _operands(spec, entry.keys, render_height, render_width, device)
+    rows, width, warps = entry.tile
+    grid, blocks, block_cost = _launch_cost(entry.op_counts, entry.tile, pointers,
+                                            out_height, out_width, subsample, quantize)
+    out_shape, out_dtype = _out_form(out_height, out_width, quantize)
+    first = entry.first_launch
+
     def launch(out: torch.Tensor) -> torch.Tensor:
+        nonlocal first
         if (out.device != device or out.dtype != out_dtype or not out.is_contiguous()
                 or tuple(out.shape) != out_shape):
             raise ValueError(f"K1 writes a contiguous {out_shape} {out_dtype} tensor "
                              f"on {device}, got {out.dtype} {tuple(out.shape)} on "
                              f"{out.device}")
         pack = quantize and out_width % 4 == 0 and out.data_ptr() % 4 == 0
+        started = time.perf_counter() if first else 0.0
         with flopcount.kernel("K1", blocks, block_cost), torch.cuda.device(device):
             launch.compiled = entry.kernel[grid](
                 out, *pointers, out_height, out_width, render_width, PACK=pack, BH=rows,
                 BW=width, num_warps=warps, enable_fp_fusion=False)
+        if first:
+            from shaderflow_tpu_torch import build
+            first = False
+            build.build_events.append((entry.source, "triton",
+                                       time.perf_counter() - started))
         return out
 
     launch.compiled = None

@@ -186,6 +186,12 @@ class Walker(TorchDispatchMode):
         return out
 
 
+def walking() -> bool:
+    """Whether a Walker is counting: a plain version computes its
+    declaration (kernel's `blocks`) only then."""
+    return bool(_WALKERS)
+
+
 @contextlib.contextmanager
 def kernel(name: str, blocks: int, block):
     """Declare one launch of a hand-written kernel (or of its plain version
