@@ -14,44 +14,29 @@ the combination the JAX package grades): one cold run
 writes to PATH with --json): the warm walls and frames/s, the device
 time by kernel and in all (CUDA activity of the profiled run), the device
 busy share of the profiled wall, and host milliseconds per frame of the
-export loop's stages (perf_counter around scene.next, the batch preludes,
-the fragment, the tail's trace, codegen and launch, the equal-resolution
-stencil, the whole flush).
+export's stages: the self time of each span of one more warm run recorded
+in a tracing session (shaderflow_tpu_torch/tracing.py: the scene step,
+the capture, the flush's pack, upload and preludes, the frame, the
+fragment, the tail and K1's prepare, the wire and the sink, the export's
+set-up, prewarm and drain), with the session's K1 prepares and misses.
 Needs a CUDA card; no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent.parent
 sys.path.insert(0, str(REPO))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-
-
-def _timed(owner, attribute: str, label: str, totals: dict) -> None:
-    """Wrap owner.attribute so each call adds its perf_counter time to
-    totals[label] (host time: the device runs asynchronously)."""
-    original = getattr(owner, attribute)
-
-    @functools.wraps(original)
-    def wrapper(*args, **kwargs):
-        started = time.perf_counter()
-        try:
-            return original(*args, **kwargs)
-        finally:
-            totals[label] += time.perf_counter() - started
-
-    setattr(owner, attribute, wrapper)
 
 
 def main() -> int:
@@ -78,10 +63,7 @@ def main() -> int:
     import torch_demo
     import torch_fractals
     import torch_piano_roll
-    from shaderflow_tpu_torch import engine as engine_module
-    from shaderflow_tpu_torch import scene as scene_module
-    from shaderflow_tpu_torch.ops import tailfuse, tailgen
-    from shaderflow_tpu_torch.shader import ShaderProgram
+    from shaderflow_tpu_torch import tracing
 
     make, width, height, ssaa = {
         "visualizer": (torch_demo.Visualizer, 1920, 1080, 2),
@@ -118,15 +100,11 @@ def main() -> int:
             kernels[event.key[:100]] += event.self_device_time_total / 1e3
     device_ms = sum(kernels.values())
 
-    totals: dict[str, float] = defaultdict(float)
-    _timed(scene_module.ShaderScene, "next", "scene.next (module updates + capture)", totals)
-    _timed(engine_module.RenderEngine, "_run_preludes", "batch preludes", totals)
-    _timed(ShaderProgram, "render_layer", "fragment", totals)
-    _timed(tailfuse, "fused_tail_final", "tail: trace, codegen and launch", totals)
-    _timed(tailgen, "prepare", "tail: trace and codegen", totals)
-    _timed(tailfuse, "final_equal_resolution", "equal-resolution stencil + quantize", totals)
-    _timed(engine_module.RenderEngine, "flush", "engine.flush (all frames)", totals)
-    instrumented = export()
+    with tracing.session() as records:
+        instrumented = export()
+    counters = Counter()
+    for export_counters in records.counters.values():
+        counters.update(export_counters)
 
     result = {
         "scene": args.scene, "size": f"{width}x{height}", "ssaa": ssaa,
@@ -138,8 +116,11 @@ def main() -> int:
         "device_busy_share": device_ms / 1e3 / profiled,
         "device_ms_by_kernel": dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:15]),
         "instrumented_wall_s": instrumented,
-        "host_ms_per_frame": {label: 1e3 * seconds / frames
-                              for label, seconds in totals.items()},
+        "host_self_ms_per_frame": {
+            name: 1e3 * seconds / counters["frames"]
+            for name, seconds in sorted(tracing.self_times(records.spans).items(),
+                                        key=lambda kv: -kv[1])},
+        "k1_prepares": counters["k1.prepares"], "k1_misses": counters["k1.misses"],
     }
     text = json.dumps(result, indent=1)
     if args.json is not None:

@@ -74,7 +74,7 @@ from typing import TYPE_CHECKING, Any, Optional
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch import logger, switches
+from shaderflow_tpu_torch import logger, switches, tracing
 from shaderflow_tpu_torch.ops import tailfuse, tailgen
 from shaderflow_tpu_torch.ops.downsample import final_pass
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
@@ -138,8 +138,9 @@ class WireBatch:
                     self.done[-1].record(shard.stream)
 
     def wait(self) -> None:
-        for event in self.done:
-            event.synchronize()
+        with tracing.span("wire.wait"):
+            for event in self.done:
+                event.synchronize()
 
     def fetch(self) -> np.ndarray:
         if self.host is None:
@@ -180,7 +181,8 @@ class StagingPool:
                 return entry
         if len(self._entries) >= self.LIMIT:
             oldest = self._entries.pop(0)
-            oldest[1].synchronize()
+            with tracing.span("staging.wait"):
+                oldest[1].synchronize()
             if oldest[0].numel() >= nbytes:
                 self._entries.append(oldest)
                 return oldest
@@ -521,38 +523,39 @@ class RenderEngine:
     # Build
 
     def build(self) -> None:
-        scene = self.scene
-        programs = self._programs()
-        self._static_tex.clear()
-        self._static_versions.clear()
-        self._mip_cache.clear()
-        self._sequences.clear()
-        self._refresh_textures()
+        with tracing.span("engine.build"):
+            scene = self.scene
+            programs = self._programs()
+            self._static_tex.clear()
+            self._static_versions.clear()
+            self._mip_cache.clear()
+            self._sequences.clear()
+            self._refresh_textures()
 
-        self._statics = {v.name: v.value for v in scene.full_pipeline()
-                         if v.static and v.value is not None}
-        self._program_coords = self.coords_on(self.device)
-        width, height = programs[-1].texture.resolution
-        self._render_size = (height, width)
-        self._coords = self._program_coords[-1]
-        # Temporal rings start from the programs' host matrices
-        self._carry = {}
-        for program in programs:
-            if program.texture.temporal > 1:
-                if program.texture.matrix is None:
-                    program.texture.make()
-                self._carry[program.name] = Ring(torch.from_numpy(
-                    program.texture.matrix).to(device=self.device, dtype=torch.float32))
-        # Shards hold copies of this build's state: made anew at the next
-        # sharded flush (their rings from these)
-        self._shards, self._shards_mesh = [], None
-        self._whole_rows = set()
-        self._main_slot = final_slot(scene.shader.texture.temporal)
-        self.stale = False
-        out_width, out_height = scene._final.texture.resolution
-        logger.debug(f"Engine built: render {width}x{height} -> output "
-                     f"{out_width}x{out_height} subsample {scene.subsample} "
-                     f"on {self.device}")
+            self._statics = {v.name: v.value for v in scene.full_pipeline()
+                             if v.static and v.value is not None}
+            self._program_coords = self.coords_on(self.device)
+            width, height = programs[-1].texture.resolution
+            self._render_size = (height, width)
+            self._coords = self._program_coords[-1]
+            # Temporal rings start from the programs' host matrices
+            self._carry = {}
+            for program in programs:
+                if program.texture.temporal > 1:
+                    if program.texture.matrix is None:
+                        program.texture.make()
+                    self._carry[program.name] = Ring(torch.from_numpy(
+                        program.texture.matrix).to(device=self.device, dtype=torch.float32))
+            # Shards hold copies of this build's state: made anew at the next
+            # sharded flush (their rings from these)
+            self._shards, self._shards_mesh = [], None
+            self._whole_rows = set()
+            self._main_slot = final_slot(scene.shader.texture.temporal)
+            self.stale = False
+            out_width, out_height = scene._final.texture.resolution
+            logger.debug(f"Engine built: render {width}x{height} -> output "
+                         f"{out_width}x{out_height} subsample {scene.subsample} "
+                         f"on {self.device}")
 
     def coords_on(self, device: torch.device) -> list:
         """Each program's coordinate flavors on `device`, in render order:
@@ -695,39 +698,40 @@ class RenderEngine:
         Invariant values are reused while the state they were computed for
         holds; values carried by load_reference_state take precedence. A
         shard runs them on its frames, on its device, with its cache."""
-        functions = dict(getattr(self.scene, "batch_preludes", None) or {})
-        if not functions:
-            return {}, {}
-        target = shard or self
-        sequences = self.bound_sequences(shard)
-        # (name, __code__): scenes re-register fresh closures from the same
-        # factory on every build, which share semantics by contract
-        state = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
-                              for name, fn in functions.items())),
-                 tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
-                              for name, seq in sequences.items())),
-                 self._render_size, self.scene.aspect_ratio, str(target.device))
-        if state != target._prelude_state:
-            target._prelude_state = state
-            target._prelude_cache = {name: value.to(target.device)
-                                     for name, value in self.pinned_preludes.items()}
-        frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(target.device)
-        ctx = PreludeCtx(frames, sequences, self._render_size, self.scene.aspect_ratio)
-        per_batch = {}
-        for name, fn in functions.items():
-            if name in target._prelude_cache:
-                continue
-            value = fn(ctx)
-            if value is None:
-                continue
-            if value.shape[0] == 1:
-                target._prelude_cache[name] = value
-            elif value.shape[0] != len(frame_indices):
-                raise ValueError(f"Prelude {name!r}: leading axis {value.shape[0]} "
-                                 f"!= batch {len(frame_indices)}")
-            else:
-                per_batch[name] = value
-        return per_batch, self.invariant_preludes(shard)
+        with tracing.span("engine.preludes"):
+            functions = dict(getattr(self.scene, "batch_preludes", None) or {})
+            if not functions:
+                return {}, {}
+            target = shard or self
+            sequences = self.bound_sequences(shard)
+            # (name, __code__): scenes re-register fresh closures from the same
+            # factory on every build, which share semantics by contract
+            state = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
+                                  for name, fn in functions.items())),
+                     tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
+                                  for name, seq in sequences.items())),
+                     self._render_size, self.scene.aspect_ratio, str(target.device))
+            if state != target._prelude_state:
+                target._prelude_state = state
+                target._prelude_cache = {name: value.to(target.device)
+                                         for name, value in self.pinned_preludes.items()}
+            frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(target.device)
+            ctx = PreludeCtx(frames, sequences, self._render_size, self.scene.aspect_ratio)
+            per_batch = {}
+            for name, fn in functions.items():
+                if name in target._prelude_cache:
+                    continue
+                value = fn(ctx)
+                if value is None:
+                    continue
+                if value.shape[0] == 1:
+                    target._prelude_cache[name] = value
+                elif value.shape[0] != len(frame_indices):
+                    raise ValueError(f"Prelude {name!r}: leading axis {value.shape[0]} "
+                                     f"!= batch {len(frame_indices)}")
+                else:
+                    per_batch[name] = value
+            return per_batch, self.invariant_preludes(shard)
 
     def invariant_preludes(self, shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
         """The cached batch-invariant prelude values (leading axis 1)."""
@@ -923,43 +927,46 @@ class RenderEngine:
         """Render one frame into `out` (H, W, 3) u8: every program and
         layer in order (the module docstring), then the final pass; on a
         shard, from its copies (the frame path)."""
-        scene = self.scene
-        state = shard or self
-        programs = self._programs()
-        uniforms = FrameUniforms(row, spec)
-        textures = self._frame_textures(frame_index, step, shard)
-        textures.update(state._carry)
-        out_width, out_height = scene._final.texture.resolution
-        subsample = int(scene.subsample)
-        aspect = scene.aspect_ratio
-        for program, coords in zip(programs, state._program_coords):
-            texture = program.texture
-            temporal, layers = texture.temporal, texture.layers
-            if temporal > 1:
-                matrix = state._carry[program.name]
-            else:
-                matrix = Ring(torch.zeros((1, layers, coords.height, coords.width,
-                                           texture.components),
-                                          dtype=torch.float32, device=state.device))
-                textures[program.name] = matrix
-            for layer in range(layers):
-                ctx = self.frame_context(row, spec, step, frame_index, per_batch, invariant,
-                                         coords=coords, layer=layer, textures=textures,
-                                         uniforms=uniforms, shard=shard)
-                result = program.render_layer(ctx)
-                if (isinstance(result, tailfuse.TailSpec) and program is programs[-1]
-                        and temporal == 1 and layers == 1):
-                    # The main program's tail fuses with the final pass:
-                    # its texture is never materialized
-                    tailfuse.run_tail_final(result, coords.height, coords.width,
-                                            out_height, out_width, subsample, aspect,
-                                            out=out)
-                    return
-                matrix[0, layer] = self.layer_value(result, program, coords)
-            if temporal > 1:
-                matrix.roll()
-        main = textures[scene.shader.name]
-        out.copy_(final_pass(main[self._main_slot, -1], out_height, out_width, subsample))
+        with tracing.span("frame"):
+            scene = self.scene
+            state = shard or self
+            programs = self._programs()
+            uniforms = FrameUniforms(row, spec)
+            textures = self._frame_textures(frame_index, step, shard)
+            textures.update(state._carry)
+            out_width, out_height = scene._final.texture.resolution
+            subsample = int(scene.subsample)
+            aspect = scene.aspect_ratio
+            for program, coords in zip(programs, state._program_coords):
+                texture = program.texture
+                temporal, layers = texture.temporal, texture.layers
+                if temporal > 1:
+                    matrix = state._carry[program.name]
+                else:
+                    matrix = Ring(torch.zeros((1, layers, coords.height, coords.width,
+                                               texture.components),
+                                              dtype=torch.float32, device=state.device))
+                    textures[program.name] = matrix
+                for layer in range(layers):
+                    ctx = self.frame_context(row, spec, step, frame_index, per_batch, invariant,
+                                             coords=coords, layer=layer, textures=textures,
+                                             uniforms=uniforms, shard=shard)
+                    result = program.render_layer(ctx)
+                    if (isinstance(result, tailfuse.TailSpec) and program is programs[-1]
+                            and temporal == 1 and layers == 1):
+                        # The main program's tail fuses with the final pass:
+                        # its texture is never materialized
+                        tailfuse.run_tail_final(result, coords.height, coords.width,
+                                                out_height, out_width, subsample, aspect,
+                                                out=out)
+                        return
+                    matrix[0, layer] = self.layer_value(result, program, coords)
+                if temporal > 1:
+                    matrix.roll()
+            main = textures[scene.shader.name]
+            with tracing.span("tail"):
+                out.copy_(final_pass(main[self._main_slot, -1], out_height, out_width,
+                                     subsample))
 
     def flush(self, count: Optional[int] = None) -> Optional[torch.Tensor]:
         """Render the captured frames -> (F, H, W, 3) uint8 on the device.
@@ -968,6 +975,11 @@ class RenderEngine:
         count = count if count is not None else len(self._frame_uniforms)
         if count == 0:
             return None
+        with tracing.span("engine.flush"):
+            tracing.flushed(count)
+            return self._flush(count)
+
+    def _flush(self, count: int) -> Optional[torch.Tensor]:
         if switches.skip_device():
             # numpy's zeros, as the JAX package's: pages the sink never
             # reads are never written
@@ -988,8 +1000,11 @@ class RenderEngine:
             self._note_builds(builds, count, started)
             return frames
         self.leave_mesh()
-        packed, spec = self.stack_captures(count)
-        packed, self._stream_tex = self.upload(packed, self.stack_streams(count))
+        with tracing.span("flush.pack"):
+            packed, spec = self.stack_captures(count)
+            streams = self.stack_streams(count)
+        with tracing.span("flush.upload"):
+            packed, self._stream_tex = self.upload(packed, streams)
 
         scene = self.scene
         out_width, out_height = scene._final.texture.resolution

@@ -28,7 +28,7 @@ from typing import TYPE_CHECKING, Callable, Optional, Union
 
 import numpy as np
 
-from shaderflow_tpu_torch import logger
+from shaderflow_tpu_torch import logger, tracing
 from shaderflow_tpu_torch.io.ffmpeg import FFmpeg
 from shaderflow_tpu_torch.io.sinks import (
     CV2Sink, FFmpegSink, ImageSink, NullSink, PipeSink, RawSink, TCPSink, VideoSink)
@@ -256,14 +256,18 @@ class ExportingHelper:
 
     def pipe_batch(self, batch: "WireBatch") -> None:
         """Deliver one staged (F, H, W, 3) uint8 batch to the sink."""
-        count = int(batch.shape[0])
-        if isinstance(self.sink, NullSink):
-            batch.wait()
-            self.sink.frames += count
-            self.sink.bytes += count * batch.shape[1] * batch.shape[2] * batch.shape[3]
-        elif self.sink is not None:
-            self.sink.write_batch(batch.fetch())
-        self.update(count)
+        with tracing.span("export.pipe"):
+            count = int(batch.shape[0])
+            if isinstance(self.sink, NullSink):
+                batch.wait()
+                with tracing.span("sink.write"):
+                    self.sink.frames += count
+                    self.sink.bytes += count * batch.shape[1] * batch.shape[2] * batch.shape[3]
+            elif self.sink is not None:
+                frames = batch.fetch()
+                with tracing.span("sink.write"):
+                    self.sink.write_batch(frames)
+            self.update(count)
 
     # -- finish --------------------------------------------------------------
 

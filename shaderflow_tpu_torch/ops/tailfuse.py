@@ -43,7 +43,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from shaderflow_tpu_torch import switches
+from shaderflow_tpu_torch import switches, tracing
 from shaderflow_tpu_torch.ops.downsample import final_pass, quantize_u8
 from shaderflow_tpu_torch.ops.rows import require_whole_rows
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
@@ -508,8 +508,9 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
         out.copy_(result)
         return out
     from shaderflow_tpu_torch.ops import tailgen
-    launch = tailgen.prepare(spec, render_height, render_width, out_height,
-                             out_width, s, aspect, device, quantize=quantize)
+    with tracing.span("tail.prepare"):
+        launch = tailgen.prepare(spec, render_height, render_width, out_height,
+                                 out_width, s, aspect, device, quantize=quantize)
     if out is None:
         shape, dtype = (((out_height, out_width, 3), torch.uint8) if quantize
                         else ((3, out_height, out_width), torch.bfloat16))
@@ -621,21 +622,22 @@ def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
     resample), on the card as on the CPU, as the reference does on every
     backend. Under SHADERFLOW_NO_TAILFUSE=1 every regime takes that route
     on CPU tensors and raises on the card (switches.reference_tail)."""
-    device = out.device if out is not None else spec_device(spec)
-    reference = switches.reference_tail(device)
-    if not reference and supports_fusion(render_height, render_width, out_height,
-                                         out_width, subsample):
-        return fused_tail_final(spec, render_height, render_width, out_height,
-                                out_width, subsample, aspect, out=out)
-    if (not reference and (render_height, render_width) == (out_height, out_width)
-            and int(subsample) > 1):
-        planes = fused_tail_final(spec, render_height, render_width, out_height,
-                                  out_width, 1, aspect, quantize=False,
-                                  out=_frame_planes(out_height, out_width, device))
-        return final_equal_resolution(planes, subsample, out=out)
-    frame = tail_plain(spec, render_height, render_width, out_height,
-                       out_width, subsample, aspect)
-    if out is None:
-        return frame
-    out.copy_(frame)
-    return out
+    with tracing.span("tail"):
+        device = out.device if out is not None else spec_device(spec)
+        reference = switches.reference_tail(device)
+        if not reference and supports_fusion(render_height, render_width, out_height,
+                                             out_width, subsample):
+            return fused_tail_final(spec, render_height, render_width, out_height,
+                                    out_width, subsample, aspect, out=out)
+        if (not reference and (render_height, render_width) == (out_height, out_width)
+                and int(subsample) > 1):
+            planes = fused_tail_final(spec, render_height, render_width, out_height,
+                                      out_width, 1, aspect, quantize=False,
+                                      out=_frame_planes(out_height, out_width, device))
+            return final_equal_resolution(planes, subsample, out=out)
+        frame = tail_plain(spec, render_height, render_width, out_height,
+                           out_width, subsample, aspect)
+        if out is None:
+            return frame
+        out.copy_(frame)
+        return out

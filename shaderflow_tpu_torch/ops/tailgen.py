@@ -1090,9 +1090,10 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
     """The traced, generated and compiled K1 for this spec, kept per
     _tail_key. The key holds the color dtype: a float32 trace must not
     serve a tail traced after SHADERFLOW_TAIL_BF16 flipped.
-    `compiled.builds` counts cache misses (each a Triton compile at its
-    first launch)."""
+    `compiled.calls` counts calls and `compiled.builds` cache misses (each a
+    Triton compile at its first launch)."""
     from shaderflow_tpu_torch.build import triton_module, triton_name
+    compiled.calls += 1
     key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
                     bool(quantize), str(device), str(tail_dtype()))
     if key is not None and key in _PREPARED:
@@ -1111,6 +1112,7 @@ def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: i
     return entry
 
 
+compiled.calls = 0
 compiled.builds = 0
 
 

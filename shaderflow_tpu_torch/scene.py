@@ -51,7 +51,7 @@ from typing import Iterable, Optional, Union
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch import logger, resolve_device, switches
+from shaderflow_tpu_torch import logger, resolve_device, switches, tracing
 from shaderflow_tpu_torch.engine import RenderEngine, fetch_frame, to_wire
 from shaderflow_tpu_torch.exporting import ExportingHelper
 from shaderflow_tpu_torch.frametimer import ShaderFrametimer
@@ -353,24 +353,26 @@ class ShaderScene(ShaderModule):
         realtime the shaders' file watch and the once tasks (a hot reload
         recompiles here), the engine's capture, then time (frame zero
         renders at t=0)."""
-        for module in self.modules:
-            if not isinstance(module, ShaderProgram):
-                module.update()
-        if self.realtime:
+        with tracing.span("scene.step"):
             for module in self.modules:
-                if isinstance(module, ShaderProgram):
-                    module.poll_hot_reload()
-            self.scheduler.all_once()
-        if self.engine is not None and self._capture_enabled:
-            self.engine.capture_frame()
-        if self.vsync is not None:
-            # One launch covers _rt_batch_active frame periods: the frame
-            # task paces at fps / N (and follows live fps edits)
-            self.vsync.fps = self.fps / max(1, self._rt_batch_active)
-        self.dt = dt * self.speed
-        self.rdt = dt
-        self.time += self.dt
-        self._frame_counter += 1
+                if not isinstance(module, ShaderProgram):
+                    module.update()
+            if self.realtime:
+                for module in self.modules:
+                    if isinstance(module, ShaderProgram):
+                        module.poll_hot_reload()
+                self.scheduler.all_once()
+            if self.engine is not None and self._capture_enabled:
+                with tracing.span("capture"):
+                    self.engine.capture_frame()
+            if self.vsync is not None:
+                # One launch covers _rt_batch_active frame periods: the frame
+                # task paces at fps / N (and follows live fps edits)
+                self.vsync.fps = self.fps / max(1, self._rt_batch_active)
+            self.dt = dt * self.speed
+            self.rdt = dt
+            self.time += self.dt
+            self._frame_counter += 1
 
     def screenshot(self) -> np.ndarray:
         """Render the current frame once -> (H, W, 3) uint8 on the host; the
@@ -426,21 +428,25 @@ class ShaderScene(ShaderModule):
         that many devices (parallel/mesh.py): the frames of each batch for
         a scene without temporal feedback, else the rows of every frame
         (the output height must divide it); the realtime loop ignores
-        it."""
-        final_width, final_height = self._setup_run(
-            width=width, height=height, scale=scale, ratio=ratio, fps=fps,
-            fullscreen=fullscreen, quality=quality, ssaa=ssaa, subsample=subsample,
-            output=output, time=time, speed=speed, freewheel=freewheel, raw=raw,
-            device=device)
-        switches.announce(self.device)
-        if self.realtime:
+        it. An export is traced in an open tracing session (tracing.py)."""
+        setup = dict(width=width, height=height, scale=scale, ratio=ratio, fps=fps,
+                     fullscreen=fullscreen, quality=quality, ssaa=ssaa,
+                     subsample=subsample, output=output, time=time, speed=speed,
+                     freewheel=freewheel, raw=raw, device=device)
+        if not (output or freewheel):   # _setup_run's realtime policy
+            self._setup_run(**setup)
+            switches.announce(self.device)
             return self._realtime_loop(frameskip)
-        export = ExportingHelper(self)
-        export.make_sink(output, width=final_width, height=final_height,
-                         turbo=turbo, buffers=buffers)
-        export.open_bar()
-        return self._export_loop(export, batch, start_frame=round(start * self.fps),
-                                 devices=devices)
+        with tracing.export(batch_trace=switches.batch_trace()):
+            with tracing.span("export.setup"):
+                final_width, final_height = self._setup_run(**setup)
+                switches.announce(self.device)
+                export = ExportingHelper(self)
+                export.make_sink(output, width=final_width, height=final_height,
+                                 turbo=turbo, buffers=buffers)
+                export.open_bar()
+            return self._export_loop(export, batch, start_frame=round(start * self.fps),
+                                     devices=devices)
 
     def _setup_run(self, *, width=1920, height=1080, scale=1.0, ratio=None,
                    fps=60.0, fullscreen=False, quality=50.0, ssaa=1.0, subsample=2,
@@ -507,8 +513,9 @@ class ShaderScene(ShaderModule):
     def _prewarm_modules(self) -> None:
         """Every module's prewarm() before the first frame (the whole-file
         spectrogram and waveform precomputes), in module order."""
-        for module in self.modules:
-            module.prewarm()
+        with tracing.span("prewarm"):
+            for module in self.modules:
+                module.prewarm()
 
     def _export_loop(self, export: ExportingHelper, batch: Optional[int],
                      start_frame: int = 0, devices: Optional[int] = None):
@@ -573,38 +580,39 @@ class ShaderScene(ShaderModule):
 
         depth = self.pipeline_depth(size)
         # SHADERFLOW_BATCH_TRACE=1: a line a batch on stderr, in the JAX
-        # package's format. dispatch is the host's time to enqueue the
-        # flush, not device time (nothing waits for the device here);
-        # drain is pipe_batch's: the wait for the oldest batch's copy to
-        # the host and the sink's write, not told apart
+        # package's format, from the tracer's spans of the batch: capture is
+        # its scene steps, dispatch its flush (the host's enqueue, not
+        # device time: nothing waits for the device here), drain the pipes
+        # of its loop turn (the wait for the oldest batch's copy to the
+        # host and the sink's write: wire.wait and sink.write apart)
         trace = switches.batch_trace()
         in_flight: list = []
         frame_index = 0
         while frame_index < total and not self.quit:
-            t0 = time.perf_counter() if trace else 0.0
+            tracing.batch(frame_index // size)
             count = min(size, total - frame_index)
             self.engine.begin_batch()
             for _ in range(count):
                 self.next(dt=self.frametime)
-            t1 = time.perf_counter() if trace else 0.0
             frames = self.engine.flush(count)
-            t2 = time.perf_counter() if trace else 0.0
-            in_flight.append(to_wire(frames, host=export.wants_host_frames))
+            with tracing.span("wire.stage"):
+                in_flight.append(to_wire(frames, host=export.wants_host_frames))
             while len(in_flight) > depth:
                 export.pipe_batch(in_flight.pop(0))
             if trace:
-                t3 = time.perf_counter()
+                spent = tracing.batch_seconds("scene.step", "engine.flush", "export.pipe")
                 print(f"BATCH_TRACE frames={frame_index}+{count} "
-                      f"capture={1e3 * (t1 - t0):.1f}ms "
-                      f"dispatch={1e3 * (t2 - t1):.1f}ms "
-                      f"drain={1e3 * (t3 - t2):.1f}ms", file=sys.stderr, flush=True)
+                      f"capture={1e3 * spent['scene.step']:.1f}ms "
+                      f"dispatch={1e3 * spent['engine.flush']:.1f}ms "
+                      f"drain={1e3 * spent['export.pipe']:.1f}ms", file=sys.stderr, flush=True)
             frame_index += count
 
-        for staged in in_flight:
-            export.pipe_batch(staged)
-
-        result = export.finish()
-        export.log_stats(output=result)
+        tracing.batch(None)
+        with tracing.span("export.drain"):
+            for staged in in_flight:
+                export.pipe_batch(staged)
+            result = export.finish()
+            export.log_stats(output=result)
         return result
 
 

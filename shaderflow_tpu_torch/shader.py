@@ -29,7 +29,7 @@ from typing import Any, Callable, Optional, Union
 import torch
 
 import shaderflow_tpu_torch
-from shaderflow_tpu_torch import logger
+from shaderflow_tpu_torch import logger, tracing
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib, sampling
@@ -579,26 +579,27 @@ class ShaderProgram(ShaderModule):
         GL's no-blending rule (the last instance to write a pixel wins);
         sf.discard(mask) leaves pixels to the instances below (zeros under
         instance 0)."""
-        from shaderflow_tpu_torch.ops import tailfuse
-        result = None
-        for instance in range(self.instances):
-            ctx.instance = instance
-            ctx._discard = None
-            out = self._resolved(ctx)
-            if isinstance(out, tailfuse.TailSpec):
-                if self.instances == 1:
-                    return out
-                height, width = ctx._coords.height, ctx._coords.width
-                out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
-            out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
-            components = self.texture.components
-            if out.shape[-1] < components:
-                pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
-                                 dtype=torch.float32, device=out.device)
-                out = torch.cat([out, pad], dim=-1)
-            out = out[..., :components]
-            if ctx._discard is not None:
-                below = torch.zeros_like(out) if result is None else result
-                out = torch.where(ctx._discard[..., None], below, out)
-            result = out
-        return result
+        with tracing.span("fragment"):
+            from shaderflow_tpu_torch.ops import tailfuse
+            result = None
+            for instance in range(self.instances):
+                ctx.instance = instance
+                ctx._discard = None
+                out = self._resolved(ctx)
+                if isinstance(out, tailfuse.TailSpec):
+                    if self.instances == 1:
+                        return out
+                    height, width = ctx._coords.height, ctx._coords.width
+                    out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
+                out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
+                components = self.texture.components
+                if out.shape[-1] < components:
+                    pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
+                                     dtype=torch.float32, device=out.device)
+                    out = torch.cat([out, pad], dim=-1)
+                out = out[..., :components]
+                if ctx._discard is not None:
+                    below = torch.zeros_like(out) if result is None else result
+                    out = torch.where(ctx._discard[..., None], below, out)
+                result = out
+            return result

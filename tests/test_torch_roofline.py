@@ -25,6 +25,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 @pytest.fixture(scope="module")
 def roofline():
+    # scene_for imports the example scenes by name: this checkout's, not
+    # those another test file of the worker imported from a copied tree
+    for name in ("torch_demo", "torch_fractals", "torch_piano_roll"):
+        _import_example("torch", name)
     return _import_example("torch", "roofline")
 
 
