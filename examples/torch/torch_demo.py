@@ -293,21 +293,15 @@ def visualizer_frag(sf):
     intensity = 0.01 * torch.clamp(
         torch.pow(torch.clamp(sf.iAudioVolume, min=0.0), 2.5), 0.0, 0.3)
     quality, directions = 10, 8
-    taps = []
-    for d in range(directions):
-        angle = TAU * d / directions
-        for s in range(1, quality + 1):
-            walk = s / quality
-            taps.append((math.cos(angle) * walk, math.sin(angle) * walk))
-    taps = torch.tensor(taps, dtype=torch.float32, device=device) * intensity
     level = blur_level()
     quarter_h, quarter_w = tex.height // level, tex.width // level
+    unit_taps, scale = _viz_blur_taps(quality, directions, quarter_h, device)
+    taps = unit_taps * intensity
     quarter = (box_downsample(tex.data[:quarter_h * level, :quarter_w * level], level)
                if level > 1 else tex.data)
     # stuv offsets -> level texel units: both axes scale by the level height
     # (gtexture aspect correction), v-up flips to row-down
-    offsets = taps * torch.tensor([quarter_h, -quarter_h], dtype=torch.float32,
-                                  device=device)
+    offsets = taps * scale
     # The kernel covers the largest tap offset: intensity <= 0.003 stuv is
     # about 3.5 texels at level 1 (size 9), at most one level texel from
     # level 2 up (size 5 leaves margin)
@@ -431,6 +425,25 @@ class MultiShader(ShaderScene):
 
 
 _BLUR_KERNELS: dict = {}
+_VIZ_TAPS: dict = {}
+
+
+def _viz_blur_taps(quality: int, directions: int, level_height: int, device) -> tuple:
+    """The visualizer blur's unit taps ((cos, sin) * walk, one row a tap)
+    and its stuv -> level texel scale [h, -h], on the device: built once per
+    size and device, so that a frame copies nothing from the host."""
+    key = (quality, directions, level_height, str(device))
+    if key not in _VIZ_TAPS:
+        taps = []
+        for d in range(directions):
+            angle = TAU * d / directions
+            for s in range(1, quality + 1):
+                walk = s / quality
+                taps.append((math.cos(angle) * walk, math.sin(angle) * walk))
+        _VIZ_TAPS[key] = (torch.tensor(taps, dtype=torch.float32, device=device),
+                          torch.tensor([level_height, -level_height], dtype=torch.float32,
+                                       device=device))
+    return _VIZ_TAPS[key]
 
 
 def _blur(sf, tex, radius: float, directions: int, steps: int):

@@ -49,6 +49,19 @@ into the matrix, padded to the program's components. The final pass reads
 the main program's slot 1 when it is temporal (the newest box after its
 roll), else slot 0 (final_slot; SHADERFLOW_REF_SLOT0=1 reads slot 0).
 
+The frame loop enqueues most programs' fragments eagerly, every frame.
+A build whose fragment is recordable (fraggraph.py: on the card, no mesh,
+no temporal ring, one program with one instance, one layer and temporal
+1) records it as one CUDA graph: its first frame runs eagerly, its second
+is captured and replayed, and every later frame copies its per-frame
+inputs (the uniform row, sequence boxes, stream snapshots, per-batch
+prelude values read as tensors) into the graph's fixed slots and replays
+it; the tail and the final pass stay eager. The engine records anew
+(drop_recording) where what the graph reads in place changes: a static
+texture uploaded again, a sequence bound again, a texture that starts
+streaming, new batch-invariant preludes, a rebuild; and a run's end
+(Scene.main) drops it, so its memory pool does not outlive the run.
+
 Under SKIP_TPU=1 (switches.skip_device) a flush returns black frames on
 the host and does no device work: the host loop alone, timed.
 
@@ -75,6 +88,7 @@ import numpy as np
 import torch
 
 from shaderflow_tpu_torch import logger, switches, tracing
+from shaderflow_tpu_torch.fraggraph import FragmentGraph, recordable
 from shaderflow_tpu_torch.ops import tailfuse, tailgen
 from shaderflow_tpu_torch.ops.downsample import final_pass
 from shaderflow_tpu_torch.ops.stdlib import reciprocal
@@ -496,6 +510,8 @@ class RenderEngine:
         self._shards: list[Shard] = []
         self._shards_mesh = None
         self._whole_rows: set[str] = set()
+        # The build's recording of its fragment (fraggraph.py), or None
+        self._recorder: Optional[FragmentGraph] = None
 
     @property
     def device(self) -> torch.device:
@@ -503,6 +519,12 @@ class RenderEngine:
 
     def invalidate(self) -> None:
         self.stale = True
+
+    def drop_recording(self) -> None:
+        """Drop the recording of the fragment (fraggraph.py), where what it
+        reads in place changes: its next frame records anew."""
+        if self._recorder is not None:
+            self._recorder.reset()
 
     # ------------------------------------------------------------------ #
     # Inventory
@@ -551,6 +573,10 @@ class RenderEngine:
             self._shards, self._shards_mesh = [], None
             self._whole_rows = set()
             self._main_slot = final_slot(scene.shader.texture.temporal)
+            # The last build's graph and its memory pool go now, not at a
+            # collection
+            self.drop_recording()
+            self._recorder = FragmentGraph() if recordable(self) else None
             self.stale = False
             out_width, out_height = scene._final.texture.resolution
             logger.debug(f"Engine built: render {width}x{height} -> output "
@@ -630,11 +656,13 @@ class RenderEngine:
         device = self.device
         for name, tex in self._external_textures().items():
             if tex.sequence is not None:
-                self._static_tex.pop(name, None)
+                if self._static_tex.pop(name, None) is not None:
+                    self.drop_recording()
                 self._streamed_names.discard(name)
                 window = tex.sequence_window or 0
                 bound = self._sequences.get(name)
                 if bound is None or bound[0] is not tex.sequence or bound[2] != window:
+                    self.drop_recording()
                     if name in self.pinned_sequences:
                         seq = self.pinned_sequences[name].to(device)
                     else:
@@ -645,11 +673,13 @@ class RenderEngine:
                     self._sequences[name] = (tex.sequence, seq, window)
                 tex.dirty = False
                 continue
-            self._sequences.pop(name, None)
+            if self._sequences.pop(name, None) is not None:
+                self.drop_recording()
             if name in self._streamed_names:
                 continue
             if name in self._static_tex and tex.version == self._static_versions.get(name):
                 continue
+            self.drop_recording()
             if name in self.pinned_textures:
                 matrix = self.pinned_textures[name]
             else:
@@ -713,6 +743,7 @@ class RenderEngine:
                      self._render_size, self.scene.aspect_ratio, str(target.device))
             if state != target._prelude_state:
                 target._prelude_state = state
+                self.drop_recording()
                 target._prelude_cache = {name: value.to(target.device)
                                          for name, value in self.pinned_preludes.items()}
             frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(target.device)
@@ -773,6 +804,7 @@ class RenderEngine:
                 # frames of this batch before it read its first snapshot
                 self._streamed_names.add(name)
                 self._static_tex.pop(name, None)
+                self.drop_recording()
                 self._frame_streams[name] = [self._stream_snapshot(name, tex)] * frame_index
                 streamed = True
                 if frame_index:
@@ -926,10 +958,14 @@ class RenderEngine:
                      shard: Optional[Shard] = None) -> None:
         """Render one frame into `out` (H, W, 3) u8: every program and
         layer in order (the module docstring), then the final pass; on a
-        shard, from its copies (the frame path)."""
+        shard, from its copies (the frame path). A recorded build's
+        program renders from its FragmentGraph's Frag: eagerly on the
+        recording's first frame, captured and replayed on its second, only
+        replayed after that (off a mesh)."""
         with tracing.span("frame"):
             scene = self.scene
             state = shard or self
+            recorder = self._recorder if shard is None and self.mesh is None else None
             programs = self._programs()
             uniforms = FrameUniforms(row, spec)
             textures = self._frame_textures(frame_index, step, shard)
@@ -948,9 +984,14 @@ class RenderEngine:
                                               dtype=torch.float32, device=state.device))
                     textures[program.name] = matrix
                 for layer in range(layers):
-                    ctx = self.frame_context(row, spec, step, frame_index, per_batch, invariant,
-                                             coords=coords, layer=layer, textures=textures,
-                                             uniforms=uniforms, shard=shard)
+                    if recorder is not None:   # the one program, one layer
+                        ctx = recorder.frame_context(self, row, spec, step, frame_index,
+                                                     per_batch, invariant, coords, textures)
+                    else:
+                        ctx = self.frame_context(row, spec, step, frame_index, per_batch,
+                                                 invariant, coords=coords, layer=layer,
+                                                 textures=textures, uniforms=uniforms,
+                                                 shard=shard)
                     result = program.render_layer(ctx)
                     if (isinstance(result, tailfuse.TailSpec) and program is programs[-1]
                             and temporal == 1 and layers == 1):

@@ -125,7 +125,8 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
     Kernel K3 (csrc/escape.cu) for CUDA tensors — built at first use,
     launched on the current stream; escape_lines_plain for CPU tensors,
     declared to the cost walker as the kernel's launch.
-    `escape_iterations_sep.launches` counts kernel launches."""
+    `escape_iterations_sep.launches` counts kernel launches: a call
+    captured into a CUDA graph launches nothing (fraggraph.py)."""
     if cx_line.ndim != 1 or cy_line.ndim != 1:
         raise ValueError(f"lines must be 1-D, got {tuple(cx_line.shape)} "
                          f"and {tuple(cy_line.shape)}")
@@ -155,9 +156,11 @@ def escape_iterations_sep(cx_line: torch.Tensor, cy_line: torch.Tensor,
             int(out_dtype == torch.float32), height, width, int(max_iter), trip,
             float(radius) * float(radius),
             torch.cuda.current_stream(cx_line.device).cuda_stream)
+        captured = torch.cuda.is_current_stream_capturing()
     if status != 0:
         raise RuntimeError(f"escape_lines launch failed: cudaError {status}")
-    escape_iterations_sep.launches += 1
+    if not captured:
+        escape_iterations_sep.launches += 1
     return out
 
 
@@ -225,9 +228,11 @@ def _escape_planes_cuda(zx0: torch.Tensor, zy0: torch.Tensor, cx, cy, c_kind: in
             out.numel(), shape[-1] if shape else 1, int(max_iter), trip,
             float(radius) * float(radius),
             torch.cuda.current_stream(device).cuda_stream)
+        captured = torch.cuda.is_current_stream_capturing()
     if status != 0:
         raise RuntimeError(f"escape_planes launch failed: cudaError {status}")
-    escape_iterations.launches += 1
+    if not captured:
+        escape_iterations.launches += 1
     return out
 
 
@@ -244,7 +249,8 @@ def escape_iterations(c: torch.Tensor, max_iter: int, radius: float = 3.0,
     contiguous (..., 2) field, the interior test computed in-kernel);
     escape_plain on CPU tensors, declared to the cost walker as the
     kernel's launch. `escape_iterations.launches` counts the
-    launches of the planes form (escape_iterations_z0's too)."""
+    launches of the planes form (escape_iterations_z0's too): a call
+    captured into a CUDA graph launches nothing (fraggraph.py)."""
     _check_out_dtype(out_dtype)
     cx, cy = c[..., 0], c[..., 1]
     if c.device.type == "cpu":

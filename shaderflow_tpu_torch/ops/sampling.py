@@ -697,7 +697,8 @@ def expand_tables(flat16: torch.Tensor, index: torch.Tensor,
     for CUDA tensors — built at first use, launched on the current stream;
     expand_plain for CPU tensors. Either is declared to the cost walker as
     one launch of `npx` pixels (_expand_cost). `expand_tables.launches`
-    counts kernel launches."""
+    counts kernel launches: a call captured into a CUDA graph launches
+    nothing (fraggraph.py)."""
     if flat16.device.type == "cpu":
         with flopcount.kernel("K2", index.shape[0],
                               lambda: _expand_cost(flat16, index.shape[0], out_dtype)):
@@ -723,9 +724,11 @@ def expand_tables(flat16: torch.Tensor, index: torch.Tensor,
             index.data_ptr(), flat16.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.float32), batch, n, index.shape[0],
             torch.cuda.current_stream(flat16.device).cuda_stream)
+        captured = torch.cuda.is_current_stream_capturing()
     if status != 0:
         raise RuntimeError(f"lookup_expand launch failed: cudaError {status}")
-    expand_tables.launches += 1
+    if not captured:
+        expand_tables.launches += 1
     return out
 
 

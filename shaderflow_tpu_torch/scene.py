@@ -613,6 +613,9 @@ class ShaderScene(ShaderModule):
                 export.pipe_batch(staged)
             result = export.finish()
             export.log_stats(output=result)
+        # The run's CUDA graph and its memory pool end with the run, not
+        # with the scene (fraggraph.py): a later run records anew
+        self.engine.drop_recording()
         return result
 
 
@@ -698,6 +701,7 @@ class ShaderScene(ShaderModule):
             if self._keymap is not None:
                 self._keymap.close()
                 self._keymap = None
+            self.engine.drop_recording()   # as at an export's end
 
     def _rendered(self) -> Optional[torch.cuda.Event]:
         """An event behind the frames just flushed (None on the CPU)."""

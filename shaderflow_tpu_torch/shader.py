@@ -30,6 +30,7 @@ import torch
 
 import shaderflow_tpu_torch
 from shaderflow_tpu_torch import logger, tracing
+from shaderflow_tpu_torch.fraggraph import FragmentGraph
 from shaderflow_tpu_torch.message import ShaderMessage
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops import cameralib, sampling
@@ -157,7 +158,10 @@ class Frag:
     """The per-draw context handed to pixel programs: coordinate flavors,
     every pipeline uniform by name (per-frame values are tensors on the
     run's device, statics are host values), textures by name, the batch
-    preludes, and the camera."""
+    preludes, and the camera. `recorder`: the FragmentGraph whose
+    recording this Frag renders (fraggraph.py), else None."""
+
+    recorder = None
 
     def __init__(self, coords: Coords, uniforms: Mapping, statics: dict,
                  layer: int = 0, instance: int = 0, textures: Optional[dict] = None,
@@ -572,34 +576,47 @@ class ShaderProgram(ShaderModule):
         """Run one layer of this program: a TailSpec (the engine fuses it
         with the final pass or evaluates it) or an (H, W, C) float tensor in
         sample space, padded with ones / cropped to the texture's
-        components.
+        components (draw).
+
+        A Frag from the engine's FragmentGraph (ctx.recorder, fraggraph.py)
+        is a recorded frame: the build's second frame of a recordable
+        program is captured into a CUDA graph and replayed, and every later
+        frame only replays it. Every other frame, the first of a
+        recording's included, runs the fragment eagerly."""
+        with tracing.span("fragment"):
+            FragmentGraph.calls += 1
+            if ctx.recorder is not None:
+                return ctx.recorder.render(self, ctx)
+            return self.draw(ctx)
+
+    def draw(self, ctx: Frag):
+        """The fragment run eagerly over `ctx` (see render_layer).
 
         Instancing (shaderflow_tpu/shader.py:505-529): the fragment runs
         `instances` times with ctx.instance = 0..N-1, drawn in order with
         GL's no-blending rule (the last instance to write a pixel wins);
         sf.discard(mask) leaves pixels to the instances below (zeros under
         instance 0)."""
-        with tracing.span("fragment"):
-            from shaderflow_tpu_torch.ops import tailfuse
-            result = None
-            for instance in range(self.instances):
-                ctx.instance = instance
-                ctx._discard = None
-                out = self._resolved(ctx)
-                if isinstance(out, tailfuse.TailSpec):
-                    if self.instances == 1:
-                        return out
-                    height, width = ctx._coords.height, ctx._coords.width
-                    out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
-                out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
-                components = self.texture.components
-                if out.shape[-1] < components:
-                    pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
-                                     dtype=torch.float32, device=out.device)
-                    out = torch.cat([out, pad], dim=-1)
-                out = out[..., :components]
-                if ctx._discard is not None:
-                    below = torch.zeros_like(out) if result is None else result
-                    out = torch.where(ctx._discard[..., None], below, out)
-                result = out
-            return result
+        from shaderflow_tpu_torch.ops import tailfuse
+        result = None
+        for instance in range(self.instances):
+            ctx.instance = instance
+            ctx._discard = None
+            out = self._resolved(ctx)
+            if isinstance(out, tailfuse.TailSpec):
+                if self.instances == 1:
+                    return out
+                height, width = ctx._coords.height, ctx._coords.width
+                out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
+            out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
+            components = self.texture.components
+            if out.shape[-1] < components:
+                pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
+                                 dtype=torch.float32, device=out.device)
+                out = torch.cat([out, pad], dim=-1)
+            out = out[..., :components]
+            if ctx._discard is not None:
+                below = torch.zeros_like(out) if result is None else result
+                out = torch.where(ctx._discard[..., None], below, out)
+            result = out
+        return result

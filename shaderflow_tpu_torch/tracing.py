@@ -50,7 +50,13 @@ Counters of an export (records.counters[export id]): `frames` and
 counters: `k1.prepares` (tailgen.compiled calls), `k1.misses`
 (compiled.builds), `k1.launches` (fused_tail_final, u8 and planes forms),
 `k2.launches` (expand_tables), `k3.launches` (escape_iterations and
-escape_iterations_sep) and `builds` (new build.build_events).
+escape_iterations_sep), `builds` (new build.build_events), and the
+fragment's CUDA graph (fraggraph.FragmentGraph): `fragment.calls`
+(render_layer calls), `fragment.replays` (calls that replayed the
+graph), `fragment.captures` (graphs recorded) and `fragment.refusals`
+(captures refused: that build renders eagerly). The k*.launches count
+eager launches: kernels a graph launches are counted by its launches,
+`fragment.captures + fragment.replays`.
 
 SHADERFLOW_BATCH_TRACE prints its line a batch from these spans (it opens
 a session for its export where none is open); examples/torch/
@@ -153,6 +159,7 @@ def span(name: str):
 
 def _program_counters() -> dict[str, int]:
     from shaderflow_tpu_torch import build
+    from shaderflow_tpu_torch.fraggraph import FragmentGraph as graph
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     tail = tailfuse.fused_tail_final
     return {"k1.prepares": tailgen.compiled.calls, "k1.misses": tailgen.compiled.builds,
@@ -160,7 +167,9 @@ def _program_counters() -> dict[str, int]:
             "k2.launches": sampling.expand_tables.launches,
             "k3.launches": fractal.escape_iterations.launches
             + fractal.escape_iterations_sep.launches,
-            "builds": len(build.build_events)}
+            "builds": len(build.build_events), "fragment.calls": graph.calls,
+            "fragment.replays": graph.replays, "fragment.captures": graph.captures,
+            "fragment.refusals": graph.refusals}
 
 
 @contextlib.contextmanager

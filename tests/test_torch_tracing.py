@@ -120,13 +120,16 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
     rendered frame moves every counter the tracer reads, and one export's
     counters are the change the test sees around it."""
     from shaderflow_tpu_torch import build, engine, tracing
+    from shaderflow_tpu_torch.fraggraph import FragmentGraph
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     counted = [(tailgen.compiled, "calls", 3), (tailgen.compiled, "builds", 1),
                (tailfuse.fused_tail_final, "launches", 1),
                (tailfuse.fused_tail_final, "planes_launches", 2),
                (sampling.expand_tables, "launches", 1),
                (fractal.escape_iterations, "launches", 1),
-               (fractal.escape_iterations_sep, "launches", 4)]
+               (fractal.escape_iterations_sep, "launches", 4),
+               (FragmentGraph, "replays", 1), (FragmentGraph, "captures", 2),
+               (FragmentGraph, "refusals", 3)]
     for owner, attribute, _ in counted:
         monkeypatch.setattr(owner, attribute, getattr(owner, attribute))
     monkeypatch.setattr(build, "build_events", list(build.build_events))
@@ -147,7 +150,10 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
                 "k2.launches": sampling.expand_tables.launches,
                 "k3.launches": fractal.escape_iterations.launches
                 + fractal.escape_iterations_sep.launches,
-                "builds": len(build.build_events)}
+                "builds": len(build.build_events), "fragment.calls": FragmentGraph.calls,
+                "fragment.replays": FragmentGraph.replays,
+                "fragment.captures": FragmentGraph.captures,
+                "fragment.refusals": FragmentGraph.refusals}
 
     before = snapshot()
     with tracing.session() as records:
@@ -156,6 +162,7 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
     assert records.counters == {0: {"frames": 11, "batches": 3,
                                     **{key: after[key] - before[key] for key in after}}}
     assert records.counters[0]["k1.launches"] == 3 * 11
+    assert records.counters[0]["fragment.calls"] == 11   # render_layer's own count
 
 
 def test_every_span_is_a_profiler_range_on_one_clock(tmp_path):
