@@ -465,6 +465,10 @@ def load_reference_state(scene: "ShaderScene", sequences: Optional[dict] = None,
 
 class RenderEngine:
 
+    # Bytes that sequence binds copied to another device, every engine's
+    # (an export's tracing counter sequence.bytes)
+    sequence_bytes = 0
+
     def __init__(self, scene: "ShaderScene"):
         self.scene = scene
         self.stale = True
@@ -663,11 +667,12 @@ class RenderEngine:
                 bound = self._sequences.get(name)
                 if bound is None or bound[0] is not tex.sequence or bound[2] != window:
                     self.drop_recording()
-                    if name in self.pinned_sequences:
-                        seq = self.pinned_sequences[name].to(device)
-                    else:
-                        seq = tex.sequence.to(device)
-                        if window > 1:
+                    with tracing.span("engine.sequences"):
+                        source = self.pinned_sequences.get(name, tex.sequence)
+                        seq = source.to(device)
+                        if seq is not source:
+                            RenderEngine.sequence_bytes += source.nbytes
+                        if window > 1 and name not in self.pinned_sequences:
                             pad = seq.new_zeros((window - 1,) + tuple(seq.shape[1:]))
                             seq = torch.cat([pad, seq], dim=0)
                     self._sequences[name] = (tex.sequence, seq, window)

@@ -561,20 +561,21 @@ def final_equal_resolution(planes: torch.Tensor, subsample: int,
     into quantize_u8's upcast. Torch's bfloat16 ops compute in float32 and
     round each result, on the CPU and on the card alike."""
     require_whole_rows("final_equal_resolution")
-    m = stencil_weight(subsample)
-    center = 1.0 - 2.0 * m
-    channels, height, width = planes.shape
-    if out is None:
-        out = torch.empty((height, width, channels), dtype=torch.uint8,
-                          device=planes.device)
-    up = torch.cat([planes[:, :1], planes[:, :-1]], dim=1)
-    down = torch.cat([planes[:, 1:], planes[:, -1:]], dim=1)
-    rows = center * planes + m * (up + down)
-    left = torch.cat([rows[..., :1], rows[..., :-1]], dim=2)
-    right = torch.cat([rows[..., 1:], rows[..., -1:]], dim=2)
-    mixed = (center * rows).to(torch.float32) + (m * (left + right)).to(torch.float32)
-    out.copy_(quantize_u8(mixed).permute(1, 2, 0))
-    return out
+    with tracing.span("tail.stencil"):
+        m = stencil_weight(subsample)
+        center = 1.0 - 2.0 * m
+        channels, height, width = planes.shape
+        if out is None:
+            out = torch.empty((height, width, channels), dtype=torch.uint8,
+                              device=planes.device)
+        up = torch.cat([planes[:, :1], planes[:, :-1]], dim=1)
+        down = torch.cat([planes[:, 1:], planes[:, -1:]], dim=1)
+        rows = center * planes + m * (up + down)
+        left = torch.cat([rows[..., :1], rows[..., :-1]], dim=2)
+        right = torch.cat([rows[..., 1:], rows[..., -1:]], dim=2)
+        mixed = (center * rows).to(torch.float32) + (m * (left + right)).to(torch.float32)
+        out.copy_(quantize_u8(mixed).permute(1, 2, 0))
+        return out
 
 
 def backend_supports_fusion(device="cuda") -> bool:

@@ -99,7 +99,10 @@ def load_midi(path) -> MidiFile:
             tick += delta
             if status == 0xFF51 and len(payload) == 3:
                 tempo_map.append((tick, int.from_bytes(payload, "big")))
-    tempo_map.sort()
+    # By tick alone and stably, so that at one tick the file's tempo
+    # follows the default 120 bpm and the last one set holds (sorted as
+    # pairs, one tick's tempi would be ordered by value)
+    tempo_map.sort(key=lambda item: item[0])
 
     smpte = bool(division & 0x8000)
     if smpte:

@@ -30,7 +30,7 @@ from typing import Any, Iterable, Optional
 import numpy as np
 import torch
 
-from shaderflow_tpu_torch import logger
+from shaderflow_tpu_torch import logger, tracing
 from shaderflow_tpu_torch.module import ShaderModule
 from shaderflow_tpu_torch.ops.dynamics import DynamicNumber
 from shaderflow_tpu_torch.piano.midi import load_midi
@@ -44,6 +44,11 @@ MAX_NOTE = 128
 
 
 class ShaderPiano(ShaderModule):
+
+    # Counters of every piano's scans (in an export's tracing counters as
+    # piano.frames and piano.notes): frames scanned and roll slots written
+    frames_scanned = 0
+    notes_written = 0
 
     name: str = "iPiano"
     precompute: bool = True
@@ -230,15 +235,16 @@ class ShaderPiano(ShaderModule):
 
             self.key_press_dynamics.set(np.zeros(MAX_NOTE, np.float32))
             self.note_range_dynamics.set(np.zeros(2, np.float32))
-            for f in range(total):
-                time = self.time_offset + speed * f / scene.fps
-                roll, channels = self._scan_frame(time, dt if f else 0.0)
-                # Storage row 0 = top: texel_fetch's GL y = note reads row
-                # MAX_NOTE - 1 - note, so the rows go in reversed
-                roll_seq[f] = roll[::-1]
-                chan_seq[f, 0, :, 0] = channels[0]
-                keys_seq[f, 0, :, 0] = self.key_press_dynamics.value
-                ranges[f] = self.note_range_dynamics.value
+            with tracing.span("piano.scan"):
+                for f in range(total):
+                    time = self.time_offset + speed * f / scene.fps
+                    roll, channels = self._scan_frame(time, dt if f else 0.0)
+                    # Storage row 0 = top: texel_fetch's GL y = note reads
+                    # row MAX_NOTE - 1 - note, so the rows go in reversed
+                    roll_seq[f] = roll[::-1]
+                    chan_seq[f, 0, :, 0] = channels[0]
+                    keys_seq[f, 0, :, 0] = self.key_press_dynamics.value
+                    ranges[f] = self.note_range_dynamics.value
             self._sequence_key = key
             self._sequence_arrays = (keys_seq, chan_seq, roll_seq, ranges)
         keys_seq, chan_seq, roll_seq, ranges = self._sequence_arrays
@@ -276,6 +282,7 @@ class ShaderPiano(ShaderModule):
         roll = self._empty_roll()
         channels = self._empty_keys() - 1  # -1 = not playing
 
+        written = 0
         for midi in range(self.global_minimum_note, self.global_maximum_note + 1):
             simultaneous = 0
             for note in self.notes_between(midi, time, time + self.lookup_time):
@@ -302,6 +309,7 @@ class ShaderPiano(ShaderModule):
                     self.fluid_key_down(midi, play_velocity, note.channel)
                     self._playing_matrix[midi][note.channel] = note
 
+            written += simultaneous
             for channel in range(MAX_CHANNELS * self.scene.realtime):
                 other = self._playing_matrix[midi][channel]
                 if other and other.end < time:
@@ -319,6 +327,8 @@ class ShaderPiano(ShaderModule):
 
         self.note_range_dynamics.next(dt=dt)
         self.key_press_dynamics.next(dt=dt)
+        ShaderPiano.frames_scanned += 1
+        ShaderPiano.notes_written += written
         return roll, channels
 
     def prewarm(self) -> None:

@@ -45,6 +45,16 @@ Spans of an export (indentation is nesting):
       sink.write        the sink's write_batch, or NullSink's accounting
     export.drain        after the loop: the last pipes, finish, log_stats
 
+and where a scene has them:
+
+  piano.scan            ShaderPiano's whole-export note scan (in prewarm, or
+                        a frame's update where no prewarm ran)
+  engine.sequences      a sequence's bind in RenderEngine._refresh_textures
+                        (in engine.build, engine.flush or the export loop's
+                        begin_batch), the copy to the device included
+  tail.stencil          final_equal_resolution inside tail: the equal-
+                        resolution regime's stencil and quantize
+
 Counters of an export (records.counters[export id]): `frames` and
 `batches` flushed, and the change over the export of the program's own
 counters: `k1.prepares` (tailgen.compiled calls), `k1.misses`
@@ -54,9 +64,11 @@ escape_iterations_sep), `builds` (new build.build_events), and the
 fragment's CUDA graph (fraggraph.FragmentGraph): `fragment.calls`
 (render_layer calls), `fragment.replays` (calls that replayed the
 graph), `fragment.captures` (graphs recorded) and `fragment.refusals`
-(captures refused: that build renders eagerly). The k*.launches count
-eager launches: kernels a graph launches are counted by its launches,
-`fragment.captures + fragment.replays`.
+(captures refused: that build renders eagerly), `piano.frames` and
+`piano.notes` (ShaderPiano: frames scanned, roll slots written) and
+`sequence.bytes` (RenderEngine: bytes that sequence binds copied to the
+device). The k*.launches count eager launches: kernels a graph launches
+are counted by its launches, `fragment.captures + fragment.replays`.
 
 SHADERFLOW_BATCH_TRACE prints its line a batch from these spans (it opens
 a session for its export where none is open); examples/torch/
@@ -159,8 +171,10 @@ def span(name: str):
 
 def _program_counters() -> dict[str, int]:
     from shaderflow_tpu_torch import build
+    from shaderflow_tpu_torch.engine import RenderEngine
     from shaderflow_tpu_torch.fraggraph import FragmentGraph as graph
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
+    from shaderflow_tpu_torch.piano.module import ShaderPiano
     tail = tailfuse.fused_tail_final
     return {"k1.prepares": tailgen.compiled.calls, "k1.misses": tailgen.compiled.builds,
             "k1.launches": tail.launches + tail.planes_launches,
@@ -169,7 +183,9 @@ def _program_counters() -> dict[str, int]:
             + fractal.escape_iterations_sep.launches,
             "builds": len(build.build_events), "fragment.calls": graph.calls,
             "fragment.replays": graph.replays, "fragment.captures": graph.captures,
-            "fragment.refusals": graph.refusals}
+            "fragment.refusals": graph.refusals, "piano.frames": ShaderPiano.frames_scanned,
+            "piano.notes": ShaderPiano.notes_written,
+            "sequence.bytes": RenderEngine.sequence_bytes}
 
 
 @contextlib.contextmanager

@@ -38,7 +38,11 @@ PARENTS = {
     "fragment": {"frame"}, "tail": {"frame"},
     "export.pipe": {"export", "export.drain"},
     "wire.wait": {"export.pipe"}, "sink.write": {"export.pipe"},
+    "engine.sequences": {"engine.build", "engine.flush", "export"},
 }
+# Spans only some scenes reach: a sequence's bind (the visualizer's
+# spectrogram and waveform)
+OWN_SPANS = {"Visualizer": {"engine.sequences"}, "Mandelbrot": set()}
 # 11 frames in batches of 4
 OPTIONS = dict(fps=10, time=1.1, batch=4, output="null", device="cpu")
 SCENES = {
@@ -84,7 +88,8 @@ def test_spans_nest_with_one_export_id_a_main(name):
     spans = records.spans
     assert all(span.end is not None and span.end >= span.start for span in spans)
     names = Counter(span.name for span in spans)
-    assert set(names) == set(PARENTS)
+    expected = set(PARENTS) - set().union(*OWN_SPANS.values()) | OWN_SPANS[name]
+    assert set(names) == expected
     for position, span in enumerate(spans):
         parent = spans[span.parent] if span.parent is not None else None
         assert (parent.name if parent else None) in PARENTS[span.name], span.name
@@ -112,7 +117,7 @@ def test_spans_nest_with_one_export_id_a_main(name):
     assert {span.batch for span in spans if span.name in ("export.setup", "export.drain")} \
         == {None}
     times = tracing.self_times(spans)
-    assert set(times) == set(PARENTS) and all(value >= 0 for value in times.values())
+    assert set(times) == expected and all(value >= 0 for value in times.values())
 
 
 def test_counters_are_the_program_counters_deltas(monkeypatch):
@@ -122,6 +127,7 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
     from shaderflow_tpu_torch import build, engine, tracing
     from shaderflow_tpu_torch.fraggraph import FragmentGraph
     from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
+    from shaderflow_tpu_torch.piano.module import ShaderPiano
     counted = [(tailgen.compiled, "calls", 3), (tailgen.compiled, "builds", 1),
                (tailfuse.fused_tail_final, "launches", 1),
                (tailfuse.fused_tail_final, "planes_launches", 2),
@@ -129,7 +135,8 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
                (fractal.escape_iterations, "launches", 1),
                (fractal.escape_iterations_sep, "launches", 4),
                (FragmentGraph, "replays", 1), (FragmentGraph, "captures", 2),
-               (FragmentGraph, "refusals", 3)]
+               (FragmentGraph, "refusals", 3), (ShaderPiano, "frames_scanned", 5),
+               (ShaderPiano, "notes_written", 6), (engine.RenderEngine, "sequence_bytes", 7)]
     for owner, attribute, _ in counted:
         monkeypatch.setattr(owner, attribute, getattr(owner, attribute))
     monkeypatch.setattr(build, "build_events", list(build.build_events))
@@ -153,7 +160,10 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
                 "builds": len(build.build_events), "fragment.calls": FragmentGraph.calls,
                 "fragment.replays": FragmentGraph.replays,
                 "fragment.captures": FragmentGraph.captures,
-                "fragment.refusals": FragmentGraph.refusals}
+                "fragment.refusals": FragmentGraph.refusals,
+                "piano.frames": ShaderPiano.frames_scanned,
+                "piano.notes": ShaderPiano.notes_written,
+                "sequence.bytes": engine.RenderEngine.sequence_bytes}
 
     before = snapshot()
     with tracing.session() as records:
