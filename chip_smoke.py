@@ -126,15 +126,18 @@ Phases, each printing its own line (any failure raises; exit code != 0):
      the last shown frame equal to a copy of the engine's frame at that
      index, taken on the render stream when it was flushed (no torn frame)
 Then a {"realtime": ...} line with phases 29-31's figures.
-  Any supersampling factor (the general final pass: the tail through its
-  plain path, no K1), mipmaps and video
+  Any supersampling factor (the general final pass where the ratio is
+  not an integer: the tail through its plain path, no K1; K1 at an
+  integer ratio above the subsample), mipmaps and video
  32. (a) the visualizer at 1920x1080@60, ssaa 1.5 (render 2880x1620), a 1 s
      null export: K2 == batches, K1 == K3 == 0; (b) Mandelbrot at -s 4
-     through cli.main (render 7680x4320), a 1 s null export: K3 == frames,
-     K1 == 0; fps, device ms, kernels and host ms a frame; the last frame
-     against device="cpu" (a), against the plain path on the card (b), at
-     most 1 u8 step on < 2 % / < 1 %; K2 and K3 at these shapes against
-     their plain versions, timed, with their bounds (the any_ssaa entries)
+     through cli.main (render 7680x4320, subsample 2), a 1 s null export:
+     K3 == K1 == frames, every K1 launch one of ratio 4; fps, device ms,
+     kernels and host ms a frame; the last frame against device="cpu"
+     (a), against the plain path on the card (b), at most 1 u8 step on
+     < 2 % / < 1 %; K2, K3 and K1 at these shapes against their plain
+     versions, timed, with their bounds (the any_ssaa entries; K1's
+     registers and spills)
  33. a realtime Mandelbrot at 1080p, ssaa 0.5 (render 960x540, upsampled):
      warm-up, REALTIME_FRAMES at 60 fps: K3 == frames, K1 == 0, fps, late
      ticks, host and device ms; frame 2 against device="cpu"
@@ -1353,16 +1356,17 @@ def cpu_frame(cls, index: int, options: dict, setup=None):
 
 
 def any_ssaa_paths(counters, card: str) -> dict:
-    """Phases 32-34: the general final pass (the visualizer at ssaa 1.5,
-    Mandelbrot at -s 4 through the command line, a realtime Mandelbrot at
-    ssaa 0.5) and the mipmapped background; the {"any_ssaa": ...} figures
-    and the any_ssaa entries of the K2 and K3 rows."""
+    """Phases 32-34: the general final pass (the visualizer at ssaa 1.5, a
+    realtime Mandelbrot at ssaa 0.5), K1 at ratio 4 (Mandelbrot at -s 4
+    through the command line) and the mipmapped background; the
+    {"any_ssaa": ...} figures and the any_ssaa entries of the K1, K2 and
+    K3 rows."""
     import numpy as np
     import torch
     import torch_demo
     import torch_fractals
     from shaderflow_tpu_torch.engine import PreludeCtx
-    from shaderflow_tpu_torch.ops import fractal, sampling
+    from shaderflow_tpu_torch.ops import fractal, sampling, tailfuse, tailgen
     zero_counters, read_counters = counters
     result = {}
 
@@ -1433,8 +1437,9 @@ def any_ssaa_paths(counters, card: str) -> dict:
     del scene
 
     # 32b. Mandelbrot at -s 4 through the command line (render 7680x4320,
-    # 33.2 M pixels a frame): K3 once a frame, the plain tail and the
-    # general final pass (no K1); the last frame against the plain path
+    # 33.2 M pixels a frame, subsample 2): K3 once a frame, K1 once a frame
+    # pooling 4 x 4 blocks (ratio 4 >= s); the last frame against the plain
+    # path (the tail on full tensors and the general final pass)
     zero_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1448,11 +1453,13 @@ def any_ssaa_paths(counters, card: str) -> dict:
     frames = FPS
     launches = read_counters()
     expected = {key: 0 for key in launches}
-    expected["k3"] = frames - graph_launches()
-    if launches != expected:
-        raise AssertionError(f"Mandelbrot -s 4: launch counters {launches}, expected "
-                             f"K3 (eager and in the graph) == {frames} frames and nothing "
-                             "else (K1 == 0)")
+    expected.update(k3=frames - graph_launches(), k1=frames)
+    ratio_launches = tailfuse.fused_tail_final.ratio_launches
+    if launches != expected or ratio_launches != frames:
+        raise AssertionError(f"Mandelbrot -s 4: launch counters {launches}, "
+                             f"{ratio_launches} K1 launches at ratio 4, expected K3 (eager "
+                             f"and in the graph) == K1 == ratio launches == {frames} frames "
+                             "and nothing else")
     render_h, render_w = scene.engine._render_size
     if (render_w, render_h) != (7680, 4320):
         raise AssertionError(f"Mandelbrot -s 4 rendered {render_w}x{render_h}")
@@ -1469,10 +1476,26 @@ def any_ssaa_paths(counters, card: str) -> dict:
     if err > 1 or share >= 0.01:
         raise AssertionError(f"Mandelbrot -s 4 frame {index} vs the plain path: max {err} "
                              f"u8 steps on {share:.4%}")
-    k3_args, _ = mandelbrot_k3_args(scene, index)
+    k3_args, ctx = mandelbrot_k3_args(scene, index)
     counts = fractal.escape_iterations_sep(*k3_args)
     if not torch.equal(counts, fractal.escape_lines_plain(*k3_args)):
         raise AssertionError("K3 at -s 4 differs from the plain loop")
+    # K1 at ratio 4 on this frame's tail, against its plain version
+    k1_args = (tailfuse.make_spec(
+        torch_fractals.mandelbrot_tail(k3_args[2], True), render_h, render_w, iters=counts,
+        oob=tailfuse.Col(ctx.camera.out_of_bounds_x.to(torch.float32))), render_h, render_w,
+        HEIGHT, WIDTH, int(scene.subsample), scene.aspect_ratio)
+    k1_err, k1_share = u8_diff(tailfuse.fused_tail_final(*k1_args).cpu(),
+                               tailfuse.tail_plain(*k1_args).cpu())
+    if k1_err > 1 or k1_share >= 0.01:
+        raise AssertionError(f"K1 at ratio 4 vs plain: max {k1_err} on {k1_share:.4%}")
+    launch = tailgen.prepare(*k1_args, torch.device("cuda"))
+    k1_bound_ms, k1_bound_by = walked_bound(lambda: launch(out))
+    k1_entry = dict(
+        launches=launches["k1"], ratio_launches=ratio_launches, max_abs_err=k1_err,
+        ms=device_ms(lambda: launch(out)), call_ms=median_ms(lambda: launch(out), 20),
+        plain_ms=device_ms(lambda: tailfuse.tail_plain(*k1_args), 3),
+        bound_ms=k1_bound_ms, bound_by=k1_bound_by, **k1_figures(launch))
     grid_x, grid_y = torch.broadcast_tensors(k3_args[0][None, :], k3_args[1][:, None])
     steps = escape_steps(counts, fractal._interior_mask(grid_x, grid_y))
     k3_bound_ms, k3_bound_by = walked_bound(lambda: fractal.escape_iterations_sep(*k3_args),
@@ -1497,6 +1520,10 @@ def any_ssaa_paths(counters, card: str) -> dict:
         launches=launches, frame_checked=index, max_u8_diff_vs_plain=err,
         differing_share_vs_plain=f"{share:.3e}", k3_ms=f"{k3_entry['ms']:.4f}",
         k3_bound_ms=f"{k3_bound_ms:.4f}", k3_steps=int(steps),
+        k1_ms=f"{k1_entry['ms']:.4f}", k1_call_ms=f"{k1_entry['call_ms']:.4f}",
+        k1_bound_ms=f"{k1_bound_ms:.4f}", k1_bound_by=k1_bound_by,
+        k1_plain_ms=f"{k1_entry['plain_ms']:.4f}", k1_regs=k1_entry["n_regs"],
+        k1_spills=k1_entry["n_spills"], k1_tile=k1_entry["tile"],
         peak_memory_gb=f"{peak_gb:.3f}",
         card=repr(card))
     del scene, out
@@ -1584,7 +1611,7 @@ def any_ssaa_paths(counters, card: str) -> dict:
             pyramid_builds=len(builds), max_u8_diff_vs_cpu=err,
             differing_share_vs_cpu=f"{share:.3e}", card=repr(card))
         del scene, out
-    return dict(paths=result, k2=k2_entry, k3=k3_entry)
+    return dict(paths=result, k1=k1_entry, k2=k2_entry, k3=k3_entry)
 
 
 def video_path(counters, card: str) -> dict:
@@ -3193,6 +3220,7 @@ def zero_counters() -> None:
     fractal.escape_iterations.launches = 0
     sampling.expand_tables.launches = 0
     tailfuse.fused_tail_final.launches = 0
+    tailfuse.fused_tail_final.ratio_launches = 0
     tailfuse.fused_tail_final.planes_launches = 0
     tailfuse.fused_tail_final.bf16_launches = 0
 
@@ -4033,7 +4061,8 @@ def main() -> int:
     # 29.-31. The realtime preview
     realtime = realtime_paths((zero_counters, read_counters), card)
     print(json.dumps({"realtime": realtime["paths"], "card": card}))
-    # 32.-34. Any supersampling factor (the general final pass) and mipmaps
+    # 32.-34. Any supersampling factor (the general final pass, K1 at ratio
+    # 4) and mipmaps
     any_ssaa = any_ssaa_paths((zero_counters, read_counters), card)
     print(json.dumps({"any_ssaa": any_ssaa["paths"], "card": card}))
     # 35. Video through the port's ffmpeg pipe into a streamed u8 texture
@@ -4103,7 +4132,7 @@ def main() -> int:
                        "plain_ms": k1t_plain_ms, "bound_ms": k1t_bound_ms,
                        "bound_by": k1t_bound_by, **k1t_compiled,
                        "mesh": mesh_launches("Tetration", "k1")},
-         "mesh": mesh_launches("Mandelbrot", "k1")},
+         "any_ssaa": any_ssaa["k1"], "mesh": mesh_launches("Mandelbrot", "k1")},
         {"name": "K1 (b)+(c) fused tail with Indexed and ColSampled inputs (visualizer tail)",
          "route": "triton", "source": "shaderflow_tpu_torch/ops/tailgen.py",
          "replaces": "shaderflow_tpu/ops/tailfuse.py:485",

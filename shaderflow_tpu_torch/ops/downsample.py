@@ -6,12 +6,16 @@ box of subsample x subsample bilinear taps), by regime: equal resolution
 (a separable 3-tap stencil), exact pooling (render = output x subsample)
 and the general path for any other pair of sizes (ssaa 1.5, 3, 4 with
 subsample 2, realtime ssaa < 1: a banded separable resample). It is the
-plain version that kernel K1 (ops/tailfuse.py) is held against, and the
-final pass of every regime K1 does not take, on the CPU and on the card.
+plain version that kernel K1 (ops/tailfuse.py) is held against on the CPU,
+and on the card the final pass of the regimes K1 does not take: ratios
+that are not an integer r >= subsample (ssaa 1.5, realtime ssaa < 1).
+At an integer ratio the general path's band is an r x r pool of each
+output pixel's own render block (pool_weights), which K1 runs.
 """
 
 from __future__ import annotations
 
+from fractions import Fraction
 from typing import Optional
 
 import torch
@@ -83,6 +87,25 @@ def ssaa_downsample(
     # The weights depend on the sizes only: made once, on the host
     plan = _general_plan(rh, rw, out_height, out_width, int(subsample), render.device)
     return apply_resample(render, plan)[first:end, :, :components]
+
+
+def pool_weights(ratio: int, subsample: int) -> tuple:
+    """The per-axis weights of final.glsl's subsample taps where render =
+    output x ratio for an integer ratio r >= s (the subsample): along an
+    axis tap k of output pixel i sits at texel r i + r (k + 1/2) / s - 1/2,
+    inside the pixel's own block of r texels, so the s x s taps pool that
+    r x r block with the separable weights w_j = (1/s) sum_k max(0, 1 -
+    |t_k - j|), j = 0 .. r - 1, t_k the tap's place in the block. What the
+    general path's plan (_general_plan) puts in each output pixel's band,
+    worked out in exact rationals: uniform (1/r each) where r = s or r =
+    2s, else e.g. (3/8, 1/4, 3/8) at r = 3, s = 2."""
+    r, s = int(ratio), int(subsample)
+    if not 1 <= s <= r:
+        raise ValueError(f"pool_weights needs an integer ratio r >= subsample s >= 1, "
+                         f"got r={r}, s={s}")
+    taps = [Fraction(r * (2 * k + 1) - s, 2 * s) for k in range(s)]
+    return tuple(float(sum(max(Fraction(0), 1 - abs(t - j)) for t in taps) / s)
+                 for j in range(r))
 
 
 _PLANS: dict = {}

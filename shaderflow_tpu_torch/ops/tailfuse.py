@@ -28,11 +28,17 @@ runs in tail_dtype(): float32, or bfloat16 under SHADERFLOW_TAIL_BF16=1
 geometry planes read with dtype=torch.float32 stay float32, and pooling,
 masking and the u8 quantize run in float32 in either mode).
 
-Two final forms: the exact-pooling regime (render == out * s) pools and
-quantizes in K1 itself; the equal-resolution regime (render == out,
-subsample s > 1, e.g. ssaa=1 with the default subsample 2) runs K1's
-quantize=False form — the tail written as three bfloat16 planes — then the
-reference's planar 3-tap stencil and the u8 quantize (final_equal_resolution).
+Final forms, by the ratio of render to output and the subsample s (the
+final pass's taps an axis): at an integer ratio r >= s (render == out * r:
+ssaa = s, and ssaa 3, 4, 6, 8 with s = 2) every tap of an output pixel
+falls in its own r x r render block, and K1 pools that block (a box at r =
+s and r = 2s, else with downsample.pool_weights) and quantizes; the
+equal-resolution regime (render == out, s > 1, e.g. ssaa=1 with the
+default subsample 2) runs K1's quantize=False form — the tail written as
+three bfloat16 planes — then the reference's planar 3-tap stencil and the
+u8 quantize (final_equal_resolution); any other ratio (ssaa 1.5, realtime
+ssaa < 1) evaluates the tail on full-resolution tensors and runs the
+general final pass (downsample.final_pass).
 """
 
 from __future__ import annotations
@@ -470,29 +476,35 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
                      out_height: int, out_width: int, subsample: int,
                      aspect: float, out: torch.Tensor = None,
                      quantize: bool = True) -> torch.Tensor:
-    """The tail + s x s box pool + GL u8 quantize -> (out_h, out_w, 3) u8,
-    written into `out` when given (e.g. one frame's slot of a batch).
+    """The tail + the pool of each output pixel's r x r render block +
+    GL u8 quantize -> (out_h, out_w, 3) u8, written into `out` when given
+    (e.g. one frame's slot of a batch). r = render / out; `subsample` s is
+    the final pass's taps an axis, whose weights the pool takes
+    (downsample.pool_weights: a box at r = s and r = 2s).
 
-    quantize=False (s = 1 only; the equal-resolution regime) writes the
-    tail's three planes as bfloat16 (round to nearest even), no pool and
-    no quantize -> (3, out_h, out_w) bf16, into `out` when given; the
+    quantize=False (r = s = 1 only; the equal-resolution regime) writes
+    the tail's three planes as bfloat16 (round to nearest even), no pool
+    and no quantize -> (3, out_h, out_w) bf16, into `out` when given; the
     caller runs the stencil (final_equal_resolution).
 
-    Requires the exact-pooling regime: render == out * subsample. Kernel
+    Requires render == out * r for an integer r >= s (pool_factor). Kernel
     K1 (Triton, generated by ops/tailgen.py) for CUDA inputs; the plain
-    version (tail_plain, planes_plain) for CPU inputs, declared to the cost
-    walker as the kernel's launch (tailgen.declared_plain).
+    version (tail_plain at s, planes_plain) for CPU inputs, declared to the
+    cost walker as the kernel's launch (tailgen.declared_plain).
     `fused_tail_final.launches` counts launches of the u8 form,
+    `fused_tail_final.ratio_launches` those of them with r != s,
     `fused_tail_final.planes_launches` those of the quantize=False form,
     `fused_tail_final.bf16_launches` those of either form traced with the
     bfloat16 color chain (tail_dtype)."""
     s = int(subsample)
-    if (render_height, render_width) != (out_height * s, out_width * s):
+    r = pool_factor(render_height, render_width, out_height, out_width)
+    if r < max(s, 1):
         raise ValueError(
-            f"fused_tail_final needs render == out * subsample, got render "
-            f"{render_width}x{render_height}, out {out_width}x{out_height}, s={s}")
-    if not quantize and s != 1:
-        raise ValueError(f"fused_tail_final(quantize=False) runs at s = 1, got s={s}")
+            f"fused_tail_final needs render == out * r for an integer r >= subsample, "
+            f"got render {render_width}x{render_height}, out {out_width}x{out_height}, s={s}")
+    if not quantize and (s, r) != (1, 1):
+        raise ValueError(f"fused_tail_final(quantize=False) runs at s = 1 and render == "
+                         f"out, got s={s}, r={r}")
     device = out.device if out is not None else spec_device(spec)
     if device.type == "cpu":
         from shaderflow_tpu_torch.ops import tailgen
@@ -518,6 +530,7 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
     launch(out)
     if quantize:
         fused_tail_final.launches += 1
+        fused_tail_final.ratio_launches += int(r != s)
     else:
         fused_tail_final.planes_launches += 1
     if tail_dtype() == torch.bfloat16:
@@ -526,6 +539,7 @@ def fused_tail_final(spec: TailSpec, render_height: int, render_width: int,
 
 
 fused_tail_final.launches = 0
+fused_tail_final.ratio_launches = 0
 fused_tail_final.planes_launches = 0
 fused_tail_final.bf16_launches = 0
 
@@ -586,12 +600,22 @@ def backend_supports_fusion(device="cuda") -> bool:
     return not switches.no_tailfuse() and torch.device(device).type == "cuda"
 
 
+def pool_factor(render_height: int, render_width: int, out_height: int,
+                out_width: int) -> int:
+    """The integer r with render == out * r on both axes, else 0."""
+    r = render_height // out_height if out_height > 0 else 0
+    return r if r >= 1 and (render_height, render_width) == (out_height * r,
+                                                              out_width * r) else 0
+
+
 def supports_fusion(render_height: int, render_width: int,
                     out_height: int, out_width: int, subsample: int) -> bool:
-    """K1 handles the exact-pooling SSAA regime (render is the output times
-    the subsample factor) — the graded configurations."""
+    """K1 takes render == out * r for an integer r >= the subsample s: the
+    exact-pooling regime (r = s, the graded configurations) and the
+    integer ratios above it (ssaa 3, 4, 6, 8 with s = 2), whose taps pool
+    each output pixel's own r x r block."""
     s = int(subsample)
-    return s >= 1 and (render_height, render_width) == (out_height * s, out_width * s)
+    return s >= 1 and pool_factor(render_height, render_width, out_height, out_width) >= s
 
 
 _PLANES: dict = {}
@@ -614,15 +638,16 @@ def _frame_planes(height: int, width: int, device: torch.device) -> torch.Tensor
 def run_tail_final(spec: TailSpec, render_height: int, render_width: int,
                    out_height: int, out_width: int, subsample: int,
                    aspect: float, out: torch.Tensor = None) -> torch.Tensor:
-    """The final pass of a tail, by regime: the exact-pooling regime runs
-    K1 (u8); the equal-resolution regime (render == out, s > 1) runs K1's
+    """The final pass of a tail, by regime: an integer ratio r >= s
+    (supports_fusion: exact pooling, ssaa 3, 4 with s = 2) runs K1 (u8);
+    the equal-resolution regime (render == out, s > 1) runs K1's
     quantize=False form into a reused set of bf16 planes, then
     final_equal_resolution; any other regime (the general path: ssaa 1.5,
-    3, 4, realtime ssaa < 1) evaluates the tail with eval_reference and
-    runs the plain final pass (downsample.final_pass: the banded general
-    resample), on the card as on the CPU, as the reference does on every
-    backend. Under SHADERFLOW_NO_TAILFUSE=1 every regime takes that route
-    on CPU tensors and raises on the card (switches.reference_tail)."""
+    realtime ssaa < 1) evaluates the tail with eval_reference and runs the
+    plain final pass (downsample.final_pass: the banded general resample),
+    on the card as on the CPU, as the reference does on every backend.
+    Under SHADERFLOW_NO_TAILFUSE=1 every regime takes that route on CPU
+    tensors and raises on the card (switches.reference_tail)."""
     with tracing.span("tail"):
         device = out.device if out is not None else spec_device(spec)
         reference = switches.reference_tail(device)

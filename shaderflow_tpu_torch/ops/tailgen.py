@@ -9,10 +9,21 @@ the plane's own base pointer); ColSampled planes (the 2-tap hat
 interpolation along columns of row-interpolated (Hr, W_in) planes,
 computed per pixel from the column's position); Table inputs (small
 (bins, C) float32 tables read by a clipped gather, which stays in L1: the
-same value the reference's clip and select-accumulate picks); s x s box
-pooling, GL u8 quantization, masked partial tiles; and the quantize=False
-form (s = 1, the equal-resolution regime), which stores the three results
-as bfloat16 planes, rounded to nearest even, instead of u8 pixels.
+same value the reference's clip and select-accumulate picks); the pool of
+each output pixel's r x r render block, GL u8 quantization, masked partial
+tiles; and the quantize=False form (r = s = 1, the equal-resolution
+regime), which stores the three results as bfloat16 planes, rounded to
+nearest even, instead of u8 pixels.
+
+The pool: render = output x r for an integer r at least the subsample s
+(the final pass's taps an axis). final.glsl's s x s taps then fall inside
+each output pixel's r x r block, with the separable per-axis weights of
+downsample.pool_weights. Where they are uniform (r = s, r = 2s) the
+template emits the box: the r^2 sum and the 1/r^2 average; at r = s that
+is the kernel of the exact-pooling regime, the same source as before the
+ratio was a parameter. Other weights (r = 3, s = 2: 3/8, 1/4, 3/8) are
+constants in the source: each render row pass dy is scaled by w[dy] and
+each column pass dx by w[dx] before the sum, with no average.
 
 Why Triton: the body is user Python (a different tail per scene), a fused
 elementwise pass plus a tiny s x s reduction and a quantize — what Triton
@@ -25,22 +36,22 @@ Python operators and the torch functions in _TORCH_OPS (dispatched through
 `__torch_function__`) record an expression graph. `generate` emits that
 graph into a fixed tile template that owns everything else: the loads of
 the inputs the graph reads, the row/column indices behind the coordinate
-properties, the s x s box pool, the 1/s^2 average, floor(clamp(c, 0, 1) *
-255 + 0.5), and the stores into the frame's (H, W, 3) slot. `evaluate`
-runs the same graph with torch ops (tests hold it equal to the direct
-call).
+properties, the r x r pool (the 1/r^2 average of a box, or the weights),
+floor(clamp(c, 0, 1) * 255 + 0.5), and the stores into the frame's (H, W,
+3) slot. `evaluate` runs the same graph with torch ops (tests hold it
+equal to the direct call).
 
 The tile, designed for Hopper: one program owns BH x BW output pixels
-and reads their render block once, as s passes of BH render rows of
-BW * s contiguous columns (where s is a power of two; else s strided
-column passes). Plane channels load through block pointers (16-byte
-vectors along the row; tensor descriptors, the copy engine, measured
-slower: PERF.md). Every value is computed at its own rank: a row
+and reads their render block once, as r passes of BH render rows of
+BW * r contiguous columns (where r is a power of two and the pool a box;
+else r strided column passes). Plane channels load through block
+pointers (16-byte vectors along the row; tensor descriptors, the copy
+engine, measured slower: PERF.md). Every value is computed at its own rank: a row
 input loads as [BH, 1], a column as [1, BWC], a scalar and a constant as
 0-d values, and the nodes that read only those are computed at that rank,
 once a program (0-d) or once a column block (hoisted out of the row
 passes), broadcast in registers where they meet a plane. The horizontal
-pool is a reshape to [BH, BW, s] and a sum in registers, the vertical one
+pool is a reshape to [BH, BW, r] and a sum in registers, the vertical one
 the sum over the row passes. The u8 frame is written as 32-bit words, four
 pixels in three words, where the row pitch and the frame's base are
 multiples of 4 bytes (one byte store a channel otherwise). The tile's
@@ -49,7 +60,7 @@ at the fullest point of the body, weighted by rank, within a register
 budget) so that every graded tail compiles with no spill.
 
 Bound on this card: bytes of the SSAA-resolution input planes (each read
-exactly once; the output is 1/s^2 as many pixels at 3 bytes) for the
+exactly once; the output is 1/r^2 as many pixels at 3 bytes) for the
 visualizer and fractal tails, the ALU instructions of the graph for the
 piano roll's; the full-resolution tail intermediates of the plain path
 never reach device memory. A ColSampled plane is read at two texels per
@@ -96,7 +107,7 @@ propagating NaN (as torch.maximum/minimum), exp/log from libdevice (as
 torch's CUDA expf/logf), and fmod kept off a dividend smaller than the
 divisor (Triton's libdevice flushes subnormals; the remainder of such a
 dividend is itself): the kernel stays within one u8 step of the plain
-path (differences come only from the order of the s x s sum).
+path (differences come only from the order of the pool's sum).
 """
 
 from __future__ import annotations
@@ -109,6 +120,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from shaderflow_tpu_torch.ops.downsample import pool_weights
 from shaderflow_tpu_torch.ops.tailfuse import (TailCtx, TailSpec, indexed_position, spec_device,
                                                tail_dtype)
 from shaderflow_tpu_torch.tools import flopcount
@@ -651,29 +663,38 @@ def node_ranks(graph: Graph) -> list:
     return ranks
 
 
-def _scope(rank: tuple, subsample: int) -> int:
+def _scope(rank: tuple, factor: int) -> int:
     """Where a node of `rank` is emitted: 0 once per program (0-d), 1 once
-    per column block (columns, hoisted out of the s row passes), 2 in each
-    pass of render rows (rows, tile; at s = 1 columns too, in graph order:
+    per column block (columns, hoisted out of the r row passes), 2 in each
+    pass of render rows (rows, tile; at r = 1 columns too, in graph order:
     with one pass, hoisting only lengthens their lives)."""
-    if rank[0] or (rank[1] and subsample == 1):
+    if rank[0] or (rank[1] and factor == 1):
         return 2
     return 1 if rank[1] else 0
 
 
-def emission_order(graph: Graph, subsample: int) -> list:
+def emission_order(graph: Graph, factor: int) -> list:
     """Node indices in the order the template emits them: by scope, then in
     graph order (an operand's scope never follows its user's)."""
     ranks = node_ranks(graph)
-    return sorted(range(len(graph.nodes)), key=lambda i: (_scope(ranks[i], subsample), i))
+    return sorted(range(len(graph.nodes)), key=lambda i: (_scope(ranks[i], factor), i))
 
 
-def column_split(subsample: int) -> int:
+def pool_form(factor: int, subsample: int):
+    """K1's pool of an r x r render block (r = `factor`) under final.glsl's
+    s taps an axis (downsample.pool_weights) -> None for the box (uniform
+    weights: the r^2 sum and its average), else the r per-axis weights."""
+    weights = pool_weights(factor, subsample)
+    return None if len(set(weights)) == 1 else weights
+
+
+def column_split(factor: int, weights=None) -> int:
     """Render columns of one output column that a load reads side by side:
-    all s of them where s is a power of two (the tile's render block is then
-    contiguous rows, pooled by a reshape), else 1 (the s column
-    sub-positions are separate strided passes)."""
-    return subsample if subsample & (subsample - 1) == 0 else 1
+    all r of them where r is a power of two and the pool a box (the tile's
+    render block is then contiguous rows, pooled by a reshape), else 1
+    (the r column sub-positions are separate strided passes, each with its
+    weight)."""
+    return factor if weights is None and factor & (factor - 1) == 0 else 1
 
 
 # Tile rule. A warp reads a row of 128 float32 (32 lanes x one 16-byte
@@ -690,19 +711,27 @@ def column_split(subsample: int) -> int:
 # spill under it, and gets the fastest E of those tried with 4 warps; the
 # gather-bound visualizer tails E = 1 (more programs a multiprocessor hide
 # the gathers' latency), the piano roll's E = 4 (its column values are
-# computed once for more rows), the fractals' E = 8.
+# computed once for more rows), the fractals' E = 8. A program reads at
+# most K1_RENDER_ROWS render rows (E r): the compiler overlaps the r
+# unrolled row passes, so a thread's registers grow with r where the model
+# above counts one pass. Measured on an H100 (Mandelbrot's tail, 1920x1080
+# from 7680x4320, r = 4): E = 8 took 80 registers and spilled one, E = 4
+# 49 and none, at 0.0728 against 0.0768 ms; at r = 2, E = 8 takes 40.
 K1_COLUMNS = 128
 K1_WARPS = 4
 K1_REGISTERS = 96
+K1_RENDER_ROWS = 16
 
 
-def live_peak(graph: Graph, outputs: list, per_thread: int, subsample: int) -> int:
+def live_peak(graph: Graph, outputs: list, per_thread: int, factor: int,
+              weights=None) -> int:
     """Registers a thread holds at the fullest point of the emitted body
     when it holds `per_thread` (E) elements of a plane value: each live
     value weighted by its rank and kind (the tile rule above) plus the
-    three pooling sums."""
+    three pooling sums of the r x r pool (r = `factor`; `weights` as
+    pool_form gives them)."""
     ranks = node_ranks(graph)
-    order = emission_order(graph, subsample)
+    order = emission_order(graph, factor)
     position = {node: p for p, node in enumerate(order)}
     end = len(order)
     last = {node: position[node] for node in order}
@@ -714,7 +743,7 @@ def live_peak(graph: Graph, outputs: list, per_thread: int, subsample: int) -> i
         if isinstance(output, int):
             last[output] = end
     weight = {(1, 1): per_thread, (0, 1): 4, (1, 0): 1, (0, 0): 1}
-    first_pass = min((position[n] for n in order if _scope(ranks[n], subsample) == 2),
+    first_pass = min((position[n] for n in order if _scope(ranks[n], factor) == 2),
                      default=0)
     delta = [0] * (end + 1)
     for node in order:
@@ -731,33 +760,38 @@ def live_peak(graph: Graph, outputs: list, per_thread: int, subsample: int) -> i
     for p in range(end):
         running += delta[p]
         peak = max(peak, running)
-    pooled = 3 * max(per_thread // column_split(subsample), 1) if subsample > 1 else 0
+    pooled = 3 * max(per_thread // column_split(factor, weights), 1) if factor > 1 else 0
     return peak + pooled
 
 
-def tile_shape(graph: Graph, outputs: list, subsample: int) -> tuple[int, int, int]:
+def tile_shape(graph: Graph, outputs: list, factor: int,
+               weights=None) -> tuple[int, int, int]:
     """(BH output rows, BW output columns, num_warps) of one K1 program: a
-    pure function of the graph's live values (live_peak) and s, by the tile
-    rule above: BH = E. BW * s = K1_COLUMNS render columns (64 output
-    columns for an s that is not a power of two)."""
-    split = column_split(subsample)
-    width = K1_COLUMNS // split if split == subsample else K1_COLUMNS // 2
+    pure function of the graph's live values (live_peak), r and the pool's
+    weights, by the tile rule above: BH = E, with E r <= K1_RENDER_ROWS.
+    BW * r = K1_COLUMNS render columns (64 output columns where the column
+    passes are strided)."""
+    split = column_split(factor, weights)
+    width = K1_COLUMNS // split if split == factor else K1_COLUMNS // 2
     rows = 8
-    while rows > 1 and live_peak(graph, outputs, rows, subsample) > K1_REGISTERS:
+    while rows > 1 and (rows * factor > K1_RENDER_ROWS or
+                        live_peak(graph, outputs, rows, factor, weights) > K1_REGISTERS):
         rows //= 2
     return rows, width, K1_WARPS
 
 
-def generate(graph: Graph, outputs: list, subsample: int,
+def generate(graph: Graph, outputs: list, factor: int,
              colsampled_bf16: frozenset = frozenset(),
-             quantize: bool = True) -> tuple[str, list]:
+             quantize: bool = True, weights=None) -> tuple[str, list]:
     """Emit the Triton source for this graph -> (source, input keys in
-    kernel-argument order). ColSampled inputs also take, per name, their
-    (Wr,) positions and their width W_in (arguments pos<j>, win<j>);
-    `colsampled_bf16` names those whose planes are bfloat16 (their hat
-    weights round to bf16). Table inputs are keys ("table", name, 0): a
-    (bins, C) float32 pointer, bins and C baked into the source.
-    quantize=False (subsample 1) stores three bf16 planes (3, Ho, Wo).
+    kernel-argument order). The kernel pools each output pixel's r x r
+    render block (r = `factor`): a box where `weights` is None, else with
+    the r per-axis weights (pool_form). ColSampled inputs also take, per
+    name, their (Wr,) positions and their width W_in (arguments pos<j>,
+    win<j>); `colsampled_bf16` names those whose planes are bfloat16
+    (their hat weights round to bf16). Table inputs are keys ("table",
+    name, 0): a (bins, C) float32 pointer, bins and C baked into the
+    source. quantize=False (r = 1) stores three bf16 planes (3, Ho, Wo).
 
     Values live in float32 registers: v<i> is node i's value (a bfloat16
     node's rounded to bfloat16), u<i> the unrounded value of a node that
@@ -765,10 +799,12 @@ def generate(graph: Graph, outputs: list, subsample: int,
     emitted at its rank (node_ranks) in the outermost scope that holds its
     operands: 0-d values once per program, column values once per column
     block, row and plane values once per row block of render rows."""
-    s = int(subsample)
-    if not quantize and s != 1:
-        raise ValueError(f"K1's quantize=False form runs at s = 1, got s={s}")
-    split = column_split(s)
+    r = int(factor)
+    if not quantize and r != 1:
+        raise ValueError(f"K1's quantize=False form runs at r = 1, got r={r}")
+    if weights is not None and len(weights) != r:
+        raise ValueError(f"K1 pools {r} x {r} blocks: {len(weights)} weights given")
+    split = column_split(r, weights)
     keys = sorted(k for k in graph.inputs
                   if k[0] in ("plane", "colsampled", "row", "col", "scalar"))
     keys += [("table", name, 0) for name in sorted(graph.tables)]
@@ -809,10 +845,10 @@ def generate(graph: Graph, outputs: list, subsample: int,
 
     def plane_load(key) -> str:
         name = arg_names[key]
-        base = name + (" + dy * Wr" if s > 1 else "") + (" + dx" if split != s else "")
-        shape, step = ("Wr", "1") if split == s else ("Wo", str(s))
+        base = name + (" + dy * Wr" if r > 1 else "") + (" + dx" if split != r else "")
+        shape, step = ("Wr", "1") if split == r else ("Wo", str(r))
         return (f"tl.load(tl.make_block_ptr({base}, shape=(Ho, {shape}), "
-                f"strides=({s} * Wr, {step}), offsets=(pid_r * BH, pid_c * {width}), "
+                f"strides=({r} * Wr, {step}), offsets=(pid_r * BH, pid_c * {width}), "
                 f"block_shape=(BH, {width}), order=(1, 0)), boundary_check=(0, 1), "
                 f"padding_option=\"zero\").to(tl.float32)")
 
@@ -830,9 +866,9 @@ def generate(graph: Graph, outputs: list, subsample: int,
         scopes[1] += [f"cx{j}a = cf{j}.to(tl.int32)",
                       f"cx{j}b = tl.minimum(cx{j}a + 1, win{j} - 1)"]
 
-    for index in emission_order(graph, s):
+    for index in emission_order(graph, r):
         op, args, kind = graph.nodes[index]
-        lines = scopes[_scope(ranks[index], s)]
+        lines = scopes[_scope(ranks[index], r)]
         target = f"v{index}"
         compute = graph.compute_kind(index)
         if op == "input":
@@ -874,9 +910,9 @@ def generate(graph: Graph, outputs: list, subsample: int,
             # the kernel takes a there (a subnormal keeps its value and
             # sign, as in torch's fmod)
             a, b = operand(args[0], compute), operand(args[1], compute)
-            r = f"tl.where(tl.abs({a}) < tl.abs({b}), {a}, libdevice.fmod({a}, {b}))"
-            plus = f"{r} + {b}" if compute != "h" else _ROUND.format(f"({r} + {b})")
-            expr = f"tl.where(({r} != 0.0) & (({r} < 0.0) != ({b} < 0.0)), {plus}, {r})"
+            rem = f"tl.where(tl.abs({a}) < tl.abs({b}), {a}, libdevice.fmod({a}, {b}))"
+            plus = f"{rem} + {b}" if compute != "h" else _ROUND.format(f"({rem} + {b})")
+            expr = f"tl.where(({rem} != 0.0) & (({rem} < 0.0) != ({b} < 0.0)), {plus}, {rem})"
         elif op == "where":
             expr = (f"tl.where({operand(args[0], 'b')}, {operand(args[1], kind)}, "
                     f"{operand(args[2], kind)})")
@@ -896,8 +932,10 @@ def generate(graph: Graph, outputs: list, subsample: int,
         value = operand(output, "f")
         if not isinstance(output, int) or ranks[output] != _TILE:
             value = f"tl.broadcast_to({value}, (BH, {width}))"
-        if s == 1:   # the value itself: 0.0 + x would turn a -0.0 into +0.0
+        if r == 1:   # the value itself: 0.0 + x would turn a -0.0 into +0.0
             scopes[2].append(f"acc{c} = {value}")
+        elif weights is not None:   # the row pass's weight, then the column's
+            scopes[2].append(f"acc{c} += {value} * wy * wx")
         elif split > 1:
             scopes[2].append(f"acc{c} += tl.sum(tl.reshape({value}, [BH, BW, {split}]), axis=2)")
         else:
@@ -911,32 +949,43 @@ def generate(graph: Graph, outputs: list, subsample: int,
     params += ["Ho", "Wo", "Wr", "PACK: tl.constexpr", "BH: tl.constexpr",
                "BW: tl.constexpr"]
 
+    def weight(name: str, index: str) -> list:
+        """`name` = weights[index] for the loop's constexpr `index`: a
+        static if chain, which the compiler resolves when it unrolls."""
+        lines = []
+        for j, value in enumerate(weights):
+            test = "else:" if j == r - 1 else f"{'if' if j == 0 else 'elif'} {index} == {j}:"
+            lines += [test, f"    {name} = {const(value)}"]
+        return lines
+
+    column_weight, row_weight = (weight("wx", "dx"), weight("wy", "dy")) if weights else ([], [])
     body = ["pid_r = tl.program_id(0)", "pid_c = tl.program_id(1)",
             "oi = pid_r * BH + tl.arange(0, BH)[:, None]      # output rows [BH, 1]",
             "row_ok = oi < Ho"] + scopes[0]
-    if s > 1:
+    if r > 1:
         body += [f"acc{c} = tl.zeros([BH, BW], tl.float32)" for c in range(3)]
     depth = 0
-    if split != s:
-        body.append(f"for dx in tl.static_range({s}):")
+    if split != r:
+        body.append(f"for dx in tl.static_range({r}):")
         depth = 1
-        column = f"(pid_c * BW + tl.arange(0, BW)[None, :]) * {s} + dx"
+        column = f"(pid_c * BW + tl.arange(0, BW)[None, :]) * {r} + dx"
     else:
         column = f"pid_c * {width} + tl.arange(0, {width})[None, :]"
     body += ["    " * depth + line for line in
-             [f"ci = {column}      # render columns [1, BWC]", "col_ok = ci < Wr"] + scopes[1]]
-    if s > 1:
-        body.append("    " * depth + f"for dy in tl.static_range({s}):")
+             [f"ci = {column}      # render columns [1, BWC]", "col_ok = ci < Wr"]
+             + column_weight + scopes[1]]
+    if r > 1:
+        body.append("    " * depth + f"for dy in tl.static_range({r}):")
         depth += 1
-        rows = [f"ri = oi * {s} + dy      # render rows [BH, 1]"]
+        rows = [f"ri = oi * {r} + dy      # render rows [BH, 1]"] + row_weight
     else:
         rows = ["ri = oi"]
     body += ["    " * depth + line for line in rows + scopes[2]]
-    if s > 1:
-        # the box average: a product with the exact reciprocal where s^2 is
+    if r > 1 and weights is None:
+        # the box average: a product with the exact reciprocal where r^2 is
         # a power of two (the same bits as the division), else div_rn
-        area = s * s
-        body += [f"acc{c} = acc{c} * {_literal(1.0 / area)}" if split == s else
+        area = r * r
+        body += [f"acc{c} = acc{c} * {_literal(1.0 / area)}" if split == r else
                  f"acc{c} = tl.math.div_rn(acc{c}, {_literal(area)})" for c in range(3)]
     body += (_STORE_U8 if quantize else _STORE_BF16).splitlines()
     source = f'''"""Generated by shaderflow_tpu_torch/ops/tailgen.py — kernel K1 for one tail."""
@@ -1045,20 +1094,23 @@ _SOURCES: set = set()  # generated sources bound in this process
 
 
 def kernel_cost(op_counts: dict, inputs: list, out_shape: tuple, out_dtype: torch.dtype,
-                subsample: int, quantize: bool) -> flopcount.Cost:
+                factor: int, quantize: bool, weights=None) -> flopcount.Cost:
     """What one K1 launch must do: `op_counts` (Graph.op_counts) each
     times its rank's extent (render pixels, columns, rows, or once), plus
-    with quantize, per output channel, the s x s pooling sum (s^2 - 1
-    adds), the average (s > 1) and the quantize's max, min, scale, offset
-    and floor; bytes of each tensor in `inputs` read once and the output
-    written once."""
+    with quantize, per output channel, the r x r pool's sum (r^2 - 1 adds)
+    and the box's average (r > 1) or, with `weights`, the two weight
+    products of each of the r^2 values, and the quantize's max, min,
+    scale, offset and floor; bytes of each tensor in `inputs` read once and
+    the output written once."""
     out_h, out_w = out_shape[:2] if quantize else out_shape[1:]
-    render_h, render_w = out_h * subsample, out_w * subsample
+    render_h, render_w = out_h * factor, out_w * factor
     extent = {(1, 1): render_h * render_w, (0, 1): render_w, (1, 0): render_h, (0, 0): 1}
     alu = sum(extent[rank] * count[0] for rank, count in op_counts.items())
     sfu = sum(extent[rank] * count[1] for rank, count in op_counts.items())
     if quantize:
-        alu += out_h * out_w * 3 * (subsample * subsample - 1 + (subsample > 1) + 5)
+        area = factor * factor
+        scale = (factor > 1) if weights is None else 2 * area
+        alu += out_h * out_w * 3 * (area - 1 + scale + 5)
     moved = math.prod(out_shape) * torch.empty((), dtype=out_dtype).element_size()
     moved += sum(t.numel() * t.element_size() for t in inputs if isinstance(t, torch.Tensor))
     return flopcount.Cost(alu=alu, sfu=sfu, kernel_bytes=moved)
@@ -1075,32 +1127,37 @@ def _check_input(tensor: torch.Tensor, kind: str, name: str, shape: tuple,
             f"contiguous={tensor.is_contiguous()}")
 
 
-def _generated(spec: TailSpec, render_height: int, render_width: int, subsample: int,
-               aspect: float, quantize: bool) -> tuple:
-    """Trace and generate K1 for this spec -> (source, keys, op_counts, tile)."""
+def _generated(spec: TailSpec, render_height: int, render_width: int, factor: int,
+               aspect: float, quantize: bool, weights=None) -> tuple:
+    """Trace and generate K1 for this spec and pool (r = `factor`,
+    `weights` as pool_form gives them) -> (source, keys, op_counts,
+    tile)."""
     graph, outputs = trace(spec, render_height, render_width, aspect)
     bf16 = frozenset(name for name, cs in spec.colsampled.items()
                      if cs.planes[0].dtype == torch.bfloat16)
-    source, keys = generate(graph, outputs, subsample, bf16, quantize)
-    return source, keys, graph.op_counts(outputs), tile_shape(graph, outputs, subsample)
+    source, keys = generate(graph, outputs, factor, bf16, quantize, weights)
+    return (source, keys, graph.op_counts(outputs),
+            tile_shape(graph, outputs, factor, weights))
 
 
-def compiled(spec: TailSpec, render_height: int, render_width: int, subsample: int,
-             aspect: float, quantize: bool, device: torch.device) -> Compiled:
-    """The traced, generated and compiled K1 for this spec, kept per
-    _tail_key. The key holds the color dtype: a float32 trace must not
-    serve a tail traced after SHADERFLOW_TAIL_BF16 flipped.
-    `compiled.calls` counts calls and `compiled.builds` cache misses (each a
-    Triton compile at its first launch)."""
+def compiled(spec: TailSpec, render_height: int, render_width: int, factor: int,
+             aspect: float, quantize: bool, device: torch.device,
+             weights=None) -> Compiled:
+    """The traced, generated and compiled K1 for this spec and pool (r =
+    `factor`, `weights` as pool_form gives them), kept per _tail_key. The
+    key holds the color dtype: a float32 trace must not serve a tail traced
+    after SHADERFLOW_TAIL_BF16 flipped. `compiled.calls` counts calls and
+    `compiled.builds` cache misses (each a Triton compile at its first
+    launch)."""
     from shaderflow_tpu_torch.build import triton_module, triton_name
     compiled.calls += 1
-    key = _tail_key(spec, render_height, render_width, subsample, float(aspect),
+    key = _tail_key(spec, render_height, render_width, factor, weights, float(aspect),
                     bool(quantize), str(device), str(tail_dtype()))
     if key is not None and key in _PREPARED:
         return _PREPARED[key]
     compiled.builds += 1
-    source, keys, op_counts, tile = _generated(spec, render_height, render_width, subsample,
-                                               aspect, quantize)
+    source, keys, op_counts, tile = _generated(spec, render_height, render_width, factor,
+                                               aspect, quantize, weights)
     name = f"{triton_name(source, stem='tail')}.py"
     entry = Compiled(keys, triton_module(source, stem="tail").tail_kernel, op_counts, tile,
                      name, name not in _SOURCES)
@@ -1173,7 +1230,7 @@ def _out_form(out_height: int, out_width: int, quantize: bool) -> tuple:
 
 
 def _launch_cost(op_counts: dict, tile: tuple, pointers: list, out_height: int,
-                 out_width: int, subsample: int, quantize: bool) -> tuple:
+                 out_width: int, factor: int, quantize: bool, weights=None) -> tuple:
     """(grid, blocks, block_cost) of one K1 launch: its grid over the
     output, and one program's share of kernel_cost for the cost walker."""
     rows, width, _ = tile
@@ -1182,10 +1239,17 @@ def _launch_cost(op_counts: dict, tile: tuple, pointers: list, out_height: int,
     out_shape, out_dtype = _out_form(out_height, out_width, quantize)
 
     def block_cost() -> flopcount.Cost:
-        return kernel_cost(op_counts, pointers, out_shape, out_dtype, subsample,
-                           quantize).scaled(1.0 / blocks)
+        return kernel_cost(op_counts, pointers, out_shape, out_dtype, factor,
+                           quantize, weights).scaled(1.0 / blocks)
 
     return grid, blocks, block_cost
+
+
+def _pool(render_height: int, out_height: int, subsample: int) -> tuple:
+    """(r, weights) of K1's pool: r = render / out (the caller holds the
+    sizes to an integer r >= s on both axes), weights as pool_form."""
+    factor = render_height // out_height
+    return factor, pool_form(factor, subsample)
 
 
 def declared_plain(spec: TailSpec, render_height: int, render_width: int,
@@ -1197,11 +1261,12 @@ def declared_plain(spec: TailSpec, render_height: int, render_width: int,
     device. Traces only while a walker is active."""
     if not flopcount.walking():
         return contextlib.nullcontext()
-    _, keys, op_counts, tile = _generated(spec, render_height, render_width, subsample,
-                                          aspect, quantize)
+    factor, weights = _pool(render_height, out_height, subsample)
+    _, keys, op_counts, tile = _generated(spec, render_height, render_width, factor,
+                                          aspect, quantize, weights)
     pointers = _operands(spec, keys, render_height, render_width, spec_device(spec))
     _, blocks, block_cost = _launch_cost(op_counts, tile, pointers, out_height, out_width,
-                                         subsample, quantize)
+                                         factor, quantize, weights)
     return flopcount.kernel("K1", blocks, block_cost)
 
 
@@ -1211,7 +1276,10 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     """Trace, generate (compiled once per distinct source) and bind K1 for
     this spec -> launch(out): a closure that enqueues the kernel on the
     current stream, writing the (out_h, out_w, 3) u8 tensor `out` (with
-    quantize=False: the (3, out_h, out_w) bf16 planes). Inputs must be
+    quantize=False: the (3, out_h, out_w) bf16 planes). Render = out x r
+    for an integer r >= subsample s (fused_tail_final checks it): the
+    kernel pools r x r blocks with the weights of final.glsl's s taps
+    (pool_form). Inputs must be
     contiguous on `device`, planes float32 or bfloat16, everything else
     float32 (tables are cast to float32 here); raises on anything the
     template does not take. launch.compiled is the compiled kernel of the
@@ -1221,11 +1289,13 @@ def prepare(spec: TailSpec, render_height: int, render_width: int,
     build.build_events."""
     if device.index is None:   # "cuda" means the current card
         device = torch.device(device.type, torch.cuda.current_device())
-    entry = compiled(spec, render_height, render_width, subsample, aspect, quantize, device)
+    factor, weights = _pool(render_height, out_height, subsample)
+    entry = compiled(spec, render_height, render_width, factor, aspect, quantize, device,
+                     weights)
     pointers = _operands(spec, entry.keys, render_height, render_width, device)
     rows, width, warps = entry.tile
     grid, blocks, block_cost = _launch_cost(entry.op_counts, entry.tile, pointers,
-                                            out_height, out_width, subsample, quantize)
+                                            out_height, out_width, factor, quantize, weights)
     out_shape, out_dtype = _out_form(out_height, out_width, quantize)
     first = entry.first_launch
 

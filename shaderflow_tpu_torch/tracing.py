@@ -59,6 +59,8 @@ Counters of an export (records.counters[export id]): `frames` and
 `batches` flushed, and the change over the export of the program's own
 counters: `k1.prepares` (tailgen.compiled calls), `k1.misses`
 (compiled.builds), `k1.launches` (fused_tail_final, u8 and planes forms),
+`k1.ratio_launches` (those of the u8 form whose pool factor r, render
+over output, differs from the subsample s: ssaa 3 or 4 with s = 2),
 `k2.launches` (expand_tables), `k3.launches` (escape_iterations and
 escape_iterations_sep), `builds` (new build.build_events), and the
 fragment's CUDA graph (fraggraph.FragmentGraph): `fragment.calls`
@@ -178,6 +180,7 @@ def _program_counters() -> dict[str, int]:
     tail = tailfuse.fused_tail_final
     return {"k1.prepares": tailgen.compiled.calls, "k1.misses": tailgen.compiled.builds,
             "k1.launches": tail.launches + tail.planes_launches,
+            "k1.ratio_launches": tail.ratio_launches,
             "k2.launches": sampling.expand_tables.launches,
             "k3.launches": fractal.escape_iterations.launches
             + fractal.escape_iterations_sep.launches,

@@ -7,6 +7,7 @@ quantize=False form and the equal-resolution regime against the JAX
 package's fused path (SHADERFLOW_TAILFUSE_INTERPRET=1); the tracer against
 the direct call; and the ops K1 refuses."""
 
+import hashlib
 import sys
 from pathlib import Path
 
@@ -570,3 +571,108 @@ def test_trace_cache_key():
     assert same != key(fractals.mandelbrot_tail(500, True), size=(h, w + 2))
     opaque = object()
     assert key(lambda tp: (tp.plane("iters"), opaque, 0.0)) is None
+
+
+# --------------------------------------------------------------------------- #
+# K1 at every integer ratio r = render / out >= s (the subsample)
+
+# sha256 of the graded tails' K1 sources at r = s (1 to 4) and in the
+# quantize=False form, at 24x64: the sources the exact-pooling regime ran
+# before the pool factor was a parameter, byte for byte
+RATIO_EQUAL_SOURCES = "1f4c848526f6b987b29f4df0d7842dc463e88dc59b805348545a2809ed9fc33e"
+RATIO_CASES = [("weights", (2, 1)), ("weights", (3, 2)), ("weights", (4, 2)),
+               ("weights", (6, 2)), ("weights", (4, 4)), ("weights", (5, 4)),
+               ("dispatch", "4-2"), ("dispatch", "3-2"), ("dispatch", "1.5"),
+               ("dispatch", "0.5"), ("dispatch", "equal"), ("dispatch", "no_tailfuse"),
+               ("source", "r=s"), ("source", "4-2"), ("source", "3-2")]
+# dispatch cases: (render h, render w, out h, out w, subsample), whether K1's
+# u8 form takes the frame
+RATIO_DISPATCH = {"4-2": ((24, 40, 6, 10, 2), True), "3-2": ((18, 30, 6, 10, 2), True),
+                  "1.5": ((9, 15, 6, 10, 2), False), "0.5": ((3, 5, 6, 10, 2), False),
+                  "equal": ((6, 10, 6, 10, 2), False), "no_tailfuse": ((24, 40, 6, 10, 2), False)}
+
+
+@pytest.mark.parametrize("kind,case", RATIO_CASES,
+                         ids=[f"{kind}-{case if isinstance(case, str) else '-'.join(map(str, case))}"
+                              for kind, case in RATIO_CASES])
+def test_integer_ratio_regime(monkeypatch, kind, case):
+    """K1 takes render == out * r for an integer r >= s. weights: the
+    pool's per-axis weights (downsample.pool_weights) equal what the
+    general final pass's plan puts in each output pixel's band, at 5x7
+    output pixels, to the plan's float32 rounding. dispatch: run_tail_final sends r = 4 and 3 at s = 2 to
+    K1's u8 form (on the CPU its plain version: the general final pass at
+    s, the same frames as before), and not ssaa 1.5, ssaa 0.5, r = 1 < s
+    (the planes form and the stencil) or anything under
+    SHADERFLOW_NO_TAILFUSE. source: at r = s (and r = 2s) the pool is the
+    box, whose source is pinned byte for byte; r = 4, s = 2 is the box at
+    4; r = 3, s = 2 carries its weights as constants and no average."""
+    from shaderflow_tpu_torch.ops import downsample
+    if kind == "weights":
+        r, s = case
+        plan = downsample._general_plan(5 * r, 7 * r, 5, 7, s, torch.device("cpu"))
+        assert plan.row_offsets is None and plan.col_offsets is None   # dense at this size
+        weights = torch.tensor(downsample.pool_weights(r, s), dtype=torch.float32)
+        for dense, out in ((plan.row_weights, 5), (plan.col_weights, 7)):
+            want = torch.zeros(out, out * r)
+            for i in range(out):
+                want[i, i * r:(i + 1) * r] = weights
+            # the plan's tap positions are float32 ((i + 0.5) / n moved by
+            # the tap's offset, times the render size): a few ulps off the
+            # rationals pool_weights works in
+            torch.testing.assert_close(dense, want, rtol=0.0, atol=2e-6)
+        assert (tailgen.pool_form(r, s) is None) == (r in (s, 2 * s))
+        return
+    if kind == "dispatch":
+        (rh, rw, oh, ow, s), fused = RATIO_DISPATCH[case]
+        if case == "no_tailfuse":
+            monkeypatch.setenv("SHADERFLOW_NO_TAILFUSE", "1")
+        plane = torch.from_numpy(np.random.default_rng(3).random((rh, rw), np.float32))
+        spec = tailfuse.make_spec(
+            lambda tp: (tp.plane("a"), tp.plane("a") * tp.astuv_x, 1.0 - tp.plane("a")),
+            rh, rw, a=plane)
+        calls = []
+        fused_tail_final = tailfuse.fused_tail_final
+
+        def spy(*args, **kwargs):
+            calls.append(kwargs.get("quantize", True))
+            return fused_tail_final(*args, **kwargs)
+
+        monkeypatch.setattr(tailfuse, "fused_tail_final", spy)
+        out = torch.empty((oh, ow, 3), dtype=torch.uint8)
+        tailfuse.run_tail_final(spec, rh, rw, oh, ow, s, ow / oh, out=out)
+        assert (True in calls) == fused
+        assert tailfuse.supports_fusion(rh, rw, oh, ow, s) == (fused or case == "no_tailfuse")
+        assert calls == ([False] if case == "equal" else [True] if fused else [])
+        if case != "equal":
+            assert torch.equal(out, tailfuse.tail_plain(spec, rh, rw, oh, ow, s, ow / oh))
+        return
+    digest = hashlib.sha256()
+    for which, make in _GRADED.items():
+        spec = make(24, 64)
+        graph, outputs = tailgen.trace(spec, 24, 64, 1.5)
+        for s in (1, 2, 3, 4):
+            assert tailgen.pool_form(s, s) is None and tailgen.pool_form(2 * s, s) is None
+            digest.update(tailgen.generate(graph, outputs, s, frozenset(spec.colsampled))[0]
+                          .encode())
+        digest.update(tailgen.generate(graph, outputs, 1, frozenset(spec.colsampled),
+                                       quantize=False)[0].encode())
+    if case == "r=s":
+        assert digest.hexdigest() == RATIO_EQUAL_SOURCES
+        return
+    r, s = map(int, case.split("-"))
+    spec = _mandelbrot_spec(24 * r, 64 * r)
+    source, _, _, tile = tailgen._generated(spec, 24 * r, 64 * r, r, 1.5, True,
+                                            tailgen.pool_form(r, s))
+    graph, outputs = tailgen.trace(spec, 24 * r, 64 * r, 1.5)
+    compile(source, f"<K1 r={r} s={s}>", "exec")
+    if r == 4:
+        assert source == tailgen.generate(graph, outputs, 4)[0]
+        assert tile == tailgen.tile_shape(graph, outputs, 4) and tile[1] * 4 == tailgen.K1_COLUMNS
+        assert tile[0] * 4 == tailgen.K1_RENDER_ROWS   # E = 4: the fractal's 8 halved
+        assert "tl.sum(tl.reshape(" in source and "acc0 = acc0 * 0.0625" in source
+        return
+    assert tailgen.pool_form(3, 2) == (0.375, 0.25, 0.375)
+    assert "tl.full([], 0.375, tl.float32)" in source and "tl.full([], 0.25, tl.float32)" in source
+    assert source.count(" * wy * wx") == 3 and "if dy == 0:" in source and "if dx == 0:" in source
+    assert "acc0 = acc0" not in source and "div_rn(acc" not in source
+    assert "for dx in tl.static_range(3)" in source and tile[1] == tailgen.K1_COLUMNS // 2

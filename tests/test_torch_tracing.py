@@ -130,6 +130,7 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
     from shaderflow_tpu_torch.piano.module import ShaderPiano
     counted = [(tailgen.compiled, "calls", 3), (tailgen.compiled, "builds", 1),
                (tailfuse.fused_tail_final, "launches", 1),
+               (tailfuse.fused_tail_final, "ratio_launches", 8),
                (tailfuse.fused_tail_final, "planes_launches", 2),
                (sampling.expand_tables, "launches", 1),
                (fractal.escape_iterations, "launches", 1),
@@ -154,6 +155,7 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
         return {"k1.prepares": tailgen.compiled.calls, "k1.misses": tailgen.compiled.builds,
                 "k1.launches": tailfuse.fused_tail_final.launches
                 + tailfuse.fused_tail_final.planes_launches,
+                "k1.ratio_launches": tailfuse.fused_tail_final.ratio_launches,
                 "k2.launches": sampling.expand_tables.launches,
                 "k3.launches": fractal.escape_iterations.launches
                 + fractal.escape_iterations_sep.launches,
@@ -172,6 +174,7 @@ def test_counters_are_the_program_counters_deltas(monkeypatch):
     assert records.counters == {0: {"frames": 11, "batches": 3,
                                     **{key: after[key] - before[key] for key in after}}}
     assert records.counters[0]["k1.launches"] == 3 * 11
+    assert records.counters[0]["k1.ratio_launches"] == 8 * 11
     assert records.counters[0]["fragment.calls"] == 11   # render_layer's own count
 
 
