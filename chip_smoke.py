@@ -426,7 +426,8 @@ def frame_inputs(scene, index: int):
     engine = scene.engine
     packed, spec = engine.stack_captures()
     row = torch.from_numpy(packed[index]).to(scene.device)
-    return engine.frame_context(row, spec, index, engine.frame_indices()[index], {}, {})
+    return engine.frame_context(row, spec, index, engine.frame_indices()[index], {}, {},
+                                engine.state)
 
 
 def mandelbrot_k3_args(scene, index: int):
@@ -470,7 +471,8 @@ def visualizer_spec(scene, index: int):
     engine = scene.engine
     packed, spec = engine.stack_captures()
     frames = engine.frame_indices()
-    ctx = PreludeCtx(torch.tensor(frames, device=scene.device), engine.bound_sequences(),
+    ctx = PreludeCtx(torch.tensor(frames, device=scene.device),
+                     engine.bound_sequences(engine.state),
                      engine._render_size, scene.aspect_ratio)
     tables, circle, left = torch_demo.bar_field_inputs(ctx)
     batch, bins, channels = tables.shape
@@ -480,7 +482,7 @@ def visualizer_spec(scene, index: int):
     bar = bar.reshape(batch, *circle.shape)
     row = torch.from_numpy(packed[index]).to(scene.device)
     frag = engine.frame_context(row, spec, index, frames[index], {"iBarField": bar},
-                                engine.invariant_preludes())
+                                engine.invariant_preludes(engine.state), engine.state)
     return torch_demo.visualizer_frag(frag)
 
 
@@ -650,11 +652,12 @@ def last_frame(scene, height: int, width: int):
     indices = engine.frame_indices()
     last = len(indices) - 1
     row = torch.from_numpy(packed[last]).to("cuda")
-    per_batch, invariant = engine._run_preludes(indices)
+    per_batch, invariant = engine._run_preludes(indices, engine.state)
     out = torch.empty((height, width, 3), dtype=torch.uint8, device="cuda")
 
     def render():
-        engine.render_frame(row, spec, last, indices[last], per_batch, invariant, out)
+        engine.render_frame(row, spec, last, indices[last], per_batch, invariant, out,
+                            engine.state)
     return render
 
 
@@ -1038,7 +1041,7 @@ def realtime_visualizer_spec(scene, plain: bool = True):
     packed, spec = engine.stack_captures()
     indices = engine.frame_indices()
     row = torch.from_numpy(packed[-1]).to(scene.device)
-    frag = engine.frame_context(row, spec, len(indices) - 1, indices[-1], {}, {})
+    frag = engine.frame_context(row, spec, len(indices) - 1, indices[-1], {}, {}, engine.state)
     original = sampling.expand_tables
     if plain:
         sampling.expand_tables = lambda flat16, index, out_dtype=torch.float32: (
@@ -1094,7 +1097,7 @@ def realtime_paths(counters, card: str) -> dict:
     arrays = [packed, *streams.values()]
     started = time.perf_counter()
     for _ in range(50):
-        scene.engine.upload(packed, streams)
+        scene.engine.upload(packed, streams, scene.engine.state)
     staging_ms = (time.perf_counter() - started) / 50 * 1e3
     torch.cuda.synchronize()
     started = time.perf_counter()
@@ -1393,16 +1396,16 @@ def any_ssaa_paths(counters, card: str) -> dict:
     engine = scene.engine
     packed, spec = engine.stack_captures()
     indices = engine.frame_indices()
-    per_batch, invariant = engine._run_preludes(indices)
+    per_batch, invariant = engine._run_preludes(indices, engine.state)
     engine.render_frame(torch.from_numpy(packed[-1]).to("cuda"), spec, len(indices) - 1,
-                        indices[-1], per_batch, invariant, out)
+                        indices[-1], per_batch, invariant, out, engine.state)
     want = cpu_frame(torch_demo.Visualizer, check, options)
     err, share = u8_diff(out.cpu().numpy(), want)
     if err > 1 or share >= 0.02:
         raise AssertionError(f"visualizer ssaa 1.5 frame {check} vs device=cpu: max {err} "
                              f"u8 steps on {share:.4%}")
     # K2 at this path's shapes: the last batch's tables over the render-size field
-    ctx = PreludeCtx(torch.tensor(indices, device="cuda"), engine.bound_sequences(),
+    ctx = PreludeCtx(torch.tensor(indices, device="cuda"), engine.bound_sequences(engine.state),
                      engine._render_size, scene.aspect_ratio)
     tables, circle, left = torch_demo.bar_field_inputs(ctx)
     batch, bins, channels = tables.shape
@@ -1470,7 +1473,7 @@ def any_ssaa_paths(counters, card: str) -> dict:
     packed, spec = engine.stack_captures()
     indices = engine.frame_indices()
     engine.render_frame(torch.from_numpy(packed[index]).to("cuda"), spec, index,
-                        indices[index], {}, {}, out)
+                        indices[index], {}, {}, out, engine.state)
     plain = plain_mandelbrot_frame(scene, index, HEIGHT, WIDTH, int(scene.subsample))
     err, share = u8_diff(out.cpu().numpy(), plain.cpu().numpy())
     if err > 1 or share >= 0.01:
@@ -1591,7 +1594,7 @@ def any_ssaa_paths(counters, card: str) -> dict:
         packed, spec = engine.stack_captures()
         indices = engine.frame_indices()
         engine.render_frame(torch.from_numpy(packed[0]).to("cuda"), spec, 0, indices[0],
-                            {}, {}, out)
+                            {}, {}, out, engine.state)
         want = cpu_frame(cls, indices[0], options)
         err, share = u8_diff(out.cpu().numpy(), want)
         if err > 1 or share >= 0.01:
@@ -1673,7 +1676,7 @@ def video_path(counters, card: str) -> dict:
             upload_bytes = sum(array.nbytes for array in streams.values()) / len(packed)
             started = time.perf_counter()
             for _ in range(5):
-                scene.engine.upload(packed, streams)
+                scene.engine.upload(packed, streams, scene.engine.state)
             torch.cuda.synchronize()
             upload_ms = (time.perf_counter() - started) / 5 * 1e3 / len(packed)
             scene.destroy()
@@ -3282,9 +3285,9 @@ def mesh_export(cls, label: str, pool, devices, counters, options: dict) -> dict
     figures = dict(config=label, sha256=sha, launches=launches, graph=graphed,
                    shards=len(shards) or 1, frames_per_shard=[len(s.frames) for s in shards],
                    windows=[dict(s.windows) for s in shards])
-    if shards and shards[0]._carry:
+    if shards and shards[0].carry:
         engine.join_shards()
-        rings = [shard._carry for shard in shards]
+        rings = [shard.carry for shard in shards]
         figures["rings_split"] = all(
             len({ring[name].data.data_ptr() for ring in rings}) == len(shards)
             and all(torch.equal(ring[name].data.to(rings[0][name].data.device),

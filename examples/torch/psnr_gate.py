@@ -144,9 +144,9 @@ def oracle_textures(scene, uniform) -> dict:
     engine = scene.engine
     k = int(np.asarray(uniform.get("iFrameIndex", 0)))
     textures = {}
-    if "background" in engine._static_tex:
-        textures["background"] = engine._static_tex["background"].cpu().numpy()[0, 0][::-1]
-    sequences = engine.bound_sequences()
+    if "background" in engine.state.static_tex:
+        textures["background"] = engine.state.static_tex["background"].cpu().numpy()[0, 0][::-1]
+    sequences = engine.bound_sequences(engine.state)
     if "iSpectrogram" in sequences:
         seq = sequences["iSpectrogram"]
         textures["spectrogram"] = seq[min(k, len(seq) - 1)].cpu().numpy()[:, 0, :][::-1]

@@ -39,24 +39,25 @@ last) and each program's layers in order, iLayer a static. A program
 keeps one (T, L, H, W, C) float32 matrix; a layer's output goes into
 temporal slot 0, where later layers and later programs read it through
 sf.tex(name, temporal, layer). A program with temporal == 1 starts every
-frame from zeros; one with temporal > 1 is carried across frames and
-flushes (seeded from its host matrix at each build, so an initial
-texture.write(..., temporal=k) seeds the ring) and rolls by one slot after
-it renders: the roll moves the ring's origin, not its data (Ring). Only
-the last program, when it has temporal == 1 and one layer, fuses a TailSpec
-with the final pass; any other TailSpec is evaluated by the plain tail
-into the matrix, padded to the program's components. The final pass reads
-the main program's slot 1 when it is temporal (the newest box after its
-roll), else slot 0 (final_slot; SHADERFLOW_REF_SLOT0=1 reads slot 0).
+frame from zeros (program_matrix); one with temporal > 1 is carried across
+frames and flushes (seeded from its host matrix at each build, so an
+initial texture.write(..., temporal=k) seeds the ring) and rolls by one
+slot after it renders: the roll moves the ring's origin, not its data
+(Ring). Only the main program, when it has temporal == 1 and one layer
+(fuses), fuses a TailSpec with the final pass; any other TailSpec is
+evaluated by the plain tail into the matrix, padded to the program's
+components (store_layer). The final pass (end_frame) reads the main
+program's slot 1 when it is temporal (the newest box after its roll), else
+slot 0 (final_slot; SHADERFLOW_REF_SLOT0=1 reads slot 0).
 
 The frame loop enqueues most programs' fragments eagerly, every frame.
 A build whose fragment is recordable (fraggraph.py: on the card, no mesh,
-no temporal ring, one program with one instance, one layer and temporal
-1) records it as one CUDA graph: its first frame runs eagerly, its second
-is captured and replayed, and every later frame copies its per-frame
-inputs (the uniform row, sequence boxes, stream snapshots, per-batch
-prelude values read as tensors) into the graph's fixed slots and replays
-it; the tail and the final pass stay eager. The engine records anew
+no temporal ring, one program with one instance whose tail fuses) records
+it as one CUDA graph: its first frame runs eagerly, its second is
+captured and replayed, and every later frame copies its per-frame inputs
+(the uniform row, sequence boxes, stream snapshots, per-batch prelude
+values read as tensors) into the graph's fixed slots and replays it; the
+tail and the final pass stay eager. The engine records anew
 (drop_recording) where what the graph reads in place changes: a static
 texture uploaded again, a sequence bound again, a texture that starts
 streaming, new batch-invariant preludes, a rebuild; and a run's end
@@ -65,14 +66,14 @@ streaming, new batch-invariant preludes, a rebuild; and a run's end
 Under SKIP_TPU=1 (switches.skip_device) a flush returns black frames on
 the host and does no device work: the host loop alone, timed.
 
-With a mesh (engine.mesh, parallel/mesh.py: Scene.main(devices=N)) a
-flush is split over N shards, each a device (a card, or a repeated one:
-shards of one card, each on a stream of its own) holding its own copies of
-the static textures, sequences, mip pyramids and batch-invariant preludes
-(a Shard; copies made when the engine's tensor changes). Without a
-temporal program the batch's frames split over the shards (each runs the
-batch preludes on its frames and renders them); with one, every shard
-steps every frame on a window of each program's rows, and the windows are
+Each device renders from a DeviceState. The engine's own (engine.state,
+on the current stream) is where textures are bound; a flush is the frame
+path over it (render_parts). With a mesh (engine.mesh, parallel/mesh.py:
+Scene.main(devices=N)) a flush is split over N shards, each a device (a
+card, or a repeated one, on a stream of its own) whose state follows the
+engine's. Without a temporal program the shards take the frame path, each
+on its part of the batch; with one, every shard steps every frame on a
+window of each program's rows through the same frame steps, the windows
 gathered into every shard's texture after each layer. The shards' frames
 go down into one host batch (WireBatch), each on its own stream.
 """
@@ -82,7 +83,7 @@ from __future__ import annotations
 import contextlib
 import time
 from collections.abc import Mapping
-from typing import TYPE_CHECKING, Any, Optional
+from typing import TYPE_CHECKING, Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -276,7 +277,7 @@ class Ring:
     temporal ring whose slot t is data[(origin + t) % T]. roll() is
     np.roll(matrix, 1, axis=0) without moving data: slot t then holds what
     slot t - 1 held, and slot 0 the oldest box, which the next render
-    overwrites."""
+    overwrites (a one-slot matrix stays as it is)."""
 
     def __init__(self, data: torch.Tensor, origin: int = 0):
         self.data = data
@@ -301,70 +302,92 @@ class Ring:
         return torch.roll(self.data, -self.origin, dims=0)
 
 
-class Shard:
-    """One shard of a mesh (parallel/mesh.py): its device, its own CUDA
-    stream on a card, and its own copies of what its frames read. Its
-    attributes carry the engine's names, since RenderEngine keeps the same
-    state for its one device: the engine's per-frame methods read either
-    (shard=None is the engine's own)."""
+class DeviceState:
+    """What one device renders from: its device, its CUDA stream (None:
+    the current one), staging buffers, textures, preludes, pyramids, rings
+    and coordinates (the engine's own, or a mesh shard's copies)."""
 
-    def __init__(self, index: int, device: torch.device):
+    def __init__(self, device: torch.device, stream: Optional[torch.cuda.Stream] = None,
+                 index: int = 0):
         self.index = index
         self.device = device
-        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.stream = stream
         self.staging = StagingPool()
-        self._static_tex: dict[str, torch.Tensor] = {}
-        self._sequences: dict[str, tuple] = {}
-        self._stream_tex: dict[str, torch.Tensor] = {}
-        self._prelude_cache: dict[str, torch.Tensor] = {}
-        self._prelude_state = None
-        self._mip_cache: dict = {}
-        self._carry: dict[str, Ring] = {}
-        self._program_coords: list = []
-        self._coords = None
-        self._copies: dict = {}        # key -> (the engine's tensor, its copy here)
-        self.slabs: dict = {}          # (program index, rows) -> Coords of the rows
-        # What it rendered: its frames of the last flush (frame path); its
-        # row window of each program in the last frame and the rows it
-        # rendered, over frames and layers (row path)
+        # Static uploads (name -> (T, L, H, W, C)), bound sequences (name ->
+        # (source, tensor, window)), stream snapshots (name -> (F, T, L, H, W, C))
+        self.static_tex: dict[str, torch.Tensor] = {}
+        self.sequences: dict[str, tuple] = {}
+        self.stream_tex: dict[str, torch.Tensor] = {}
+        # Batch-invariant prelude values and the state they were computed for
+        self.prelude_cache: dict[str, torch.Tensor] = {}
+        self.prelude_state = None
+        # Static textures' mip pyramids (Frag.tex), held with their tensor
+        self.mip_cache: dict = {}
+        # Temporal rings carried across frames and flushes: name -> Ring
+        self.carry: dict[str, Ring] = {}
+        self.program_coords: list = []   # each program's coordinates, in render order
+        self.copies: dict = {}           # key -> (the followed tensor, its copy here)
+        self.slabs: dict = {}            # (program index, rows) -> Coords of the rows
+        # What it rendered: its frames of the last flush; under the row
+        # path its row window of each program in the last frame and the
+        # rows it rendered, over frames and layers
         self.frames: list[int] = []
         self.windows: dict[str, tuple] = {}
         self.rows_rendered: dict[str, int] = {}
 
     def context(self) -> contextlib.ExitStack:
-        """Its device and stream as the current ones (nothing on the CPU)."""
+        """Its device and stream as the current ones (if it has a stream)."""
         stack = contextlib.ExitStack()
         if self.stream is not None:
             stack.enter_context(torch.cuda.device(self.device))
             stack.enter_context(torch.cuda.stream(self.stream))
         return stack
 
-    def follow(self, engine: "RenderEngine") -> None:
-        """Before a flush: order this shard's stream after what the engine
-        enqueued on its device's current stream (static uploads, the
-        modules' sequences), then copy the engine's static textures and
-        bound sequences that changed since the last flush."""
+    def take_rings(self, source: "DeviceState") -> None:
+        """Copies of `source`'s rings on this device, on the current stream."""
+        self.carry = {name: Ring(ring.data.to(self.device, copy=True), ring.origin)
+                      for name, ring in source.carry.items()}
+
+    def follow(self, source: "DeviceState") -> None:
+        """Before a flush: order this stream after `source`'s (static
+        uploads, the modules' sequences), then copy its textures and
+        sequences that changed since the last flush, and its rings if none."""
+        if source is self:
+            return
         if self.stream is not None:
-            self.stream.wait_stream(torch.cuda.current_stream(engine.device))
+            self.stream.wait_stream(torch.cuda.current_stream(source.device))
         with self.context():
-            self._static_tex = {name: self._copy(("tex", name), tensor)
-                                for name, tensor in engine._static_tex.items()}
-            self._sequences = {name: (source, self._copy(("seq", name), seq), window)
-                               for name, (source, seq, window) in engine._sequences.items()}
-        live = {("tex", name) for name in self._static_tex} | {("seq", name)
-                                                              for name in self._sequences}
-        self._copies = {key: entry for key, entry in self._copies.items() if key in live}
+            self.static_tex = {name: self._copy(("tex", name), tensor)
+                               for name, tensor in source.static_tex.items()}
+            self.sequences = {name: (origin, self._copy(("seq", name), seq), window)
+                              for name, (origin, seq, window) in source.sequences.items()}
+            if not self.carry:
+                self.take_rings(source)
+        live = {("tex", name) for name in self.static_tex} | {("seq", name)
+                                                             for name in self.sequences}
+        self.copies = {key: entry for key, entry in self.copies.items() if key in live}
 
     def _copy(self, key: tuple, tensor: torch.Tensor) -> torch.Tensor:
-        entry = self._copies.get(key)
+        entry = self.copies.get(key)
         if entry is None or entry[0] is not tensor:
             copy = tensor.to(self.device, non_blocking=True)
             if copy is tensor and self.stream is not None:
                 # Made on another stream, read on this one: its memory is
                 # not reused before the reads queued here are done
                 tensor.record_stream(self.stream)
-            entry = self._copies[key] = (tensor, copy)
+            entry = self.copies[key] = (tensor, copy)
         return entry[1]
+
+
+class Part(NamedTuple):
+    """A state's frames [first, end) of a flush, set up (RenderEngine.stage)."""
+    state: DeviceState
+    first: int
+    end: int
+    rows: torch.Tensor
+    per_batch: dict
+    invariant: dict
+    out: torch.Tensor
 
 
 class ShardedFrames:
@@ -474,22 +497,9 @@ class RenderEngine:
         self.stale = True
         self._statics: dict[str, Any] = {}
         self._uniform_kinds: dict[str, str] = {}
-        self._coords = None                      # the main program's coordinates
-        self._program_coords: list = []          # each program's, in render order
         self._render_size: tuple[int, int] = (0, 0)
-        # Temporal rings carried across frames and flushes: name -> Ring
-        self._carry: dict[str, Ring] = {}
-        # Device textures: static uploads (name -> (T, L, H, W, C), version)
-        # and bound sequences (name -> (source, bound tensor, window))
-        self._static_tex: dict[str, torch.Tensor] = {}
-        self._static_versions: dict[str, int] = {}
-        self._sequences: dict[str, tuple] = {}
-        # Batch-invariant prelude values and the state they were computed for
-        self._prelude_cache: dict[str, torch.Tensor] = {}
-        self._prelude_state = None
-        # Mip pyramids of static textures (shader.Frag.tex): one build per
-        # upload, held with the tensor they were built from
-        self._mip_cache: dict = {}
+        self.state = DeviceState(self.device)
+        self._static_versions: dict[str, int] = {}   # static upload name -> version
         # Reference state carried in by load_reference_state (host tensors)
         self.pinned_sequences: dict[str, torch.Tensor] = {}
         self.pinned_textures: dict[str, torch.Tensor] = {}
@@ -499,19 +509,17 @@ class RenderEngine:
         self._streamed_names: set[str] = set()
         self._stream_f32: set[str] = set()
         self._frame_streams: dict[str, list[np.ndarray]] = {}
-        self._stream_tex: dict[str, torch.Tensor] = {}   # name -> (F, T, L, H, W, C) on device
-        self.staging = StagingPool()
         self.last_flush_retraced = False   # the last flush built a new K1 (a compile)
         # (frames, host seconds) of each flush that built a new K1: its
         # trace, generation and Triton compile (coldstart.py reads them)
         self.compile_events: list[tuple[int, float]] = []
         # Per-batch capture state
         self._frame_uniforms: list[dict[str, np.ndarray]] = []
-        # Multi-device sharding (parallel/mesh.py): the mesh, its shards
-        # (made for one mesh and one build), and the programs that render
-        # whole rows on every shard under the row path
+        # Multi-device sharding (parallel/mesh.py): the mesh, its shards'
+        # states (made for one mesh and one build), and the programs that
+        # render whole rows on every shard under the row path
         self.mesh = None
-        self._shards: list[Shard] = []
+        self._shards: list[DeviceState] = []
         self._shards_mesh = None
         self._whole_rows: set[str] = set()
         # The build's recording of its fragment (fraggraph.py), or None
@@ -552,25 +560,26 @@ class RenderEngine:
         with tracing.span("engine.build"):
             scene = self.scene
             programs = self._programs()
-            self._static_tex.clear()
+            state = self.state
+            state.device = self.device
+            state.static_tex.clear()
             self._static_versions.clear()
-            self._mip_cache.clear()
-            self._sequences.clear()
+            state.mip_cache.clear()
+            state.sequences.clear()
             self._refresh_textures()
 
             self._statics = {v.name: v.value for v in scene.full_pipeline()
                              if v.static and v.value is not None}
-            self._program_coords = self.coords_on(self.device)
+            state.program_coords = self.coords_on(self.device)
             width, height = programs[-1].texture.resolution
             self._render_size = (height, width)
-            self._coords = self._program_coords[-1]
             # Temporal rings start from the programs' host matrices
-            self._carry = {}
+            state.carry = {}
             for program in programs:
                 if program.texture.temporal > 1:
                     if program.texture.matrix is None:
                         program.texture.make()
-                    self._carry[program.name] = Ring(torch.from_numpy(
+                    state.carry[program.name] = Ring(torch.from_numpy(
                         program.texture.matrix).to(device=self.device, dtype=torch.float32))
             # Shards hold copies of this build's state: made anew at the next
             # sharded flush (their rings from these)
@@ -600,9 +609,9 @@ class RenderEngine:
             coords.append(by_size[(height, width)])
         return coords
 
-    def shards(self) -> list[Shard]:
-        """The shards of self.mesh, made once for a mesh and a build (their
-        program coordinates with them). A mesh naming a device this run
+    def shards(self) -> list[DeviceState]:
+        """The states of self.mesh's shards, made once for a mesh and a
+        build (their program coordinates with them). A mesh naming a device this run
         cannot use raises: a sharded flush never runs on fewer shards than
         its mesh has."""
         if self._shards_mesh is not self.mesh:
@@ -614,21 +623,21 @@ class RenderEngine:
                 if device.type == "cuda" and not (device.index is not None
                                                   and device.index < count):
                     raise RuntimeError(f"Mesh device {device}: {count} cards visible")
-            self._shards = [Shard(index, device) for index, device in enumerate(self.mesh)]
+            self._shards = [DeviceState(device, torch.cuda.Stream(device)
+                                        if device.type == "cuda" else None, index)
+                            for index, device in enumerate(self.mesh)]
             for shard in self._shards:
                 with shard.context():   # made on the stream that reads them
-                    shard._program_coords = self.coords_on(shard.device)
-                shard._coords = shard._program_coords[-1]
+                    shard.program_coords = self.coords_on(shard.device)
             self._shards_mesh = self.mesh
         return self._shards
 
     def leave_mesh(self) -> None:
-        """Drop the shards; the rings of a row-sharded run (every shard
-        holds them whole) come back to the engine's device."""
-        if self._shards and self._shards[0]._carry:
-            self.join_shards()
-            self._carry = {name: Ring(ring.data.to(self.device, copy=True), ring.origin)
-                           for name, ring in self._shards[0]._carry.items()}
+        """Drop the shards; the rings of a row-sharded run come back to
+        the engine's device."""
+        rings = self.ring_state()
+        if rings is not self.state:
+            self.state.take_rings(rings)
         self._shards, self._shards_mesh = [], None
 
     def join_shards(self) -> None:
@@ -637,6 +646,14 @@ class RenderEngine:
         for shard in self._shards:
             if shard.stream is not None:
                 torch.cuda.current_stream(self.device).wait_stream(shard.stream)
+
+    def ring_state(self) -> DeviceState:
+        """Where the newest rings are: the first shard's under the row path
+        (every shard holds them whole; joined first), else the engine's."""
+        if self._shards and self._shards[0].carry:
+            self.join_shards()
+            return self._shards[0]
+        return self.state
 
     # ------------------------------------------------------------------ #
     # Batch capture (host side, per frame)
@@ -657,14 +674,14 @@ class RenderEngine:
         identity of the module's tensor (ring windows front-padded with L-1
         zero columns, so the window at frame 0 sees an empty history), host
         textures uploaded when their version changed."""
-        device = self.device
+        device, state = self.device, self.state
         for name, tex in self._external_textures().items():
             if tex.sequence is not None:
-                if self._static_tex.pop(name, None) is not None:
+                if state.static_tex.pop(name, None) is not None:
                     self.drop_recording()
                 self._streamed_names.discard(name)
                 window = tex.sequence_window or 0
-                bound = self._sequences.get(name)
+                bound = state.sequences.get(name)
                 if bound is None or bound[0] is not tex.sequence or bound[2] != window:
                     self.drop_recording()
                     with tracing.span("engine.sequences"):
@@ -675,14 +692,14 @@ class RenderEngine:
                         if window > 1 and name not in self.pinned_sequences:
                             pad = seq.new_zeros((window - 1,) + tuple(seq.shape[1:]))
                             seq = torch.cat([pad, seq], dim=0)
-                    self._sequences[name] = (tex.sequence, seq, window)
+                    state.sequences[name] = (tex.sequence, seq, window)
                 tex.dirty = False
                 continue
-            if self._sequences.pop(name, None) is not None:
+            if state.sequences.pop(name, None) is not None:
                 self.drop_recording()
             if name in self._streamed_names:
                 continue
-            if name in self._static_tex and tex.version == self._static_versions.get(name):
+            if name in state.static_tex and tex.version == self._static_versions.get(name):
                 continue
             self.drop_recording()
             if name in self.pinned_textures:
@@ -691,26 +708,25 @@ class RenderEngine:
                 if tex.matrix is None:
                     tex.make()
                 matrix = torch.from_numpy(tex.matrix)
-            self._static_tex[name] = matrix.to(device=device, dtype=torch.float32)
+            state.static_tex[name] = matrix.to(device=device, dtype=torch.float32)
             self._static_versions[name] = tex.version
             tex.dirty = False
 
-    def bound_sequences(self, shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
-        """name -> the device sequence each frame indexes (ring-padded), on
-        the engine's device or a shard's."""
-        return {name: bound[1] for name, bound in (shard or self)._sequences.items()}
+    def bound_sequences(self, state: DeviceState) -> dict[str, torch.Tensor]:
+        """name -> the device sequence each frame indexes (ring-padded) on
+        `state`'s device."""
+        return {name: bound[1] for name, bound in state.sequences.items()}
 
-    def _frame_textures(self, frame_index: int, step: int = 0,
-                        shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
-        """Every texture one frame reads, (T, L, H, W, C) views: the static
-        uploads, the frame's box of each sequence (row clip(frame_index),
-        or the ring of the last L columns) and snapshot `step` of each
-        streamed texture (the engine's, or a shard's copies)."""
-        state = shard or self
-        textures = dict(state._static_tex)
-        for name, stack in state._stream_tex.items():
+    def _frame_textures(self, frame_index: int, step: int,
+                        state: DeviceState) -> dict[str, torch.Tensor]:
+        """Every texture one frame reads on `state`, (T, L, H, W, C) views:
+        the static uploads, the frame's box of each sequence (row
+        clip(frame_index), or the ring of the last L columns) and snapshot
+        `step` of each streamed texture."""
+        textures = dict(state.static_tex)
+        for name, stack in state.stream_tex.items():
             textures[name] = stack[step]
-        for name, (_, seq, window) in state._sequences.items():
+        for name, (_, seq, window) in state.sequences.items():
             if window > 1:
                 # The slice at k spans columns k-L+1..k (oldest first);
                 # rolling by k+2 puts column k at x = (k+1) % L, the host
@@ -727,52 +743,51 @@ class RenderEngine:
     # Batch preludes
 
     def _run_preludes(self, frame_indices: list[int],
-                      shard: Optional[Shard] = None) -> tuple[dict, dict]:
-        """Run the scene's batch preludes for one flush -> (per-batch values
-        with leading axis B, batch-invariant values with leading axis 1).
-        Invariant values are reused while the state they were computed for
-        holds; values carried by load_reference_state take precedence. A
-        shard runs them on its frames, on its device, with its cache."""
+                      state: DeviceState) -> tuple[dict, dict]:
+        """Run the scene's batch preludes for one flush on `state`'s frames,
+        device and cache -> (per-batch values with leading axis B,
+        batch-invariant values with leading axis 1). Invariant values are
+        reused while the key they were computed for holds; values carried
+        by load_reference_state take precedence."""
         with tracing.span("engine.preludes"):
             functions = dict(getattr(self.scene, "batch_preludes", None) or {})
             if not functions:
                 return {}, {}
-            target = shard or self
-            sequences = self.bound_sequences(shard)
+            sequences = self.bound_sequences(state)
             # (name, __code__): scenes re-register fresh closures from the same
             # factory on every build, which share semantics by contract
-            state = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
-                                  for name, fn in functions.items())),
-                     tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
-                                  for name, seq in sequences.items())),
-                     self._render_size, self.scene.aspect_ratio, str(target.device))
-            if state != target._prelude_state:
-                target._prelude_state = state
+            key = (tuple(sorted((name, id(getattr(fn, "__code__", fn)))
+                                for name, fn in functions.items())),
+                   tuple(sorted((name, tuple(seq.shape), str(seq.dtype))
+                                for name, seq in sequences.items())),
+                   self._render_size, self.scene.aspect_ratio, str(state.device))
+            if key != state.prelude_state:
+                state.prelude_state = key
                 self.drop_recording()
-                target._prelude_cache = {name: value.to(target.device)
-                                         for name, value in self.pinned_preludes.items()}
-            frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(target.device)
+                state.prelude_cache = {name: value.to(state.device)
+                                       for name, value in self.pinned_preludes.items()}
+            frames = torch.as_tensor(frame_indices, dtype=torch.int64).to(state.device)
             ctx = PreludeCtx(frames, sequences, self._render_size, self.scene.aspect_ratio)
             per_batch = {}
             for name, fn in functions.items():
-                if name in target._prelude_cache:
+                if name in state.prelude_cache:
                     continue
                 value = fn(ctx)
                 if value is None:
                     continue
                 if value.shape[0] == 1:
-                    target._prelude_cache[name] = value
+                    state.prelude_cache[name] = value
                 elif value.shape[0] != len(frame_indices):
                     raise ValueError(f"Prelude {name!r}: leading axis {value.shape[0]} "
                                      f"!= batch {len(frame_indices)}")
                 else:
                     per_batch[name] = value
-            return per_batch, self.invariant_preludes(shard)
+            return per_batch, self.invariant_preludes(state)
 
-    def invariant_preludes(self, shard: Optional[Shard] = None) -> dict[str, torch.Tensor]:
-        """The cached batch-invariant prelude values (leading axis 1)."""
+    def invariant_preludes(self, state: DeviceState) -> dict[str, torch.Tensor]:
+        """`state`'s cached batch-invariant prelude values (leading axis 1)."""
         functions = getattr(self.scene, "batch_preludes", None) or {}
-        return {name: value for name, value in (shard or self)._prelude_cache.items()
+        return {name: value for name, value in state.prelude_cache.items()
                 if name in functions}
 
     def capture_frame(self) -> None:
@@ -808,7 +823,7 @@ class RenderEngine:
                 # Written during the frame loop: streamed from now on. The
                 # frames of this batch before it read its first snapshot
                 self._streamed_names.add(name)
-                self._static_tex.pop(name, None)
+                self.state.static_tex.pop(name, None)
                 self.drop_recording()
                 self._frame_streams[name] = [self._stream_snapshot(name, tex)] * frame_index
                 streamed = True
@@ -882,16 +897,15 @@ class RenderEngine:
         return {name: np.stack(snapshots[:count])
                 for name, snapshots in self._frame_streams.items() if snapshots}
 
-    def upload(self, packed: np.ndarray, streams: dict, shard: Optional[Shard] = None) -> tuple:
-        """The batch's packed uniforms and stream stacks on the device (or
-        a shard's, through its own staging buffers): one staged copy on the
-        card (StagingPool), views of the host arrays on the CPU. u8 streams
-        are normalized here, once per batch."""
+    def upload(self, packed: np.ndarray, streams: dict, state: DeviceState) -> tuple:
+        """The batch's packed uniforms and stream stacks on `state`'s
+        device, through its staging buffers: one staged copy on the card
+        (StagingPool), views of the host arrays on the CPU. u8 streams are
+        normalized here, once per batch."""
         names = list(streams)
-        target = shard or self
-        if target.device.type == "cuda":
-            tensors = target.staging.upload([packed, *(streams[n] for n in names)],
-                                            target.device)
+        if state.device.type == "cuda":
+            tensors = state.staging.upload([packed, *(streams[n] for n in names)],
+                                           state.device)
         else:
             tensors = [torch.from_numpy(a) for a in (packed, *(streams[n] for n in names))]
         stacks = {name: (normalize_u8(stack) if stack.dtype == torch.uint8 else stack)
@@ -910,109 +924,109 @@ class RenderEngine:
 
     def frame_context(self, row: torch.Tensor, spec: tuple, step: int,
                       frame_index: int, per_batch: dict, invariant: dict,
-                      coords=None, layer: int = 0, textures: Optional[dict] = None,
-                      uniforms: Optional[FrameUniforms] = None,
-                      shard: Optional[Shard] = None) -> Frag:
-        """The Frag of one frame and layer (the main program's coordinates
-        and the external textures unless given): its packed uniform row on
-        the device, its textures (sequence rows at frame_index, streamed
-        snapshot `step`), and the batch's prelude values (frame `step` of
-        each per-batch stack, entry 0 of each batch-invariant one). A
-        shard's frame reads the shard's copies and pyramids."""
-        state = shard or self
+                      state: DeviceState, coords=None, layer: int = 0,
+                      textures: Optional[dict] = None,
+                      uniforms: Optional[FrameUniforms] = None) -> Frag:
+        """The Frag of one frame and layer on `state` (its main program's
+        coordinates and external textures unless given): its packed uniform
+        row on the device, its textures (sequence rows at frame_index,
+        streamed snapshot `step`), the batch's prelude values (frame `step`
+        of each per-batch stack, entry 0 of each batch-invariant one) and
+        the state's mip pyramids."""
         uniforms = uniforms if uniforms is not None else FrameUniforms(row, spec)
-        coords = coords if coords is not None else state._coords
+        coords = coords if coords is not None else state.program_coords[-1]
         return Frag(coords=finish_coords(coords, uniforms["iResolution"]),
                     uniforms=uniforms, statics={**self._statics, "iLayer": layer},
                     layer=layer,
                     textures=(textures if textures is not None
-                              else self._frame_textures(frame_index, step, shard)),
+                              else self._frame_textures(frame_index, step, state)),
                     texture_meta=self.texture_meta(),
                     preludes={**{n: v[step] for n, v in per_batch.items()},
                               **{n: v[0] for n, v in invariant.items()}},
                     prelude_stacks={**per_batch, **invariant}, prelude_step=step,
-                    mip_cache=state._mip_cache)
+                    mip_cache=state.mip_cache)
 
     def carried(self) -> dict[str, torch.Tensor]:
         """The temporal rings as they stand, in slot order (copies on the
-        engine's device; under the row path every shard holds them whole,
-        and the first shard's are read)."""
-        carry = self._carry
-        if self._shards and self._shards[0]._carry:
-            self.join_shards()
-            carry = self._shards[0]._carry
-        return {name: ring.ordered().to(self.device) for name, ring in carry.items()}
+        engine's device, from ring_state)."""
+        return {name: ring.ordered().to(self.device)
+                for name, ring in self.ring_state().carry.items()}
 
-    def layer_value(self, result, program: ShaderProgram, coords) -> torch.Tensor:
-        """A layer's result as its texture holds it: a TailSpec evaluated
-        by the plain tail, padded with ones or cropped to the texture's
-        components (render_layer already did so for any other result)."""
-        if not isinstance(result, tailfuse.TailSpec):
-            return result
-        components = program.texture.components
-        result = tailfuse.eval_reference(result, coords.height, coords.width,
-                                         self.scene.aspect_ratio)
-        if result.shape[-1] < components:
-            pad = torch.ones(result.shape[:-1] + (components - result.shape[-1],),
-                             dtype=torch.float32, device=result.device)
-            result = torch.cat([result, pad], dim=-1)
-        return result[..., :components]
+    def program_matrix(self, program: ShaderProgram, textures: dict,
+                       state: DeviceState) -> Ring:
+        """The matrix `program` renders into on `state`: its ring, or for
+        temporal 1 a zero matrix bound in `textures` (the per-frame fill)."""
+        texture = program.texture
+        if texture.temporal > 1:
+            return state.carry[program.name]
+        width, height = texture.resolution
+        textures[program.name] = Ring(torch.zeros(
+            (1, texture.layers, height, width, texture.components),
+            dtype=torch.float32, device=state.device))
+        return textures[program.name]
+
+    def fuses(self, program: ShaderProgram) -> bool:
+        """Whether a TailSpec of `program` fuses with the final pass
+        (fuse_tail): the main program, with temporal 1 and one layer."""
+        texture = program.texture
+        return program is self.scene.shader and texture.temporal == 1 and texture.layers == 1
+
+    def fuse_tail(self, result: tailfuse.TailSpec, coords, out: torch.Tensor) -> None:
+        """The main program's tail and final pass: its (H, W, 3) u8 frame."""
+        out_width, out_height = self.scene._final.texture.resolution
+        tailfuse.run_tail_final(result, coords.height, coords.width, out_height, out_width,
+                                int(self.scene.subsample), self.scene.aspect_ratio, out=out)
+
+    def store_layer(self, matrix: Ring, layer: int, program: ShaderProgram, result,
+                    coords) -> tuple[int, int]:
+        """A layer's result (a TailSpec by the plain tail) into slot 0 of
+        its matrix, on the rows it rendered (coords.rows) -> those rows."""
+        if isinstance(result, tailfuse.TailSpec):
+            result = program.fit(tailfuse.eval_reference(result, coords.height, coords.width,
+                                                         self.scene.aspect_ratio))
+        first, end = coords.rows or (0, matrix.data.shape[2])
+        matrix[0, layer, first:end] = result
+        return first, end
+
+    def end_frame(self, textures: dict, out: torch.Tensor, rows: Optional[tuple] = None) -> None:
+        """The final pass of the main slot into `out`: the frame or `rows`."""
+        out_width, out_height = self.scene._final.texture.resolution
+        with tracing.span("tail"):
+            out.copy_(final_pass(textures[self.scene.shader.name][self._main_slot, -1],
+                                 out_height, out_width, int(self.scene.subsample), rows=rows))
 
     def render_frame(self, row: torch.Tensor, spec: tuple, step: int, frame_index: int,
                      per_batch: dict, invariant: dict, out: torch.Tensor,
-                     shard: Optional[Shard] = None) -> None:
-        """Render one frame into `out` (H, W, 3) u8: every program and
-        layer in order (the module docstring), then the final pass; on a
-        shard, from its copies (the frame path). A recorded build's
-        program renders from its FragmentGraph's Frag: eagerly on the
-        recording's first frame, captured and replayed on its second, only
-        replayed after that (off a mesh)."""
+                     state: DeviceState) -> None:
+        """Render one frame on `state` into `out` (H, W, 3) u8: every
+        program and layer in order, then fuse_tail or end_frame. A recorded
+        build (off a mesh) renders from its FragmentGraph's Frag: eagerly,
+        then captured and replayed, then replayed."""
         with tracing.span("frame"):
-            scene = self.scene
-            state = shard or self
-            recorder = self._recorder if shard is None and self.mesh is None else None
-            programs = self._programs()
+            recorder = self._recorder if state is self.state and self.mesh is None else None
             uniforms = FrameUniforms(row, spec)
-            textures = self._frame_textures(frame_index, step, shard)
-            textures.update(state._carry)
-            out_width, out_height = scene._final.texture.resolution
-            subsample = int(scene.subsample)
-            aspect = scene.aspect_ratio
-            for program, coords in zip(programs, state._program_coords):
-                texture = program.texture
-                temporal, layers = texture.temporal, texture.layers
-                if temporal > 1:
-                    matrix = state._carry[program.name]
-                else:
-                    matrix = Ring(torch.zeros((1, layers, coords.height, coords.width,
-                                               texture.components),
-                                              dtype=torch.float32, device=state.device))
-                    textures[program.name] = matrix
-                for layer in range(layers):
+            textures = self._frame_textures(frame_index, step, state)
+            textures.update(state.carry)
+            for program, coords in zip(self._programs(), state.program_coords):
+                matrix = self.program_matrix(program, textures, state)
+                for layer in range(program.texture.layers):
                     if recorder is not None:   # the one program, one layer
                         ctx = recorder.frame_context(self, row, spec, step, frame_index,
                                                      per_batch, invariant, coords, textures)
                     else:
                         ctx = self.frame_context(row, spec, step, frame_index, per_batch,
-                                                 invariant, coords=coords, layer=layer,
-                                                 textures=textures, uniforms=uniforms,
-                                                 shard=shard)
+                                                 invariant, state, coords=coords, layer=layer,
+                                                 textures=textures, uniforms=uniforms)
                     result = program.render_layer(ctx)
-                    if (isinstance(result, tailfuse.TailSpec) and program is programs[-1]
-                            and temporal == 1 and layers == 1):
-                        # The main program's tail fuses with the final pass:
-                        # its texture is never materialized
-                        tailfuse.run_tail_final(result, coords.height, coords.width,
-                                                out_height, out_width, subsample, aspect,
-                                                out=out)
+                    if isinstance(result, tailfuse.TailSpec) and self.fuses(program):
+                        self.fuse_tail(result, coords, out)
                         return
-                    matrix[0, layer] = self.layer_value(result, program, coords)
-                if temporal > 1:
-                    matrix.roll()
-            main = textures[scene.shader.name]
-            with tracing.span("tail"):
-                out.copy_(final_pass(main[self._main_slot, -1], out_height, out_width,
-                                     subsample))
+                    self.store_layer(matrix, layer, program, result, coords)
+                matrix.roll()
+            self.end_frame(textures, out)
+
+    # ------------------------------------------------------------------ #
+    # Flush: render the captured frames
 
     def flush(self, count: Optional[int] = None) -> Optional[torch.Tensor]:
         """Render the captured frames -> (F, H, W, 3) uint8 on the device.
@@ -1042,27 +1056,53 @@ class RenderEngine:
         started = time.perf_counter()
         if self.mesh is not None:
             from shaderflow_tpu_torch.parallel import mesh
-            frames = (mesh.flush_rows if self._carry else mesh.flush_frames)(self, count)
-            self._note_builds(builds, count, started)
-            return frames
-        self.leave_mesh()
+            frames = (mesh.flush_rows if self.state.carry else mesh.flush_frames)(self, count)
+        else:
+            self.leave_mesh()
+            frames = self.render_parts([self.state], [(0, count)], count)[0].out
+        self._note_builds(builds, count, started)
+        return frames
+
+    def stage(self, states: list[DeviceState], parts: list[tuple[int, int]], count: int,
+              out_rows: int) -> tuple[tuple, list[int], list[Part]]:
+        """A flush set up over `states`, state i taking frames parts[i]
+        into (end - first, out_rows, W, 3) u8: the captures packed once,
+        then each state's upload and preludes -> (spec, indices, Parts)."""
         with tracing.span("flush.pack"):
             packed, spec = self.stack_captures(count)
             streams = self.stack_streams(count)
-        with tracing.span("flush.upload"):
-            packed, self._stream_tex = self.upload(packed, streams)
+        indices = self.frame_indices(count)
+        out_width = self.scene._final.texture.resolution[0]
+        staged = []
+        for state, (first, end) in zip(states, parts):
+            state.frames = indices[first:end]
+            if first == end:
+                continue
+            state.follow(self.state)
+            with state.context():
+                with tracing.span("flush.upload"):
+                    rows, state.stream_tex = self.upload(
+                        packed[first:end],
+                        {name: stack[first:end] for name, stack in streams.items()}, state)
+                per_batch, invariant = self._run_preludes(indices[first:end], state)
+                out = torch.empty((end - first, out_rows, out_width, 3), dtype=torch.uint8,
+                                  device=state.device)
+            staged.append(Part(state, first, end, rows, per_batch, invariant, out))
+        return spec, indices, staged
 
-        scene = self.scene
-        out_width, out_height = scene._final.texture.resolution
-        frames = torch.empty((count, out_height, out_width, 3), dtype=torch.uint8,
-                             device=self.device)
-        frame_indices = self.frame_indices(count)
-        per_batch, invariant = self._run_preludes(frame_indices)
-        for index in range(count):
-            self.render_frame(packed[index], spec, index, frame_indices[index],
-                              per_batch, invariant, frames[index])
-        self._note_builds(builds, count, started)
-        return frames
+    def render_parts(self, states: list[DeviceState], parts: list[tuple[int, int]],
+                     count: int) -> list[Part]:
+        """The frame path: frames over `states` (stage), step by step."""
+        out_height = self.scene._final.texture.resolution[1]
+        spec, indices, staged = self.stage(states, parts, count, out_height)
+        for step in range(max(part.end - part.first for part in staged)):
+            for part in staged:
+                if part.first + step < part.end:
+                    with part.state.context():
+                        self.render_frame(part.rows[step], spec, step,
+                                          indices[part.first + step], part.per_batch,
+                                          part.invariant, part.out[step], part.state)
+        return staged
 
     def _note_builds(self, builds: int, count: int, started: float) -> None:
         """After a flush of `count` frames begun at perf_counter `started`:
@@ -1073,11 +1113,11 @@ class RenderEngine:
 
     def reset_carry(self) -> None:
         """Re-seed the temporal rings from their programs' host matrices
-        (the scene's reset key), the engine's and every shard's."""
-        for state in (self, *self._shards):
-            with state.context() if state is not self else contextlib.nullcontext():
+        (the scene's reset key), on the engine's state and every shard's."""
+        for state in (self.state, *self._shards):
+            with state.context():
                 for program in self._programs():
-                    if program.name in state._carry and program.texture.matrix is not None:
-                        state._carry[program.name] = Ring(torch.from_numpy(
+                    if program.name in state.carry and program.texture.matrix is not None:
+                        state.carry[program.name] = Ring(torch.from_numpy(
                             program.texture.matrix).to(device=state.device,
                                                         dtype=torch.float32))

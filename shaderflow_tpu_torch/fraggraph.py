@@ -79,15 +79,15 @@ _STREAMS: dict = {}   # device -> the side stream captures run on
 
 def recordable(engine) -> bool:
     """Whether the engine's fragment is recorded: a CUDA device, no mesh,
-    no temporal rings, and one program, with one instance, one layer and
-    temporal 1 (a program that reads another's texture reads a matrix
-    made anew every frame)."""
+    no temporal rings, and one program, with one instance, whose tail
+    fuses with the final pass (engine.fuses: one layer, temporal 1). A
+    program that reads another's texture reads a matrix made anew every
+    frame."""
     programs = engine._programs()
-    if (engine.device.type not in RECORD_ON or engine.mesh is not None or engine._carry
+    if (engine.device.type not in RECORD_ON or engine.mesh is not None or engine.state.carry
             or len(programs) != 1):
         return False
-    texture = programs[0].texture
-    return programs[0].instances == 1 and texture.layers == 1 and texture.temporal == 1
+    return programs[0].instances == 1 and engine.fuses(programs[0])
 
 
 def _storage(tensor: torch.Tensor) -> int:
@@ -264,13 +264,13 @@ class FragmentGraph:
         frame's inputs."""
         if self.refused or flopcount.walking():
             return engine.frame_context(row, spec, step, frame_index, per_batch, invariant,
-                                        coords=coords, textures=textures)
+                                        engine.state, coords=coords, textures=textures)
         if self.reads is not None and not self._fits(spec, textures, per_batch, invariant):
             self.reset()
         if self.reads is None:
             self.spec, self.reads = spec, (set(), set())
             ctx = engine.frame_context(row, spec, step, frame_index, per_batch, invariant,
-                                       coords=coords,
+                                       engine.state, coords=coords,
                                        textures=Inputs(textures, textures, self.reads[0]))
             ctx._preludes = Inputs(ctx._preludes, ctx._preludes, self.reads[1])
             return ctx
@@ -281,7 +281,7 @@ class FragmentGraph:
                                            invariant, coords)
             # This frame's plain Frag, should the capture be refused
             self.plain = functools.partial(engine.frame_context, row, spec, step, frame_index,
-                                           per_batch, invariant, coords=coords,
+                                           per_batch, invariant, engine.state, coords=coords,
                                            textures=textures)
             self.ctx = self.fresh()
             self.ctx.recorder = weakref.proxy(self)   # held by the recording: no cycle
@@ -303,7 +303,7 @@ class FragmentGraph:
         self.placeholders = {name: torch.empty(value.shape, dtype=value.dtype, device="meta")
                              for name, value in per_batch.items()}
         for name, value in textures.items():
-            if name in engine._static_tex:
+            if name in engine.state.static_tex:
                 self.textures[name] = value
             elif name in texture_reads and isinstance(value, torch.Tensor):
                 self.textures[name] = self.texture_slots[name] = value.clone()
@@ -322,7 +322,8 @@ class FragmentGraph:
         """A fresh Frag over the slots, the stable inputs and the per-batch
         stacks' stand-ins."""
         ctx = engine.frame_context(self.row, spec, step, frame_index, {}, invariant,
-                                   coords=coords, textures=Inputs(self.names, self.textures))
+                                   engine.state, coords=coords,
+                                   textures=Inputs(self.names, self.textures))
         ctx._preludes = Inputs((*self.placeholders, *invariant),
                                {**ctx._preludes, **self.prelude_slots})
         ctx._prelude_stacks = {**self.placeholders, **invariant}

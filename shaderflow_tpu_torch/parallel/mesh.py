@@ -36,9 +36,8 @@ from typing import Optional
 import torch
 
 from shaderflow_tpu_torch import logger, resolve_device
-from shaderflow_tpu_torch.engine import FrameUniforms, Ring, Shard, ShardedFrames
+from shaderflow_tpu_torch.engine import FrameUniforms, ShardedFrames
 from shaderflow_tpu_torch.ops import tailfuse
-from shaderflow_tpu_torch.ops.downsample import final_pass
 from shaderflow_tpu_torch.ops.rows import WholeRows, slab
 from shaderflow_tpu_torch.shader import make_coords
 
@@ -104,36 +103,13 @@ def row_window(height: int, shards: int, index: int) -> tuple[int, int]:
 
 def flush_frames(engine, count: int) -> ShardedFrames:
     """Render the captured frames split over the mesh's shards (no program
-    is temporal). One thread enqueues the shards' frames in turn, so every
-    shard's stream has work from the start of the flush."""
+    is temporal): the engine's frame path (RenderEngine.render_parts) over
+    the shards' states and their contiguous parts of the batch."""
     shards = engine.shards()
-    packed, spec = engine.stack_captures(count)
-    streams = engine.stack_streams(count)
-    indices = engine.frame_indices(count)
     out_width, out_height = engine.scene._final.texture.resolution
-    work = []
-    for shard, (first, end) in zip(shards, frame_parts(count, len(shards))):
-        shard.frames = indices[first:end]
-        if first == end:
-            continue
-        shard.follow(engine)
-        with shard.context():
-            rows, shard._stream_tex = engine.upload(
-                packed[first:end], {name: stack[first:end] for name, stack in streams.items()},
-                shard)
-            per_batch, invariant = engine._run_preludes(indices[first:end], shard)
-            out = torch.empty((end - first, out_height, out_width, 3), dtype=torch.uint8,
-                              device=shard.device)
-        work.append((shard, first, end, out, rows, per_batch, invariant))
-    for step in range(max(end - first for _, first, end, *_ in work)):
-        for shard, first, end, out, rows, per_batch, invariant in work:
-            if first + step < end:
-                with shard.context():
-                    engine.render_frame(rows[step], spec, step, indices[first + step],
-                                        per_batch, invariant, out[step], shard=shard)
-    return ShardedFrames([(shard, slice(first, end), slice(None), out)
-                          for shard, first, end, out, *_ in work],
-                         (count, out_height, out_width, 3))
+    parts = engine.render_parts(shards, frame_parts(count, len(shards)), count)
+    return ShardedFrames([(part.state, slice(part.first, part.end), slice(None), part.out)
+                          for part in parts], (count, out_height, out_width, 3))
 
 
 # --------------------------------------------------------------------------- #
@@ -141,7 +117,9 @@ def flush_frames(engine, count: int) -> ShardedFrames:
 
 def flush_rows(engine, count: int) -> ShardedFrames:
     """Render the captured frames of a scene with temporal feedback, every
-    shard on its rows of every frame (the module docstring)."""
+    shard on its rows of every frame (the module docstring), through the
+    engine's frame steps (RenderEngine.program_matrix, fuses, fuse_tail,
+    store_layer, end_frame)."""
     shards = engine.shards()
     n = len(shards)
     scene = engine.scene
@@ -149,118 +127,91 @@ def flush_rows(engine, count: int) -> ShardedFrames:
     if out_height % n:
         raise ValueError(f"Row-sharded flush: output height {out_height} does not divide "
                          f"{n} shards")
-    programs = engine._programs()
     main = scene.shader
-    packed, spec = engine.stack_captures(count)
-    streams = engine.stack_streams(count)
-    indices = engine.frame_indices(count)
     subsample = int(scene.subsample)
     render_width, render_height = main.texture.resolution
     # The final pass reads only the main program's rows under its output
     # rows at render == output x subsample (subsample 1 included)
     local_final = (render_height, render_width) == (out_height * subsample,
                                                     out_width * subsample)
-    batch = []
-    for shard in shards:
-        shard.follow(engine)
-        with shard.context():
-            if not shard._carry:
-                shard._carry = {name: Ring(ring.data.to(shard.device, copy=True), ring.origin)
-                                for name, ring in engine._carry.items()}
-            rows, shard._stream_tex = engine.upload(packed, streams, shard)
-            per_batch, invariant = engine._run_preludes(indices, shard)
-            out = torch.empty((count, out_height // n, out_width, 3), dtype=torch.uint8,
-                              device=shard.device)
-        batch.append((rows, per_batch, invariant, out))
+    spec, indices, parts = engine.stage(shards, [(0, count)] * n, count, out_height // n)
 
     for step, frame_index in enumerate(indices):
         frames = []
-        for shard, (rows, per_batch, invariant, _) in zip(shards, batch):
-            with shard.context():
-                textures = engine._frame_textures(frame_index, step, shard)
-            textures.update(shard._carry)
-            frames.append((FrameUniforms(rows[step], spec), textures))
+        for part in parts:
+            with part.state.context():
+                textures = engine._frame_textures(frame_index, step, part.state)
+            textures.update(part.state.carry)
+            frames.append((FrameUniforms(part.rows[step], spec), textures))
         fused = [None] * n
-        for index, program in enumerate(programs):
-            texture = program.texture
-            width, height = texture.resolution
-            temporal, layers = texture.temporal, texture.layers
-            if temporal == 1:
-                for shard, (_, textures) in zip(shards, frames):
-                    with shard.context():
-                        textures[program.name] = Ring(torch.zeros(
-                            (1, layers, height, width, texture.components),
-                            dtype=torch.float32, device=shard.device))
-            for layer in range(layers):
+        for index, program in enumerate(engine._programs()):
+            height = program.texture.resolution[1]
+            matrices = []
+            for shard, (_, textures) in zip(shards, frames):
+                with shard.context():
+                    matrices.append(engine.program_matrix(program, textures, shard))
+            for layer in range(program.texture.layers):
                 sharded = height % n == 0 and program.name not in engine._whole_rows
-                for shard, (rows, per_batch, invariant, _), (uniforms, textures) in zip(
-                        shards, batch, frames):
+                for part, (uniforms, textures), matrix in zip(parts, frames, matrices):
+                    shard = part.state
                     with shard.context():
-                        result, coords = _render_layer(
-                            engine, shard, index, program, layer, uniforms, textures,
-                            rows[step], spec, step, frame_index, per_batch, invariant)
-                        if (isinstance(result, tailfuse.TailSpec) and program is main
-                                and temporal == 1 and layers == 1):
+                        result, coords = _render_layer(engine, part, index, program, layer,
+                                                       uniforms, textures, spec, step,
+                                                       frame_index)
+                        if isinstance(result, tailfuse.TailSpec) and engine.fuses(program):
                             # Only a whole render returns a tail: K1 writes
                             # the whole frame, the shard keeps its rows
                             fused[shard.index] = torch.empty(
                                 (out_height, out_width, 3), dtype=torch.uint8,
                                 device=shard.device)
-                            tailfuse.run_tail_final(result, coords.height, coords.width,
-                                                    out_height, out_width, subsample,
-                                                    scene.aspect_ratio,
-                                                    out=fused[shard.index])
+                            engine.fuse_tail(result, coords, fused[shard.index])
                             continue
-                        first, end = coords.rows or (0, height)
-                        textures[program.name][0, layer, first:end] = engine.layer_value(
-                            result, program, coords)
+                        first, end = engine.store_layer(matrix, layer, program, result, coords)
                     shard.windows[program.name] = (first, end)
                     shard.rows_rendered[program.name] = (
                         shard.rows_rendered.get(program.name, 0) + end - first)
-                last_read = (program is main and temporal == 1 and layer == layers - 1
-                             and local_final)
+                last_read = (program is main and layer == program.texture.layers - 1
+                             and program.texture.temporal == 1 and local_final)
                 if sharded and not last_read and fused[0] is None:
-                    _all_gather(shards, [textures[program.name] for _, textures in frames],
-                                layer, [row_window(height, n, shard.index) for shard in shards])
-            if temporal > 1:
-                for shard in shards:
-                    shard._carry[program.name].roll()
-        slot = engine._main_slot
-        for shard, (_, _, _, out), (_, textures) in zip(shards, batch, frames):
+                    _all_gather(shards, matrices, layer,
+                                [row_window(height, n, shard.index) for shard in shards])
+            for matrix in matrices:
+                matrix.roll()
+        for part, (_, textures) in zip(parts, frames):
+            shard = part.state
             first, end = row_window(out_height, n, shard.index)
             with shard.context():
                 if fused[shard.index] is not None:
-                    out[step].copy_(fused[shard.index][first:end])
+                    part.out[step].copy_(fused[shard.index][first:end])
                 else:
-                    out[step].copy_(final_pass(textures[main.name][slot, -1], out_height,
-                                               out_width, subsample, rows=(first, end)))
-    return ShardedFrames([(shard, slice(0, count),
-                           slice(*row_window(out_height, n, shard.index)), out)
-                          for shard, (*_, out) in zip(shards, batch)],
-                         (count, out_height, out_width, 3))
+                    engine.end_frame(textures, part.out[step], rows=(first, end))
+    return ShardedFrames([(part.state, slice(0, count),
+                           slice(*row_window(out_height, n, part.state.index)), part.out)
+                          for part in parts], (count, out_height, out_width, 3))
 
 
-def _render_layer(engine, shard: Shard, index: int, program, layer: int, uniforms,
-                  textures: dict, row, spec, step: int, frame_index: int,
-                  per_batch: dict, invariant: dict):
-    """One layer of a program on a shard -> (result, the coordinates it
-    rendered at): its rows when the program is sharded, else whole. An op
-    that needs whole rows (ops/rows.py) makes the program whole for the
-    rest of the build, and the layer renders again."""
+def _render_layer(engine, part, index: int, program, layer: int, uniforms, textures: dict,
+                  spec, step: int, frame_index: int):
+    """One layer of a program on a shard's part -> (result, the
+    coordinates it rendered at): its rows when the program is sharded,
+    else whole. An op that needs whole rows (ops/rows.py) makes the
+    program whole for the rest of the build, and the layer renders
+    again."""
+    shard = part.state
     width, height = program.texture.resolution
     n = len(engine._shards)
     while True:
         rows = None
-        coords = shard._program_coords[index]
+        coords = shard.program_coords[index]
         if height % n == 0 and program.name not in engine._whole_rows:
             rows = row_window(height, n, shard.index)
             if (index, rows) not in shard.slabs:
                 shard.slabs[(index, rows)] = make_coords(height, width, engine.scene.aspect_ratio,
                                                          shard.device, rows=rows)
             coords = shard.slabs[(index, rows)]
-        ctx = engine.frame_context(row, spec, step, frame_index, per_batch, invariant,
-                                   coords=coords, layer=layer, textures=textures,
-                                   uniforms=uniforms, shard=shard)
+        ctx = engine.frame_context(part.rows[step], spec, step, frame_index, part.per_batch,
+                                   part.invariant, shard, coords=coords, layer=layer,
+                                   textures=textures, uniforms=uniforms)
         try:
             with slab(rows):
                 return program.render_layer(ctx), coords

@@ -608,15 +608,19 @@ class ShaderProgram(ShaderModule):
                     return out
                 height, width = ctx._coords.height, ctx._coords.width
                 out = tailfuse.eval_reference(out, height, width, ctx._coords.aspect)
-            out = torch.as_tensor(out, dtype=torch.float32, device=ctx.device)
-            components = self.texture.components
-            if out.shape[-1] < components:
-                pad = torch.ones(out.shape[:-1] + (components - out.shape[-1],),
-                                 dtype=torch.float32, device=out.device)
-                out = torch.cat([out, pad], dim=-1)
-            out = out[..., :components]
+            out = self.fit(torch.as_tensor(out, dtype=torch.float32, device=ctx.device))
             if ctx._discard is not None:
                 below = torch.zeros_like(out) if result is None else result
                 out = torch.where(ctx._discard[..., None], below, out)
             result = out
         return result
+
+    def fit(self, value: torch.Tensor) -> torch.Tensor:
+        """An (H, W, C) float32 layer value as this program's texture holds
+        it: padded with ones, or cropped, to the texture's components."""
+        components = self.texture.components
+        if value.shape[-1] < components:
+            pad = torch.ones(value.shape[:-1] + (components - value.shape[-1],),
+                             dtype=torch.float32, device=value.device)
+            value = torch.cat([value, pad], dim=-1)
+        return value[..., :components]

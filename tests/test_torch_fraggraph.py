@@ -9,6 +9,7 @@ from the host once warm. The card's own graphs: tests/test_torch_cuda.py.
     python -m pytest tests/test_torch_fraggraph.py -q
 """
 
+import itertools
 import sys
 from pathlib import Path
 
@@ -99,6 +100,78 @@ def test_recordable_by_structure(monkeypatch, name, expected):
     assert (engine._recorder is not None) is (expected or name == "mesh")
     monkeypatch.setattr(fraggraph, "RECORD_ON", ("cuda",))
     assert not fraggraph.recordable(engine)
+
+
+def _flat_frag(sf):
+    return sf.tail(lambda tp: (tp.plane("a"),) * 3, a=sf.astuv[..., 0])
+
+
+def _structure_scene(programs: int, layers: int, temporal: int, instances: int):
+    """A scene of `programs` programs whose main one has `layers` layers,
+    `temporal` slots and `instances` instances."""
+    from shaderflow_tpu_torch.scene import ShaderScene
+    from shaderflow_tpu_torch.shader import ShaderProgram
+
+    class Structure(ShaderScene):
+        def build(self):
+            if programs == 2:
+                ShaderProgram(scene=self, name="extra").fragment = _flat_frag
+            self.shader.texture.layers = layers
+            self.shader.texture.temporal = temporal
+            self.shader.instances = instances
+            self.shader.fragment = _flat_frag
+
+    return Structure()
+
+
+@pytest.mark.parametrize("programs,layers,temporal,instances",
+                         list(itertools.product((1, 2), repeat=4)))
+def test_recordable_by_structure_is_the_fuse_rule(monkeypatch, programs, layers, temporal,
+                                                  instances):
+    """Structural cases: the main program's tail fuses (engine.fuses)
+    with one layer and temporal 1, and an engine records its fragment
+    when it has one program, with one instance, whose tail fuses."""
+    monkeypatch.setattr(fraggraph, "RECORD_ON", ("cuda", "cpu"))
+    engine = _engine(_structure_scene(programs, layers, temporal, instances))
+    fuses = engine.fuses(engine.scene.shader)
+    assert fuses is (layers == 1 and temporal == 1)
+    assert fraggraph.recordable(engine) is (programs == 1 and instances == 1 and fuses)
+    assert (engine._recorder is not None) is fraggraph.recordable(engine)
+
+
+def _own_texture_frag(sf):
+    own = sf.texture("iScreen", sf.astuv)
+    return sf.tail(lambda tp: (tp.plane("a"),) * 3, a=own[..., 0] + own[..., 3] + 0.25)
+
+
+@pytest.mark.parametrize("mode", ["eager", "recorded"])
+def test_fused_main_program_reads_its_own_zeros(request, monkeypatch, tmp_path, mode):
+    """A main program whose tail fuses and which samples its own texture
+    reads zeros every frame (the per-frame zero matrix, or the
+    recording's): 0 + 0 + 0.25 is u8 64 everywhere, eagerly and through
+    the recorded fragment."""
+    if mode == "recorded":
+        request.getfixturevalue("recorded")
+    calls = []
+    run_tail_final = tailfuse.run_tail_final
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return run_tail_final(*args, **kwargs)
+
+    monkeypatch.setattr(tailfuse, "run_tail_final", counted)
+    from shaderflow_tpu_torch.scene import ShaderScene
+
+    class OwnTexture(ShaderScene):
+        def build(self):
+            self.shader.fragment = _own_texture_frag
+
+    scene = OwnTexture()
+    frames = _export(scene, tmp_path / "own.rgb", SIZES["Mandelbrot"])
+    assert scene.engine.fuses(scene.shader) and len(calls) == len(frames) == 11
+    assert (frames == 64).all()
+    if mode == "recorded":
+        assert _counters() == (11, 9, 1, 0)
 
 
 @pytest.mark.parametrize("name", ["Visualizer", "Mandelbrot"])

@@ -304,7 +304,7 @@ def test_row_sharded_flush_actually_shards():
     for index, shard in enumerate(engine._shards):
         assert shard.windows == {"iScreen": (8 * index, 8 * index + 8)}
         assert shard.rows_rendered == {"iScreen": 2 * 3 * 2 * 8}
-    rings = [shard._carry["iScreen"] for shard in engine._shards]
+    rings = [shard.carry["iScreen"] for shard in engine._shards]
     assert len({id(ring.data) for ring in rings}) == 4
     want = single.engine.carried()["iScreen"]
     for ring in rings:

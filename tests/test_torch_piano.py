@@ -179,7 +179,7 @@ def test_piano_roll_uniforms_and_sequences_match_jax(runs):
         assert sorted(ref) == sorted(got)
         for name in ref:
             np.testing.assert_array_equal(np.asarray(got[name]), ref[name], err_msg=name)
-    bound = port.engine.bound_sequences()
+    bound = port.engine.bound_sequences(port.engine.state)
     assert sorted(bound) == sorted(runs["sequences"]) == [
         "iPianoChan", "iPianoKeys", "iPianoRoll", "iSpectrogram"]
     for name, want in runs["sequences"].items():

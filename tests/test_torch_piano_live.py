@@ -230,8 +230,9 @@ def test_precompute_false_streams_and_equals_precomputed(tmp_path, monkeypatch):
     precomputed_scene, precomputed = export(tmp_path, True, monkeypatch)
     names = {"iPianoKeys", "iPianoRoll", "iPianoChan"}
     assert names <= streamed_scene.engine._streamed_names
-    assert not names & set(streamed_scene.engine.bound_sequences())
-    assert names <= set(precomputed_scene.engine.bound_sequences())
+    assert not names & set(streamed_scene.engine.bound_sequences(streamed_scene.engine.state))
+    assert names <= set(precomputed_scene.engine.bound_sequences(
+        precomputed_scene.engine.state))
     assert streamed.shape == (EXPORT_FRAMES, HEIGHT, WIDTH, 3) and streamed.std() > 10
     assert np.array_equal(streamed, precomputed)
 

@@ -83,7 +83,7 @@ def test_a_bind_to_another_device_counts_its_bytes(clip, monkeypatch):
                  piano.roll_texture.sequence]
     assert RenderEngine.sequence_bytes - before == sum(seq.nbytes for seq in sequences)
     assert sequences[2].shape == (256, 128, 256, 4)            # padded to 256 frames
-    bound = scene.engine.bound_sequences()
+    bound = scene.engine.bound_sequences(scene.engine.state)
     assert all(seq.device.type == "meta" for seq in bound.values()) and len(bound) == 3
 
 

@@ -179,7 +179,7 @@ def test_u8_wire_stream_is_normalized_on_the_device():
     assert streams["wire"].dtype == np.uint8 and streams["noise"].dtype == np.float32
     scene.engine.flush(1)
     wire = streams["wire"].astype(np.float32) * (np.float32(1) / np.float32(255))
-    np.testing.assert_array_equal(scene.engine._stream_tex["wire"].numpy(), wire)
+    np.testing.assert_array_equal(scene.engine.state.stream_tex["wire"].numpy(), wire)
 
 
 # --------------------------------------------------------------------------- #
@@ -312,7 +312,7 @@ def test_visualizer_realtime_matches_jax(reference, monkeypatch):
     demo = _import_example("torch", "torch_demo")
     scene, frames, uniforms = _port_realtime(demo.Visualizer)
     assert scene.engine._streamed_names == {"iSpectrogram", "iWaveform"}
-    assert not scene.engine.invariant_preludes()
+    assert not scene.engine.invariant_preludes(scene.engine.state)
     for k in range(REALTIME_FRAMES):
         for name, value in uniforms[k].items():
             np.testing.assert_array_equal(np.asarray(value),

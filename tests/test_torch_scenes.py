@@ -433,7 +433,7 @@ def test_bars_against_oracle():
     width, height = 320, 180
     frames, uniforms = _frames(scene, 3, width=width, height=height, ssaa=1.0, subsample=1)
     assert any(float(u["iAudioVolume"]) > 0.1 for u in uniforms)
-    spectrogram = scene.engine.bound_sequences()["iSpectrogram"].numpy()
+    spectrogram = scene.engine.bound_sequences(scene.engine.state)["iSpectrogram"].numpy()
     for index, uniform in enumerate(uniforms):
         k = int(uniform["iFrameIndex"])
         textures = dict(spectrogram=spectrogram[min(k, len(spectrogram) - 1)][:, 0, :][::-1])
@@ -453,7 +453,7 @@ def test_waveform_against_oracle():
     scene = _port_class("Waveform")()
     width, height = 320, 180
     frames, uniforms = _frames(scene, 3, width=width, height=height, ssaa=1.0, subsample=1)
-    waveform = scene.engine.bound_sequences()["iWaveform"].numpy()
+    waveform = scene.engine.bound_sequences(scene.engine.state)["iWaveform"].numpy()
     for index, uniform in enumerate(uniforms):
         k = int(uniform["iFrameIndex"])
         textures = dict(waveform=waveform[min(k, len(waveform) - 1)][0])
@@ -558,7 +558,7 @@ def test_motionblur_against_oracle():
 
     frames, uniforms = _frames(scene, n_frames, step=teleport, width=width, height=height,
                                ssaa=1.0, subsample=1)
-    background = scene.engine._static_tex["background"][0, 0].numpy()[::-1]
+    background = scene.engine.state.static_tex["background"][0, 0].numpy()[::-1]
     tex_aspect = np.float32(background.shape[0] / background.shape[1])
     temporal = 10
     ring = np.zeros((temporal, 2, height, width, 3), np.float32)

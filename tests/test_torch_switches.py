@@ -474,7 +474,7 @@ def slot0_runs(tmp_path_factory):
         scene.mesh_devices = ["cpu"] * 2
         scene.main(output=str(tmp / "rows.rgb"), device="cpu", devices=2,
                    **SCENES["MotionBlur"][2])
-        assert scene.engine._shards and scene.engine._carry
+        assert scene.engine._shards and scene.engine.state.carry
     _export("MotionBlur", tmp / "default.rgb")
     return tmp, batches
 

@@ -133,7 +133,7 @@ def test_audio_sequences_and_static_fields_match_jax(runs):
     four batch-invariant prelude fields within 1e-6 relative (blink, bf16,
     within one bf16 ulp)."""
     engine = runs["port"].engine
-    sequences = engine.bound_sequences()
+    sequences = engine.bound_sequences(engine.state)
     assert sorted(sequences) == sorted(runs["sequences"]) == ["iSpectrogram", "iWaveform"]
     for name, want in runs["sequences"].items():
         got = sequences[name]
@@ -142,7 +142,7 @@ def test_audio_sequences_and_static_fields_match_jax(runs):
         error = np.abs(got.numpy() - want).max() / np.abs(want).max()
         print(f"{name}: max error {error:.3g} of the largest value")
         assert error <= 1e-5, name
-    fields = engine.invariant_preludes()
+    fields = engine.invariant_preludes(engine.state)
     prefix = "\0prelude:"
     expected = {name[len(prefix):]: value for name, value in runs["textures"].items()
                 if name.startswith(prefix)}
@@ -158,7 +158,7 @@ def test_audio_sequences_and_static_fields_match_jax(runs):
             np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6,
                                        err_msg=name)
     background = runs["textures"]["background"].numpy()
-    np.testing.assert_array_equal(engine._static_tex["background"].numpy(), background)
+    np.testing.assert_array_equal(engine.state.static_tex["background"].numpy(), background)
 
 
 def test_frames_with_reference_state_match_jax(runs):
@@ -196,8 +196,8 @@ def oracle_psnr(monkeypatch, tmp_path, env: dict) -> list[float]:
     uniforms = [{**engine._statics, **snapshot} for snapshot in engine._frame_uniforms]
     assert len(uniforms) == len(frames) == 3
     assert any(float(np.asarray(u["iAudioVolume"])) > 0.1 for u in uniforms)
-    background = engine._static_tex["background"].numpy()[0, 0][::-1]
-    sequences = engine.bound_sequences()
+    background = engine.state.static_tex["background"].numpy()[0, 0][::-1]
+    sequences = engine.bound_sequences(engine.state)
     spectrogram = sequences["iSpectrogram"].numpy()
     waveform = sequences["iWaveform"].numpy()
     values = []
